@@ -5,7 +5,9 @@
 Needs one CUDA card, ``nvcc`` and ``g++``; builds everything it runs
 from the sources in this checkout.  Phases, one JSON line each:
 
-1. build — the host library and the CUDA kernels, compiled in parallel.
+1. build — the host library and the CUDA kernels, compiled in parallel;
+   ptxas's registers, shared memory and spills per kernel, and K4's launch
+   geometry (checkpoint stride, dynamic shared memory, scratch).
 2. kernels — K1 segment_contract, K4 baq_hmm and K5 baq_finalize on the
    card at the shapes the main path gives them (a chunk of 65,536 reads
    of 100 bases), each held against its plain PyTorch version on the same
@@ -13,8 +15,12 @@ from the sources in this checkout.  Phases, one JSON line each:
    risky, with ``good`` equal, min(bq, qual) equal on M bases (what the
    risky flag guards) and raw bq equal on M bases where both versions give
    bq <= qual + 1, and at most 1% of reads in the symmetric difference of
-   the risky sets (f32 summation order differs).  Times are CUDA-event
-   medians of 5 runs.
+   the risky sets (f32 summation order differs).  K4's device memory for
+   one call must be its checkpoint scratch plus its outputs (no forward
+   trace).  Times are CUDA-event medians of 5 single calls (``ms``, the
+   wrapper's host time included); each kernel's ``b2b_ms`` is the median
+   of 5 groups of 10 calls made back to back, where the host's time
+   overlaps the card's work as on the main path.
 3. main path — 8 Mbp x 30x x 100 bp simulated reads (the JAX package's
    bench workload) and its messy indel/soft-clip variant, written as BAMs
    by the port's writer, streamed through BamStream ->
@@ -76,9 +82,12 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after one
-    warm-up run."""
+def cuda_ms(fn, reps: int = 5, per: int = 1) -> float:
+    """CUDA-event time of one call of ``fn``: the median over ``reps``
+    groups, each a pair of events around ``per`` calls made back to back,
+    after one warm-up call.  per = 1 times single calls, the wrapper's
+    host time included; with per > 1 the host's time overlaps the card's
+    work, as on the main path."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -87,10 +96,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return statistics.median(times)
 
 
@@ -110,13 +120,19 @@ def ref_codes(ref: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------- phases
 def phase_build() -> None:
     from samtools_tpu_torch import build
+    from samtools_tpu_torch.ops import baq_device as bd
+    from samtools_tpu_torch.ops.mpileup_device import LREF_PAD
     t0 = time.perf_counter()
     paths = build.build(("host", "cuda"))
     dt = time.perf_counter() - t0
     with open(paths["cuda"][:-3] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln
-                 or "spill" in ln]
-    emit({"phase": "build", "seconds": round(dt, 3), "ptxas": ptxas})
+        ptxas = [ln.strip() for ln in f if "entry function" in ln
+                 or "registers" in ln or "spill" in ln]
+    # dynamic shared memory is not in ptxas's report: K4's launch geometry
+    # at main-path shapes, as its source fixes it
+    emit({"phase": "build", "seconds": round(dt, 3), "ptxas": ptxas,
+          "launch": {"baq_hmm": bd.hmm_layout(READ_LEN,
+                                              READ_LEN + LREF_PAD, CHUNK)}})
 
 
 def chunk_inputs(batch, ref_int: np.ndarray, ref_len: int, dev):
@@ -154,7 +170,7 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     # --- K4 / K5 on clean and messy chunks
     hmm_stats = []
     fin_err = 0
-    hmm_t = hmm_plain_t = fin_t = fin_plain_t = None
+    hmm_t = hmm_b2b = hmm_plain_t = fin_t = fin_b2b = fin_plain_t = None
     k4_bytes = k4_ops = k5_bytes = 0
     for messy in (False, True):
         b = simulate_batch(ref_len=sub_len, coverage=COVERAGE,
@@ -167,7 +183,20 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
         LQ, LRM = READ_LEN, x["ref_win"].shape[1]
         args = (x["ref_win"], x["sq"], x["qq"], x["cdT"], x["lref"],
                 x["bMv"], x["bIv"], LQ, LRM, 7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         kq, kg, kr = bd.baq_hmm(*args)
+        torch.cuda.synchronize()
+        # device memory one call takes: the checkpoint scratch and the
+        # outputs (the caching allocator may hand each of those 4 requests
+        # up to 1 MiB more than it asked)
+        call_peak = torch.cuda.max_memory_allocated() - before
+        scratch = bd.hmm_layout(LQ, LRM, C)["scratch_bytes"]
+        own = C * (2 * LQ + 1)
+        require(scratch <= call_peak <= scratch + own + (4 << 20),
+                f"K4 took {call_peak} B in one call; its checkpoints are "
+                f"{scratch} B and its outputs {own} B")
         pq, pg, pr = bd.baq_hmm_plain(*args)
         torch.cuda.synchronize()
         both_ok = ~(kr | pr)
@@ -188,6 +217,8 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
             & (pq.int() <= qq1)
         raw_low = int((raw & low).sum())
         hmm_stats.append({"messy": messy, "reads": C,
+                          "scratch_bytes": scratch,
+                          "call_peak_bytes": call_peak,
                           "risky_kernel": int(kr.sum()),
                           "risky_plain": int(pr.sum()),
                           "risky_symdiff": symdiff, "bq_max_abs_err": bq_err,
@@ -205,21 +236,26 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
         require(fin_err == 0, "K5 differs from its plain version")
         if not messy:
             hmm_t = cuda_ms(lambda: bd.baq_hmm(*args))
+            hmm_b2b = cuda_ms(lambda: bd.baq_hmm(*args), per=10)
             hmm_plain_t = cuda_ms(lambda: bd.baq_hmm_plain(*args))
             fin_t = cuda_ms(lambda: bd.baq_finalize(kq, kg, x["qq"],
                                                     x["seg"]))
+            fin_b2b = cuda_ms(lambda: bd.baq_finalize(kq, kg, x["qq"],
+                                                      x["seg"]), per=10)
             fin_plain_t = cuda_ms(lambda: bd.baq_finalize_plain(
                 kq, kg, x["qq"], x["seg"]))
             k4_bytes = C * (LRM + LQ + LQ + 4 * LQ + 12) + C * (2 * LQ + 1)
             k4_ops = HMM_OPS_PER_CELL * 15 * LQ * C
             k5_bytes = C * LQ * (1 + 1 + 1 + 4 + 1)
     rows["baq_hmm"] = dict(max_abs_err=max(h["bq_max_abs_err"]
-                                           for h in hmm_stats), ms=hmm_t, plain_ms=hmm_plain_t,
+                                           for h in hmm_stats), ms=hmm_t,
+                           b2b_ms=hmm_b2b, plain_ms=hmm_plain_t,
                            library_ms=None, detail=hmm_stats,
                            **dict(zip(("bound_ms", "bound_by"),
                                       bound(k4_bytes, k4_ops))))
     rows["baq_finalize"] = dict(max_abs_err=fin_err, ms=fin_t,
-                                plain_ms=fin_plain_t, library_ms=None,
+                                b2b_ms=fin_b2b, plain_ms=fin_plain_t,
+                                library_ms=None,
                                 **dict(zip(("bound_ms", "bound_by"),
                                            bound(k5_bytes, 0))))
 
@@ -260,6 +296,8 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     scratch = torch.zeros_like(out_k)
     seg_t = cuda_ms(lambda: sk.segment_contract(rp, W, lo, hi, wbeg,
                                                 pipe.tile, scratch))
+    seg_b2b = cuda_ms(lambda: sk.segment_contract(rp, W, lo, hi, wbeg,
+                                                  pipe.tile, scratch), per=10)
     seg_plain_t = cuda_ms(lambda: sk.segment_contract_plain(
         rp, W, lo, hi, wbeg, pipe.tile))
     lib_t = cuda_ms(lambda: scratch.index_add_(0, idx, W32))
@@ -267,7 +305,7 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     seg_bytes = n_items * (4 + 6) + 2 * lo.numel() * 4 \
         + 2 * out_k.numel() * 4
     rows["segment_contract"] = dict(
-        max_abs_err=seg_err, ms=seg_t, plain_ms=seg_plain_t,
+        max_abs_err=seg_err, ms=seg_t, b2b_ms=seg_b2b, plain_ms=seg_plain_t,
         library_ms=lib_t, detail={"items": n_items, "tiles": lo.numel(),
                                   "widest_slice": width},
         **dict(zip(("bound_ms", "bound_by"),

@@ -25,6 +25,8 @@ BUILD_DIR = os.path.join(ROOT, "_build")
 HOST_SOURCE = os.path.join(ROOT, "native", "samtpu_host.cc")
 CU_SOURCES = [os.path.join(ROOT, "csrc", f) for f in
               ("segment_contract.cu", "baq_hmm.cu", "baq_finalize.cu")]
+# headers the sources include: part of the build's hash
+CU_HEADERS = [os.path.join(ROOT, "csrc", "staging.cuh")]
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 # fmad=false: no fused multiply-adds, so the HMM rounds like its plain
 # PyTorch version, op by op (its risky margin absorbs the rest)
@@ -57,7 +59,8 @@ def lib_path(which: str) -> str:
         return os.path.join(
             BUILD_DIR, f"libsamtpu_host-{_digest([HOST_SOURCE], CXX_FLAGS)}.so")
     return os.path.join(
-        BUILD_DIR, f"libsamtpu_kernels-{_digest(CU_SOURCES, NVCC_FLAGS)}.so")
+        BUILD_DIR,
+        f"libsamtpu_kernels-{_digest(CU_SOURCES + CU_HEADERS, NVCC_FLAGS)}.so")
 
 
 def build(which: tuple[str, ...] = ("host", "cuda")) -> dict[str, str]:

@@ -1,0 +1,65 @@
+// Shared-memory staging used by K4 baq_hmm and K5 baq_finalize: a block's
+// reads are one contiguous span of each [reads, L] input, copied into
+// shared memory with 16-byte loads.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
+
+// n bytes at g -> sm, byte k landing at sm[mis + k], mis = g mod 16, so
+// the 16-byte vector stores stay aligned; byte loads for the head and
+// tail.  All nt threads of the block take part (nt = blockDim.x).
+__device__ __forceinline__ int load_span(uint8_t* sm,
+                                         const uint8_t* __restrict__ g, int n,
+                                         int nt) {
+  const int t = threadIdx.x;
+  const int mis = (int)((uintptr_t)g & 15);
+  const int head = min(n, (16 - mis) & 15);
+  for (int k = t; k < head; k += nt) sm[mis + k] = g[k];
+  const int nv = (n - head) / 16;
+  const uint4* gv = reinterpret_cast<const uint4*>(g + head);
+  uint4* sv = reinterpret_cast<uint4*>(sm + mis + head);
+  // U loads in flight per thread before their stores
+  constexpr int U = 8;
+  for (int k0 = t; k0 < nv; k0 += U * nt) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (k0 + u * nt < nv) v[u] = gv[k0 + u * nt];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (k0 + u * nt < nv) sv[k0 + u * nt] = v[u];
+  }
+  for (int k = head + 16 * nv + t; k < n; k += nt) sm[mis + k] = g[k];
+  return mis;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` launch with up to the device's opt-in maximum of dynamic
+// shared memory per block, with the largest shared-memory carveout (shared
+// memory bounds the blocks per SM).  The attributes are set once per
+// device: ready[d] records device d.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<bool>* ready) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && ready[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  int most = 0;
+  e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (e == cudaSuccess && dev < kMaxDevices)
+    ready[dev].store(true, std::memory_order_release);
+  return e;
+}

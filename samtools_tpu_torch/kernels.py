@@ -29,10 +29,11 @@ _SIGNATURES = {
     "samtpu_segment_contract": [_P, _P, _INT, _P, _P, _INT, _INT, _INT, _P,
                                 _P],
     "samtpu_baq_hmm": [_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
-                       ctypes.POINTER(ctypes.c_float), _P, _P, _P, _P, _P,
-                       _P, _P],
+                       ctypes.POINTER(ctypes.c_float), _P, _P, _P, _P, _P],
     "samtpu_baq_finalize": [_P, _P, _P, _P, _INT, _INT, _P, _P],
 }
+# launch-geometry queries: (int arguments, int64 values written)
+_LAYOUTS = {"samtpu_baq_hmm_layout": (3, 4)}
 
 
 def _load():
@@ -44,6 +45,11 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = args
+            for name, (n_in, _) in _LAYOUTS.items():
+                fn = getattr(lib, name)
+                fn.restype = None
+                fn.argtypes = [_INT] * n_in + [
+                    ctypes.POINTER(ctypes.c_int64)]
             lib.samtpu_cuda_error_string.restype = ctypes.c_char_p
             lib.samtpu_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -57,6 +63,14 @@ def reset_launches() -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def layout(entry: str, *args: int) -> tuple[int, ...]:
+    """The values a kernel's launch-geometry query writes for ``args``
+    (compile-time constants of its source and the sizes they imply)."""
+    out = (ctypes.c_int64 * _LAYOUTS[entry][1])()
+    getattr(_load(), entry)(*args, out)
+    return tuple(out)
 
 
 def launch(kernel: str, entry: str, *args) -> None:

@@ -211,11 +211,22 @@ def baq_hmm_plain(ref_win, query, qual, cdeltaT, lref, bMv, bIv,
     return bq, good, risky
 
 
+def hmm_layout(l_query: int, l_ref_max: int, n: int) -> dict:
+    """K4's launch geometry for n reads of l_query bases and ref windows
+    of l_ref_max, as its source fixes it: checkpoint stride, threads per
+    block, dynamic shared memory per block and the checkpoint scratch the
+    wrapper allocates (bytes)."""
+    return dict(zip(("stride", "threads", "smem_bytes", "scratch_bytes"),
+                    kernels.layout("samtpu_baq_hmm_layout", l_query,
+                                   l_ref_max, n)))
+
+
 def baq_hmm(ref_win, query, qual, cdeltaT, lref, bMv, bIv,
             l_query: int, l_ref_max: int, bw: int = 7):
     """K4 wrapper (arguments and results as ``baq_hmm_plain``).  CPU
     tensors take the plain version; CUDA tensors launch csrc/baq_hmm.cu,
-    which takes the band 2*7+1 only."""
+    which takes the band 2*7+1 only and needs a checkpoint scratch of
+    ``hmm_layout(l_query, l_ref_max, B)["scratch_bytes"]``."""
     B = ref_win.shape[0]
     kernels.check(ref_win, "ref_win", torch.uint8, (B, l_ref_max))
     kernels.check(query, "query", torch.uint8, (B, l_query))
@@ -229,29 +240,23 @@ def baq_hmm(ref_win, query, qual, cdeltaT, lref, bMv, bIv,
         return baq_hmm_plain(*args, l_query, l_ref_max, bw)
     if bw != 7:
         raise ValueError(f"the CUDA HMM is built for bw=7, got {bw}")
-    W = 2 * bw + 1
     dev = ref_win.device
     t = _transitions(l_query)
     m = (ctypes.c_float * 10)(*(t[k] for k in (
         "m0", "m1", "m2", "m3", "m4", "m6", "m8", "sM")),
         EI * t["m1"], EI * t["m4"])
-    refT = ref_win.t().contiguous()
-    queryT = query.t().contiguous()
-    qualT = qual.t().contiguous()
-    fMs = torch.empty(l_query, W, B, dtype=torch.float32, device=dev)
-    fIs = torch.empty_like(fMs)
-    ss = torch.empty(l_query, B, dtype=torch.float32, device=dev)
-    bqT = torch.empty(l_query, B, dtype=torch.uint8, device=dev)
-    goodT = torch.empty_like(bqT)
+    ck = torch.empty(hmm_layout(l_query, l_ref_max, B)["scratch_bytes"],
+                     dtype=torch.uint8, device=dev)
+    bq = torch.empty(B, l_query, dtype=torch.uint8, device=dev)
+    good = torch.empty_like(bq)
     risky = torch.empty(B, dtype=torch.uint8, device=dev)
-    kernels.launch("baq_hmm", "samtpu_baq_hmm", refT.data_ptr(),
-                   queryT.data_ptr(), qualT.data_ptr(), cdeltaT.data_ptr(),
+    kernels.launch("baq_hmm", "samtpu_baq_hmm", ref_win.data_ptr(),
+                   query.data_ptr(), qual.data_ptr(), cdeltaT.data_ptr(),
                    lref.data_ptr(), bMv.data_ptr(), bIv.data_ptr(), B,
-                   l_query, l_ref_max, bw, m, fMs.data_ptr(), fIs.data_ptr(),
-                   ss.data_ptr(), bqT.data_ptr(), goodT.data_ptr(),
-                   risky.data_ptr(), kernels.stream_of(ref_win))
-    return (bqT.t().contiguous(), goodT.view(torch.bool).t().contiguous(),
-            risky.view(torch.bool))
+                   l_query, l_ref_max, bw, m, ck.data_ptr(), bq.data_ptr(),
+                   good.data_ptr(), risky.data_ptr(),
+                   kernels.stream_of(ref_win))
+    return bq, good.view(torch.bool), risky.view(torch.bool)
 
 
 def baq_finalize_plain(bq, good, qual, seg):

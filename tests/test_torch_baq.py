@@ -36,19 +36,21 @@ def _ref():
     return ref, lut[ref]
 
 
-def _chunk(messy: bool):
-    """The HMM inputs of one chunk of device-eligible reads, as the
-    port's pipeline builds them on the CPU, plus the batch and rows."""
+def _chunk(messy: bool, lq: int = LQ):
+    """The HMM inputs of one chunk of device-eligible reads of ``lq``
+    bases, as the port's pipeline builds them on the CPU, plus the batch
+    and rows."""
     ref, ref_int = _ref()
-    b = sim.simulate_batch(ref_len=REF_LEN, coverage=3.0, read_len=LQ,
-                           seed=21 + messy, paired=False, err_rate=0.01,
-                           ref=ref)
+    b = sim.simulate_batch(ref_len=REF_LEN, coverage=3.0 * lq / LQ,
+                           read_len=lq, seed=21 + messy, paired=False,
+                           err_rate=0.01, ref=ref)
     if messy:
         sim.simulate_messy(b, 5)
     sel = np.arange(b.n)
-    elig, lead, lref, cig8 = md.classify_reads(b, sel, LQ, REF_LEN)
+    elig, lead, lref, cig8 = md.classify_reads(b, sel, lq, REF_LEN)
     dsel = sel[elig][:N_READS]
-    pipe = md.DeviceCensusPipeline(ref_int, REF_LEN, device="cpu")
+    pipe = md.DeviceCensusPipeline(ref_int, REF_LEN, l_query=lq,
+                                   device="cpu")
     seqm, qual = pipe._gather_rows(b, dsel)
     k = np.nonzero(elig)[0][:N_READS]
     buf = pipe._make_buf(b.pos[dsel].astype(np.int64), lead[k], lref[k],
@@ -56,23 +58,32 @@ def _chunk(messy: bool):
     return b, dsel, ref_int, pipe._expand(torch.from_numpy(buf))
 
 
+# read lengths: 100 (the bench workload) and 151 (Illumina 2x151 runs;
+# not a multiple of K4's checkpoint stride, so its last segment is
+# partial); the 100-base cases keep their original ids
+LENGTHS = [pytest.param(False, 100, id="False"),
+           pytest.param(True, 100, id="True"),
+           pytest.param(False, 151, id="False-151"),
+           pytest.param(True, 151, id="True-151")]
+
+
 def _hmm_args(x):
     return (x["ref_win"], x["sq"], x["qq"], x["cdT"], x["lref"], x["bMv"],
             x["bIv"])
 
 
-@pytest.mark.parametrize("messy", [False, True])
-def test_hmm_plain_equals_jax(messy):
-    _, _, _, x = _chunk(messy)
+@pytest.mark.parametrize("messy,lq", LENGTHS)
+def test_hmm_plain_equals_jax(messy, lq):
+    _, _, _, x = _chunk(messy, lq)
     args = _hmm_args(x)
     LRM = x["ref_win"].shape[1]
-    pq, pg, pr = bd.baq_hmm(*args, LQ, LRM, 7)
+    pq, pg, pr = bd.baq_hmm(*args, lq, LRM, 7)
     jq, jg, jr = jbd._probaln_batch(*(a.numpy() for a in args),
-                                    l_query=LQ, l_ref_max=LRM, bw=7)
+                                    l_query=lq, l_ref_max=LRM, bw=7)
     jq = torch.from_numpy(np.asarray(jq)).to(torch.uint8)
     jg = torch.from_numpy(np.asarray(jg))
     jr = torch.from_numpy(np.asarray(jr))
-    assert pq.shape == (N_READS, LQ) and pq.dtype == torch.uint8
+    assert pq.shape == (N_READS, lq) and pq.dtype == torch.uint8
     ok = ~(pr | jr)
     assert int((pr ^ jr).sum()) <= 0.01 * N_READS
     assert torch.equal(pg[ok], jg[ok])
@@ -128,10 +139,10 @@ def test_finalize_plain_equals_jax(seed):
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("messy", [False, True])
-def test_applied_quals_equal_host_baq(messy):
-    b, dsel, ref_int, x = _chunk(messy)
-    bq, good, risky = bd.baq_hmm(*_hmm_args(x), LQ, x["ref_win"].shape[1],
+@pytest.mark.parametrize("messy,lq", LENGTHS)
+def test_applied_quals_equal_host_baq(messy, lq):
+    b, dsel, ref_int, x = _chunk(messy, lq)
+    bq, good, risky = bd.baq_hmm(*_hmm_args(x), lq, x["ref_win"].shape[1],
                                  7)
     appq = bd.baq_finalize(bq, good, x["qq"], x["seg"]).numpy().copy()
     risky = risky.numpy()
@@ -139,13 +150,13 @@ def test_applied_quals_equal_host_baq(messy):
     cl = b.cigar_off[dsel + 1] - b.cigar_off[dsel]
     coff = np.concatenate([[0], np.cumsum(cl)])
     cig = np.concatenate([b.cigar_of(int(r)) for r in dsel])
-    soff = np.arange(dsel.size + 1, dtype=np.int64) * LQ
-    seq = np.concatenate([b.seq[b.seq_off[r]:b.seq_off[r] + LQ]
+    soff = np.arange(dsel.size + 1, dtype=np.int64) * lq
+    seq = np.concatenate([b.seq[b.seq_off[r]:b.seq_off[r] + lq]
                           for r in dsel])
     qual = x["qq"].numpy().ravel()
     pos = b.pos[dsel].astype(np.int64)
     host, _ = native.baq_batch(pos, cig, coff, seq, qual, soff, ref_int)
-    appq[risky] = host.reshape(-1, LQ)[risky]
+    appq[risky] = host.reshape(-1, lq)[risky]
     want, skipped = jnative.baq_batch(pos, cig, coff, seq, qual, soff,
                                       ref_int, flag=3)
     assert not skipped.any()

@@ -58,34 +58,45 @@ def test_segment_contract_equals_plain(cuda, K, tile):
     assert torch.equal(out.cpu(), base + want)
 
 
-def _hmm_inputs(messy, n):
+def _hmm_inputs(messy, n, lq=100):
     ref = sim.simulate_reference(1 << 14, seed=2)
     lut = np.full(256, 4, np.uint8)
     lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
-    b = sim.simulate_batch(ref_len=1 << 14, coverage=4.0, read_len=100,
-                           seed=6, paired=False, err_rate=0.02, ref=ref)
+    b = sim.simulate_batch(ref_len=1 << 14, coverage=4.0 * lq / 100,
+                           read_len=lq, seed=6, paired=False, err_rate=0.02,
+                           ref=ref)
     if messy:
         sim.simulate_messy(b, 6)
     sel = np.arange(b.n)
-    elig, lead, lref, cig8 = md.classify_reads(b, sel, 100, 1 << 14)
+    elig, lead, lref, cig8 = md.classify_reads(b, sel, lq, 1 << 14)
     k = np.nonzero(elig)[0][:n]
-    pipe = md.DeviceCensusPipeline(lut[ref], 1 << 14, device="cpu")
+    assert k.size == n
+    pipe = md.DeviceCensusPipeline(lut[ref], 1 << 14, l_query=lq,
+                                   device="cpu")
     seqm, qual = pipe._gather_rows(b, k)
     buf = pipe._make_buf(b.pos[k].astype(np.int64), lead[k], lref[k],
                          cig8[k], seqm, qual, 0, k.size)
     return pipe._expand(torch.from_numpy(buf))
 
 
-@pytest.mark.parametrize("messy,n", [(False, 1), (False, 130), (True, 333)])
-def test_baq_kernels_equal_plain(cuda, messy, n):
-    x = _hmm_inputs(messy, n)
+# read counts that are not a multiple of K4's block or K5's tile give both
+# a ragged last block; 37 and 151 bases leave K4 a partial last segment
+# for any checkpoint stride, and 151-byte rows leave K5 an unaligned tail
+@pytest.mark.parametrize("messy,n,lq", [
+    pytest.param(False, 1, 100, id="False-1"),
+    pytest.param(False, 130, 100, id="False-130"),
+    pytest.param(True, 333, 100, id="True-333"),
+    pytest.param(False, 203, 37, id="False-203-37"),
+    pytest.param(True, 333, 151, id="True-333-151")])
+def test_baq_kernels_equal_plain(cuda, messy, n, lq):
+    x = _hmm_inputs(messy, n, lq)
     args = [x[k] for k in ("ref_win", "sq", "qq", "cdT", "lref", "bMv",
                            "bIv")]
     LRM = x["ref_win"].shape[1]
-    pq, pg, pr = bd.baq_hmm(*args, 100, LRM, 7)
-    kq, kg, kr = bd.baq_hmm(*(a.to(cuda) for a in args), 100, LRM, 7)
+    pq, pg, pr = bd.baq_hmm(*args, lq, LRM, 7)
+    kq, kg, kr = bd.baq_hmm(*(a.to(cuda) for a in args), lq, LRM, 7)
     kq, kg, kr = kq.cpu(), kg.cpu(), kr.cpu()
-    assert kq.shape == (n, 100) and kg.dtype == torch.bool
+    assert kq.shape == (n, lq) and kg.dtype == torch.bool
     ok = ~(pr | kr)
     assert int((pr ^ kr).sum()) <= max(1, 0.01 * n)
     assert torch.equal(kg[ok], pg[ok])
@@ -94,9 +105,72 @@ def test_baq_kernels_equal_plain(cuda, messy, n):
     qq1 = x["qq"].int() + 1
     low = (x["cdT"].t() < (1 << 19)) & (pq.int() <= qq1) & (kq.int() <= qq1)
     assert torch.equal(kq[ok][low[ok]], pq[ok][low[ok]])
-    fin = bd.baq_finalize(kq.to(cuda), kg.to(cuda), x["qq"].to(cuda),
-                          x["seg"].to(cuda)).cpu()
-    assert torch.equal(fin, bd.baq_finalize(kq, kg, x["qq"], x["seg"]))
+    # reads from the second on: K4's input spans start off 16-byte
+    # alignment; each read's results stay the same
+    if n > 1:
+        sub = [a[1:] for a in args]
+        sub[3] = args[3][:, 1:].contiguous()
+        k1 = bd.baq_hmm(*(a.to(cuda) for a in sub), lq, LRM, 7)
+        for got, want in zip(k1, (kq[1:], kg[1:], kr[1:])):
+            assert torch.equal(got.cpu(), want)
+    fin_args = (kq, kg, x["qq"], x["seg"])
+    fin = bd.baq_finalize(*(a.to(cuda) for a in fin_args)).cpu()
+    assert torch.equal(fin, bd.baq_finalize(*fin_args))
+    # rows from the second on: every span starts off 16-byte alignment
+    # (unless the row is a multiple of 16 bytes long)
+    fin1 = bd.baq_finalize(*(a[1:].to(cuda) for a in fin_args)).cpu()
+    assert torch.equal(fin1, bd.baq_finalize(*(a[1:] for a in fin_args)))
+
+
+@pytest.mark.parametrize("L", [600, 2000])
+def test_finalize_long_rows_equal_plain(cuda, L):
+    """Rows too long for a full tile of K5 in shared memory take smaller
+    tiles (64 rows of 600 bases need 269 KB, more than a block may take)."""
+    rng = np.random.default_rng(L)
+    B = 70
+    bq = torch.from_numpy(rng.integers(0, 100, (B, L)).astype(np.uint8))
+    good = torch.from_numpy(rng.random((B, L)) < 0.8)
+    qual = torch.from_numpy(rng.integers(2, 60, (B, L)).astype(np.uint8))
+    # cigar-op ordinals: a leading soft clip of 0-8 bases, then adjacent
+    # M/=/X ops of 3-60 bases.  (Non-M bases after an M op of ordinal >= 1
+    # hit a defect of the plain version, ROADMAP.md Queue 3.)
+    seg = np.full((B, L), -1, np.int32)
+    for r in range(B):
+        p, op = int(rng.integers(0, 9)), 1
+        while p < L:
+            m = int(rng.integers(3, 60))
+            seg[r, p:p + m] = op
+            p += m
+            op += 1
+    seg = torch.from_numpy(seg)
+    got = bd.baq_finalize(*(a.to(cuda) for a in (bq, good, qual, seg)))
+    assert torch.equal(got.cpu(), bd.baq_finalize(bq, good, qual, seg))
+
+
+@pytest.mark.parametrize("lq", [37, 100, 151])
+def test_hmm_scratch_is_the_checkpoints(cuda, lq):
+    """K4 keeps one checkpoint (normalized M, I and D of the band) every
+    S rows and no forward trace: the memory one call takes beyond its
+    outputs is the checkpoint layout's size."""
+    n = 203
+    x = _hmm_inputs(False, n, lq)
+    args = [x[k].to(cuda) for k in ("ref_win", "sq", "qq", "cdT", "lref",
+                                    "bMv", "bIv")]
+    LRM = x["ref_win"].shape[1]
+    lay = bd.hmm_layout(lq, LRM, n)
+    assert lay["scratch_bytes"] == (lq - 1) // lay["stride"] * 3 * 15 * 4 * n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    bd.baq_hmm(*args, lq, LRM, 7)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(cuda) - before
+
+    def blocks(nbytes):                 # the caching allocator's 512 B unit
+        return -(-nbytes // 512) * 512
+    own = [n * lq, n * lq, n]           # bq, good, risky
+    scratch = blocks(lay["scratch_bytes"])
+    assert scratch <= extra <= scratch + sum(map(blocks, own))
 
 
 def test_wrappers_reject_bad_arguments(cuda):
