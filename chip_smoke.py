@@ -8,27 +8,33 @@ from the sources in this checkout.  Phases, one JSON line each:
 1. build — the host library and the CUDA kernels, compiled in parallel;
    ptxas's registers, shared memory and spills per kernel, and K4's launch
    geometry (checkpoint stride, dynamic shared memory, scratch).
-2. kernels — K1 segment_contract, K4 baq_hmm and K5 baq_finalize on the
-   card at the shapes the main path gives them (a chunk of 65,536 reads
-   of 100 bases), each held against its plain PyTorch version on the same
-   inputs: K1 and K5 exactly; K4, on every read that neither version flags
-   risky, with ``good`` equal, min(bq, qual) equal on M bases (what the
-   risky flag guards) and raw bq equal on M bases where both versions give
-   bq <= qual + 1, and at most 1% of reads in the symmetric difference of
-   the risky sets (f32 summation order differs).  K4's device memory for
-   one call must be its checkpoint scratch plus its outputs (no forward
-   trace).  Times are CUDA-event medians of 5 single calls (``ms``, the
-   wrapper's host time included); each kernel's ``b2b_ms`` is the median
-   of 5 groups of 10 calls made back to back, where the host's time
-   overlaps the card's work as on the main path.
+2. kernels — K1 in its two forms (segment_contract, on (rp, W); its
+   census form segment_census, on the chunk step's per-base tensors), K4
+   baq_hmm and K5 baq_finalize on the card at the shapes the main path
+   gives them (a chunk of 65,536 reads of 100 bases; K1 also on the same
+   with a deep pile), each held against its plain PyTorch version on the
+   same inputs: K1 and K5 exactly; K4, on every read that neither version
+   flags risky, with ``good`` equal, min(bq, qual) equal on M bases (what
+   the risky flag guards) and raw bq equal on M bases where both versions
+   give bq <= qual + 1, and at most 1% of reads in the symmetric
+   difference of the risky sets (f32 summation order differs).  K4's
+   device memory for one call must be its checkpoint scratch plus its
+   outputs (no forward trace).  Times are CUDA-event medians of 5 single
+   calls (``ms``, the wrapper's host time included); each kernel's
+   ``b2b_ms`` is the median of 5 groups of 10 calls made back to back,
+   where the host's time overlaps the card's work as on the main path.
+   Beside the census form, the cost it replaces: the weight build alone
+   and the weight build followed by the generic form, back to back.  The
+   generic form must launch here: the main path no longer calls it.
 3. main path — 8 Mbp x 30x x 100 bp simulated reads (the JAX package's
    bench workload) and its messy indel/soft-clip variant, written as BAMs
    by the port's writer, streamed through BamStream ->
    DeviceCensusPipeline -> finish() / finish_checksum(); the census and
    the qual sums must equal the single-core f64 oracle
    (io.native.bench_baq_census) over the same records exactly, and the
-   checksums must equal census_checksum of the oracle's arrays.  Every
-   kernel must have launched during the run.
+   checksums must equal census_checksum of the oracle's arrays.  The
+   census form, K4 and K5 must have launched during the run, and the
+   generic K1 not.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -63,14 +69,21 @@ F32_OPS_PER_S = 67e12
 # normalize 2, decode products/sums 6)
 HMM_OPS_PER_CELL = 41
 
+# both K1 forms replace the Pallas kernel; the census form also the weight
+# build of the chunk step and pack_census (K2)
 KERNEL_META = {
     "segment_contract": ("samtools_tpu_torch/csrc/segment_contract.cu",
                          "samtools_tpu/ops/pileup_pallas.py:134"),
+    "segment_census": ("samtools_tpu_torch/csrc/segment_contract.cu",
+                       "samtools_tpu/ops/pileup_pallas.py:134"),
     "baq_hmm": ("samtools_tpu_torch/csrc/baq_hmm.cu",
                 "samtools_tpu/ops/baq_device.py:114"),
     "baq_finalize": ("samtools_tpu_torch/csrc/baq_finalize.cu",
                      "samtools_tpu/ops/baq_device.py:303"),
 }
+# what DeviceCensusPipeline launches; the generic K1 runs only in the
+# kernels phase
+MAIN_PATH = ("segment_census", "baq_hmm", "baq_finalize")
 
 
 def emit(obj: dict) -> None:
@@ -125,9 +138,16 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     paths = build.build(("host", "cuda"))
     dt = time.perf_counter() - t0
+    # ptxas's report; of the generic K1's 32 instantiations (one per K),
+    # the one the census width uses
+    ptxas, keep = [], True
     with open(paths["cuda"][:-3] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "entry function" in ln
-                 or "registers" in ln or "spill" in ln]
+        for ln in f:
+            if "entry function" in ln:
+                keep = "segment_contract_kernel" not in ln or "ILi6E" in ln
+            if keep and ("entry function" in ln or "registers" in ln
+                         or "spill" in ln):
+                ptxas.append(ln.strip())
     # dynamic shared memory is not in ptxas's report: K4's launch geometry
     # at main-path shapes, as its source fixes it
     emit({"phase": "build", "seconds": round(dt, 3), "ptxas": ptxas,
@@ -158,6 +178,7 @@ def chunk_inputs(batch, ref_int: np.ndarray, ref_len: int, dev):
 def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     """Each kernel against its plain version at main-path shapes."""
     import torch
+    from samtools_tpu_torch import kernels
     from samtools_tpu_torch.ops import baq_device as bd
     from samtools_tpu_torch.ops import segment_kernel as sk
     from samtools_tpu_torch.sim import simulate_batch, simulate_messy
@@ -259,59 +280,104 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
                                 **dict(zip(("bound_ms", "bound_by"),
                                            bound(k5_bytes, 0))))
 
-    # --- K1 on a clean chunk with a deep pile: 300 reads stacked at one
-    # position make a tile slice of > 30,000 items; item slices start at
-    # multiples of 100, so most lo are not 512-aligned
-    b = simulate_batch(ref_len=sub_len, coverage=COVERAGE,
-                       read_len=READ_LEN, seed=7, paired=False,
-                       err_rate=0.01, ref=ref[:sub_len])
-    mid = b.n // 2
-    b.pos[mid:mid + 300] = b.pos[mid]
-    pipe, x, lo, hi, wbeg, ntp = chunk_inputs(b, ref_int, ref_len, dev)
-    kq, kg, kr = bd.baq_hmm(x["ref_win"], x["sq"], x["qq"], x["cdT"],
-                            x["lref"], x["bMv"], x["bIv"], READ_LEN,
-                            x["ref_win"].shape[1], 7)
-    appq = bd.baq_finalize(kq, kg, x["qq"], x["seg"])
-    rp, W = pipe._weights(x, appq, kr, 0, ref_len)
-    width = int((hi - lo).max())
-    require(width > 16384, f"K1 widest slice {width} <= 16384")
-    require(bool((lo % 512 != 0).any()), "K1 has no unaligned lo")
-    out_k = torch.zeros(ntp * pipe.tile, 6, dtype=torch.int32, device=dev)
-    sk.segment_contract(rp, W, lo, hi, wbeg, pipe.tile, out_k)
-    # the plain einsum is exact even under TF32 (0/1 and |W| <= 127 fit
-    # its 11-bit significand); still hold it to full f32 as K4's is
-    require(not torch.backends.cuda.matmul.allow_tf32,
-            "TF32 matmul is on before the K1 comparison")
-    out_p = sk.segment_contract_plain(rp, W, lo, hi, wbeg, pipe.tile)
-    seg_err = int((out_k - out_p).abs().max())
-    require(seg_err == 0, "K1 differs from its plain version")
-    # the same function as one library call: index_add_ of the weights
-    # of the items inside the plan's window
-    inwin = (rp >= wbeg) & (rp < wbeg + ntp * pipe.tile)
-    idx = (rp[inwin] - wbeg).long()
-    W32 = W[inwin].int()
-    out_l = torch.zeros_like(out_k)
-    out_l.index_add_(0, idx, W32)
-    require(bool((out_l == out_k).all()), "index_add_ disagrees with K1")
-    scratch = torch.zeros_like(out_k)
-    seg_t = cuda_ms(lambda: sk.segment_contract(rp, W, lo, hi, wbeg,
-                                                pipe.tile, scratch))
-    seg_b2b = cuda_ms(lambda: sk.segment_contract(rp, W, lo, hi, wbeg,
-                                                  pipe.tile, scratch), per=10)
-    seg_plain_t = cuda_ms(lambda: sk.segment_contract_plain(
-        rp, W, lo, hi, wbeg, pipe.tile))
-    lib_t = cuda_ms(lambda: scratch.index_add_(0, idx, W32))
-    n_items = rp.numel()
-    seg_bytes = n_items * (4 + 6) + 2 * lo.numel() * 4 \
-        + 2 * out_k.numel() * 4
-    rows["segment_contract"] = dict(
-        max_abs_err=seg_err, ms=seg_t, b2b_ms=seg_b2b, plain_ms=seg_plain_t,
-        library_ms=lib_t, detail={"items": n_items, "tiles": lo.numel(),
-                                  "widest_slice": width},
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(seg_bytes, n_items * 6))))
-    emit({"phase": "kernels", **{k: {kk: vv for kk, vv in v.items()}
-                                 for k, v in rows.items()}})
+    # --- K1, both forms, on two chunks of 30x reads as the stream gives
+    # them: one as it is, one with a deep pile (300 reads stacked at one
+    # position make a tile slice of > 30,000 items).  Item slices start at
+    # multiples of 100, so most lo are not 16-aligned.
+    generic_before = kernels.launches["segment_contract"]
+    k1 = []
+    for chunk, pile in (("deep_pile", True), ("plain_30x", False)):
+        b = simulate_batch(ref_len=sub_len, coverage=COVERAGE,
+                           read_len=READ_LEN, seed=7, paired=False,
+                           err_rate=0.01, ref=ref[:sub_len])
+        if pile:
+            mid = b.n // 2
+            b.pos[mid:mid + 300] = b.pos[mid]
+        pipe, x, lo, hi, wbeg, ntp = chunk_inputs(b, ref_int, ref_len, dev)
+        kq, kg, kr = bd.baq_hmm(x["ref_win"], x["sq"], x["qq"], x["cdT"],
+                                x["lref"], x["bMv"], x["bIv"], READ_LEN,
+                                x["ref_win"].shape[1], 7)
+        appq = bd.baq_finalize(kq, kg, x["qq"], x["seg"])
+        # the census form's inputs, and the generic form's (rp, W) that
+        # the chunk step built from them before the census form
+        cargs = (x["refpos"], x["seg"], x["sq"], appq, kr, pipe.base, 0,
+                 ref_len, pipe.min_baseq)
+        rp, W = sk.census_weights(*cargs)
+        width = int((hi - lo).max())
+        require(width > 16384 if pile else width < 16384,
+                f"K1 widest slice {width} ({chunk})")
+        require(bool((lo % 16 != 0).any()), "K1 has no unaligned lo")
+        plan = (lo, hi, wbeg, pipe.tile)
+        out_k = torch.zeros(ntp * pipe.tile, 6, dtype=torch.int32,
+                            device=dev)
+        sk.segment_contract(rp, W, *plan, out_k)
+        # the plain einsum is exact even under TF32 (0/1 and |W| <= 127
+        # fit its 11-bit significand); still hold it to full f32 as K4's is
+        require(not torch.backends.cuda.matmul.allow_tf32,
+                "TF32 matmul is on before the K1 comparison")
+        gen_err = int((out_k - sk.segment_contract_plain(rp, W, *plan))
+                      .abs().max())
+        out_c = torch.zeros_like(out_k)
+        sk.segment_census(*cargs, *plan, out_c)
+        cen_err = int((out_c - sk.segment_census_plain(*cargs, *plan))
+                      .abs().max())
+        require(gen_err == 0 and cen_err == 0,
+                f"K1 differs from its plain version ({chunk}: generic "
+                f"{gen_err}, census {cen_err})")
+        # the generic form as one library call: index_add_ of the weights
+        # of the items inside the plan's window
+        inwin = (rp >= wbeg) & (rp < wbeg + ntp * pipe.tile)
+        idx = (rp[inwin] - wbeg).long()
+        W32 = W[inwin].int()
+        out_l = torch.zeros_like(out_k)
+        out_l.index_add_(0, idx, W32)
+        require(bool((out_l == out_k).all()) and bool((out_c == out_k)
+                                                      .all()),
+                f"index_add_, K1 and its census form disagree ({chunk})")
+        scratch = torch.zeros_like(out_k)
+        n_items, n_reads = rp.numel(), kr.numel()
+        lohi_out = 2 * lo.numel() * 4 + 2 * out_k.numel() * 4
+
+        def gen():
+            sk.segment_contract(rp, W, *plan, scratch)
+
+        def cen():
+            sk.segment_census(*cargs, *plan, scratch)
+
+        def weights_then_gen():
+            sk.segment_contract(*sk.census_weights(*cargs), *plan, scratch)
+
+        k1.append(dict(
+            kernel="segment_contract", chunk=chunk, max_abs_err=gen_err,
+            ms=cuda_ms(gen), b2b_ms=cuda_ms(gen, per=10),
+            plain_ms=cuda_ms(lambda: sk.segment_contract_plain(rp, W,
+                                                               *plan)),
+            library_ms=cuda_ms(lambda: scratch.index_add_(0, idx, W32)),
+            detail={"items": n_items, "tiles": lo.numel(),
+                    "widest_slice": width},
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(n_items * (4 + 6) + lohi_out, n_items * 6)))))
+        k1.append(dict(
+            kernel="segment_census", chunk=chunk, max_abs_err=cen_err,
+            ms=cuda_ms(cen), b2b_ms=cuda_ms(cen, per=10),
+            plain_ms=cuda_ms(lambda: sk.segment_census_plain(*cargs,
+                                                             *plan)),
+            library_ms=None,
+            weights_b2b_ms=cuda_ms(lambda: sk.census_weights(*cargs),
+                                   per=10),
+            weights_then_generic_b2b_ms=cuda_ms(weights_then_gen, per=10),
+            detail={"items": n_items, "reads": n_reads, "tiles": lo.numel(),
+                    "widest_slice": width},
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(n_items * 10 + n_reads + lohi_out,
+                             n_items * 2)))))
+    require(kernels.launches["segment_contract"] > generic_before,
+            "the generic K1 never launched in the kernels phase")
+    for r in k1:
+        if r["chunk"] == "deep_pile":
+            rows[r["kernel"]] = r
+    emit({"phase": "kernels", **rows,
+          "k1_plain_30x": [r for r in k1 if r["chunk"] == "plain_30x"]})
     return rows
 
 
@@ -380,8 +446,9 @@ def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
         require(np.array_equal(qsum, o_qsum), f"{name}: qual sums differ")
         require(ck == census_checksum(o_census, o_qsum),
                 f"{name}: checksum differs")
-        require(all(v > 0 for v in runs.values()),
-                f"{name}: a kernel never launched: {runs}")
+        require(all(runs[k] > 0 for k in MAIN_PATH) and
+                runs["segment_contract"] == 0,
+                f"{name}: the main path's kernels are {MAIN_PATH}: {runs}")
         launches[name] = runs
         emit({"phase": "main_path", "workload": name,
               "reads": int(nrec), "simulate_write_s": round(t_sim, 3),
@@ -416,7 +483,8 @@ def main() -> int:
                       "replaces": replaces,
                       "launches": launches["clean"][name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "b2b_ms": r["b2b_ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"]})
     emit({"kernels": table})

@@ -1,6 +1,6 @@
-// Shared-memory staging used by K4 baq_hmm and K5 baq_finalize: a block's
-// reads are one contiguous span of each [reads, L] input, copied into
-// shared memory with 16-byte loads.
+// Shared-memory staging used by K1 segment_contract / segment_census, K4
+// baq_hmm and K5 baq_finalize: a block's items or reads are one contiguous
+// span of each input, copied into shared memory 16 bytes at a time.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,6 +36,34 @@ __device__ __forceinline__ int load_span(uint8_t* sm,
   return mis;
 }
 
+// load_span's layout, with the 16-byte part copied by cp.async: the copies
+// take no registers and every copy the block issues is in flight at once,
+// however many spans it stages.  The caller waits with cp_async_wait_all()
+// and then __syncthreads().
+__device__ __forceinline__ int copy_span_async(uint8_t* sm,
+                                               const uint8_t* __restrict__ g,
+                                               int n, int nt) {
+  const int t = threadIdx.x;
+  const int mis = (int)((uintptr_t)g & 15);
+  const int head = min(n, (16 - mis) & 15);
+  for (int k = t; k < head; k += nt) sm[mis + k] = g[k];
+  const int nv = (n - head) / 16;
+  const uint8_t* gv = g + head;
+  uint8_t* sv = sm + mis + head;
+  for (int k = t; k < nv; k += nt) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(sv + 16 * k);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gv + 16 * k)
+                 : "memory");
+  }
+  for (int k = head + 16 * nv + t; k < n; k += nt) sm[mis + k] = g[k];
+  return mis;
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 constexpr int kMaxDevices = 64;
 
 // Lets `kernel` launch with up to the device's opt-in maximum of dynamic
@@ -52,13 +80,17 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<bool>* ready) {
   int most = 0;
   e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
+  // the kernel's static shared memory counts against the same limit
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most - (int)attr.sharedSizeBytes);
   if (e == cudaSuccess && dev < kMaxDevices)
     ready[dev].store(true, std::memory_order_release);
   return e;

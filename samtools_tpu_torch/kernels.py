@@ -19,15 +19,19 @@ import torch
 
 from . import build
 
-launches = {"segment_contract": 0, "baq_hmm": 0, "baq_finalize": 0}
+launches = {"segment_contract": 0, "segment_census": 0, "baq_hmm": 0,
+            "baq_finalize": 0}
 
 _lib = None
 _lock = threading.Lock()
 _P = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
-    "samtpu_segment_contract": [_P, _P, _INT, _P, _P, _INT, _INT, _INT, _P,
-                                _P],
+    "samtpu_segment_contract": [_P, _P, _INT, _INT, _P, _P, _INT, _INT, _INT,
+                                _INT, _INT, _P, _P],
+    "samtpu_segment_census": [_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
+                              _INT, _INT, _P, _P, _INT, _INT, _INT, _INT,
+                              _INT, _P, _P],
     "samtpu_baq_hmm": [_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
                        ctypes.POINTER(ctypes.c_float), _P, _P, _P, _P, _P],
     "samtpu_baq_finalize": [_P, _P, _P, _P, _INT, _INT, _P, _P],

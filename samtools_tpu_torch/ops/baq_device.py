@@ -261,10 +261,15 @@ def baq_hmm(ref_win, query, qual, cdeltaT, lref, bMv, bIv,
 
 def baq_finalize_plain(bq, good, qual, seg):
     """State-check zeroing, qual cap, per-M-op smoothing and the applied
-    qual, mirroring ``_finalize``: the segmented prefix/suffix running
-    max rides the offset trick (adding 256*seg before a cummax keeps
-    earlier segments from dominating later ones).  Non-M bases (seg < 0)
-    take min(q, bq).  Returns u8 [B, L]."""
+    qual (``_finalize``'s arithmetic): the segmented prefix/suffix
+    running max rides the offset trick (adding 256*seg before a cummax
+    keeps earlier segments from dominating later ones).  In the suffix
+    pass a non-M base takes the offset of the nearest M op to its left
+    (0 before the first), so its zero can never swamp that op's suffix
+    max; ``_finalize`` gives it offset 0, the largest suffix offset, and
+    loses the suffix max of any M op of ordinal >= 1 followed by a
+    non-M base.  Non-M bases (seg < 0) take min(q, bq).  Returns u8
+    [B, L]."""
     q = qual.to(torch.int32)
     b = bq.to(torch.int32)
     is_m = seg >= 0
@@ -272,7 +277,9 @@ def baq_finalize_plain(bq, good, qual, seg):
     bqv = torch.where(good & is_m, torch.minimum(b, q), 0)
     K = 256
     left = torch.cummax(bqv + K * segc, dim=1).values - K * segc
-    rseg = K * (64 - segc)
+    # seg rises along the read, so the running max is each M base's own
+    # ordinal and, on a non-M base, that of the M op before it
+    rseg = K * (64 - torch.cummax(segc, dim=1).values)
     rght = torch.cummax((bqv + rseg).flip(1), dim=1).values.flip(1) - rseg
     sm = torch.minimum(left, rght)
     out_m = q - torch.where(q <= sm, 0, q - sm)

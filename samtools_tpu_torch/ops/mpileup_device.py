@@ -4,9 +4,10 @@ Counterpart of samtools_tpu/ops/mpileup_device.py (its census path):
 
   BamStream batch -> columnar decode (C++) -> classify reads -> one packed
   host->device buffer per chunk -> cigar expansion, ref-window gather,
-  banded pair-HMM BAQ (K4), finalize (K5), ownership gate, weights ->
-  segment contraction (K1) added in place into a resident int32
-  [pad_len, 6] census -> ONE device->host fetch at the end.
+  banded pair-HMM BAQ (K4), finalize (K5) -> census contraction (K1's
+  census form: quality and ownership gate, one-hot and qual lane built
+  in its load step) added in place into a resident int32 [pad_len, 6]
+  census -> ONE device->host fetch at the end.
 
 Reads the device path cannot take (N/B cigar ops, more than MAXOPS ops,
 indels past the band, contig-edge windows, 0xFF qual sentinels) and the
@@ -31,9 +32,8 @@ from ..device import resolve
 from ..io import native
 from .baq_device import baq_finalize, baq_hmm
 from .pileup_engine import padded_tiles, tile_plan
-from .segment_kernel import segment_contract
+from .segment_kernel import CENSUS_K, segment_census
 
-CENSUS_K = 6      # A,C,G,T,other counts + qual-sum lane
 DEFAULT_EXCL = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
 
 # nt16 -> 0-4 code (A,C,G,T,other)
@@ -346,21 +346,6 @@ class DeviceCensusPipeline:
             seg=torch.where(is_m, segid, -1).contiguous(),
             refpos=xb[:, None] + qi[None, :] + cdelta)
 
-    def _weights(self, x: dict, appq: torch.Tensor, risky: torch.Tensor,
-                 gate_lo: int, gate_hi: int):
-        """Items of the census contraction: (rp int32[C*LQ] window-relative
-        position, W int8[C*LQ, 6] = one-hot base + BAQ'd qual), zero
-        weight where the base is not an M base, falls below min_baseq,
-        lies outside [gate_lo, gate_hi) or belongs to a risky read."""
-        is_m = x["seg"] >= 0
-        rp = torch.where(is_m, x["refpos"] - self.base, gate_hi)
-        gate = (is_m & (appq >= self.min_baseq) & ~risky[:, None]
-                & (rp >= gate_lo) & (rp < gate_hi))
-        lanes = torch.arange(5, dtype=torch.uint8, device=appq.device)
-        W = torch.cat([(x["sq"].reshape(-1, 1) == lanes).to(torch.int8),
-                       appq.reshape(-1, 1).to(torch.int8)], 1)
-        return rp.reshape(-1).to(torch.int32), W * gate.reshape(-1, 1)
-
     def _chunk_step(self, buf, lo, hi, wbeg: int, ntp: int,
                     gate_lo: int, gate_hi: int) -> torch.Tensor:
         """Device work of one chunk; adds into the resident census and
@@ -374,9 +359,10 @@ class DeviceCensusPipeline:
         if not self.baq_flag:
             appq = x["qq"]
             risky = torch.zeros_like(risky)
-        rp, W = self._weights(x, appq, risky, gate_lo, gate_hi)
-        segment_contract(rp, W, lo, hi, wbeg, self.tile,
-                         self.census_dev[wbeg:wbeg + ntp * self.tile])
+        segment_census(x["refpos"], x["seg"], x["sq"], appq, risky,
+                       self.base, gate_lo, gate_hi, self.min_baseq, lo, hi,
+                       wbeg, self.tile,
+                       self.census_dev[wbeg:wbeg + ntp * self.tile])
         return risky
 
     # ------------------------------------------------------------------
@@ -402,7 +388,7 @@ class DeviceCensusPipeline:
         pos = b.pos[dsel].astype(np.int64)
         lead, lref, cig8 = lead_s[elig], lref_s[elig], cig8_s[elig]
         seqm, qual = self._gather_rows(b, dsel)
-        # the weight matrix carries BAQ'd quals as int8; they never exceed
+        # the census adds BAQ'd quals as int8 weights; they never exceed
         # the read's own quals
         if int(qual.max(initial=0)) > 127:
             raise ValueError("base quality above 127 on a device read")

@@ -16,7 +16,7 @@ import numpy as np
 class TilePlan:
     """Per-tile contiguous item slices.
 
-    lo, hi : int32[n_tiles] item index range per tile (K1 walks each
+    lo, hi : int32[n_tiles] item index range per tile (K1 covers each
              slice whole, so the plan carries no item window or passes)
     n_tiles: ceil(window_len / tile)
     """

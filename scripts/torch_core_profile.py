@@ -10,10 +10,18 @@ DeviceCensusPipeline -> finish() twice:
 1. timed: host seconds of each pipeline stage, exclusive of the stages
    it calls (a stack of perf_counter timers wrapped around the methods);
 2. profiled: torch.profiler over the same run, for the device time of
-   every kernel by name.  The device's idle share is 1 - busy / wall_s,
-   against the timed pass's wall (the one Mbases_per_s reads), not the
-   profiled pass's, which carries the profiler's own cost; the port runs
-   on one stream, so kernel times do not overlap.
+   every kernel by name, and of the torch kernels each pipeline stage
+   launches (``stage_device_s``: a record_function range around the
+   stage, inclusive of the stages it calls; the profiler ties a kernel to
+   the torch op that launched it, so the port's own kernels, launched
+   through ctypes, count in no stage).  The device's idle share is
+   1 - busy / wall_s, against the timed pass's wall (the one Mbases_per_s
+   reads), not the profiled pass's, which carries the profiler's own
+   cost; the port runs on one stream, so kernel times do not overlap.
+
+A stage the package does not have is skipped, so the script also
+profiles a tree whose pipeline has other stages (``_weights``, the
+weight build the census form of K1 took over).
 
 Prints one JSON object, and writes it to --out when that is given.
 """
@@ -43,6 +51,14 @@ from samtools_tpu_torch.sim import (make_header, simulate_batch,  # noqa: E402
 
 STAGES = ("_gather_rows", "_make_buf", "_plan", "_h2d", "_expand",
           "_weights", "_chunk_step", "_drain", "_host_reads", "finish")
+
+
+def annotated(name, fn):
+    """fn inside a torch.profiler range of its own name."""
+    def wrapped(*a, **k):
+        with torch.profiler.record_function(name):
+            return fn(*a, **k)
+    return wrapped
 
 
 class StageTimer:
@@ -113,7 +129,8 @@ def main() -> int:
         del b
         run(path, ref_int, args.ref_len, threads)       # warm-up
         timer = StageTimer()
-        saved = {s: getattr(md.DeviceCensusPipeline, s) for s in STAGES}
+        saved = {s: getattr(md.DeviceCensusPipeline, s) for s in STAGES
+                 if hasattr(md.DeviceCensusPipeline, s)}
         saved_classify = md.classify_reads
         for s, fn in saved.items():
             setattr(md.DeviceCensusPipeline, s, timer.wrap(s, fn))
@@ -127,13 +144,26 @@ def main() -> int:
         kernels.reset_launches()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            _, wall_prof = run(path, ref_int, args.ref_len, threads)
+        for s, fn in saved.items():
+            setattr(md.DeviceCensusPipeline, s, annotated(s, fn))
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                _, wall_prof = run(path, ref_int, args.ref_len, threads)
+        finally:
+            for s, fn in saved.items():
+                setattr(md.DeviceCensusPipeline, s, fn)
     dev = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
-        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # the stage ranges' own device-side spans are not kernels
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.key not in saved:
             dev[e.key] = dev.get(e.key, 0) + t / 1e6
+    stage_dev = defaultdict(float)
+    for e in prof.events():
+        if e.name in saved and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            stage_dev[e.name] += e.device_time_total / 1e6
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
     host_total = sum(timer.acc.values())
@@ -152,6 +182,7 @@ def main() -> int:
         "device_busy_s": busy if dev else "not measured",
         "device_idle_share": 1 - busy / wall if dev else "not measured",
         "device_top_s": dict(top),
+        "stage_device_s": dict(stage_dev) if dev else "not measured",
         "launches": dict(kernels.launches),
     }
     if args.out:

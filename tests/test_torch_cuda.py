@@ -13,7 +13,10 @@ import torch
 from samtools_tpu_torch import kernels, sim
 from samtools_tpu_torch.ops import baq_device as bd
 from samtools_tpu_torch.ops import mpileup_device as md
-from samtools_tpu_torch.ops.segment_kernel import (segment_contract,
+from samtools_tpu_torch.ops.segment_kernel import (piece_layout,
+                                                   segment_census,
+                                                   segment_census_plain,
+                                                   segment_contract,
                                                    segment_contract_plain)
 
 pytestmark = pytest.mark.cuda
@@ -31,7 +34,9 @@ def _plan(seed, n_reads, L, K, tile, n_tiles):
     rng = np.random.default_rng(seed)
     span = n_tiles * tile
     pos = np.sort(rng.integers(-L, span, n_reads))
-    pos[n_reads // 2:n_reads // 2 + 40] = pos[n_reads // 2]   # a deep pile
+    # a deep pile: one slice of 15,000+ items, several pieces of the
+    # kernel whatever K
+    pos[n_reads // 2:n_reads // 2 + 420] = pos[n_reads // 2]
     rp = (pos[:, None] + np.arange(L)[None, :]).ravel().astype(np.int32)
     W = rng.integers(-128, 128, (rp.size, K)).astype(np.int8)
     starts = np.arange(n_tiles) * tile
@@ -46,7 +51,10 @@ def _plan(seed, n_reads, L, K, tile, n_tiles):
 
 @pytest.mark.parametrize("K,tile", [(1, 128), (6, 256), (32, 512)])
 def test_segment_contract_equals_plain(cuda, K, tile):
-    rp, W, lo, hi = _plan(K + tile, 300, 37, K, tile, 24)
+    rp, W, lo, hi = _plan(K + tile, 900, 37, K, tile, 24)
+    P, _ = piece_layout(4 + K, K)
+    assert int((hi - lo).max()) > 3 * P
+    assert bool((lo % 16 != 0).any())
     want = segment_contract_plain(rp, W, lo, hi, 0, tile)
     base = torch.arange(want.numel(), dtype=torch.int32).reshape(want.shape)
     out = base.to(cuda)
@@ -56,6 +64,69 @@ def test_segment_contract_equals_plain(cuda, K, tile):
     torch.cuda.synchronize()
     assert kernels.launches["segment_contract"] == before + 1
     assert torch.equal(out.cpu(), base + want)
+
+
+def _census_case(messy, base):
+    """One chunk as the main path hands it to the census form: the
+    expanded reads (with a pile of 300 reads at one position), random
+    applied quals and risky flags, and the chunk's tile plan; the census
+    window starts at ``base``."""
+    ref_len = 1 << 16
+    ref = sim.simulate_reference(ref_len, seed=4)
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    b = sim.simulate_batch(ref_len=ref_len, coverage=30.0, read_len=100,
+                           seed=9 + messy, paired=False, err_rate=0.01,
+                           ref=ref)
+    b.pos[b.n // 2:b.n // 2 + 300] = b.pos[b.n // 2]
+    if messy:
+        sim.simulate_messy(b, 3)
+    sel = np.arange(b.n)
+    elig, lead, lref, cig8 = md.classify_reads(b, sel, 100, ref_len)
+    k = np.nonzero(elig)[0]
+    pipe = md.DeviceCensusPipeline(lut[ref], ref_len - base, base=base,
+                                   device="cpu", chunk_reads=k.size)
+    pos = b.pos[k].astype(np.int64)
+    seqm, qual = pipe._gather_rows(b, k)
+    x = pipe._expand(torch.from_numpy(pipe._make_buf(
+        pos, lead[k], lref[k], cig8[k], seqm, qual, 0, k.size)))
+    lo, hi, wbeg, _ = pipe._plan(pos - base)
+    rng = np.random.default_rng(messy)
+    appq = torch.from_numpy(rng.integers(0, 128, x["sq"].shape)
+                            .astype(np.uint8))
+    risky = torch.from_numpy(rng.random(k.size) < 0.05)
+    return x, appq, risky, torch.from_numpy(lo), torch.from_numpy(hi), wbeg
+
+
+@pytest.mark.parametrize("messy,base", [(False, 0), (True, 20000)])
+def test_segment_census_equals_plain(cuda, messy, base):
+    x, appq, risky, lo, hi, wbeg = _census_case(messy, base)
+    assert int((hi - lo).max()) > 30000
+    lo, hi = lo.to(cuda), hi.to(cuda)
+    args = [a.to(cuda) for a in (x["refpos"], x["seg"], x["sq"], appq,
+                                 risky)]
+    gate = (base, 600, 30000, 13)
+    # the plain version on the card too: its einsum is exact in f32
+    want = segment_census_plain(*args, *gate, lo, hi, wbeg, 256)
+    assert int(want[:, :5].sum()) > 100000
+    start = torch.arange(want.numel(), dtype=torch.int32,
+                         device=cuda).reshape(want.shape)
+    out = start.clone()
+    before = kernels.launches["segment_census"]
+    segment_census(*args, *gate, lo, hi, wbeg, 256, out)
+    torch.cuda.synchronize()
+    assert kernels.launches["segment_census"] == before + 1
+    assert torch.equal(out, start + want)
+    # every input span one base on, so none starts on 16 bytes (the plan
+    # then no longer fits the reads, the same way for both versions)
+    n1 = args[0].shape[0] - 1
+    sub = [a.reshape(-1)[1:1 + n1 * 100].view(n1, 100) for a in args[:4]]
+    sub.append(args[4][1:])
+    lo1, hi1 = lo.clamp(max=n1 * 100), hi.clamp(max=n1 * 100)
+    out1 = torch.zeros_like(out)
+    segment_census(*sub, *gate, lo1, hi1, wbeg, 256, out1)
+    assert torch.equal(out1, segment_census_plain(*sub, *gate, lo1, hi1,
+                                                  wbeg, 256))
 
 
 def _hmm_inputs(messy, n, lq=100):
@@ -131,17 +202,17 @@ def test_finalize_long_rows_equal_plain(cuda, L):
     bq = torch.from_numpy(rng.integers(0, 100, (B, L)).astype(np.uint8))
     good = torch.from_numpy(rng.random((B, L)) < 0.8)
     qual = torch.from_numpy(rng.integers(2, 60, (B, L)).astype(np.uint8))
-    # cigar-op ordinals: a leading soft clip of 0-8 bases, then adjacent
-    # M/=/X ops of 3-60 bases.  (Non-M bases after an M op of ordinal >= 1
-    # hit a defect of the plain version, ROADMAP.md Queue 3.)
+    # cigar-op ordinals: a leading soft clip of 0-8 bases, then M/=/X ops
+    # of 3-60 bases, each followed by 0-3 non-M bases (an insertion), the
+    # shape 8S40M3I49M has
     seg = np.full((B, L), -1, np.int32)
     for r in range(B):
         p, op = int(rng.integers(0, 9)), 1
         while p < L:
             m = int(rng.integers(3, 60))
             seg[r, p:p + m] = op
-            p += m
-            op += 1
+            p += m + int(rng.integers(0, 4))
+            op += 2
     seg = torch.from_numpy(seg)
     got = bd.baq_finalize(*(a.to(cuda) for a in (bq, good, qual, seg)))
     assert torch.equal(got.cpu(), bd.baq_finalize(bq, good, qual, seg))
@@ -187,6 +258,15 @@ def test_wrappers_reject_bad_arguments(cuda):
                                          device=cuda), lo, hi, 0, 128,
                          torch.zeros(256, 33, dtype=torch.int32,
                                      device=cuda))
+    v = rp.reshape(2, 2)
+    q = torch.zeros(2, 2, dtype=torch.uint8, device=cuda)
+    risky = torch.zeros(2, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):                # appq must be uint8
+        segment_census(v, v, q, q.int(), risky, 0, 0, 256, 13, lo, hi, 0,
+                       128, out)
+    with pytest.raises(ValueError):               # risky: one per read
+        segment_census(v, v, q, q, risky[:1], 0, 0, 256, 13, lo, hi, 0,
+                       128, out)
 
 
 def test_pipeline_on_card_equals_cpu(cuda):
@@ -204,7 +284,10 @@ def test_pipeline_on_card_equals_cpu(cuda):
         pipe.add_batch(b)
         got[dev] = (*pipe.finish(), pipe.finish_checksum())
         assert pipe.device.type == (dev or "cuda")
-    assert all(v > 0 for v in kernels.launches.values())
+    # the main path: the census form, never the generic form's (rp, W)
+    assert kernels.launches["segment_contract"] == 0
+    assert all(kernels.launches[k] > 0 for k in
+               ("segment_census", "baq_hmm", "baq_finalize"))
     assert np.array_equal(got["cpu"][0], got[None][0])
     assert np.array_equal(got["cpu"][1], got[None][1])
     assert got["cpu"][2] == got[None][2]

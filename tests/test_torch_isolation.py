@@ -17,7 +17,8 @@ from samtools_tpu_torch import kernels
 from samtools_tpu_torch.device import resolve
 from samtools_tpu_torch.ops import baq_device as bd
 from samtools_tpu_torch.ops import mpileup_device as md
-from samtools_tpu_torch.ops.segment_kernel import segment_contract
+from samtools_tpu_torch.ops.segment_kernel import (segment_census,
+                                                   segment_contract)
 
 torch.set_num_threads(1)
 
@@ -128,8 +129,16 @@ def test_cpu_tensors_never_count_a_launch():
                      torch.tensor([0, 10], dtype=torch.int32),
                      torch.tensor([10, 10], dtype=torch.int32), 0, 128, out)
     assert int(out[0, 0]) == 10
-    assert kernels.launches == {"segment_contract": 0, "baq_hmm": 0,
-                                "baq_finalize": 0}
+    segment_census(torch.zeros(2, 5, dtype=torch.int32),
+                   torch.zeros(2, 5, dtype=torch.int32),
+                   torch.zeros(2, 5, dtype=torch.uint8),
+                   torch.full((2, 5), 20, dtype=torch.uint8),
+                   torch.zeros(2, dtype=torch.bool), 0, 0, 256, 13,
+                   torch.tensor([0, 10], dtype=torch.int32),
+                   torch.tensor([10, 10], dtype=torch.int32), 0, 128, out)
+    assert int(out[0, 0]) == 20 and int(out[0, 5]) == 210
+    assert kernels.launches == {"segment_contract": 0, "segment_census": 0,
+                                "baq_hmm": 0, "baq_finalize": 0}
 
 
 def test_mixed_devices_raise():

@@ -1,17 +1,26 @@
 """K1 segment_contract (the port's census contraction) against the JAX
 package's Pallas kernel, run in interpret mode on the CPU, and against its
 XLA segment_matmul over tile plans with several passes and item slices
-that do not start on a 512-item block.  Integer sums: exact equality."""
+that do not start on a 512-item block; the CUDA kernel's cut into pieces
+of consecutive items, emulated in numpy, against the same; and the census
+form against the JAX package's fused chunk step and the host census.
+Integer sums: exact equality."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from samtools_tpu.ops import mpileup_device as jmd
 from samtools_tpu.ops import pileup_engine as jpe
 from samtools_tpu.ops import pileup_pallas as pp
-from samtools_tpu_torch import kernels
+from samtools_tpu_torch import kernels, sim
+from samtools_tpu_torch.ops import mpileup_device as md
 from samtools_tpu_torch.ops import pileup_engine as pe
-from samtools_tpu_torch.ops.segment_kernel import (segment_contract,
+from samtools_tpu_torch.ops.segment_kernel import (piece_layout,
+                                                   segment_census,
+                                                   segment_contract,
                                                    segment_contract_plain)
 
 torch.set_num_threads(1)
@@ -107,3 +116,118 @@ def test_wrapper_accumulates_and_validates():
         segment_contract(rp, Wt, lo, hi, 0, 64, out)
     with pytest.raises(ValueError):
         segment_contract(rp, Wt[:, :3].t(), lo, hi, 0, 128, out)
+
+
+def _pieces(rp, W, lo, hi, wbeg, tile, P, win):
+    """csrc/segment_contract.cu's cut, in numpy: pieces of P consecutive
+    items; an item is live when its position lies in the plan and its
+    index in its tile's slice; a piece's live items add into a win-row
+    accumulator from the piece's least live row, or straight into out
+    past it, and the accumulator is added into out."""
+    n_rows = lo.size * tile
+    out = np.zeros((n_rows, W.shape[1]), np.int64)
+    for b0 in range(0, rp.size, P):
+        b = np.arange(b0, min(b0 + P, rp.size))
+        r = rp[b].astype(np.int64) - wbeg
+        live = (r >= 0) & (r < n_rows)
+        t = np.where(live, r // tile, 0)
+        live &= (b >= lo[t]) & (b < hi[t])
+        if not live.any():
+            continue
+        rmin = int(r[live].min())
+        span = min(win, int(r[live].max()) - rmin + 1)
+        near = live & (r - rmin < span)
+        acc = np.zeros((span, W.shape[1]), np.int64)
+        np.add.at(acc, r[near] - rmin, W[b[near]])
+        np.add.at(out, r[live & ~near], W[b[live & ~near]])
+        out[rmin:rmin + span] += acc
+    return out
+
+
+@pytest.mark.parametrize("P,win", [(64, 16), (256, 1024), (97, 5),
+                                   piece_layout(4 + 6, 6)])
+def test_pieces_equal_jax_segment_matmul(P, win):
+    """Pieces far narrower than the widest slice (a 60-read pile), an
+    accumulator too short for a piece's rows (items past it go straight
+    to out), slices that start off a 512-item block, and an emptied tile
+    whose items then count nowhere."""
+    pos, end, item_off, refpos, W = _reads(4)
+    jplan = jpe.tile_plan(pos, end, item_off, 0, 2100, max_b=256,
+                          tile=128)
+    full = int(np.argmax(jplan.hi - jplan.lo))
+    busy = np.nonzero(jplan.hi > jplan.lo)[0]
+    empty = int(busy[busy != full][busy.size // 2])
+    jplan.hi[empty] = jplan.lo[empty]
+    assert int((jplan.hi - jplan.lo).max()) > P
+    assert (jplan.lo % 512 != 0).any()
+    ref = np.asarray(jpe.segment_matmul(refpos.astype(np.int32), W, jplan))
+    got = _pieces(refpos, W, jplan.lo, jplan.hi, 0, 128, P, win)
+    assert np.array_equal(got, ref[:got.shape[0]])   # ref: padded tiles
+    assert not ref[got.shape[0]:].any()
+    assert not got[empty * 128:(empty + 1) * 128].any()
+
+
+# ---------------------------------------------------------------- census
+CENSUS_LEN = 1 << 14
+
+
+def _census_chunk(messy):
+    """A chunk of device-eligible reads through the JAX package's fused
+    chunk step (XLA segment contraction, quals collected), and the port's
+    expansion and tile plan of the same reads."""
+    ref = sim.simulate_reference(CENSUS_LEN, seed=11)
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    ref_int = lut[ref]
+    b = sim.simulate_batch(ref_len=CENSUS_LEN, coverage=4.0, read_len=100,
+                           seed=31 + messy, paired=False, err_rate=0.01,
+                           ref=ref)
+    if messy:
+        sim.simulate_messy(b, 7)
+    sel = np.arange(b.n)
+    elig, lead, lref, cig8 = md.classify_reads(b, sel, 100, CENSUS_LEN)
+    k = np.nonzero(elig)[0][:512]
+    dsel, n = sel[k], k.size
+    pos = b.pos[dsel].astype(np.int64)
+    pipe = md.DeviceCensusPipeline(ref_int, CENSUS_LEN, device="cpu",
+                                   chunk_reads=n)
+    seqm, qual = pipe._gather_rows(b, dsel)
+    x = pipe._expand(torch.from_numpy(pipe._make_buf(
+        pos, lead[k], lref[k], cig8[k], seqm, qual, 0, n)))
+    lo, hi, wbeg, ntp = pipe._plan(pos)
+
+    jpipe = jmd.DeviceCensusPipeline(ref_int, CENSUS_LEN, chunk_reads=n)
+    buf, pc = jpipe._make_buf(pos, lead[k], lref[k], cig8[k], seqm, qual,
+                              0, n, n)
+    jlo, jhi, jwbeg, jntp, B, passes = jpipe._plan(pc[:n], n, n)
+    assert (jwbeg, jntp) == (wbeg, ntp)
+    census, risky, appq, _, _, _ = jmd._get_chunk_step()(
+        jpipe.census_dev, jpipe.ref_dev, jax.device_put(buf), np.int32(n),
+        jlo, jhi, jnp.int32(jwbeg), jnp.int32(0), jnp.int32(0),
+        jnp.int32(CENSUS_LEN), 100, 100 + md.LREF_PAD, 7, jntp, B, 256, 16,
+        passes, 13, 1, True, False)
+    return (b, dsel, pipe, x, lo, hi, wbeg, np.asarray(census),
+            np.asarray(risky), np.asarray(appq))
+
+
+@pytest.mark.parametrize("messy", [False, True])
+def test_census_plain_equals_jax_chunk_and_host(messy):
+    b, dsel, pipe, x, lo, hi, wbeg, jcensus, risky, appq = \
+        _census_chunk(messy)
+    assert 0 < risky.sum() < risky.size // 4 or not risky.any()
+    out = torch.zeros(jcensus.shape, dtype=torch.int32)
+    out[wbeg:wbeg + lo.size * 256] = 7        # added into, not overwritten
+    before = dict(kernels.launches)
+    segment_census(x["refpos"], x["seg"], x["sq"], torch.from_numpy(appq),
+                   torch.from_numpy(risky), 0, 0, CENSUS_LEN, 13,
+                   torch.from_numpy(lo), torch.from_numpy(hi), wbeg, 256,
+                   out[wbeg:wbeg + lo.size * 256])
+    assert kernels.launches == before        # CPU tensors: plain version
+    out[wbeg:wbeg + lo.size * 256] -= 7
+    assert np.array_equal(out.numpy(), jcensus)
+    assert jcensus[:, :5].sum() > 0.4 * dsel.size * 100
+    # the f64 host path over the reads neither package flags risky
+    pipe._host_reads(b, dsel[~risky])
+    c = out.numpy()[:CENSUS_LEN].astype(np.int64)
+    assert np.array_equal(c[:, :5], pipe.host_census)
+    assert np.array_equal(c[:, 5], pipe.host_qsum)
