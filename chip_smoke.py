@@ -35,6 +35,18 @@ from the sources in this checkout.  Phases, one JSON line each:
    checksums must equal census_checksum of the oracle's arrays.  The
    census form, K4 and K5 must have launched during the run, and the
    generic K1 not.
+4. tool -- the user's entry point, ``python -m samtools_tpu_torch
+   mpileup -f ref.fa in.bam``, run in-process (``cli.main``, ``-o`` to a
+   file) on the same two BAMs: tool wall, aligned Mbases/s, output bytes
+   and rows, windows, host-routed and risky reads, and the launches of
+   each kernel over the run.  Each window's ``--census-out`` checksum must
+   equal the oracle census of phase 3 over the window's columns, the
+   windows' starting reads must add up to the oracle's reads, and the run
+   must launch the census form, K4 and K5 and never the generic K1.
+   Then the command itself, as a subprocess, on a 1 Mbp x 30x BAM of
+   overlapping messy pairs (so the overlap tweak runs), once with the
+   card's engine and once with ``SAMTPU_DEVICE=0`` (the host's f64 HMM,
+   no torch kernel): the two outputs must be byte-equal.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -403,6 +415,16 @@ def oracle(path: str, ref_int: np.ndarray):
     return census, qsum, sum(p[2] for p in parts)
 
 
+def write_fasta(path: str, ref: np.ndarray) -> None:
+    """``ref`` as a FASTA of 60-column lines, with its .fai."""
+    with open(path, "wb") as f:
+        f.write(b">sim1\n")
+        f.write(b"".join(ref[i:i + 60].tobytes() + b"\n"
+                         for i in range(0, ref.size, 60)))
+    with open(path + ".fai", "w") as f:
+        f.write(f"sim1\t{ref.size}\t6\t60\t61\n")
+
+
 def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
     from samtools_tpu_torch import kernels
     from samtools_tpu_torch.io.bam import write_bam
@@ -412,7 +434,7 @@ def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
     from samtools_tpu_torch.sim import (make_header, simulate_batch,
                                         simulate_messy)
     import torch
-    launches = {}
+    launches, oracles = {}, {}
     for name, seed in (("clean", 42), ("messy", 9)):
         t0 = time.perf_counter()
         b = simulate_batch(ref_len=REF_LEN, coverage=COVERAGE,
@@ -450,6 +472,7 @@ def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
                 runs["segment_contract"] == 0,
                 f"{name}: the main path's kernels are {MAIN_PATH}: {runs}")
         launches[name] = runs
+        oracles[name] = (path, o_census, o_qsum, nrec)
         emit({"phase": "main_path", "workload": name,
               "reads": int(nrec), "simulate_write_s": round(t_sim, 3),
               "stream_device_s": round(t_core, 3),
@@ -458,6 +481,108 @@ def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
               "risky_reads": int(pipe.n_risky),
               "oracle_s_threads": [round(t_oracle, 3), THREADS],
               "launches": runs, "census_equal": True, "checksum": list(ck)})
+    return launches, oracles
+
+
+def count_rows(path: str) -> int:
+    rows = 0
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            rows += chunk.count(b"\n")
+    return rows
+
+
+def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
+    """The mpileup command on the card: in-process on the 8 Mbp BAMs, then
+    as a subprocess, card engine against host engine, on overlapping
+    pairs."""
+    import torch
+    from samtools_tpu_torch import cli, kernels
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.ops.mpileup_device import census_checksum
+    from samtools_tpu_torch.sim import (make_header,
+                                        simulate_overlapping_pairs)
+    fa = os.path.join(workdir, "ref.fa")
+    write_fasta(fa, ref)
+    launches = {}
+    for name, (bam, o_census, o_qsum, nrec) in oracles.items():
+        out = os.path.join(workdir, f"{name}.pileup")
+        cj = os.path.join(workdir, f"{name}.census.json")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["mpileup", "-f", fa, bam, "-o", out,
+                       "--census-out", cj])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs = dict(kernels.launches)
+        require(rc == 0, f"tool {name}: rc {rc}")
+        with open(cj) as f:
+            rec = json.load(f)
+        for w in rec["windows"]:
+            require(tuple(w["checksum"]) == census_checksum(
+                o_census[w["beg"]:w["end"]], o_qsum[w["beg"]:w["end"]]),
+                f"tool {name}: census of window {w['beg']} differs")
+        starting = sum(w["reads_starting"] for w in rec["windows"])
+        require(starting == nrec, f"tool {name}: windows start {starting} "
+                f"reads, oracle {nrec}")
+        require(all(runs[k] > 0 for k in MAIN_PATH) and
+                runs["segment_contract"] == 0,
+                f"tool {name}: the main path's kernels are {MAIN_PATH}: "
+                f"{runs}")
+        launches[name] = runs
+        emit({"phase": "tool", "workload": name, "reads": int(nrec),
+              "wall_s": round(wall, 3),
+              "Mbases_per_s": round(nrec * READ_LEN / wall / 1e6, 3),
+              "output_bytes": os.path.getsize(out),
+              "output_rows": count_rows(out),
+              "windows": len(rec["windows"]),
+              "device_windows": rec["device_windows"],
+              "window_reads": rec["reads"],
+              "host_reads": rec["host_reads"],
+              "risky_reads": sum(w.get("risky_reads", 0)
+                                 for w in rec["windows"]),
+              "launches": runs, "census_equal": True})
+        os.remove(out)
+
+    # the command as a user runs it: card engine against host engine
+    t0 = time.perf_counter()
+    pair_len = 1 << 20
+    b = simulate_overlapping_pairs(pair_len, coverage=COVERAGE,
+                                   read_len=READ_LEN, seed=17,
+                                   ref=ref[:pair_len])
+    bam = os.path.join(workdir, "pairs.bam")
+    write_bam(bam, make_header(ref.size), b, threads=THREADS)
+    n_pairs_reads = b.n
+    del b
+    t_sim = time.perf_counter() - t0
+    outs, walls = {}, {}
+    for engine in ("card", "host"):
+        env = dict(os.environ)
+        env.pop("SAMTPU_DEVICE", None)
+        if engine == "host":
+            env["SAMTPU_DEVICE"] = "0"
+        outs[engine] = os.path.join(workdir, f"pairs.{engine}.pileup")
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "samtools_tpu_torch",
+                            "mpileup", "-f", fa, bam, "-o", outs[engine]],
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        walls[engine] = time.perf_counter() - t0
+        require(p.returncode == 0, f"pairs ({engine}): rc {p.returncode}: "
+                f"{p.stderr[-2000:]}")
+    with open(outs["card"], "rb") as f:
+        card = f.read()
+    with open(outs["host"], "rb") as f:
+        host = f.read()
+    require(card == host, "pairs: the card engine's output differs from "
+            "the host engine's")
+    require(card.count(b"\n") > pair_len // 2, "pairs: too few rows")
+    emit({"phase": "tool_pairs", "reads": int(n_pairs_reads),
+          "simulate_write_s": round(t_sim, 3),
+          "card_wall_s": round(walls["card"], 3),
+          "host_wall_s": round(walls["host"], 3),
+          "output_bytes": len(card), "output_rows": card.count(b"\n"),
+          "byte_equal": True})
     return launches
 
 
@@ -475,13 +600,17 @@ def main() -> int:
     ref_int = ref_codes(ref)
     rows = phase_kernels(ref, ref_int, torch.device("cuda"))
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_main(ref, ref_int, workdir)
+        launches, oracles = phase_main(ref, ref_int, workdir)
+        tool_launches = phase_tool(ref, workdir, oracles)
     table = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
+        # launches: the mpileup command's run on clean; core_launches: the
+        # census core's (phase 3)
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces,
-                      "launches": launches["clean"][name],
+                      "launches": tool_launches["clean"][name],
+                      "core_launches": launches["clean"][name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "b2b_ms": r["b2b_ms"], "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"],

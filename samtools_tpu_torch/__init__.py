@@ -7,3 +7,8 @@ its device work on an NVIDIA Hopper card through hand-written CUDA kernels
 runs only when the caller asks for it (``device="cpu"``), and there every
 kernel wrapper takes its plain PyTorch version.
 """
+
+__version__ = "0.1.0"
+
+# the samtools release whose output the JAX package and the port match
+SAMTOOLS_PARITY_VERSION = "1.23.1"

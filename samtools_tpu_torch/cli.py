@@ -1,0 +1,81 @@
+"""Top-level command dispatch of the port (samtools' bamtk.c).
+
+``python -m samtools_tpu_torch <command> [options]`` mirrors
+``python -m samtools_tpu <command> [options]`` byte for byte on stdout for
+the commands ported so far; ``version`` names torch and CUDA.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from . import SAMTOOLS_PARITY_VERSION, __version__
+from .tools import COMMANDS, run_command
+
+
+def usage(out) -> None:
+    out.write(f"""
+Program: samtools (Tools for alignments in the SAM format)
+Version: {SAMTOOLS_PARITY_VERSION} (samtools_tpu_torch {__version__})
+
+Usage:   samtools <command> [options]
+
+Commands:
+  -- File operations
+     mpileup        multi-way pileup
+
+  -- Misc
+     help [cmd]     display this help message or help for [cmd]
+     version        detailed version information
+
+""")
+
+
+def print_version() -> None:
+    import torch
+    print(f"samtools {SAMTOOLS_PARITY_VERSION} "
+          f"(samtools_tpu_torch {__version__})")
+    print(f"Using torch {torch.__version__} (CUDA {torch.version.cuda})")
+    print("Copyright (C) 2026")
+    print()
+    print("samtools_tpu_torch compilation details:")
+    print("    Implementation:  PyTorch + hand-written CUDA kernels (sm_90a) "
+          "+ C++ host I/O")
+    print(f"    CUDA devices:    {torch.cuda.device_count()}")
+
+
+def main(argv: list[str] | None = None, device=None) -> int:
+    """Run one command.  ``device`` goes to the command's entry point:
+    None means the CUDA card; the tests pass "cpu"."""
+    if argv is None:
+        argv = sys.argv[1:]
+    if not argv:
+        usage(sys.stderr)
+        return 1
+    cmd = argv[0]
+    if cmd in ("help", "--help"):
+        if len(argv) > 1 and argv[1] in COMMANDS:
+            return run_command(argv[1], ["--help"], device)
+        usage(sys.stdout)
+        return 0
+    if cmd in ("version", "--version"):
+        print_version()
+        return 0
+    if cmd not in COMMANDS:
+        sys.stderr.write(f"[main] unrecognized command '{cmd}'\n")
+        return 1
+    try:
+        return run_command(cmd, argv[1:], device)
+    except BrokenPipeError:
+        # downstream closed the pipe (`... | head`): exit quietly
+        try:
+            sys.stdout.close()
+        except OSError:
+            pass
+        return 1
+    except KeyboardInterrupt:
+        return 130
+
+
+if __name__ == "__main__":
+    sys.exit(main())

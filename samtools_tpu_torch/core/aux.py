@@ -1,7 +1,10 @@
-"""The BAM aux-field walk the long-CIGAR fixup needs (SAM spec 4.2.4;
-counterpart of part of samtools_tpu/core/aux.py)."""
+"""The BAM aux-field walk the long-CIGAR fixup and mpileup's read-group
+filter need (SAM spec 4.2.4; counterpart of part of
+samtools_tpu/core/aux.py)."""
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -9,6 +12,10 @@ _FIXED = {ord("A"): 1, ord("c"): 1, ord("C"): 1, ord("s"): 2, ord("S"): 2,
           ord("i"): 4, ord("I"): 4, ord("f"): 4, ord("d"): 8}
 _B_SIZES = {ord("c"): 1, ord("C"): 1, ord("s"): 2, ord("S"): 2,
             ord("i"): 4, ord("I"): 4, ord("f"): 4}
+_B_FMTS = {ord("c"): "b", ord("C"): "B", ord("s"): "h", ord("S"): "H",
+           ord("i"): "i", ord("I"): "I", ord("f"): "f"}
+_INT_FMTS = {ord("c"): "<b", ord("C"): "<B", ord("s"): "<h", ord("S"): "<H",
+             ord("i"): "<i", ord("I"): "<I"}
 
 
 class AuxError(ValueError):
@@ -57,3 +64,46 @@ def delete_tag(buf: np.ndarray, tag: bytes) -> np.ndarray:
     if got is None:
         return buf
     return np.concatenate([buf[:got[0]], buf[got[1]:]])
+
+
+def decode_value(buf: np.ndarray, i: int):
+    """The value of the aux field starting at i (at its tag)."""
+    b = bytes(buf[i:_skip_one(buf, i)])
+    t, body = b[2], b[3:]
+    if t == ord("A"):
+        return chr(body[0])
+    if t in _INT_FMTS:
+        return struct.unpack(_INT_FMTS[t], body)[0]
+    if t == ord("f"):
+        return struct.unpack("<f", body)[0]
+    if t == ord("d"):
+        return struct.unpack("<d", body)[0]
+    if t in (ord("Z"), ord("H")):
+        return body[:-1].decode("latin-1")
+    if t == ord("B"):
+        n = struct.unpack("<I", body[1:5])[0]
+        return (chr(body[0]), list(struct.unpack(
+            "<" + _B_FMTS[body[0]] * n, body[5:5 + n * _B_SIZES[body[0]]])))
+    raise AuxError(f"unknown aux type {chr(t)!r}")
+
+
+def get_value(buf: np.ndarray, tag: str):
+    """(type char, decoded value) of ``tag``, or None if absent."""
+    got = _find(buf, tag.encode())
+    if got is None:
+        return None
+    return chr(buf[got[0] + 2]), decode_value(buf, got[0])
+
+
+def batch_tag_values(batch, tag: str) -> np.ndarray:
+    """Object array: the decoded value of ``tag`` per record (None where
+    absent)."""
+    out = np.empty(batch.n, object)
+    for i in range(batch.n):
+        got = get_value(batch.aux_of(i), tag)
+        out[i] = None if got is None else got[1]
+    return out
+
+
+def has_tag(buf: np.ndarray, tag: bytes) -> bool:
+    return _find(buf, tag) is not None

@@ -78,6 +78,61 @@ class ReadBatch:
         csum = np.concatenate([[0], np.cumsum(lens * consumes_ref[ops])])
         return csum[self.cigar_off[1:]] - csum[self.cigar_off[:-1]]
 
+    def end_pos(self) -> np.ndarray:
+        """0-based exclusive reference end per record (bam_endpos: a
+        record that consumes no reference gets pos + 1)."""
+        spans = self.ref_span()
+        return self.pos + np.where(spans > 0, spans, 1)
+
+    def take(self, idx: np.ndarray) -> "ReadBatch":
+        """A new batch of the given records, in the given order, every
+        column copied (qname and aux included: mates pair by qname)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        out = ReadBatch(n=int(idx.size))
+        for f in _FIXED_COLUMNS:
+            setattr(out, f, getattr(self, f)[idx])
+        for flat, off in (("qname", "qname_off"), ("cigar", "cigar_off"),
+                          ("seq", "seq_off"), ("aux", "aux_off")):
+            soff = getattr(self, off)
+            noff = np.zeros(idx.size + 1, np.int64)
+            np.cumsum(soff[idx + 1] - soff[idx], out=noff[1:])
+            setattr(out, off, noff)
+            setattr(out, flat, _gather(getattr(self, flat), soff, idx, noff))
+            if flat == "seq":
+                out.qual = _gather(self.qual, soff, idx, noff)
+        return out
+
+    @staticmethod
+    def concat(batches: list["ReadBatch"]) -> "ReadBatch":
+        batches = [b for b in batches if b.n > 0]
+        if not batches:
+            return ReadBatch()
+        out = ReadBatch(n=sum(b.n for b in batches))
+        for f in _FIXED_COLUMNS + ("qname", "cigar", "seq", "qual", "aux"):
+            setattr(out, f, np.concatenate([getattr(b, f) for b in batches]))
+        for off in ("qname_off", "cigar_off", "seq_off", "aux_off"):
+            parts = [np.zeros(1, np.int64)]
+            base = 0
+            for b in batches:
+                o = getattr(b, off)
+                parts.append(o[1:] + base)
+                base += int(o[-1])
+            setattr(out, off, np.concatenate(parts))
+        return out
+
+
+_FIXED_COLUMNS = ("tid", "pos", "mapq", "flag", "mtid", "mpos", "tlen")
+
+
+def _gather(flat: np.ndarray, off: np.ndarray, idx: np.ndarray,
+            noff: np.ndarray) -> np.ndarray:
+    """Rows ``idx`` of a ragged column, by the host library's per-row
+    copy (no index array as large as the payload)."""
+    from ..io import native
+    if flat.size == 0:
+        return np.empty(0, flat.dtype)
+    return native.ragged_gather(flat, off, idx, noff, int(noff[-1]))
+
 
 def ragged_gather_indices(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
     """Flat gather indices for ragged slices: concat(arange(s, s+l))."""

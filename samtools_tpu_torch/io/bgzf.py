@@ -99,6 +99,34 @@ def decompress(data: bytes, threads: int = 2) -> np.ndarray:
     return inflate_blocks(data, coffs, bsizes, threads)[0]
 
 
+def is_bgzf(data: bytes) -> bool:
+    """True if the buffer starts with a BGZF block (gzip, FEXTRA, a BC
+    subfield)."""
+    if len(data) < 18 or data[0] != 0x1F or data[1] != 0x8B \
+            or not data[3] & 4:
+        return False
+    extra = data[12:12 + int.from_bytes(data[10:12], "little")]
+    i = 0
+    while i + 4 <= len(extra):
+        slen = int.from_bytes(extra[i + 2:i + 4], "little")
+        if extra[i] == 66 and extra[i + 1] == 67 and slen == 2:
+            return True
+        i += 4 + slen
+    return False
+
+
+def read_file(path: str, threads: int = 2) -> bytes:
+    """The uncompressed content of a BGZF, plain gzip or uncompressed
+    file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if is_bgzf(data):
+        return decompress(data, threads).tobytes()
+    if data[:2] == b"\x1f\x8b":
+        return zlib.decompress(data, 47)
+    return data
+
+
 def _deflate_block(chunk: bytes, level: int) -> bytes:
     co = zlib.compressobj(level, zlib.DEFLATED, -15)
     cdata = co.compress(chunk) + co.flush()

@@ -1,5 +1,6 @@
 """SAM header model (counterpart of samtools_tpu/io/header.py, only what
-``decode_header`` and the simulated ``@HD``/``@SQ`` header need).
+``decode_header``, the simulated ``@HD``/``@SQ`` header and mpileup's
+sample count need).
 
 Keeps the raw header text verbatim plus the @SQ (name, length) list.
 """
@@ -45,3 +46,20 @@ class SamHeader:
     @property
     def n_refs(self) -> int:
         return len(self.ref_names)
+
+    def rg_to_sample(self) -> dict[str, str]:
+        """RG ID -> SM map (samtools' sample.c bam_smpl_add); a read group
+        without SM is its own sample."""
+        out = {}
+        for line in self.text.split("\n"):
+            if not line.startswith("@RG"):
+                continue
+            rid, sm = None, None
+            for f in line.split("\t")[1:]:
+                if f.startswith("ID:"):
+                    rid = f[3:]
+                elif f.startswith("SM:"):
+                    sm = f[3:]
+            if rid is not None:
+                out[rid] = sm if sm is not None else rid
+        return out

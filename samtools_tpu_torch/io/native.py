@@ -1,6 +1,6 @@
 """ctypes bindings for the port's host library (native/samtpu_host.cc).
 
-Counterpart of samtools_tpu/io/native.py (:247-292, :411-520).  The
+Counterpart of samtools_tpu/io/native.py (:247-292, :411-520, :545-610).  The
 library is built with ``g++`` into the port's build directory at first
 use (see ``samtools_tpu_torch.build``); a failed build raises.
 """
@@ -35,6 +35,11 @@ _SIGNATURES = {
                                      _I64, _I64, _I64, _I64, _P, _P, _P, _P,
                                      _INT]),
     "samtpu_census_checksum": (None, [_P, _P, _I64, _P]),
+    "samtpu_buf_free": (None, [_P]),
+    "samtpu_mpileup_text": (_I64, [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I64, _P, _I64, _I64, _I64, _INT, _P,
+                                   _INT, _INT, _INT, _INT, _INT, _P, _P]),
+    "samtpu_ragged_gather": (_I64, [_P, _P, _P, _I64, _P, _P, _I64, _INT]),
 }
 
 
@@ -218,3 +223,65 @@ def census_checksum(census: np.ndarray, qsum: np.ndarray
     _load().samtpu_census_checksum(census.ctypes.data, qsum.ctypes.data,
                                    int(qsum.size), out2.ctypes.data)
     return int(out2[0]), int(out2[1])
+
+
+def mpileup_text(sub, ref: bytes | None, name: str, emit_beg: int,
+                 emit_end: int, all_mode: bool, bedmask, min_baseq: int,
+                 rev_del: int, no_ends: int, no_ins: int,
+                 no_del: int) -> bytes:
+    """Default-column pileup text of one window of a single file: the
+    columns [emit_beg, emit_end) of the reads in ``sub`` (a ReadBatch
+    whose reads may reach past the window), as the rows samtools prints.
+    ``bedmask`` (uint8 per column, or None) drops the columns it zeroes."""
+    lib = _load()
+    pos = np.ascontiguousarray(sub.pos, np.int64)
+    flag = np.ascontiguousarray(sub.flag, np.uint16)
+    mapq = np.ascontiguousarray(sub.mapq, np.uint8)
+    cigar = np.ascontiguousarray(sub.cigar, np.uint32)
+    cigar_off = np.ascontiguousarray(sub.cigar_off, np.int64)
+    seq = np.ascontiguousarray(sub.seq, np.uint8)
+    qual = np.ascontiguousarray(sub.qual, np.uint8)
+    seq_off = np.ascontiguousarray(sub.seq_off, np.int64)
+    refarr = np.frombuffer(ref, np.uint8) if ref is not None else None
+    nm = name.encode()
+    bm = (np.ascontiguousarray(bedmask, np.uint8)
+          if bedmask is not None else None)
+    if bm is not None and bm.size != emit_end - emit_beg:
+        raise ValueError("bedmask must hold one byte per emitted column")
+    outp = ctypes.c_void_p()
+    outn = ctypes.c_int64()
+    got = lib.samtpu_mpileup_text(
+        pos.ctypes.data, sub.n, flag.ctypes.data, mapq.ctypes.data,
+        cigar.ctypes.data, cigar_off.ctypes.data, seq.ctypes.data,
+        qual.ctypes.data, seq_off.ctypes.data,
+        refarr.ctypes.data if refarr is not None else None,
+        len(ref) if ref is not None else 0, nm, len(nm), emit_beg, emit_end,
+        1 if all_mode else 0, bm.ctypes.data if bm is not None else None,
+        min_baseq, rev_del, no_ends, no_ins, no_del, ctypes.byref(outp),
+        ctypes.byref(outn))
+    try:
+        if got < 0:
+            raise ValueError("native mpileup text failed")
+        return ctypes.string_at(outp.value, outn.value) if outn.value \
+            else b""
+    finally:
+        if outp.value:
+            lib.samtpu_buf_free(outp)
+
+
+def ragged_gather(flat: np.ndarray, off: np.ndarray, rows: np.ndarray,
+                  out_off: np.ndarray, total: int,
+                  threads: int = 0) -> np.ndarray:
+    """out[k] = flat[off[rows[k]] : off[rows[k]+1]], concatenated."""
+    flat = np.ascontiguousarray(flat)
+    off = np.ascontiguousarray(off, np.int64)
+    rows = np.ascontiguousarray(rows, np.int64)
+    out_off = np.ascontiguousarray(out_off, np.int64)
+    if rows.size and (int(rows.min()) < 0 or int(rows.max()) >= off.size - 1):
+        raise IndexError("ragged_gather: row index out of range")
+    out = np.empty(total, flat.dtype)
+    _load().samtpu_ragged_gather(flat.ctypes.data, off.ctypes.data,
+                                 rows.ctypes.data, rows.size,
+                                 out_off.ctypes.data, out.ctypes.data,
+                                 flat.dtype.itemsize, threads)
+    return out

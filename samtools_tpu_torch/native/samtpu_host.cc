@@ -8,6 +8,7 @@
 //   * the f64 banded glocal BAQ HMM   (htslib sam_prob_realn analog)
 //   * the single-core BAQ + census oracle (samtpu_bench_baq_census)
 //   * device-eligibility classification and the two-lane census checksum
+//   * the mpileup text writer and the ragged row gather of ReadBatch.take
 //
 // All entry points are plain C ABI for ctypes.  Every function returns a
 // negative code on error, >=0 on success.
@@ -772,3 +773,379 @@ extern "C" void samtpu_census_checksum(const int64_t* census,
   out2[0] = s1;
   out2[1] = s2;
 }
+
+// ---------------------------------------------------------------------------
+// Native mpileup text writer (host formatting engine; a copy of the JAX
+// package's samtools_tpu/native/samtpu.cc writer).
+//
+// Default-column pileup text for one window of a single input file:
+// counting-sort the per-base entries into column-major slots (two cigar
+// walks), then emit rows in samtools' grammar (bam_plcmd.c pileup_seq and
+// its column loop).  BAQ / overlap tweaks / flag filters / depth caps are
+// applied by the caller before this runs; this is purely the
+// pileup+format stage.  Columns are emitted for [emit_beg, emit_end)
+// only (window ownership); reads may extend beyond (halo).
+
+namespace {
+
+struct TextBuf {
+  uint8_t* p = nullptr;
+  int64_t len = 0, cap = 0;
+  bool grow(int64_t need) {
+    if (len + need <= cap) return true;
+    int64_t nc = cap ? cap * 2 : (1 << 20);
+    while (nc < len + need) nc *= 2;
+    uint8_t* np_ = (uint8_t*)realloc(p, (size_t)nc);
+    if (!np_) return false;
+    p = np_;
+    cap = nc;
+    return true;
+  }
+  inline void put(uint8_t c) { p[len++] = c; }
+  inline void put_bytes(const void* s, int64_t n) {
+    std::memcpy(p + len, s, (size_t)n);
+    len += n;
+  }
+  inline void put_u64(uint64_t v) {
+    char tmp[20];
+    int k = 0;
+    do {
+      tmp[k++] = (char)('0' + v % 10);
+      v /= 10;
+    } while (v);
+    while (k) p[len++] = (uint8_t)tmp[--k];
+  }
+};
+
+// display char tables: nt16 code (0 = ref match -> '.'/',')
+static const char kSeqUC[16] = {'.', 'A', 'C', 'M', 'G', 'R', 'S', 'V',
+                                'T', 'W', 'Y', 'H', 'K', 'D', 'B', 'N'};
+static const char kSeqLC[16] = {',', 'a', 'c', 'm', 'g', 'r', 's', 'v',
+                                't', 'w', 'y', 'h', 'k', 'd', 'b', 'n'};
+// raw nt16 -> base letter (insertion strings; 0 = '=')
+static const char kNt16Chr[16] = {'=', 'A', 'C', 'M', 'G', 'R', 'S', 'V',
+                                  'T', 'W', 'Y', 'H', 'K', 'D', 'B', 'N'};
+
+// ASCII base -> nt16 code (the SAM text parser table)
+static int8_t kAscNt16[256];
+static bool init_asc_nt16() {
+  const char* s = "=ACMGRSVTWYHKDBN";
+  for (int i = 0; i < 256; ++i) kAscNt16[i] = 15;
+  for (int i = 0; i < 16; ++i) {
+    kAscNt16[(uint8_t)s[i]] = (int8_t)i;
+    kAscNt16[(uint8_t)(s[i] | 32)] = (int8_t)i;
+  }
+  return true;
+}
+static const bool kAscInit = init_asc_nt16();
+
+static inline char lower_ascii(char c) {
+  return (c >= 'A' && c <= 'Z') ? (char)(c | 32) : c;
+}
+static inline char upper_ascii(char c) {
+  return (c >= 'a' && c <= 'z') ? (char)(c & ~32) : c;
+}
+
+// per-entry slot payload
+struct PlSlot {
+  uint8_t ch;      // display char
+  uint8_t qch;     // qual char
+  uint8_t bits;    // 1 pass, 2 head, 4 tail
+  uint8_t mqch;    // ^ marker qual char
+  uint32_t piece;  // index+1 into the special piece table, 0 = plain
+};
+
+static inline bool is_entry_op(uint32_t op) {
+  return op == 0 || op == 7 || op == 8 || op == 2 || op == 3;
+}
+
+}  // namespace
+
+extern "C" {
+
+void samtpu_buf_free(uint8_t* p) { free(p); }
+
+int64_t samtpu_mpileup_text(
+    const int64_t* pos, int64_t n, const uint16_t* flag,
+    const uint8_t* mapq, const uint32_t* cigar, const int64_t* cigar_off,
+    const uint8_t* seq, const uint8_t* qual, const int64_t* seq_off,
+    const uint8_t* ref, int64_t ref_len, const uint8_t* name,
+    int64_t name_len, int64_t emit_beg, int64_t emit_end, int all_mode,
+    const uint8_t* bedmask, int min_baseq, int rev_del, int no_ends,
+    int no_ins, int no_del, uint8_t** out, int64_t* out_len) {
+  (void)kAscInit;
+  if (emit_end < emit_beg) return -1;
+  const int64_t W = emit_end - emit_beg;
+  std::vector<int32_t> cnt((size_t)W + 1, 0);
+  // ---- pass 1: count entries per column
+  for (int64_t r = 0; r < n; ++r) {
+    int64_t x = pos[r];
+    for (int64_t c = cigar_off[r]; c < cigar_off[r + 1]; ++c) {
+      uint32_t op = cigar[c] & 0xF;
+      int64_t ln = cigar[c] >> 4;
+      if (is_entry_op(op)) {
+        int64_t lo = x > emit_beg ? x : emit_beg;
+        int64_t hi = x + ln < emit_end ? x + ln : emit_end;
+        for (int64_t p2 = lo; p2 < hi; ++p2)
+          cnt[(size_t)(p2 - emit_beg)]++;
+        x += ln;
+      }
+    }
+  }
+  std::vector<int64_t> col_off((size_t)W + 1);
+  int64_t tot = 0;
+  for (int64_t i = 0; i < W; ++i) {
+    col_off[(size_t)i] = tot;
+    tot += cnt[(size_t)i];
+    cnt[(size_t)i] = 0;  // becomes the running cursor in pass 2
+  }
+  col_off[(size_t)W] = tot;
+  std::vector<PlSlot> slots((size_t)tot);
+  std::vector<uint8_t> arena;  // special piece bytes
+  std::vector<int64_t> arena_off(1, 0);
+
+  // ---- pass 2: scatter entries (walk order == arrival order per column)
+  for (int64_t r = 0; r < n; ++r) {
+    const int64_t c0 = cigar_off[r], c1 = cigar_off[r + 1];
+    const int64_t lq = seq_off[r + 1] - seq_off[r];
+    const uint8_t* sq = seq + seq_off[r];
+    const uint8_t* qu = qual + seq_off[r];
+    const bool rev = (flag[r] & 16) != 0;
+    int64_t endp = pos[r];
+    for (int64_t c = c0; c < c1; ++c)
+      if (is_entry_op(cigar[c] & 0xF)) endp += cigar[c] >> 4;
+    const uint8_t mqch =
+        (uint8_t)(mapq[r] + 33 < 126 ? mapq[r] + 33 : 126);
+    int64_t x = pos[r], y = 0;
+    for (int64_t c = c0; c < c1; ++c) {
+      uint32_t op = cigar[c] & 0xF;
+      int64_t ln = cigar[c] >> 4;
+      if (!is_entry_op(op)) {
+        if (op == 1 || op == 4) y += ln;  // I/S consume query
+        continue;
+      }
+      bool is_m = (op == 0 || op == 7 || op == 8);
+      int64_t last_slot = -1;  // slot of this op's final entry
+      for (int64_t j = 0; j < ln; ++j) {
+        int64_t p2 = x + j;
+        if (p2 < emit_beg || p2 >= emit_end) continue;
+        int64_t qp = is_m ? y + j : y;  // frozen at op start in D/N
+        int64_t rel = p2 - emit_beg;
+        int64_t slot = col_off[(size_t)rel] + cnt[(size_t)rel]++;
+        PlSlot& S = slots[(size_t)slot];
+        int code = (qp < lq) ? sq[qp] : 15;
+        int qv = (qp < lq) ? qu[qp] : 0;
+        uint8_t ch;
+        if (!is_m) {
+          ch = (op == 3) ? (rev ? '<' : '>')
+                         : ((rev && rev_del) ? '#' : '*');
+        } else {
+          if (ref) {
+            int rb = (p2 < ref_len) ? kAscNt16[ref[p2]] : 15;
+            if (code == rb) code = 0;
+          }
+          ch = (uint8_t)(rev ? kSeqLC[code] : kSeqUC[code]);
+        }
+        S.ch = ch;
+        S.qch = (uint8_t)(qv + 33 < 126 ? qv + 33 : 126);
+        S.mqch = mqch;
+        S.piece = 0;
+        uint8_t bits = 0;
+        if (qv >= min_baseq) bits |= 1;
+        if (p2 == pos[r] && !no_ends) bits |= 2;
+        if (p2 == endp - 1 && !no_ends) bits |= 4;
+        S.bits = bits;
+        if (j == ln - 1) last_slot = slot;
+      }
+      int64_t y_after = is_m ? y + ln : y;
+      int64_t x_after = x + ln;
+      // ---- indel annotation for the run after this op
+      // (pileup.py build_pileup run-scan: next entry op is q; the run
+      // between collects I bases and P pads, terminated by S/H; a run
+      // with I -> insertion string (+ del_after if op[q] is D); an
+      // empty or ins-less run before a D -> plain deletion)
+      int64_t qn = c + 1;
+      while (qn < c1 && !is_entry_op(cigar[qn] & 0xF)) ++qn;
+      bool has_ins = false;
+      std::string insstr;
+      {
+        int64_t yy = y_after;
+        for (int64_t k = c + 1; k < qn; ++k) {
+          uint32_t o2 = cigar[k] & 0xF;
+          int64_t l2 = cigar[k] >> 4;
+          if (o2 == 1) {  // I
+            has_ins = true;
+            int64_t avail = lq - yy > 0 ? lq - yy : 0;
+            int64_t take = l2 < avail ? l2 : avail;
+            if (take > 0)
+              for (int64_t t2 = 0; t2 < take; ++t2)
+                insstr.push_back(kNt16Chr[sq[yy + t2] & 0xF]);
+            else
+              insstr.append((size_t)l2, 'N');
+            yy += l2;
+          } else if (o2 == 6) {  // P
+            insstr.append((size_t)l2, '*');
+          } else {  // S/H terminate the ins/pad scan
+            break;
+          }
+        }
+      }
+      int64_t del_after =
+          (qn < c1 && (cigar[qn] & 0xF) == 2) ? (cigar[qn] >> 4) : 0;
+      bool annotate = has_ins || del_after > 0;
+      int64_t lastp = x_after - 1;
+      if (annotate && ln > 0 && last_slot >= 0 && lastp >= emit_beg &&
+          lastp < emit_end) {
+        PlSlot& A = slots[(size_t)last_slot];
+        std::string s2;
+        if (A.bits & 2) {
+          s2.push_back('^');
+          s2.push_back((char)A.mqch);
+        }
+        s2.push_back((char)A.ch);
+        if (has_ins) {
+          if (no_ins < 2) {
+            s2.push_back('+');
+            s2 += std::to_string(insstr.size());
+          }
+          if (!no_ins) {
+            for (char cc : insstr) {
+              if (cc == '*')
+                s2.push_back((rev && rev_del) ? '#' : '*');
+              else
+                s2.push_back(rev ? lower_ascii(cc) : cc);
+            }
+          }
+        }
+        if (del_after > 0) {
+          if (no_del < 2) {
+            s2.push_back('-');
+            s2 += std::to_string(del_after);
+          }
+          if (!no_del) {
+            // deleted reference bases start right after the anchor
+            for (int64_t j2 = 0; j2 < del_after; ++j2) {
+              int64_t pj = x_after + j2;
+              char rc = (ref && pj < ref_len) ? (char)ref[pj] : 'N';
+              s2.push_back(rev ? lower_ascii(rc) : upper_ascii(rc));
+            }
+          }
+        }
+        if (A.bits & 4) s2.push_back('$');
+        arena.insert(arena.end(), s2.begin(), s2.end());
+        arena_off.push_back((int64_t)arena.size());
+        A.piece = (uint32_t)(arena_off.size() - 1);
+      }
+      x = x_after;
+      y = y_after;
+    }
+  }
+
+  // ---- pass 3: emit rows
+  TextBuf tb;
+  for (int64_t rel = 0; rel < W; ++rel) {
+    int64_t lo = col_off[(size_t)rel], hi = col_off[(size_t)rel + 1];
+    if (lo == hi && !all_mode) continue;
+    if (bedmask && !bedmask[rel]) continue;
+    int64_t p2 = emit_beg + rel;
+    int64_t npass = 0, pbytes = 0;
+    for (int64_t s = lo; s < hi; ++s) {
+      const PlSlot& S = slots[(size_t)s];
+      if (!(S.bits & 1)) continue;
+      ++npass;
+      if (S.piece)
+        pbytes += arena_off[S.piece] - arena_off[S.piece - 1];
+      else
+        pbytes += 1 + ((S.bits & 2) ? 2 : 0) + ((S.bits & 4) ? 1 : 0);
+    }
+    if (!tb.grow(name_len + 64 + pbytes + npass)) {
+      free(tb.p);
+      return -1;
+    }
+    tb.put_bytes(name, name_len);
+    tb.put('\t');
+    tb.put_u64((uint64_t)(p2 + 1));
+    tb.put('\t');
+    tb.put((ref && p2 < ref_len) ? ref[p2] : (uint8_t)'N');
+    tb.put('\t');
+    tb.put_u64((uint64_t)npass);
+    tb.put('\t');
+    if (npass == 0) {
+      tb.put('*');
+      tb.put('\t');
+      tb.put('*');
+    } else {
+      for (int64_t s = lo; s < hi; ++s) {
+        const PlSlot& S = slots[(size_t)s];
+        if (!(S.bits & 1)) continue;
+        if (S.piece) {
+          tb.put_bytes(arena.data() + arena_off[S.piece - 1],
+                       arena_off[S.piece] - arena_off[S.piece - 1]);
+        } else {
+          if (S.bits & 2) {
+            tb.put('^');
+            tb.put(S.mqch);
+          }
+          tb.put(S.ch);
+          if (S.bits & 4) tb.put('$');
+        }
+      }
+      tb.put('\t');
+      for (int64_t s = lo; s < hi; ++s) {
+        const PlSlot& S = slots[(size_t)s];
+        if (S.bits & 1) tb.put(S.qch);
+      }
+    }
+    tb.put('\n');
+  }
+  if (!tb.p) {
+    // zero rows: hand back a valid empty buffer
+    tb.grow(1);
+    tb.len = 0;
+  }
+  *out = tb.p;
+  *out_len = tb.len;
+  return tb.len;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Ragged row gather: out[k] slice = flat[off[rows[k]] : off[rows[k]+1]].
+// The columnar take() operation's hot path — per-row memcpy avoids
+// materializing index arrays as large as the payload (a cumsum-built
+// gather index costs two extra full passes at numpy speed).
+// itemsize-agnostic: offsets count ITEMS, copies are bytes.
+
+extern "C" {
+
+int64_t samtpu_ragged_gather(const uint8_t* flat, const int64_t* off,
+                             const int64_t* rows, int64_t m,
+                             const int64_t* out_off, uint8_t* out,
+                             int64_t itemsize, int threads) {
+  auto work = [&](int64_t lo, int64_t hi) {
+    for (int64_t k = lo; k < hi; ++k) {
+      int64_t r = rows[k];
+      int64_t s = off[r] * itemsize;
+      int64_t nbytes = (off[r + 1] - off[r]) * itemsize;
+      if (nbytes > 0) std::memcpy(out + out_off[k] * itemsize, flat + s,
+                                  (size_t)nbytes);
+    }
+  };
+  int nt = threads > 1 ? threads : 1;
+  if (nt <= 1 || m < (1 << 16)) {
+    work(0, m);
+    return m;
+  }
+  std::vector<std::thread> ws;
+  int64_t per = (m + nt - 1) / nt;
+  for (int t = 0; t < nt; ++t) {
+    int64_t lo = t * per, hi = lo + per < m ? lo + per : m;
+    if (lo >= hi) break;
+    ws.emplace_back([&, lo, hi] { work(lo, hi); });
+  }
+  for (auto& w : ws) w.join();
+  return m;
+}
+
+}  // extern "C"

@@ -15,8 +15,16 @@ reads the f32 HMM flags ``risky`` go through the f64 host HMM and a host
 census, merged at the end; the census equals the single-core f64 oracle
 (``io.native.bench_baq_census``) exactly.
 
-The tool engine (``begin_window``/``finish_window``/``apply_window``)
-and its sparse qual-delta drain are not part of this module yet.
+Two consumers (as in the JAX package):
+
+* ``add_batch`` -- the census core: BAQ'd quals never leave the device;
+  only the risky flags and the final census do.
+* ``begin_window``/``finish_window``/``apply_window`` -- the mpileup
+  tool's engine: the text must print the BAQ'd quals, so each chunk also
+  compacts the quals BAQ changed into a fixed-capacity sparse list
+  (count, flat index, value) on the device, without a host sync, and the
+  host fetches those and writes them into the window's reads; the census
+  of the window's owned columns rides along for ``--census-out``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core import flags as F
+from ..core.aux import has_tag
 from ..core.batch import ragged_gather_indices
 from ..device import resolve
 from ..io import native
@@ -47,6 +56,7 @@ HDR = 48           # per-read buffer header bytes (pos|lead|lref|bM|bI|cig8)
 _BIGC = 1 << 20    # expected-diagonal sentinel for non-M bases
 NATIVE_CLASSIFY_MIN = 4096   # reads from which classify_reads goes native
 HOST_THREADS = max(1, min(8, os.cpu_count() or 1))
+_DUMP = 1024       # dump slots behind the sparse qual-delta list
 
 
 def classify_reads_np(b, sel: np.ndarray, l_query: int, ref_len: int,
@@ -139,25 +149,57 @@ def _expand_m_events(pos, cigar, cigar_off, seq_off):
 
 
 def _host_census(census, qsum, pos, cigar, cigar_off, seq4, qual, seq_off,
-                 ref_int, min_baseq, baq_flag, base=0, threads=2):
+                 ref_int, min_baseq, baq_flag, base=0, threads=2,
+                 gate_lo=0, gate_hi=None, newq=None):
     """Host path: f64 BAQ (host library) + census accumulate for the reads
     the device path routes away; any cigar.  ``census``/``qsum`` are
-    indexed relative to ``base``."""
+    indexed relative to ``base``; bases outside [gate_lo, gate_hi)
+    (relative) belong to another window.  ``newq``: quals already BAQ'd."""
     if pos.size == 0:
         return
-    if baq_flag:
+    if newq is None and baq_flag:
         newq, _ = native.baq_batch(pos, cigar, cigar_off,
                                    seq4_to_nt16(seq4), qual, seq_off,
                                    ref_int, flag=baq_flag, threads=threads)
-    else:
+    elif newq is None:
         newq = qual
     rp, qoff = _expand_m_events(pos, cigar, cigar_off, seq_off)
     rp = rp - base
     q = newq[qoff]
-    ok = (q >= min_baseq) & (rp >= 0) & (rp < qsum.size)
+    hi = qsum.size if gate_hi is None else min(gate_hi, qsum.size)
+    ok = (q >= min_baseq) & (rp >= max(gate_lo, 0)) & (rp < hi)
     rp, qoff, q = rp[ok], qoff[ok], q[ok]
     np.add.at(census, (rp, seq4[qoff].astype(np.int64)), 1)
     np.add.at(qsum, rp, q.astype(np.int64))
+
+
+def stored_baq_tags(b, rows: np.ndarray | None = None) -> bool:
+    """Does any read of ``b`` (or of its ``rows``) carry a BQ or ZQ tag?
+    A byte search over the aux column first; only a hit walks the tags."""
+    raw = b.aux.tobytes()
+    if b"BQZ" not in raw and b"ZQZ" not in raw:
+        return False
+    return any(has_tag(b.aux_of(i), b"BQ") or has_tag(b.aux_of(i), b"ZQ")
+               for i in (range(b.n) if rows is None else rows.tolist()))
+
+
+def qual_deltas(appq: torch.Tensor, qq: torch.Tensor, cap: int):
+    """The quals BAQ changed, compacted on the device without a host
+    sync: (dcount int32 scalar, didx int32[cap] flat index into [C, LQ],
+    dval uint8[cap] new qual), in flat order.  Past dcount, didx is 0
+    and dval its qual; when dcount exceeds ``cap``, the list holds the
+    first ``cap``.  Each changed qual's slot is its rank (a cumsum);
+    unchanged quals and those past the capacity are scattered into a dump
+    region behind the list, spread so no one address takes them all."""
+    flat = (appq != qq).reshape(-1)
+    n = flat.numel()
+    rank = torch.cumsum(flat, 0, dtype=torch.int32) - 1
+    ar = torch.arange(n, dtype=torch.int32, device=flat.device)
+    slot = torch.where(flat & (rank < cap), rank, cap + (ar & (_DUMP - 1)))
+    didx = torch.zeros(cap + _DUMP, dtype=torch.int32, device=flat.device)
+    didx.scatter_(0, slot.long(), ar)
+    didx = didx[:cap]
+    return rank[-1] + 1, didx, appq.reshape(-1)[didx.long()]
 
 
 def census_checksum(census: np.ndarray, qsum: np.ndarray):
@@ -206,12 +248,14 @@ class DeviceCensusPipeline:
     """Accumulates the BAQ'd base census of one window [base, base+wlen)
     of contig ``ref_int`` (0-4 codes) on the device across streamed
     batches.  ``device=None`` means the CUDA card; ``device="cpu"`` runs
-    the plain PyTorch versions of the kernels."""
+    the plain PyTorch versions of the kernels.  ``ref_dev``: the contig's
+    codes already on the device (the tool uploads a contig once, not once
+    per window)."""
 
     def __init__(self, ref_int: np.ndarray, wlen: int, min_baseq: int = 13,
                  baq_flag: int = 3, tile: int = 256, bw: int = 7,
                  l_query: int = 100, chunk_reads: int = 1 << 16,
-                 base: int = 0, device=None):
+                 base: int = 0, device=None, ref_dev=None):
         self.device = resolve(device)
         self.ref_int = np.ascontiguousarray(ref_int, np.uint8)
         self.wlen = wlen
@@ -226,7 +270,12 @@ class DeviceCensusPipeline:
         self.total_tiles = max(padded_tiles(self.n_tiles), 512)
         self.census_dev = torch.zeros(self.total_tiles * tile, CENSUS_K,
                                       dtype=torch.int32, device=self.device)
-        self.ref_dev = torch.from_numpy(self.ref_int).to(self.device)
+        if ref_dev is None:
+            ref_dev = torch.from_numpy(self.ref_int).to(self.device)
+        elif ref_dev.device.type != self.device.type \
+                or ref_dev.numel() != self.ref_int.size:
+            raise ValueError("ref_dev must hold the contig on the device")
+        self.ref_dev = ref_dev
         self._nt16_to4 = torch.from_numpy(NT16_TO4).to(self.device)
         self.host_census = np.zeros((wlen, 5), np.int64)
         self.host_qsum = np.zeros(wlen, np.int64)
@@ -347,9 +396,13 @@ class DeviceCensusPipeline:
             refpos=xb[:, None] + qi[None, :] + cdelta)
 
     def _chunk_step(self, buf, lo, hi, wbeg: int, ntp: int,
-                    gate_lo: int, gate_hi: int) -> torch.Tensor:
+                    gate_lo: int, gate_hi: int, collect: bool = False):
         """Device work of one chunk; adds into the resident census and
-        returns the chunk's risky mask (bool[n], still on the device)."""
+        returns the chunk's risky mask (bool[n], still on the device).
+        With ``collect`` (the tool), returns (risky, appq, dcount, didx,
+        dval): the applied quals and their sparse deltas
+        (``qual_deltas`` at capacity n * l_query / 16), all on the
+        device."""
         LQ = self.l_query
         x = self._expand(buf)
         bq, good, risky = baq_hmm(x["ref_win"], x["sq"], x["qq"], x["cdT"],
@@ -363,7 +416,10 @@ class DeviceCensusPipeline:
                        self.base, gate_lo, gate_hi, self.min_baseq, lo, hi,
                        wbeg, self.tile,
                        self.census_dev[wbeg:wbeg + ntp * self.tile])
-        return risky
+        if not collect:
+            return risky
+        return (risky, appq,
+                *qual_deltas(appq, x["qq"], appq.numel() // 16))
 
     # ------------------------------------------------------------------
     def add_batch(self, batch, excl_flags: int = DEFAULT_EXCL,
@@ -406,6 +462,123 @@ class DeviceCensusPipeline:
         self._pending = (risky_parts, b, dsel)
         if prev is not None:
             self._drain(prev)
+
+    # ------------------------------------------------------------------
+    def begin_window(self, sub, gate_lo: int, gate_hi: int):
+        """Tool engine, launch half: classify one prepared window's reads
+        and launch the chunk steps of those the device takes (no host
+        sync).  The census counts the owned columns [gate_lo, gate_hi)
+        (absolute).  Returns the handle ``finish_window`` takes."""
+        z = np.zeros(0, np.int64)
+        if sub.n == 0:
+            return (sub, z, [], gate_lo, gate_hi, z)
+        self.n_reads += sub.n
+        elig, lead, lref, cig8 = classify_reads(
+            sub, np.arange(sub.n, dtype=np.int64), self.l_query,
+            self.ref_int.size, self.bw)
+        if elig.any() and stored_baq_tags(sub):
+            elig[:] = False        # tag conversions are the host's
+        dsel = np.nonzero(elig)[0]
+        handles = []
+        if dsel.size:
+            seqm, qual = self._gather_rows(sub, dsel)
+            if int(qual.max()) > 127:
+                # the census adds applied quals as int8 weights
+                ok = qual.max(1) <= 127
+                elig[dsel[~ok]] = False
+                dsel, seqm, qual = dsel[ok], seqm[ok], qual[ok]
+            pos = sub.pos[dsel].astype(np.int64)
+            lead, lref, cig8 = lead[dsel], lref[dsel], cig8[dsel]
+            for lo in range(0, dsel.size, self.chunk):
+                hi = min(lo + self.chunk, dsel.size)
+                buf = self._make_buf(pos, lead, lref, cig8, seqm, qual, lo,
+                                     hi)
+                plo, phi, wbeg, ntp = self._plan(pos[lo:hi] - self.base)
+                handles.append((*self._chunk_step(
+                    self._h2d(buf), self._h2d(plo), self._h2d(phi), wbeg,
+                    ntp, gate_lo - self.base, gate_hi - self.base,
+                    collect=True), lo, hi - lo))
+        return (sub, dsel, handles, gate_lo, gate_hi,
+                np.nonzero(~elig)[0])
+
+    def finish_window(self, handle, threads: int = HOST_THREADS) -> int:
+        """Tool engine, fetch half: wait for the window's device work,
+        write the BAQ'd quals into ``sub.qual``, and BAQ the risky and
+        ineligible reads on the host (their window-gated census rides
+        along).  Returns the number of host-path reads."""
+        sub, dsel, handles, gate_lo, gate_hi, hsel = handle
+        host_rows = [hsel]
+        if handles:
+            LQ = self.l_query
+            # one fetch of every chunk's risky mask and delta count, then
+            # each chunk's delta slice
+            rk_all = torch.cat([h[0] for h in handles]).cpu().numpy()
+            counts = torch.stack([h[2] for h in handles]).cpu().numpy()
+            for (_, appq, _, didx, dval, lo, cn), cnt in zip(
+                    handles, counts.tolist()):
+                rk = rk_all[lo:lo + cn]
+                rows = dsel[lo:lo + cn]
+                # risky reads are recomputed whole on the host from their
+                # original quals: no delta may touch them
+                if cnt <= didx.numel():
+                    di = didx[:cnt].cpu().numpy().astype(np.int64)
+                    dv = dval[:cnt].cpu().numpy()
+                    ri, qp = di // LQ, di % LQ
+                    keep = ~rk[ri]
+                    sub.qual[sub.seq_off[rows[ri[keep]]] + qp[keep]] = \
+                        dv[keep]
+                elif not rk.all():
+                    # over capacity: fetch that chunk's non-risky rows
+                    okr = np.nonzero(~rk)[0]
+                    aq = appq[torch.from_numpy(okr).to(appq.device)]
+                    idx2 = sub.seq_off[rows[okr]][:, None] + np.arange(LQ)
+                    sub.qual[idx2.ravel()] = aq.cpu().numpy().ravel()
+                if rk.any():
+                    self.n_risky += int(rk.sum())
+                    host_rows.append(rows[rk])
+        hr = np.sort(np.concatenate(host_rows))
+        if hr.size:
+            self._host_apply(sub, hr, gate_lo, gate_hi, threads)
+        self.n_host_reads += hr.size
+        return int(hr.size)
+
+    def apply_window(self, sub, gate_lo: int, gate_hi: int,
+                     threads: int = HOST_THREADS) -> int:
+        """BAQ every read of a prepared window in place (device chunks for
+        the eligible reads, the host HMM for the rest) and count the
+        census of the owned columns [gate_lo, gate_hi).  The census holds
+        post-filter, pre-overlap-tweak quals (the sam_prob_realn stage)."""
+        return self.finish_window(self.begin_window(sub, gate_lo, gate_hi),
+                                  threads)
+
+    def _host_apply(self, sub, rows, gate_lo, gate_hi, threads):
+        """Host BAQ in place + window-gated host census of the host-routed
+        reads of one window."""
+        clens = sub.cigar_off[rows + 1] - sub.cigar_off[rows]
+        coff = np.zeros(rows.size + 1, np.int64)
+        np.cumsum(clens, out=coff[1:])
+        cig = sub.cigar[ragged_gather_indices(sub.cigar_off[rows], clens)]
+        slens = sub.seq_off[rows + 1] - sub.seq_off[rows]
+        soff = np.zeros(rows.size + 1, np.int64)
+        np.cumsum(slens, out=soff[1:])
+        gidx = ragged_gather_indices(sub.seq_off[rows], slens)
+        seq_nt16 = sub.seq[gidx]
+        spos = sub.pos[rows].astype(np.int64)
+        newq = sub.qual[gidx]
+        if self.baq_flag:
+            if stored_baq_tags(sub, rows):
+                raise NotImplementedError(
+                    "BAQ tag conversion (stored BQ/ZQ tags) is not ported "
+                    "yet")
+            newq, _ = native.baq_batch(spos, cig, coff, seq_nt16, newq,
+                                       soff, self.ref_int, flag=3,
+                                       threads=threads)
+            sub.qual[gidx] = newq
+        _host_census(self.host_census, self.host_qsum, spos, cig, coff,
+                     NT16_TO4[seq_nt16], newq, soff, self.ref_int,
+                     self.min_baseq, 0, base=self.base,
+                     gate_lo=gate_lo - self.base,
+                     gate_hi=gate_hi - self.base, newq=newq)
 
     def _drain(self, pending):
         risky_parts, b, dsel = pending

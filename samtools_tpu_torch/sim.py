@@ -141,3 +141,60 @@ def simulate_messy(b: ReadBatch, seed: int) -> ReadBatch:
     b.cigar = cig
     b.cigar_off = off
     return b
+
+
+def simulate_overlapping_pairs(ref_len: int, coverage: float = 30.0,
+                               read_len: int = 100, seed: int = 42,
+                               err_rate: float = 0.01,
+                               ref: np.ndarray | None = None) -> ReadBatch:
+    """Coordinate-sorted properly paired reads whose mates overlap: each
+    second mate starts 20-80 bp after its first mate, on the reverse
+    strand, with the same qname ("pNNN") and flags 0x1|0x2|0x40 (first,
+    with 0x20) or 0x1|0x2|0x80|0x10 (second); then ``simulate_messy``'s
+    indels and soft clips.  Copies of ``ref`` (or random bases if None)
+    with ``err_rate`` random substitutions."""
+    rng = np.random.RandomState(seed)
+    n_pairs = int(ref_len * coverage / read_len) // 2
+    first = np.sort(rng.randint(0, ref_len - read_len - 80, n_pairs))
+    second = first + rng.randint(20, 81, n_pairs)
+    pos = np.concatenate([first, second]).astype(np.int64)
+    mate = np.concatenate([second, first]).astype(np.int64)
+    is_first = np.arange(2 * n_pairs) < n_pairs
+    pair_id = np.concatenate([np.arange(n_pairs)] * 2)
+    order = np.argsort(pos, kind="stable")
+    pos, mate, is_first, pair_id = (pos[order], mate[order], is_first[order],
+                                    pair_id[order])
+    n = pos.size
+
+    b = ReadBatch(n=n)
+    b.tid = np.zeros(n, np.int32)
+    b.pos = pos
+    b.mapq = rng.randint(20, 60, n).astype(np.uint8)
+    b.flag = np.where(is_first, 0x1 | 0x2 | 0x40 | 0x20,
+                      0x1 | 0x2 | 0x80 | 0x10).astype(np.uint16)
+    b.mtid = np.zeros(n, np.int32)
+    b.mpos = mate
+    b.tlen = np.where(is_first, mate - pos + read_len,
+                      -(pos - mate + read_len))
+    width = len(str(max(n_pairs - 1, 1)))
+    mat = np.empty((n, 1 + width), np.uint8)
+    mat[:, 0] = ord("p")
+    v = pair_id.copy()
+    for d in range(width, 0, -1):
+        mat[:, d] = 48 + (v % 10)
+        v //= 10
+    b.qname = mat.ravel()
+    b.qname_off = np.arange(0, n * (1 + width) + 1, 1 + width, dtype=np.int64)
+    if ref is None:
+        codes = _ACGT16[rng.randint(0, 4, n * read_len)]
+    else:
+        lut = np.zeros(256, np.uint8)
+        lut[np.frombuffer(b"ACGT", np.uint8)] = _ACGT16
+        codes = lut[ref[(pos[:, None] + np.arange(read_len)).ravel()]]
+    errs = rng.rand(codes.size) < err_rate
+    codes[errs] = _ACGT16[rng.randint(0, 4, int(errs.sum()))]
+    b.seq = codes
+    b.seq_off = np.arange(0, n * read_len + 1, read_len, dtype=np.int64)
+    b.qual = rng.randint(2, 41, n * read_len).astype(np.uint8)
+    b.aux_off = np.zeros(n + 1, np.int64)
+    return simulate_messy(b, seed)

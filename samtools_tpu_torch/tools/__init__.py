@@ -1,0 +1,19 @@
+"""Subcommand registry of the port (samtools' bamtk.c dispatch table):
+the commands ported so far."""
+
+from __future__ import annotations
+
+import importlib
+
+# subcommand -> (module, function), imported when the command runs
+COMMANDS = {
+    "mpileup": ("samtools_tpu_torch.tools.mpileup_cmd", "main_mpileup"),
+}
+
+
+def run_command(name: str, argv: list[str], device=None) -> int:
+    """Run one subcommand; ``device`` as the port's entry points take it
+    (None: the CUDA card)."""
+    mod_name, fn_name = COMMANDS[name]
+    return getattr(importlib.import_module(mod_name), fn_name)(
+        argv, device=device)

@@ -1,0 +1,111 @@
+"""Shared command-line plumbing of the port's subcommands.
+
+Counterpart of samtools_tpu/tools/common.py (:17-123); samtools' analogs
+are sam_opts.c (the global long options every tool accepts) and
+sam_utils.c (print_error / print_error_errno).
+"""
+
+from __future__ import annotations
+
+import getopt
+import os
+import sys
+from dataclasses import dataclass, field
+
+
+def print_error(subcommand: str, fmt: str, *args):
+    """One stderr message in samtools' format."""
+    sys.stdout.flush()
+    msg = (fmt % args) if args else fmt
+    if subcommand:
+        sys.stderr.write(f"samtools {subcommand}: {msg}\n")
+    else:
+        sys.stderr.write(f"samtools: {msg}\n")
+    sys.stderr.flush()
+
+
+def print_error_errno(subcommand: str, fmt: str, *args,
+                      exc: OSError | None = None):
+    extra = os.strerror(exc.errno) if exc is not None and exc.errno else None
+    msg = (fmt % args) if args else fmt
+    if extra:
+        print_error(subcommand, "%s: %s", msg, extra)
+    else:
+        print_error(subcommand, "%s", msg)
+
+
+@dataclass
+class GlobalArgs:
+    """Parsed global options (samtools' sam_global_args)."""
+    in_fmt: str | None = None
+    in_opts: dict = field(default_factory=dict)
+    out_fmt: str | None = None
+    out_opts: dict = field(default_factory=dict)
+    reference: str | None = None
+    nthreads: int = 0
+    write_index: bool = False
+    verbosity: int = 3
+
+
+# long options every tool accepts (samtools' SAM_OPT_GLOBAL_OPTIONS)
+GLOBAL_LONG_OPTS = [
+    "input-fmt=", "input-fmt-option=", "output-fmt=", "output-fmt-option=",
+    "reference=", "threads=", "write-index", "verbosity=",
+]
+
+
+def _parse_fmt(val: str) -> tuple[str, dict]:
+    """FORMAT[,opt[=val]]... as htslib's hts_parse_format reads it."""
+    parts = val.split(",")
+    opts = {}
+    for p in parts[1:]:
+        if "=" in p:
+            k, v = p.split("=", 1)
+            opts[k] = v
+        elif p:
+            opts[p] = "1"
+    return parts[0].lower(), opts
+
+
+def handle_global_opt(ga: GlobalArgs, opt: str, val: str,
+                      short_threads: str | None = "-@",
+                      short_outfmt: str | None = None,
+                      short_reference: str | None = None) -> bool:
+    """Apply one parsed option if it is a global one; True if it was."""
+    if opt == "--input-fmt":
+        ga.in_fmt, extra = _parse_fmt(val)
+        ga.in_opts.update(extra)
+    elif opt == "--input-fmt-option":
+        k, _, v = val.partition("=")
+        ga.in_opts[k] = v
+    elif opt == "--output-fmt" or (short_outfmt and opt == short_outfmt):
+        ga.out_fmt, extra = _parse_fmt(val)
+        ga.out_opts.update(extra)
+    elif opt == "--output-fmt-option":
+        k, _, v = val.partition("=")
+        ga.out_opts[k] = v
+    elif opt == "--reference" or (short_reference and opt == short_reference):
+        ga.reference = val
+    elif opt == "--threads" or (short_threads and opt == short_threads):
+        ga.nthreads = int(val)
+    elif opt == "--write-index":
+        ga.write_index = True
+    elif opt == "--verbosity":
+        ga.verbosity = int(val)
+    else:
+        return False
+    return True
+
+
+class UsageError(Exception):
+    pass
+
+
+def gnu_getopt(argv: list[str], shortopts: str, longopts: list[str]):
+    """getopt.gnu_getopt with samtools' error behaviour: a bad option
+    raises UsageError (the caller prints usage to stderr and exits 1)."""
+    try:
+        return getopt.gnu_getopt(argv, shortopts, longopts + GLOBAL_LONG_OPTS)
+    except getopt.GetoptError as e:
+        raise UsageError(str(e)) from None
+

@@ -1,7 +1,8 @@
-"""Where the time of the port's census core goes, on one CUDA card.
+"""Where the time of the port's census core, or of its mpileup command,
+goes on one CUDA card.
 
     python3 scripts/torch_core_profile.py [--ref-len N] [--coverage X]
-        [--messy] [--out PATH.json]
+        [--messy | --pairs] [--tool] [--out PATH.json]
 
 Simulates the bench workload (8 Mbp x 30x x 100 bp by default), writes it
 as a BAM with the port's writer, then streams it through BamStream ->
@@ -23,6 +24,17 @@ A stage the package does not have is skipped, so the script also
 profiles a tree whose pipeline has other stages (``_weights``, the
 weight build the census form of K1 took over).
 
+With ``--tool`` the runs are the mpileup command instead, in-process
+(``cli.main(["mpileup", "-f", ref.fa, in.bam, "-o", out])``, the text
+written to a file beside the BAM): one warm-up (its wall is
+``first_run_wall_s``), one timed (host seconds per tool stage, exclusive,
+in ``TOOL_STAGES``), one profiled (device busy time and idle share); then
+the command in a fresh process, plain (``fresh_process_wall_s``) and under
+cProfile (the top functions by self seconds, and the port's own by
+cumulative seconds).  ``tool_text_bytes`` is the output's size.
+``--pairs`` simulates overlapping messy pairs instead
+(``sim.simulate_overlapping_pairs``), so the overlap tweak has work.
+
 Prints one JSON object, and writes it to --out when that is given.
 """
 
@@ -31,6 +43,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pstats
+import subprocess
 import sys
 import tempfile
 import time
@@ -39,18 +53,40 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-from samtools_tpu_torch import kernels  # noqa: E402
+from samtools_tpu_torch import cli, kernels  # noqa: E402
+from samtools_tpu_torch.core.batch import ReadBatch  # noqa: E402
 from samtools_tpu_torch.io.bam import write_bam  # noqa: E402
 from samtools_tpu_torch.io.stream import BamStream  # noqa: E402
 from samtools_tpu_torch.ops import mpileup_device as md  # noqa: E402
 from samtools_tpu_torch.sim import (make_header, simulate_batch,  # noqa: E402
-                                    simulate_messy, simulate_reference)
+                                    simulate_messy,
+                                    simulate_overlapping_pairs,
+                                    simulate_reference)
+from samtools_tpu_torch.tools import mpileup_cmd  # noqa: E402
 
 STAGES = ("_gather_rows", "_make_buf", "_plan", "_h2d", "_expand",
           "_weights", "_chunk_step", "_drain", "_host_reads", "finish")
+# (owner, attribute) of each tool stage; the owner is looked up by name in
+# the tool's module namespace
+TOOL_STAGES = (("mpileup_cmd._WindowCursor", "_pull"),
+               ("mpileup_cmd._WindowCursor", "window"),
+               ("mpileup_cmd", "_read_filter"),
+               ("mpileup_cmd", "_prepare_sub"),
+               ("mpileup_cmd._DeviceBaqEngine", "run_window"),
+               ("md.DeviceCensusPipeline", "begin_window"),
+               ("md.DeviceCensusPipeline", "finish_window"),
+               ("md.DeviceCensusPipeline", "_host_apply"),
+               ("md.DeviceCensusPipeline", "_gather_rows"),
+               ("md.DeviceCensusPipeline", "_make_buf"),
+               ("md.DeviceCensusPipeline", "_chunk_step"),
+               ("md", "classify_reads"),
+               ("mpileup_cmd", "tweak_overlaps"),
+               ("mpileup_cmd.native", "mpileup_text"),
+               ("ReadBatch", "take"),
+               ("ReadBatch", "concat"))
 
 
 def annotated(name, fn):
@@ -101,12 +137,109 @@ def run(path, ref_int, ref_len, threads, timer=None):
     return pipe, time.perf_counter() - t0
 
 
+def _owner(path: str):
+    names = {"mpileup_cmd": mpileup_cmd, "md": md, "ReadBatch": ReadBatch}
+    head, *rest = path.split(".")
+    obj = names[head]
+    for r in rest:
+        obj = getattr(obj, r)
+    return obj
+
+
+def run_tool(fa, path, out):
+    t0 = time.perf_counter()
+    rc = cli.main(["mpileup", "-f", fa, path, "-o", out])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"mpileup exited {rc}")
+    return time.perf_counter() - t0
+
+
+def profile_tool(path, ref, d, n_reads):
+    """The mpileup command's warm-up, timed and profiled runs."""
+    fa = os.path.join(d, "ref.fa")
+    with open(fa, "wb") as f:
+        f.write(b">sim1\n" + b"".join(ref[i:i + 60].tobytes() + b"\n"
+                                      for i in range(0, ref.size, 60)))
+    with open(fa + ".fai", "w") as f:
+        f.write(f"sim1\t{ref.size}\t6\t60\t61\n")
+    out = os.path.join(d, "tool.pileup")
+    warm = run_tool(fa, path, out)          # warm-up: the first run
+    timer = StageTimer()
+    saved = [(_owner(o), a, getattr(_owner(o), a)) for o, a in TOOL_STAGES]
+    for obj, a, fn in saved:
+        wrapped = timer.wrap(a, fn)
+        setattr(obj, a, staticmethod(wrapped) if a == "concat" else wrapped)
+    try:
+        wall = run_tool(fa, path, out)
+    finally:
+        for obj, a, fn in saved:
+            setattr(obj, a, staticmethod(fn) if a == "concat" else fn)
+    kernels.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_prof = run_tool(fa, path, out)
+    dev = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.key] = dev.get(e.key, 0) + t / 1e6
+    busy = sum(dev.values())
+    host_total = sum(timer.acc.values())
+    # the command as a user starts it: a fresh process, once plain and
+    # once under cProfile (its top functions by cumulative time)
+    cmd = ["-m", "samtools_tpu_torch", "mpileup", "-f", fa, path, "-o", out]
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, *cmd], check=True, cwd=ROOT,
+                   stderr=subprocess.DEVNULL)
+    fresh = time.perf_counter() - t0
+    stats = os.path.join(d, "fresh.prof")
+    subprocess.run([sys.executable, "-m", "cProfile", "-o", stats, *cmd],
+                   check=True, cwd=ROOT, stderr=subprocess.DEVNULL)
+    st = pstats.Stats(stats).stats
+
+    def name(k):
+        return f"{os.path.basename(k[0])}:{k[1]}({k[2]})"
+    # self seconds of the costliest functions; cumulative seconds of the
+    # port's own
+    self_top = sorted(((v[2], name(k)) for k, v in st.items()),
+                      reverse=True)[:20]
+    port_cum = sorted(((v[3], name(k)) for k, v in st.items()
+                       if "samtools_tpu_torch" in k[0]), reverse=True)[:15]
+    return {
+        "wall_s": wall,
+        "Mbases_per_s": n_reads * 100 / wall / 1e6,
+        "first_run_wall_s": warm,
+        "fresh_process_wall_s": fresh,
+        "fresh_process_cprofile_self_s": {n: round(t, 3)
+                                          for t, n in self_top},
+        "fresh_process_cprofile_port_cumulative_s": {
+            n: round(t, 3) for t, n in port_cum},
+        "tool_text_bytes": os.path.getsize(out),
+        "host_stage_s": dict(sorted(timer.acc.items(),
+                                    key=lambda kv: -kv[1])),
+        "host_stage_sum_s": host_total,
+        "outside_stages_s": wall - host_total,
+        "profiled_wall_s": wall_prof,
+        "device_busy_s": busy if dev else "not measured",
+        "device_idle_share": 1 - busy / wall if dev else "not measured",
+        "device_top_s": dict(sorted(dev.items(), key=lambda kv: -kv[1])[:12]),
+        "launches": dict(kernels.launches),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ref-len", type=int, default=8 << 20)
     ap.add_argument("--coverage", type=float, default=30.0)
-    ap.add_argument("--messy", action="store_true")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--messy", action="store_true")
+    kind.add_argument("--pairs", action="store_true",
+                      help="overlapping messy pairs")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--tool", action="store_true",
+                    help="profile the mpileup command, not the core")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -117,9 +250,13 @@ def main() -> int:
     lut = np.full(256, 4, np.uint8)
     lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
     ref_int = lut[ref]
-    b = simulate_batch(ref_len=args.ref_len, coverage=args.coverage,
-                       read_len=100, seed=args.seed, paired=False,
-                       err_rate=0.01, ref=ref)
+    if args.pairs:
+        b = simulate_overlapping_pairs(args.ref_len, coverage=args.coverage,
+                                       seed=args.seed, ref=ref)
+    else:
+        b = simulate_batch(ref_len=args.ref_len, coverage=args.coverage,
+                           read_len=100, seed=args.seed, paired=False,
+                           err_rate=0.01, ref=ref)
     if args.messy:
         simulate_messy(b, args.seed)
     n_reads = b.n
@@ -127,6 +264,20 @@ def main() -> int:
         path = os.path.join(d, "core.bam")
         write_bam(path, make_header(args.ref_len), b, threads=threads)
         del b
+        if args.tool:
+            res = {"device": torch.cuda.get_device_name(0), "mode": "tool",
+                   "workload": {"ref_len": args.ref_len,
+                                "coverage": args.coverage,
+                                "messy": args.messy, "pairs": args.pairs,
+                                "reads": int(n_reads)},
+                   **profile_tool(path, ref, d, n_reads)}
+            if args.out:
+                os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                            exist_ok=True)
+                with open(args.out, "w") as f:
+                    json.dump(res, f, indent=1)
+            print(json.dumps(res))
+            return 0
         run(path, ref_int, args.ref_len, threads)       # warm-up
         timer = StageTimer()
         saved = {s: getattr(md.DeviceCensusPipeline, s) for s in STAGES

@@ -291,3 +291,50 @@ def test_pipeline_on_card_equals_cpu(cuda):
     assert np.array_equal(got["cpu"][0], got[None][0])
     assert np.array_equal(got["cpu"][1], got[None][1])
     assert got["cpu"][2] == got[None][2]
+
+
+@pytest.mark.parametrize("which", ["messy", "pairs"])
+def test_tool_on_card_equals_cpu(cuda, tmp_path, monkeypatch, which):
+    """``mpileup -f ref.fa in.bam`` on the card prints the CPU port's
+    bytes (messy single-end reads; overlapping messy pairs), in 16 Kbp
+    windows of ~1,000 reads and chunks of 256 reads, so halo reads and
+    several chunks per window take part; its census checksums equal too."""
+    import json
+
+    from samtools_tpu_torch import cli
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.tools import mpileup_cmd
+    L = 1 << 17
+    ref = sim.simulate_reference(L, seed=7)
+    if which == "messy":
+        b = sim.simulate_batch(ref_len=L, coverage=6.0, read_len=100, seed=3,
+                               paired=False, err_rate=0.01, ref=ref)
+        sim.simulate_messy(b, 11)
+    else:
+        b = sim.simulate_overlapping_pairs(L, coverage=6.0, ref=ref, seed=5)
+    bam, fa = str(tmp_path / "in.bam"), str(tmp_path / "ref.fa")
+    write_bam(bam, sim.make_header(L), b)
+    with open(fa, "wb") as f:
+        f.write(b">sim1\n" + b"".join(ref[i:i + 60].tobytes() + b"\n"
+                                      for i in range(0, L, 60)))
+    monkeypatch.setattr(mpileup_cmd, "WINDOW_COLS", 1 << 14)
+    init = md.DeviceCensusPipeline.__init__
+    monkeypatch.setattr(md.DeviceCensusPipeline, "__init__",
+                        lambda self, *a, **k: init(
+                            self, *a, **{**k, "chunk_reads": 256}))
+    got = {}
+    for dev in (None, "cpu"):
+        kernels.reset_launches()
+        out, cj = str(tmp_path / f"{dev}.txt"), str(tmp_path / f"{dev}.json")
+        assert cli.main(["mpileup", "-f", fa, bam, "-o", out,
+                         "--census-out", cj], device=dev) == 0
+        with open(out, "rb") as f, open(cj) as g:
+            got[dev] = (f.read(), [w["checksum"] for w in
+                                   json.load(g)["windows"]])
+        launched = dict(kernels.launches)
+        if dev is None:
+            assert launched["segment_contract"] == 0
+            assert all(launched[k] >= 24 for k in
+                       ("segment_census", "baq_hmm", "baq_finalize"))
+    assert got[None][0].count(b"\n") > L // 2
+    assert got[None] == got["cpu"]

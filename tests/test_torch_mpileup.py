@@ -1,0 +1,275 @@
+"""``python -m samtools_tpu_torch mpileup`` against ``python -m samtools_tpu
+mpileup``: the port on the CPU (the plain versions of its kernels) prints
+the JAX tool's bytes, whichever engine the JAX tool runs, whatever the
+window size; its ``--census-out`` equals the single-core f64 oracle
+window by window; its chunk step's sparse qual deltas equal the JAX chunk
+step's; the overflow path gives the same bytes; without CUDA the command
+fails before it prints a row; options not ported yet say so and exit 1."""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_tool_fixtures import (REF_LEN, REPO, make_inputs, oracle_census,
+                                 ref_codes, run_jax, run_port)
+
+from samtools_tpu.ops import mpileup_device as jmd
+from samtools_tpu_torch import cli, kernels, sim
+from samtools_tpu_torch.ops import mpileup_device as md
+from samtools_tpu_torch.tools import mpileup_cmd
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    return make_inputs(str(tmp_path_factory.mktemp("tool")))
+
+
+@pytest.fixture(scope="module")
+def jax_out(inputs):
+    """The JAX tool's default output per BAM, device engine forced."""
+    got = {}
+
+    def get(which):
+        if which not in got:
+            got[which] = run_jax(["-f", inputs["fa"], inputs[which]], "1")
+        return got[which]
+    return get
+
+
+def _census_equals_oracle(census_json, bam, ref):
+    rec = json.load(open(census_json))
+    cb, qb, nrec = oracle_census(bam, ref)
+    assert sum(w["reads_starting"] for w in rec["windows"]) == nrec
+    assert sum(w["reads"] for w in rec["windows"]) == rec["reads"] >= nrec
+    for w in rec["windows"]:
+        want = md.census_checksum(cb[w["beg"]:w["end"]].astype(np.int64),
+                                  qb[w["beg"]:w["end"]])
+        assert tuple(w["checksum"]) == want, w
+    return rec
+
+
+@pytest.mark.parametrize("which", ["messy", "pairs"])
+def test_tool_equals_jax_tool(inputs, jax_out, which):
+    bam, d = inputs[which], inputs["dir"]
+    census = os.path.join(d, f"{which}.census.json")
+    kernels.reset_launches()
+    port = run_port(["-f", inputs["fa"], bam, "--census-out", census],
+                    os.path.join(d, f"{which}.txt"))
+    assert kernels.launches == {k: 0 for k in kernels.launches}
+    assert port.count(b"\n") > REF_LEN // 2
+    assert port == jax_out(which)
+    assert port == run_jax(["-f", inputs["fa"], bam], "0")
+    rec = _census_equals_oracle(census, bam, inputs["ref"])
+    assert rec["device_windows"] == 1
+    assert 0 < rec["host_reads"] < 0.12 * rec["reads"]
+    if which == "pairs":
+        # the overlap tweak changed the text
+        assert port != run_port(["-x", "-f", inputs["fa"], bam],
+                                os.path.join(d, "pairs_x.txt"))
+
+
+@pytest.mark.parametrize("which", ["messy", "pairs"])
+def test_tool_text_does_not_depend_on_window_size(inputs, jax_out,
+                                                  monkeypatch, which):
+    """16 Kbp windows (the JAX tool keeps 1 Mbp): halo reads carried across
+    eight window edges, each window's census gated to its own columns."""
+    monkeypatch.setattr(mpileup_cmd, "WINDOW_COLS", 1 << 14)
+    bam, d = inputs[which], inputs["dir"]
+    census = os.path.join(d, f"{which}.w16k.json")
+    port = run_port(["-f", inputs["fa"], bam, "--census-out", census],
+                    os.path.join(d, f"{which}.w16k.txt"))
+    assert port == jax_out(which)
+    rec = _census_equals_oracle(census, bam, inputs["ref"])
+    assert rec["device_windows"] == len(rec["windows"]) == 8
+    assert rec["reads"] > 0
+
+
+def test_tool_overflow_path_keeps_bytes(inputs, jax_out, monkeypatch):
+    """A sparse-delta capacity of 4 overflows on every chunk: each chunk's
+    non-risky rows are fetched whole instead; the text is the same."""
+    full = md.qual_deltas
+    seen = []
+
+    def tiny(appq, qq, cap):
+        got = full(appq, qq, 4)
+        seen.append(int(got[0]))
+        return got
+    monkeypatch.setattr(md, "qual_deltas", tiny)
+    monkeypatch.setattr(md.DeviceCensusPipeline, "__init__",
+                        _small_chunks(md.DeviceCensusPipeline.__init__))
+    port = run_port(["-f", inputs["fa"], inputs["pairs"]],
+                    os.path.join(inputs["dir"], "overflow.txt"))
+    assert len(seen) > 1 and min(seen) > 4
+    assert port == jax_out("pairs")
+
+
+def _small_chunks(init):
+    def wrapped(self, *a, **k):
+        init(self, *a, **{**k, "chunk_reads": 2048})
+    return wrapped
+
+
+@pytest.mark.parametrize("messy", [False, True])
+def test_chunk_deltas_equal_jax_chunk_step(messy):
+    """The tool branch of one chunk of 512 reads: (dcount, didx, dval)
+    against the JAX chunk step's (collect_quals), as sets over the rows
+    neither flags risky.  BAQ changes ~0.5% of the clean reads' quals,
+    under the capacity (1/16); on the messy reads ~24%, so both lists
+    hold their first ``cap`` deltas only."""
+    L = 1 << 14
+    ref = sim.simulate_reference(L, seed=11)
+    ref_int = ref_codes(ref)
+    b = sim.simulate_batch(ref_len=L, coverage=4.0, read_len=100, seed=33,
+                           paired=False, err_rate=0.01, ref=ref)
+    if messy:
+        sim.simulate_messy(b, 7)
+    sel = np.arange(b.n)
+    elig, lead, lref, cig8 = md.classify_reads(b, sel, 100, L)
+    k = np.nonzero(elig)[0][:512]
+    n = k.size
+    pos = b.pos[k].astype(np.int64)
+    pipe = md.DeviceCensusPipeline(ref_int, L, device="cpu", chunk_reads=n)
+    seqm, qual = pipe._gather_rows(b, k)
+    buf = pipe._make_buf(pos, lead[k], lref[k], cig8[k], seqm, qual, 0, n)
+    lo, hi, wbeg, ntp = pipe._plan(pos)
+    risky, appq, dcount, didx, dval = pipe._chunk_step(
+        torch.from_numpy(buf), torch.from_numpy(lo), torch.from_numpy(hi),
+        wbeg, ntp, 0, L, collect=True)
+
+    jpipe = jmd.DeviceCensusPipeline(ref_int, L, chunk_reads=n)
+    jbuf, pc = jpipe._make_buf(pos, lead[k], lref[k], cig8[k], seqm, qual,
+                               0, n, n)
+    jlo, jhi, jwbeg, jntp, B, passes = jpipe._plan(pc[:n], n, n)
+    _, jrisky, jappq, jcount, jdidx, jdval = jmd._get_chunk_step()(
+        jpipe.census_dev, jpipe.ref_dev, jax.device_put(jbuf), np.int32(n),
+        jlo, jhi, jnp.int32(jwbeg), jnp.int32(0), jnp.int32(0),
+        jnp.int32(L), 100, 100 + md.LREF_PAD, 7, jntp, B, 256, 16, passes,
+        13, 1, True, False)
+    cap = n * 100 // 16
+    jdidx, jdval = np.asarray(jdidx), np.asarray(jdval)
+    assert didx.numel() == jdidx.size == cap
+    changed = (appq.numpy() != qual).reshape(-1)
+    cnt, jcnt = int(dcount), int(jcount)
+    assert cnt == changed.sum() and jcnt == (np.asarray(jappq) != qual).sum()
+    assert (cnt > cap) == messy and (jcnt > cap) == messy
+    # the list: the first changed quals in flat order, with their values
+    c, jc = min(cnt, cap), min(jcnt, cap)
+    assert np.array_equal(didx.numpy()[:c], np.nonzero(changed)[0][:c])
+    assert np.array_equal(dval.numpy()[:c],
+                          appq.reshape(-1).numpy()[didx.numpy()[:c]])
+    if not messy:
+        # past the count: index 0 and its qual, as the JAX fill
+        assert not didx[c:].any() and bool((dval[c:] == appq[0, 0]).all())
+    ok = ~(risky.numpy() | np.asarray(jrisky))
+    assert ok.sum() > 0.9 * n
+    lim = min(int(didx[c - 1]), int(jdidx[jc - 1]))
+
+    def pairs(idx, val, m):
+        idx, val = idx[:m], val[:m]
+        keep = ok[idx // 100] & (idx <= lim)
+        return set(zip(idx[keep].tolist(), val[keep].tolist()))
+    mine = pairs(didx.numpy(), dval.numpy(), c)
+    assert mine == pairs(jdidx, jdval, jc) and len(mine) > 100
+
+
+def test_tool_without_cuda_fails_before_any_row(inputs):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    p = subprocess.run([sys.executable, "-m", "samtools_tpu_torch",
+                        "mpileup", "-f", inputs["fa"], inputs["messy"]],
+                       capture_output=True, env=env, cwd=REPO, timeout=300)
+    assert p.returncode != 0
+    assert p.stdout == b""
+    assert b"CUDA" in p.stderr
+
+
+def _sam(d):
+    path = os.path.join(d, "x.sam")
+    with open(path, "w") as f:
+        f.write("@SQ\tSN:sim1\tLN:100\nr\t0\tsim1\t1\t60\t4M\t*\t0\t0\tACGT"
+                "\tIIII\n")
+    return path
+
+
+def _bq_tagged(inputs):
+    """The messy BAM with a BQ tag on its first read."""
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.io.stream import BamStream
+    with BamStream(inputs["messy"]) as st:
+        b = next(st.batches())
+        header = st.header
+    tag = b"BQZ" + b"@" * int(b.seq_off[1]) + b"\0"
+    b.aux = np.frombuffer(tag, np.uint8).copy()
+    b.aux_off = np.concatenate([[0], np.full(b.n, len(tag))]).astype(
+        np.int64)
+    path = os.path.join(inputs["dir"], "bq.bam")
+    write_bam(path, header, b)
+    return path
+
+
+NOT_PORTED = {
+    "region": (["-r", "sim1:1-100"], "-r/--region"),
+    "bam_list": (["-b", "list.txt"], "-b/--bam-list"),
+    "two_files": (["{messy}"], "several input files"),
+    "output_bp": (["-O"], "-O/--output-BP"),
+    "output_mq": (["-s"], "-s/--output-MQ"),
+    "output_mods": (["-M"], "-M/--output-mods"),
+    "output_qname": (["--output-QNAME"], "--output-QNAME"),
+    "output_extra": (["--output-extra", "FLAG"], "--output-extra"),
+    "adjust_mq": (["-C", "50"], "-C above 10"),
+    "checkpoint": (["--checkpoint", "ck.json"], "--checkpoint"),
+    "shards": ([], "SAMTPU_SHARDS"),
+    "sam_input": ([], "SAM or CRAM input"),
+    "bq_tags": ([], "BAQ tag conversion"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOT_PORTED))
+def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
+    extra, what = NOT_PORTED[case]
+    bam = inputs["messy"]
+    if case == "shards":
+        monkeypatch.setenv("SAMTPU_SHARDS", "2")
+    elif case == "sam_input":
+        bam = _sam(inputs["dir"])
+    elif case == "bq_tags":
+        bam = _bq_tagged(inputs)
+    argv = ["mpileup", "-f", inputs["fa"], bam,
+            *[a.format(**inputs) for a in extra]]
+    capfd.readouterr()
+    assert cli.main(argv, device="cpu") == 1
+    out, err = capfd.readouterr()
+    assert out == ""
+    said = [ln for ln in err.splitlines() if "not ported yet" in ln]
+    assert len(said) == 1 and what in said[0], err
+    assert all(ln.startswith("[mpileup]") for ln in err.splitlines())
+
+
+def test_window_routes_quals_above_127_to_host():
+    """K1's census form adds applied quals as int8 weights: a read with a
+    qual above 127 goes to the host HMM, and the window's census still
+    equals the host census of the same reads."""
+    L = 1 << 14
+    ref = sim.simulate_reference(L, seed=2)
+    ref_int = ref_codes(ref)
+    b = sim.simulate_batch(ref_len=L, coverage=3.0, read_len=100, seed=4,
+                           paired=False, err_rate=0.01, ref=ref)
+    b.qual[b.seq_off[5]:b.seq_off[6]] = 150
+    want = b.take(np.arange(b.n))
+    pipe = md.DeviceCensusPipeline(ref_int, L, device="cpu", chunk_reads=256)
+    handle = pipe.begin_window(b, 0, L)
+    assert 5 in handle[5] and 5 not in handle[1]
+    pipe.finish_window(handle)
+    host = md.DeviceCensusPipeline(ref_int, L, device="cpu")
+    host._host_apply(want, np.arange(want.n), 0, L, 2)
+    assert np.array_equal(b.qual, want.qual)
+    assert pipe.finish_checksum() == md.census_checksum(host.host_census,
+                                                        host.host_qsum)
