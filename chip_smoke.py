@@ -47,6 +47,24 @@ from the sources in this checkout.  Phases, one JSON line each:
    overlapping messy pairs (so the overlap tweak runs), once with the
    card's engine and once with ``SAMTPU_DEVICE=0`` (the host's f64 HMM,
    no torch kernel): the two outputs must be byte-equal.
+5. kernels_pileup -- K1's generic form at the pileup family's shapes, held
+   against its plain version and against ``index_add_``: the clean BAM's
+   depth difference events over one whole-contig plan (K = 1), and the
+   coverage items of its first streamed window (K = 4); each with the
+   share of its items that take the global-atomic path (emulated from the
+   kernel's piece cut), and the time of the K9 torch ops around it (the
+   depth scan with its narrowed copy; the coverage gate and reduction).
+6. pileup_family -- ``depth``, ``coverage`` and ``bedcov``, the commands
+   a user runs: depth (default) on clean and messy, ``depth -a -q 13 -J``
+   on clean, ``depth -s`` on the pairs, ``coverage`` (streamed, 8 windows)
+   on clean and messy and ``coverage -r sim1:1-2000000`` on clean, each
+   in-process (``cli.main``) once on the card and once with
+   ``SAMTPU_DEVICE=0`` (numpy): byte-equal outputs, the card runs launch
+   K1's generic form and never the census form, K4 or K5, the host runs
+   launch nothing.  Then ``bedcov`` as a subprocess, the clean BAM on
+   standard input and a BED of 1,000 intervals of 1-10 kbp, card against
+   ``SAMTPU_DEVICE=0``, byte-equal.  Per run: wall, aligned Mbases/s,
+   output bytes and rows, launches.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -96,6 +114,20 @@ KERNEL_META = {
 # what DeviceCensusPipeline launches; the generic K1 runs only in the
 # kernels phase
 MAIN_PATH = ("segment_census", "baq_hmm", "baq_finalize")
+# the pileup family's in-process runs: (label, argv, input); {name} is a
+# BAM of the main path (clean, messy) or the tool phase's pairs
+PILEUP_RUNS = (
+    ("depth", ["depth", "{clean}"], "clean"),
+    ("depth", ["depth", "{messy}"], "messy"),
+    ("depth -a -q 13 -J", ["depth", "-a", "-q", "13", "-J", "{clean}"],
+     "clean"),
+    ("depth -s", ["depth", "-s", "{pairs}"], "pairs"),
+    ("coverage", ["coverage", "{clean}"], "clean"),
+    ("coverage", ["coverage", "{messy}"], "messy"),
+    ("coverage -r sim1:1-2000000",
+     ["coverage", "-r", "sim1:1-2000000", "{clean}"], "clean"),
+)
+REGION_END = 2_000_000
 
 
 def emit(obj: dict) -> None:
@@ -583,6 +615,206 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
           "host_wall_s": round(walls["host"], 3),
           "output_bytes": len(card), "output_rows": card.count(b"\n"),
           "byte_equal": True})
+    return launches, (bam, n_pairs_reads)
+
+
+def global_share(rp, lo, hi, wbeg: int, tile: int, P: int, win: int):
+    """The share of K1's live items that take its global-atomic path:
+    each piece of P items accumulates rows [rmin, rmin + win) in shared
+    memory, rmin its least live row; a live item at a row past that goes
+    to global atomics (csrc/segment_contract.cu, steps 2-3)."""
+    import torch
+    n_tiles = lo.numel()
+    b = torch.arange(rp.numel(), device=rp.device)
+    r = rp.long() - wbeg
+    t = r.clamp(0, n_tiles * tile - 1) // tile
+    live = (r >= 0) & (r < n_tiles * tile) & (b >= lo[t]) & (b < hi[t])
+    piece = b // P
+    rmin = torch.full(((rp.numel() + P - 1) // P,), 1 << 62,
+                      dtype=torch.int64, device=rp.device)
+    rmin.scatter_reduce_(0, piece[live], r[live], "amin")
+    glob = live & (r - rmin[piece] >= win)
+    return int(glob.sum()) / max(1, int(live.sum()))
+
+
+def phase_kernels_pileup(clean: str, dev) -> tuple:
+    """K1's generic form and the K9 torch ops at the pileup family's
+    shapes, on the clean BAM; also the reads of the coverage -r run."""
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.ops import pileup_engine as pe
+    from samtools_tpu_torch.ops import segment_kernel as sk
+    b = read_alignments(clean, THREADS).batch
+    sel = np.arange(b.n)
+    wbeg, wend = int(b.pos.min()), int(b.end_pos().max())
+    # depth's difference events over the whole contig (one window); the
+    # coverage items of the first streamed window of 1 Mi columns
+    shapes = {"depth": pe.depth_items(b, sel, wbeg, wend, 0, False)[0],
+              "coverage": pe.coverage_items(b, sel[b.pos < 1 << 20], 0,
+                                            1 << 20, 0)}
+    region_reads = int((b.pos < REGION_END).sum())
+    del b, sel
+    rows, outs = {}, {}
+    before = kernels.launches["segment_contract"]
+    for shape, (pos, W, plan) in shapes.items():
+        K = W.shape[1]
+        rp = torch.from_numpy(pos.astype(np.int32)).to(dev)
+        Wt = torch.from_numpy(W).to(dev)
+        lo = torch.from_numpy(plan.lo).to(dev)
+        hi = torch.from_numpy(plan.hi).to(dev)
+        args = (rp, Wt, lo, hi, plan.wbeg, plan.tile)
+        n_rows = plan.n_tiles * plan.tile
+        out_k = torch.zeros(n_rows, K, dtype=torch.int32, device=dev)
+        sk.segment_contract(*args, out_k)
+        err = int((out_k - sk.segment_contract_plain(*args)).abs().max())
+        inwin = (rp >= plan.wbeg) & (rp < plan.wbeg + n_rows)
+        idx = (rp[inwin] - plan.wbeg).long()
+        W32 = Wt[inwin].int()
+        out_l = torch.zeros_like(out_k)
+        out_l.index_add_(0, idx, W32)
+        require(err == 0 and bool((out_l == out_k).all()),
+                f"K1 at the {shape} shape differs from its plain version "
+                f"({err}) or from index_add_")
+        scratch = torch.zeros_like(out_k)
+        P, win = sk.piece_layout(4 + K, K)
+        n = rp.numel()
+        rows[shape] = dict(
+            kernel="segment_contract", max_abs_err=err,
+            ms=cuda_ms(lambda: sk.segment_contract(*args, scratch)),
+            b2b_ms=cuda_ms(lambda: sk.segment_contract(*args, scratch),
+                           per=10),
+            plain_ms=cuda_ms(lambda: sk.segment_contract_plain(*args),
+                             reps=3),
+            library_ms=cuda_ms(lambda: scratch.index_add_(0, idx, W32)),
+            global_atomic_share=global_share(rp, lo, hi, plan.wbeg,
+                                             plan.tile, P, win),
+            detail={"items": n, "K": K, "tile": plan.tile,
+                    "tiles": plan.n_tiles, "piece_items": P,
+                    "acc_rows": win,
+                    "widest_slice": int((plan.hi - plan.lo).max())},
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(n * (4 + K) + 2 * plan.n_tiles * 4
+                             + n_rows * K * 4, n * K))))
+        outs[shape] = out_k
+    require(kernels.launches["segment_contract"] > before,
+            "the generic K1 never launched at the pileup shapes")
+    # K9: the depth scan (cumsum + direct, max, narrowing, one copy) and
+    # the coverage gate + subwindow sums, at the same shapes
+    d_out = outs["depth"]
+    zero = torch.zeros_like(d_out)
+    L = wend - wbeg
+    depth = pe.depth_scan(d_out, zero, L)
+    require(depth.shape == (L,) and int(depth.min()) >= 0
+            and 20 < int(depth.max()) < 256, "depth scan: bad depths")
+    c_out = outs["coverage"]
+    red = pe.cov_reduce(c_out, 1 << 16, 1)
+    require(int(red[:, 2].sum()) > 0.99 * (1 << 20),
+            "coverage reduction: too few covered positions")
+    rows["k9_depth_scan"] = dict(
+        ms=cuda_ms(lambda: pe.depth_scan(d_out, zero, L)),
+        rows=d_out.shape[0], out_bytes=L,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * d_out.numel() * 4 + L, 2 * d_out.numel()))))
+    rows["k9_cov_reduce"] = dict(
+        ms=cuda_ms(lambda: pe.cov_reduce(c_out, 1 << 16, 1)),
+        rows=c_out.shape[0],
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(c_out.numel() * 4 + red.numel() * 8,
+                         6 * c_out.shape[0]))))
+    emit({"phase": "kernels_pileup", **rows})
+    return rows, region_reads
+
+
+def bed_intervals(path: str, n: int = 1000) -> None:
+    """n BED intervals of 1-10 kbp on sim1, seeded."""
+    rng = np.random.default_rng(21)
+    starts = np.sort(rng.integers(0, REF_LEN - 10_000, n))
+    lens = rng.integers(1_000, 10_001, n)
+    with open(path, "w") as f:
+        for i, (s0, ln) in enumerate(zip(starts, lens)):
+            f.write(f"sim1\t{s0}\t{s0 + ln}\tr{i}\n")
+
+
+def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
+    """depth, coverage and bedcov on the card against SAMTPU_DEVICE=0;
+    the generic K1's launches per in-process card run."""
+    import filecmp
+
+    import torch
+    from samtools_tpu_torch import cli, kernels
+    launches = {}
+    for label, argv, wl in PILEUP_RUNS:
+        args = [a.format(**bams) for a in argv]
+        outs, walls, runs = {}, {}, {}
+        for engine in ("card", "host"):
+            outs[engine] = os.path.join(workdir, f"pileup.{engine}.txt")
+            saved = os.environ.pop("SAMTPU_DEVICE", None)
+            if engine == "host":
+                os.environ["SAMTPU_DEVICE"] = "0"
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main([*args, "-o", outs[engine]])
+                torch.cuda.synchronize()
+            finally:
+                os.environ.pop("SAMTPU_DEVICE", None)
+                if saved is not None:
+                    os.environ["SAMTPU_DEVICE"] = saved
+            walls[engine] = time.perf_counter() - t0
+            runs[engine] = dict(kernels.launches)
+            require(rc == 0, f"{label} on {wl} ({engine}): rc {rc}")
+        require(filecmp.cmp(outs["card"], outs["host"], shallow=False),
+                f"{label} on {wl}: the card's output differs from the "
+                "host branch's")
+        require(runs["card"]["segment_contract"] > 0 and all(
+            runs["card"][k] == 0 for k in MAIN_PATH),
+            f"{label} on {wl}: the card run launched {runs['card']}")
+        require(not any(runs["host"].values()),
+                f"{label} on {wl}: the host run launched {runs['host']}")
+        rows = count_rows(outs["card"])
+        require(rows > 1, f"{label} on {wl}: no rows")
+        n = reads["region" if "-r" in argv else wl]
+        emit({"phase": "pileup_family", "run": label, "workload": wl,
+              "reads": int(n), "card_wall_s": round(walls["card"], 3),
+              "host_wall_s": round(walls["host"], 3),
+              "Mbases_per_s": round(n * READ_LEN / walls["card"] / 1e6, 3),
+              "output_bytes": os.path.getsize(outs["card"]),
+              "output_rows": rows, "launches": runs["card"],
+              "byte_equal": True})
+        launches[f"{label} {wl}"] = runs["card"]["segment_contract"]
+        for p in outs.values():
+            os.remove(p)
+
+    # bedcov as a user runs it: the BAM on standard input
+    bed = os.path.join(workdir, "regions.bed")
+    bed_intervals(bed)
+    got, walls = {}, {}
+    for engine in ("card", "host"):
+        env = dict(os.environ)
+        env.pop("SAMTPU_DEVICE", None)
+        if engine == "host":
+            env["SAMTPU_DEVICE"] = "0"
+        t0 = time.perf_counter()
+        with open(bams["clean"], "rb") as fin:
+            p = subprocess.run([sys.executable, "-m", "samtools_tpu_torch",
+                                "bedcov", "-c", bed, "-"], stdin=fin,
+                               env=env, capture_output=True, timeout=600)
+        walls[engine] = time.perf_counter() - t0
+        require(p.returncode == 0, f"bedcov ({engine}): rc {p.returncode}: "
+                f"{p.stderr.decode()[-2000:]}")
+        got[engine] = p.stdout
+    require(got["card"] == got["host"], "bedcov: the card's output differs "
+            "from the host branch's")
+    require(got["card"].count(b"\n") == 1000, "bedcov: not 1,000 rows")
+    emit({"phase": "pileup_family", "run": "bedcov -c (stdin)",
+          "workload": "clean", "reads": int(reads["clean"]),
+          "card_wall_s": round(walls["card"], 3),
+          "host_wall_s": round(walls["host"], 3),
+          "Mbases_per_s": round(reads["clean"] * READ_LEN / walls["card"]
+                                / 1e6, 3),
+          "output_bytes": len(got["card"]),
+          "output_rows": got["card"].count(b"\n"), "byte_equal": True})
     return launches
 
 
@@ -601,21 +833,37 @@ def main() -> int:
     rows = phase_kernels(ref, ref_int, torch.device("cuda"))
     with tempfile.TemporaryDirectory() as workdir:
         launches, oracles = phase_main(ref, ref_int, workdir)
-        tool_launches = phase_tool(ref, workdir, oracles)
+        tool_launches, (pairs, n_pairs) = phase_tool(ref, workdir, oracles)
+        bams = {"clean": oracles["clean"][0], "messy": oracles["messy"][0],
+                "pairs": pairs}
+        pile_rows, region_reads = phase_kernels_pileup(
+            bams["clean"], torch.device("cuda"))
+        family = phase_pileup_family(
+            workdir, bams, {"clean": oracles["clean"][3],
+                            "messy": oracles["messy"][3], "pairs": n_pairs,
+                            "region": region_reads})
     table = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
-        # launches: the mpileup command's run on clean; core_launches: the
-        # census core's (phase 3)
-        table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces,
-                      "launches": tool_launches["clean"][name],
-                      "core_launches": launches["clean"][name],
-                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                      "b2b_ms": r["b2b_ms"], "plain_ms": r["plain_ms"],
-                      "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"]})
+        # launches: the mpileup command's run on clean (for the generic
+        # K1: the pileup family's card runs); core_launches: the census
+        # core's (phase 3)
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces,
+               "launches": tool_launches["clean"][name],
+               "core_launches": launches["clean"][name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "b2b_ms": r["b2b_ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"]}
+        if name == "segment_contract":
+            row.update(launches=sum(family.values()),
+                       depth_launches=family["depth clean"],
+                       coverage_launches=family["coverage clean"],
+                       at_pileup_shapes={k: pile_rows[k] for k in
+                                         ("depth", "coverage")})
+        require(row["launches"] > 0, f"{name} never launched on its path")
+        table.append(row)
     emit({"kernels": table})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

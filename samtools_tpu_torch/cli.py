@@ -24,6 +24,11 @@ Commands:
   -- File operations
      mpileup        multi-way pileup
 
+  -- Statistics
+     bedcov         read depth per BED region
+     coverage       alignment depth and percent coverage
+     depth          compute the depth
+
   -- Misc
      help [cmd]     display this help message or help for [cmd]
      version        detailed version information

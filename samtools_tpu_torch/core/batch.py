@@ -12,6 +12,10 @@ from dataclasses import dataclass, field, fields
 import numpy as np
 
 
+# the ragged columns ``ReadBatch.take`` copies by default
+ALL_RAGGED = ("qname", "cigar", "seq", "qual", "aux")
+
+
 def empty_offsets() -> np.ndarray:
     return np.zeros(1, dtype=np.int64)
 
@@ -84,9 +88,12 @@ class ReadBatch:
         spans = self.ref_span()
         return self.pos + np.where(spans > 0, spans, 1)
 
-    def take(self, idx: np.ndarray) -> "ReadBatch":
-        """A new batch of the given records, in the given order, every
-        column copied (qname and aux included: mates pair by qname)."""
+    def take(self, idx: np.ndarray, ragged: tuple = ALL_RAGGED
+             ) -> "ReadBatch":
+        """A new batch of the given records, in the given order.  The
+        ragged columns named in ``ragged`` are copied (all by default:
+        mates pair by qname); the others come back empty, with their
+        offsets kept, so ``l_qseq``, ``n_cigar`` and ``end_pos`` hold."""
         idx = np.asarray(idx, dtype=np.int64)
         out = ReadBatch(n=int(idx.size))
         for f in _FIXED_COLUMNS:
@@ -97,9 +104,12 @@ class ReadBatch:
             noff = np.zeros(idx.size + 1, np.int64)
             np.cumsum(soff[idx + 1] - soff[idx], out=noff[1:])
             setattr(out, off, noff)
-            setattr(out, flat, _gather(getattr(self, flat), soff, idx, noff))
+            src = getattr(self, flat)
+            setattr(out, flat, _gather(src, soff, idx, noff)
+                    if flat in ragged else np.empty(0, src.dtype))
             if flat == "seq":
-                out.qual = _gather(self.qual, soff, idx, noff)
+                out.qual = (_gather(self.qual, soff, idx, noff)
+                            if "qual" in ragged else np.empty(0, np.uint8))
         return out
 
     @staticmethod

@@ -1,6 +1,6 @@
 """SAM header model (counterpart of samtools_tpu/io/header.py, only what
-``decode_header``, the simulated ``@HD``/``@SQ`` header and mpileup's
-sample count need).
+``decode_header``, the simulated ``@HD``/``@SQ`` header, mpileup's sample
+count and the name lookups of ``-r`` and ``bedcov`` need).
 
 Keeps the raw header text verbatim plus the @SQ (name, length) list.
 """
@@ -15,6 +15,7 @@ class SamHeader:
     text: str = ""
     ref_names: list[str] = field(default_factory=list)
     ref_lens: list[int] = field(default_factory=list)
+    _name2tid: dict | None = field(default=None, repr=False, compare=False)
 
     @classmethod
     def from_text(cls, text: str, ref_names: list[str] | None = None,
@@ -46,6 +47,27 @@ class SamHeader:
     @property
     def n_refs(self) -> int:
         return len(self.ref_names)
+
+    def tid(self, name: str) -> int:
+        """The tid of a contig name, or -1 (htslib's sam_hdr_name2tid:
+        an @SQ AN alternative name resolves to its contig; primary names
+        take precedence)."""
+        if self._name2tid is None:
+            m = {n: i for i, n in enumerate(self.ref_names)}
+            for line in self.text.splitlines():
+                if not line.startswith("@SQ"):
+                    continue
+                sn, alts = None, []
+                for f in line.split("\t")[1:]:
+                    if f.startswith("SN:"):
+                        sn = f[3:]
+                    elif f.startswith("AN:"):
+                        alts = f[3:].split(",")
+                if sn in m:
+                    for a in alts:
+                        m.setdefault(a, m[sn])
+            self._name2tid = m
+        return self._name2tid.get(name, -1)
 
     def rg_to_sample(self) -> dict[str, str]:
         """RG ID -> SM map (samtools' sample.c bam_smpl_add); a read group

@@ -1,10 +1,11 @@
 """Streaming BAM reader: bounded memory over a whole file.
 
-Counterpart of samtools_tpu/io/stream.py (:72-240) without the index and
+Counterpart of samtools_tpu/io/stream.py (:72-342) without the index and
 random access: the compressed file is read in fixed windows, BGZF blocks
 are inflated per window, complete records are decoded per window, and a
 partial tail record carries into the next one.  Memory stays
-O(window_bytes) for any file size.
+O(window_bytes) for any file size.  ``WindowedReader`` walks one or more
+coordinate-sorted streams in genomic windows (the streamed ``coverage``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import struct
 
 import numpy as np
 
+from ..core.batch import ReadBatch
 from . import bgzf, native
 from .bam import BamError, decode_header, decode_records
 from .header import SamHeader
@@ -91,3 +93,105 @@ class BamStream:
             skip = 0
         if leftover.size:
             raise BamError("truncated BAM record at end of stream")
+
+
+class WindowedReader:
+    """Genomic windows over one or more coordinate-sorted streams: yields
+    (tid, wb, we, [the reads of each stream that overlap [wb, we)]), reads
+    that cross a window's end carried into the next window, memory
+    bounded by the window."""
+
+    def __init__(self, streams, window_cols: int = 1 << 20,
+                 filter_fn=None, fields: int = native.FIELD_ALL):
+        self.streams = streams
+        self.window = window_cols
+        self.filter_fn = filter_fn
+        self.fields = fields
+
+    def __iter__(self):
+        fns = (self.filter_fn if isinstance(self.filter_fn, list)
+               else [self.filter_fn] * len(self.streams))
+        cursors = [_Cursor(st, fn, self.fields)
+                   for st, fn in zip(self.streams, fns)]
+        while True:
+            fronts = [c.front() for c in cursors]
+            live = [f for f in fronts if f is not None]
+            if not live:
+                return
+            tid = min(f[0] for f in live)
+            wb = min(f[1] for f in live if f[0] == tid)
+            while True:
+                we = wb + self.window
+                subs = [c.take(tid, wb, we) for c in cursors]
+                yield tid, wb, we, subs
+                if not any(c.more_on(tid) for c in cursors):
+                    break
+                wb = we
+
+
+class _Cursor:
+    """One stream's read cursor: filtered batches not yet consumed, and
+    the reads carried over from the last window."""
+
+    def __init__(self, stream, filter_fn, fields):
+        self.gen = stream.batches(fields=fields)
+        self.filter_fn = filter_fn
+        self.pending: list = []
+        self.carry = None
+
+    def _pull(self) -> bool:
+        nb = next(self.gen, None)
+        if nb is None:
+            return False
+        if self.filter_fn is not None:
+            sel = np.nonzero(self.filter_fn(nb))[0]
+            if sel.size == 0:
+                return True
+            nb = nb.take(sel)
+        if nb.n:
+            self.pending.append(nb)
+        return True
+
+    def front(self):
+        """(tid, pos) of the next unconsumed read, or None at the end."""
+        while not self.pending:
+            if not self._pull():
+                return None
+        b = self.pending[0]
+        return int(b.tid[0]), int(b.pos[0])
+
+    def take(self, tid: int, wb: int, we: int) -> ReadBatch:
+        """The reads of [wb, we) on tid: the carried reads that end past
+        wb, then the unconsumed reads with pos < we; those ending past we
+        are carried into the next window."""
+        parts = []
+        if self.carry is not None:
+            cb, ctid = self.carry
+            if ctid == tid:
+                parts.append(cb.take(np.nonzero(cb.end_pos() > wb)[0]))
+            self.carry = None
+        while True:
+            fr = self.front()
+            if fr is None or fr[0] > tid or (fr[0] == tid and fr[1] >= we):
+                break
+            b = self.pending[0]
+            m = (b.tid == tid) & (b.pos < we)
+            parts.append(b.take(np.nonzero(m)[0]))
+            rest = np.nonzero(~m)[0]
+            if rest.size:
+                self.pending[0] = b.take(rest)
+                break
+            self.pending.pop(0)
+        sub = (ReadBatch.concat(parts) if len(parts) > 1 else
+               parts[0] if parts else ReadBatch())
+        if sub.n:
+            hal = np.nonzero(sub.end_pos() > we)[0]
+            if hal.size:
+                self.carry = (sub.take(hal), tid)
+        return sub
+
+    def more_on(self, tid: int) -> bool:
+        if self.carry is not None and self.carry[1] == tid:
+            return True
+        fr = self.front()
+        return fr is not None and fr[0] == tid

@@ -1,16 +1,40 @@
-"""Pileup segment-contraction engine: the host tile plan.
+"""Pileup segment-contraction engine: the host tile plan, and the device
+paths of ``depth``, ``coverage`` and ``bedcov``.
 
-Counterpart of samtools_tpu/ops/pileup_engine.py (:51-122, :186-194).
-The genome window is cut into tiles of ``tile`` positions; because the
-input is coordinate-sorted and each read emits its items in order, every
-tile's contributing items live in one contiguous slice [lo_t, hi_t) of
-the flat item arrays.  ``tile_plan`` finds those slices on the host; the
-contraction itself is K1 (ops/segment_kernel.py).
+Counterpart of samtools_tpu/ops/pileup_engine.py (:51-122, :186-194,
+:197-250, :253-436, :439-542).  The genome window is cut into tiles of
+``tile`` positions; because the input is coordinate-sorted and each read
+emits its items in order, every tile's contributing items live in one
+contiguous slice [lo_t, hi_t) of the flat item arrays.  ``tile_plan``
+finds those slices on the host; the contraction itself is K1's generic
+form (ops/segment_kernel.py::segment_contract), which covers each slice
+whole, so the plan needs no item window, no passes and no padding of the
+items.
+
+Around K1, the JAX package's K9 (XLA there) is torch ops on the card:
+the depth scan ``depth_scan`` (cumsum + direct + max, then a narrowing
+to uint8/int16 before the one copy to the host) and the coverage
+reduction ``cov_reduce`` (the min-depth gate and the per-subwindow sums,
+in int64, so deep windows do not wrap).  ``coverage_items`` keeps each
+base's quality whole: lane 1 holds q & 127 and lane 3 q >> 7, where the
+JAX package caps the quality at 127 in one int8 lane.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..core import flags as F
+from ..core.batch import ragged_gather_indices
+from ..device import resolve
+from .cigar import expand_ops
+from .segment_kernel import segment_contract
+
+# K1 indexes items with int32 (the plan's lo/hi and the kernel's n)
+MAX_ITEMS = (1 << 31) - 1
+# coverage census lanes: okq count, qual & 127, entry count, qual >> 7
+COV_K = 4
 
 
 class TilePlan:
@@ -28,6 +52,15 @@ class TilePlan:
         self.n_tiles = n_tiles
         self.wbeg, self.wlen = wbeg, wlen
         self.tile = tile
+
+
+def pick_tile(wlen: int) -> int:
+    """Tile size by window length, as the JAX package picks it."""
+    if wlen >= 1 << 21:
+        return 1024
+    if wlen >= 1 << 17:
+        return 512
+    return 128
 
 
 def tile_plan(read_pos: np.ndarray, read_end: np.ndarray,
@@ -64,3 +97,244 @@ def padded_tiles(n_tiles: int, chunk: int = 16) -> int:
         p <<= 1
     return p
 
+
+def segment_matmul(refpos: np.ndarray, W: np.ndarray, plan: TilePlan,
+                   device, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 over a tile plan: uploads ``refpos`` as int32 and ``W`` as int8
+    [n, K] and adds the contraction into ``out`` (a fresh int32
+    [n_tiles*tile, K] on ``device`` when None), which it returns.  Raises
+    at 2^31 items or more, where the plan's int32 indices would wrap."""
+    K = W.shape[1]
+    if out is None:
+        out = torch.zeros(plan.n_tiles * plan.tile, K, dtype=torch.int32,
+                          device=device)
+    n = refpos.size
+    if n > MAX_ITEMS:
+        raise ValueError(f"{n} items in one window: K1 indexes items with "
+                         f"int32 (at most {MAX_ITEMS})")
+    if n == 0:
+        return out
+    rp = torch.from_numpy(np.ascontiguousarray(refpos, np.int32)).to(device)
+    Wt = torch.from_numpy(np.ascontiguousarray(W, np.int8)).to(device)
+    lo = torch.from_numpy(plan.lo).to(device)
+    hi = torch.from_numpy(plan.hi).to(device)
+    return segment_contract(rp, Wt, lo, hi, plan.wbeg, plan.tile, out)
+
+
+# ---------------------------------------------------------------- depth
+def _read_plan(nreads: int, rid: np.ndarray, rpos_b, rend_b, wbeg: int,
+               L: int, tile: int):
+    """Sort items by read when they are not already grouped (stable), and
+    plan them: (order or None, plan)."""
+    order = None
+    if rid.size and (np.diff(rid) < 0).any():
+        order = np.argsort(rid, kind="stable")
+        rid = rid[order]
+    off = np.zeros(nreads + 1, np.int64)
+    np.cumsum(np.bincount(rid, minlength=nreads), out=off[1:])
+    return order, tile_plan(rpos_b, rend_b, off, wbeg, L, tile)
+
+
+def depth_items(batch, sel: np.ndarray, wbeg: int, wend: int,
+                min_qual: int, count_del: bool,
+                clips: np.ndarray | None = None):
+    """The host half of ``depth_window_device``: K1's items for the
+    selected reads of one file over [wbeg, wend), as two (refpos, W,
+    plan) triples, or None where there are none: ``diff``, +-1 events at
+    the ends of the M/=/X spans (min_qual == 0) and the -J deletions;
+    ``direct``, a 0/1 weight per M base (min_qual > 0)."""
+    ragged = ("cigar", "qual") if min_qual else ("cigar",)
+    sub = batch.take(sel, ragged=ragged)
+    t = expand_ops(sub)
+    clip = (clips[sel] if clips is not None else np.zeros(sel.size, np.int64))
+    L = wend - wbeg
+    ev_pos, ev_w, ev_rid = [], [], []
+    direct = None
+    m = np.isin(t.op, (F.CMATCH, F.CEQUAL, F.CDIFF))
+    if min_qual == 0:
+        if m.any():
+            rs = t.rpos[m]
+            opclip = clip[t.rid[m]]
+            s = np.clip(np.maximum(rs, opclip), wbeg, wend)
+            e = np.clip(np.maximum(rs + t.oplen[m], opclip), wbeg, wend)
+            # drop empty spans: every event then lies in its read's
+            # [pos, end] span, as tile_plan needs
+            nz = s < e
+            s, e, rm = s[nz], e[nz], t.rid[m][nz]
+            # (+start, -end) interleaved per op: rid stays nondecreasing
+            k = s.size
+            pos = np.empty(2 * k, s.dtype)
+            pos[0::2], pos[1::2] = s, e
+            w = np.empty(2 * k, np.int8)
+            w[0::2], w[1::2] = 1, -1
+            ev_pos.append(pos)
+            ev_w.append(w)
+            ev_rid.append(np.repeat(rm, 2))
+    elif m.any():
+        lens = t.oplen[m]
+        refpos = ragged_gather_indices(t.rpos[m], lens)
+        qoff = ragged_gather_indices(t.qpos[m], lens)
+        rid = np.repeat(t.rid[m], lens)
+        qual = sub.qual[sub.seq_off[rid] + qoff]
+        ok = (qual >= min_qual) & (refpos >= clip[rid])
+        direct = (refpos, ok.astype(np.int8)[:, None], rid)
+
+    if count_del:
+        d = t.op == F.CDEL
+        if d.any():
+            rs = t.rpos[d]
+            opclip = clip[t.rid[d]]
+            qpos = t.qpos[d]
+            rid = t.rid[d]
+            ok = np.ones(rs.size, bool)
+            if min_qual:
+                has_q = qpos < sub.l_qseq[rid]
+                qv = np.zeros(rs.size, np.int64)
+                qv[has_q] = sub.qual[sub.seq_off[rid[has_q]]
+                                     + qpos[has_q]].astype(np.int64)
+                ok = ~has_q | (qv >= min_qual)
+            s = np.clip(np.maximum(rs, opclip), wbeg, wend)[ok]
+            e = np.clip(np.maximum(rs + t.oplen[d], opclip), wbeg, wend)[ok]
+            rm = rid[ok]
+            nz = s < e
+            s, e, rm = s[nz], e[nz], rm[nz]
+            ev_pos += [s, e]
+            ev_w += [np.ones(s.size, np.int8), -np.ones(e.size, np.int8)]
+            ev_rid += [rm, rm]
+
+    # events are clipped into [wbeg, wend]: widen the read bounds to match
+    rpos_b = np.minimum(np.maximum(sub.pos, wbeg), wend)
+    rend_b = np.minimum(np.maximum(sub.end_pos(), wbeg), wend) + 1
+    tile = pick_tile(L)
+
+    def planned(pos, w, rid):
+        order, plan = _read_plan(sub.n, rid, rpos_b, rend_b, wbeg, L, tile)
+        if order is not None:
+            pos, w = pos[order], w[order]
+        return pos, w, plan
+
+    diff = (planned(np.concatenate(ev_pos), np.concatenate(ev_w)[:, None],
+                    np.concatenate(ev_rid)) if ev_pos else None)
+    return diff, (planned(*direct) if direct is not None else None)
+
+
+def depth_scan(diff: torch.Tensor, direct: torch.Tensor, L: int
+               ) -> np.ndarray:
+    """K9's depth step on the card: depth = cumsum(diff) + direct as
+    int32 over the plan's rows, its max, and the first L rows narrowed to
+    the narrowest type that holds that max (uint8, int16, or int32 as it
+    is) before the one device-to-host copy.  Returns int32[L]."""
+    d = (torch.cumsum(diff[:, 0], 0) + direct[:, 0]).to(torch.int32)
+    mx = int(d.max())
+    d = d[:L]
+    if mx < 256:
+        d = d.to(torch.uint8)
+    elif mx < 1 << 15:
+        d = d.to(torch.int16)
+    return d.cpu().numpy().astype(np.int32)
+
+
+def depth_window_device(batch, sel: np.ndarray, wbeg: int, wend: int,
+                        min_qual: int, count_del: bool,
+                        clips: np.ndarray | None = None,
+                        device=None) -> np.ndarray:
+    """ops.depth.depth_window's integers with the contraction and the
+    scan on ``device`` (a torch device; a CPU device takes the plain
+    versions): the spans become +-1 difference events and, with a
+    quality gate, each M base a 0/1 weight, K1 adds both per position
+    and ``depth_scan`` gives int32[wend - wbeg].  ``device`` None means
+    the CUDA card."""
+    device = resolve(device)
+    L = wend - wbeg
+    if sel.size == 0:
+        return np.zeros(L, np.int32)
+    diff, direct = depth_items(batch, sel, wbeg, wend, min_qual, count_del,
+                               clips)
+    rows = max(1, (L + pick_tile(L) - 1) // pick_tile(L)) * pick_tile(L)
+    zero = torch.zeros(rows, 1, dtype=torch.int32, device=device)
+    cols = [segment_matmul(*it, device) if it is not None else zero
+            for it in (diff, direct)]
+    return depth_scan(cols[0], cols[1], L)
+
+
+# ------------------------------------------------------------- coverage
+def coverage_items(batch, sel: np.ndarray, wbeg: int, wend: int,
+                   min_baseq: int):
+    """K1's items for one file's coverage census over [wbeg, wend):
+    (refpos, W int8[n, COV_K], plan), one item per M/=/X/D/N base.
+    Lanes: 0, 1 for an M base of quality >= min_baseq; 1, its quality &
+    127 under the same gate; 2, 1 for every base (the pileup entries);
+    3, its quality >> 7 under the gate.  Items outside the window weigh
+    nothing."""
+    L = wend - wbeg
+    sb = batch.take(np.asarray(sel, np.int64), ragged=("cigar", "qual"))
+    t = expand_ops(sb)
+    emit = np.isin(t.op, (F.CMATCH, F.CEQUAL, F.CDIFF, F.CDEL,
+                          F.CREF_SKIP))
+    e_ops = np.nonzero(emit)[0]
+    e_len = t.oplen[e_ops]
+    pos = ragged_gather_indices(t.rpos[e_ops], e_len)
+    is_m_e = np.repeat(np.isin(t.op[e_ops], (F.CMATCH, F.CEQUAL, F.CDIFF)),
+                       e_len)
+    rid = np.repeat(t.rid[e_ops], e_len)
+    qpos = ragged_gather_indices(t.qpos[e_ops], e_len)
+    W = np.zeros((pos.size, COV_K), np.int8)
+    W[:, 2] = 1
+    qm = sb.qual[sb.seq_off[rid[is_m_e]] + qpos[is_m_e]]
+    okq = qm >= min_baseq
+    q = np.where(okq, qm, 0).astype(np.uint8)
+    W[is_m_e, 0] = okq
+    W[is_m_e, 1] = q & 127
+    W[is_m_e, 3] = q >> 7
+    W[(pos < wbeg) | (pos >= wend)] = 0
+    off = np.zeros(sb.n + 1, np.int64)
+    np.cumsum(np.bincount(t.rid[e_ops], weights=e_len, minlength=sb.n)
+              .astype(np.int64), out=off[1:])
+    plan = tile_plan(np.minimum(np.maximum(sb.pos, wbeg), wend),
+                     np.minimum(np.maximum(sb.end_pos(), wbeg), wend) + 1,
+                     off, wbeg, L, pick_tile(L))
+    return np.clip(pos, wbeg, wend - 1), W, plan
+
+
+def cov_reduce(census: torch.Tensor, sub: int, min_depth: int
+               ) -> torch.Tensor:
+    """K9's coverage step on the card: census int32 [rows, COV_K] ->
+    int64 [ceil(rows/sub), 3] per-subwindow sums of (okq count, quality
+    sum, 1) over the positions that pass the gate: some pileup entry,
+    okq count > 0 and >= min_depth (coverage.c's covered / meandepth /
+    meanbaseq accumulators).  Summed in int64: a deep window's quality
+    sum passes 2^31."""
+    c0 = census[:, 0].long()
+    ok = (census[:, 2] > 0) & (c0 > 0) & (c0 >= min_depth)
+    qsum = census[:, 1].long() + 128 * census[:, 3].long()
+    cols = torch.stack([c0, qsum, torch.ones_like(c0)], 1) * ok[:, None]
+    rows = cols.shape[0]
+    if rows % sub:
+        cols = torch.cat([cols, cols.new_zeros(sub - rows % sub, 3)])
+    return cols.reshape(-1, sub, 3).sum(1)
+
+
+def coverage_window_device(parts, wbeg: int, wend: int, min_baseq: int,
+                           min_depth: int, device=None,
+                           sub: int = 1 << 16) -> np.ndarray:
+    """Coverage statistics of one window across input files, computed on
+    ``device``: int64 (n_cov_bases, summed_cov, summed_baseq).  Every
+    file's items add into one census (the same window gives every file's
+    plan the same rows), gated at full resolution and reduced by
+    ``cov_reduce``; only the subwindow sums come back.  ``device`` None
+    means the CUDA card.
+
+    parts: iterable of (batch, sel) pairs, one per input file."""
+    device = resolve(device)
+    census = None
+    for batch, sel in parts:
+        if sel.size == 0:
+            continue
+        census = segment_matmul(*coverage_items(batch, sel, wbeg, wend,
+                                                min_baseq), device, census)
+    if census is None:
+        return np.zeros(3, np.int64)
+    tot = cov_reduce(census, sub, min_depth).sum(0).cpu().numpy()
+    # [0] okq count over gated positions -> summed_cov, [1] quality sums
+    # -> summed_baseq, [2] gated positions -> covbases
+    return np.array([tot[2], tot[0], tot[1]], np.int64)

@@ -51,32 +51,37 @@ def segment_contract_plain(rp: torch.Tensor, W: torch.Tensor,
                            lo: torch.Tensor, hi: torch.Tensor, wbeg: int,
                            tile: int) -> torch.Tensor:
     """One-hot einsum over the tile plan (the _segmm_jit form): returns a
-    fresh int32 [n_tiles*tile, K].  The widest slice sets the item window
-    B, so one pass covers every tile; tiles with an empty slice stay
-    zero.  f32 products of 0/1 and int8 summed below 2^24 are exact."""
+    fresh int32 [n_tiles*tile, K].  Tiles go 16 at a time; the widest
+    slice of the 16 sets their item window, walked in blocks that keep
+    the [16, block, tile] one-hot near 256 MB, so one pass covers each
+    slice whole and a deep pile costs only its own tiles.  Tiles with an
+    empty slice stay zero.  Each block's f32 sums (products of 0/1 and
+    int8, below 2^24) are exact and add up in int32."""
     n_tiles = lo.numel()
     K = W.shape[1]
     n = rp.numel()
     dev = rp.device
     out = torch.zeros(n_tiles, tile, K, dtype=torch.int32, device=dev)
-    tiles = torch.nonzero(hi > lo).flatten()
+    width = hi.long() - lo.long()
+    tiles = torch.nonzero(width > 0).flatten()
     if tiles.numel() == 0 or n == 0:
         return out.reshape(-1, K)
-    B = max(int((hi.long() - lo.long()).max()), 1)
-    # bound the [chunk, B, tile] one-hot to ~256 MB
-    chunk = max(1, min(16, (1 << 26) // (B * tile)))
-    jb = torch.arange(B, device=dev)
     cls_ids = torch.arange(tile, device=dev)
-    for c0 in range(0, tiles.numel(), chunk):
-        tid = tiles[c0:c0 + chunk]
-        idx = lo[tid].long()[:, None] + jb[None, :]
-        live = idx < hi[tid].long()[:, None]
-        idxc = idx.clamp(0, n - 1)
-        posrel = rp[idxc].long() - (wbeg + tid[:, None] * tile)
-        ok = live & (posrel >= 0) & (posrel < tile)
-        onehot = ((posrel[:, :, None] == cls_ids) & ok[:, :, None]).float()
-        o = torch.einsum("cbt,cbk->ctk", onehot, W[idxc].float())
-        out[tid] = o.round().to(torch.int32)
+    for c0 in range(0, tiles.numel(), 16):
+        tid = tiles[c0:c0 + 16]
+        B = int(width[tid].max())
+        step = max(1, min(B, (1 << 26) // (tid.numel() * tile)))
+        jb = torch.arange(step, device=dev)
+        for j0 in range(0, B, step):
+            idx = lo[tid].long()[:, None] + j0 + jb[None, :]
+            live = idx < hi[tid].long()[:, None]
+            idxc = idx.clamp(0, n - 1)
+            posrel = rp[idxc].long() - (wbeg + tid[:, None] * tile)
+            ok = live & (posrel >= 0) & (posrel < tile)
+            onehot = ((posrel[:, :, None] == cls_ids)
+                      & ok[:, :, None]).float()
+            o = torch.einsum("cbt,cbk->ctk", onehot, W[idxc].float())
+            out[tid] += o.round().to(torch.int32)
     return out.reshape(-1, K)
 
 

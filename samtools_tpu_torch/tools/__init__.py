@@ -8,6 +8,9 @@ import importlib
 # subcommand -> (module, function), imported when the command runs
 COMMANDS = {
     "mpileup": ("samtools_tpu_torch.tools.mpileup_cmd", "main_mpileup"),
+    "bedcov": ("samtools_tpu_torch.tools.bedcov_cmd", "main_bedcov"),
+    "coverage": ("samtools_tpu_torch.tools.coverage_cmd", "main_coverage"),
+    "depth": ("samtools_tpu_torch.tools.depth_cmd", "main_depth"),
 }
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of samtools_tpu/tools/common.py (:17-123); samtools' analogs
 are sam_opts.c (the global long options every tool accepts) and
-sam_utils.c (print_error / print_error_errno).
+sam_utils.c (print_error / print_error_errno).  Also the port's own rules
+for where a command's device work runs (``pick_device``) and for what it
+does not do yet (``not_ported``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import getopt
 import os
 import sys
 from dataclasses import dataclass, field
+
+from ..device import resolve
 
 
 def print_error(subcommand: str, fmt: str, *args):
@@ -109,3 +113,36 @@ def gnu_getopt(argv: list[str], shortopts: str, longopts: list[str]):
     except getopt.GetoptError as e:
         raise UsageError(str(e)) from None
 
+
+def not_ported(cmd: str, what: str) -> int:
+    """One stderr line for an input or option the port does not take
+    yet; the command's exit code."""
+    sys.stderr.write(f"[{cmd}] {what} is not ported yet\n")
+    return 1
+
+
+def n_shards() -> int:
+    """SAMTPU_SHARDS, the JAX package's region shard count (1 by
+    default)."""
+    try:
+        return max(int(os.environ.get("SAMTPU_SHARDS", "1")), 1)
+    except ValueError:
+        return 1
+
+
+def pick_device(device=None):
+    """Where a command's device work runs: None for the host branch
+    (``SAMTPU_DEVICE=0|host``, numpy), else the torch device ``device``
+    names (None: the CUDA card).  No size threshold sends work to the
+    host.  Raises RuntimeError when the card is named and CUDA is
+    missing."""
+    if os.environ.get("SAMTPU_DEVICE") in ("0", "host"):
+        return None
+    return resolve(device)
+
+
+def no_card(cmd: str, err: RuntimeError) -> int:
+    """Report ``pick_device``'s error; the command's exit code."""
+    sys.stderr.write(f"[{cmd}] {err} (SAMTPU_DEVICE=0 runs the host "
+                     "branch)\n")
+    return 1

@@ -42,7 +42,7 @@ from ..ops.mpileup_device import (HOST_THREADS, NT16_TO4,
                                   census_checksum, stored_baq_tags)
 from ..ops.overlaps import tweak_overlaps
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     print_error_errno)
+                     n_shards, not_ported, print_error_errno)
 from .flags_cmd import str2flag
 
 DEFAULT_FF = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -113,8 +113,7 @@ def usage(fp):
 
 
 def _not_ported(what: str) -> int:
-    sys.stderr.write(f"[mpileup] {what} is not ported yet\n")
-    return 1
+    return not_ported("mpileup", what)
 
 
 def _read_filter(b, conf, bedidx, header) -> np.ndarray:
@@ -269,7 +268,7 @@ def main_mpileup(argv: list[str], device=None) -> int:
         return _not_ported("-C above 10 (mapping-quality capping)")
     if len(args) > 1:
         return _not_ported("several input files")
-    if _n_shards() > 1:
+    if n_shards() > 1:
         return _not_ported("SAMTPU_SHARDS (sharded runs)")
     path = args[0]
     if path == "-":
@@ -304,13 +303,6 @@ def main_mpileup(argv: list[str], device=None) -> int:
         finally:
             if out is not sys.stdout:
                 out.close()
-
-
-def _n_shards() -> int:
-    try:
-        return max(int(os.environ.get("SAMTPU_SHARDS", "1")), 1)
-    except ValueError:
-        return 1
 
 
 def _count_samples(header, conf) -> int:

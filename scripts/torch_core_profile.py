@@ -1,8 +1,9 @@
-"""Where the time of the port's census core, or of its mpileup command,
-goes on one CUDA card.
+"""Where the time of the port's census core, or of its mpileup, depth,
+coverage or bedcov command, goes on one CUDA card.
 
     python3 scripts/torch_core_profile.py [--ref-len N] [--coverage X]
-        [--messy | --pairs] [--tool] [--out PATH.json]
+        [--messy | --pairs] [--tool | --pileup "CMD [OPTS]" ... [--host]]
+        [--out PATH.json]
 
 Simulates the bench workload (8 Mbp x 30x x 100 bp by default), writes it
 as a BAM with the port's writer, then streams it through BamStream ->
@@ -35,6 +36,16 @@ cumulative seconds).  ``tool_text_bytes`` is the output's size.
 ``--pairs`` simulates overlapping messy pairs instead
 (``sim.simulate_overlapping_pairs``), so the overlap tweak has work.
 
+With ``--pileup "depth -a"`` (or ``coverage ...``, ``bedcov ...``) the
+runs are that command in-process on the BAM (``-o`` to a file; bedcov
+reads a seeded BED of 1,000 intervals of 1-10 kbp and the BAM on
+standard input, its in-memory branch, and writes to standard output,
+captured): a warm-up, a timed run (host seconds per
+stage in ``PILEUP_STAGES``, exclusive) and a profiled run (device busy
+time and idle share).  ``--pileup`` may be given several times: each
+command runs on the same BAM, its result under ``runs``.  ``--host``
+runs each on the numpy host branch (``SAMTPU_DEVICE=0``) as well.
+
 Prints one JSON object, and writes it to --out when that is given.
 """
 
@@ -58,14 +69,18 @@ sys.path.insert(0, ROOT)
 
 from samtools_tpu_torch import cli, kernels  # noqa: E402
 from samtools_tpu_torch.core.batch import ReadBatch  # noqa: E402
+from samtools_tpu_torch.io import stream  # noqa: E402
 from samtools_tpu_torch.io.bam import write_bam  # noqa: E402
 from samtools_tpu_torch.io.stream import BamStream  # noqa: E402
+from samtools_tpu_torch.ops import depth as dops  # noqa: E402
 from samtools_tpu_torch.ops import mpileup_device as md  # noqa: E402
+from samtools_tpu_torch.ops import pileup_engine as pe  # noqa: E402
 from samtools_tpu_torch.sim import (make_header, simulate_batch,  # noqa: E402
                                     simulate_messy,
                                     simulate_overlapping_pairs,
                                     simulate_reference)
-from samtools_tpu_torch.tools import mpileup_cmd  # noqa: E402
+from samtools_tpu_torch.tools import (bedcov_cmd, coverage_cmd,  # noqa: E402
+                                      depth_cmd, mpileup_cmd)
 
 STAGES = ("_gather_rows", "_make_buf", "_plan", "_h2d", "_expand",
           "_weights", "_chunk_step", "_drain", "_host_reads", "finish")
@@ -87,6 +102,28 @@ TOOL_STAGES = (("mpileup_cmd._WindowCursor", "_pull"),
                ("mpileup_cmd.native", "mpileup_text"),
                ("ReadBatch", "take"),
                ("ReadBatch", "concat"))
+# the same for the pileup family: whole-file reads, the stream cursor,
+# the host item build, K1 with its uploads, K9, the numpy branch, rows
+PILEUP_STAGES = (("depth_cmd", "read_alignments"),
+                 ("coverage_cmd", "read_alignments"),
+                 ("bedcov_cmd", "read_alignments"),
+                 ("stream._Cursor", "_pull"),
+                 ("stream._Cursor", "take"),
+                 ("coverage_cmd._Stats", "select"),
+                 ("pe", "depth_items"),
+                 ("pe", "coverage_items"),
+                 ("pe", "segment_matmul"),
+                 ("pe", "depth_scan"),
+                 ("pe", "cov_reduce"),
+                 ("dops", "depth_window"),
+                 ("dops", "coverage_envelope"),
+                 ("dops", "overlap_clips"),
+                 ("coverage_cmd", "window_host"),
+                 ("bedcov_cmd", "_mspan_depth"),
+                 ("bedcov_cmd", "_build_states_streaming"),
+                 ("depth_cmd", "_emit"),
+                 ("ReadBatch", "take"),
+                 ("ReadBatch", "concat"))
 
 
 def annotated(name, fn):
@@ -138,7 +175,10 @@ def run(path, ref_int, ref_len, threads, timer=None):
 
 
 def _owner(path: str):
-    names = {"mpileup_cmd": mpileup_cmd, "md": md, "ReadBatch": ReadBatch}
+    names = {"mpileup_cmd": mpileup_cmd, "md": md, "ReadBatch": ReadBatch,
+             "depth_cmd": depth_cmd, "coverage_cmd": coverage_cmd,
+             "bedcov_cmd": bedcov_cmd, "stream": stream, "pe": pe,
+             "dops": dops}
     head, *rest = path.split(".")
     obj = names[head]
     for r in rest:
@@ -229,6 +269,87 @@ def profile_tool(path, ref, d, n_reads):
     }
 
 
+def run_pileup(argv, stdin=None):
+    """One in-process run of a pileup command (``stdin``: a file given as
+    standard input); its wall."""
+    import contextlib
+    import io
+    t0 = time.perf_counter()
+    old = sys.stdin
+    try:
+        if stdin is not None:
+            sys.stdin = io.TextIOWrapper(open(stdin, "rb"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv)
+    finally:
+        if sys.stdin is not old:
+            sys.stdin.close()
+            sys.stdin = old
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"{argv[0]} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def profile_pileup(spec, path, d, n_reads, host, ref_len):
+    """The pileup command's warm-up, timed and profiled runs."""
+    import shlex
+    words = shlex.split(spec)
+    out = os.path.join(d, "pileup.out")
+    if words[0] == "bedcov":
+        bed = os.path.join(d, "regions.bed")
+        rng = np.random.default_rng(21)
+        with open(bed, "w") as f:
+            for s0 in np.sort(rng.integers(0, max(1, ref_len - 10000),
+                                           1000)):
+                f.write(f"sim1\t{s0}\t{s0 + rng.integers(1000, 10001)}\n")
+        argv, stdin = [*words, bed, "-"], path
+    else:
+        argv, stdin = [*words, path, "-o", out], None
+    if host:
+        os.environ["SAMTPU_DEVICE"] = "0"
+    else:
+        os.environ.pop("SAMTPU_DEVICE", None)
+    warm = run_pileup(argv, stdin)
+    timer = StageTimer()
+    saved = [(_owner(o), a, getattr(_owner(o), a)) for o, a in PILEUP_STAGES]
+    for obj, a, fn in saved:
+        wrapped = timer.wrap(a, fn)
+        setattr(obj, a, staticmethod(wrapped) if a == "concat" else wrapped)
+    try:
+        wall = run_pileup(argv, stdin)
+    finally:
+        for obj, a, fn in saved:
+            setattr(obj, a, staticmethod(fn) if a == "concat" else fn)
+    kernels.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_prof = run_pileup(argv, stdin)
+    dev = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.key] = dev.get(e.key, 0) + t / 1e6
+    busy = sum(dev.values())
+    host_total = sum(timer.acc.values())
+    return {
+        "command": argv[:len(words)], "host_branch": host,
+        "wall_s": wall,
+        "Mbases_per_s": n_reads * 100 / wall / 1e6,
+        "first_run_wall_s": warm,
+        "host_stage_s": dict(sorted(timer.acc.items(),
+                                    key=lambda kv: -kv[1])),
+        "host_stage_sum_s": host_total,
+        "outside_stages_s": wall - host_total,
+        "profiled_wall_s": wall_prof,
+        "device_busy_s": busy if dev else "not measured",
+        "device_idle_share": 1 - busy / wall if dev else "not measured",
+        "device_top_s": dict(sorted(dev.items(), key=lambda kv: -kv[1])[:12]),
+        "launches": dict(kernels.launches),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ref-len", type=int, default=8 << 20)
@@ -238,8 +359,14 @@ def main() -> int:
     kind.add_argument("--pairs", action="store_true",
                       help="overlapping messy pairs")
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--tool", action="store_true",
-                    help="profile the mpileup command, not the core")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--tool", action="store_true",
+                      help="profile the mpileup command, not the core")
+    mode.add_argument("--pileup", metavar="CMD", action="append",
+                      help='profile a depth, coverage or bedcov command, '
+                      'e.g. "depth -a" (repeatable)')
+    ap.add_argument("--host", action="store_true",
+                    help="with --pileup: the numpy host branch too")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -264,13 +391,20 @@ def main() -> int:
         path = os.path.join(d, "core.bam")
         write_bam(path, make_header(args.ref_len), b, threads=threads)
         del b
-        if args.tool:
-            res = {"device": torch.cuda.get_device_name(0), "mode": "tool",
+        if args.tool or args.pileup:
+            res = {"device": torch.cuda.get_device_name(0),
+                   "mode": "pileup" if args.pileup else "tool",
                    "workload": {"ref_len": args.ref_len,
                                 "coverage": args.coverage,
                                 "messy": args.messy, "pairs": args.pairs,
                                 "reads": int(n_reads)},
-                   **profile_tool(path, ref, d, n_reads)}
+                   **({"runs": [profile_pileup(spec, path, d, n_reads, h,
+                                               args.ref_len)
+                                for spec in args.pileup
+                                for h in ((False, True) if args.host
+                                          else (False,))]}
+                      if args.pileup else
+                      profile_tool(path, ref, d, n_reads))}
             if args.out:
                 os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                             exist_ok=True)

@@ -6,6 +6,8 @@ elsewhere.  On the card, without JAX installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -337,4 +339,106 @@ def test_tool_on_card_equals_cpu(cuda, tmp_path, monkeypatch, which):
             assert all(launched[k] >= 24 for k in
                        ("segment_census", "baq_hmm", "baq_finalize"))
     assert got[None][0].count(b"\n") > L // 2
+    assert got[None] == got["cpu"]
+
+
+def _depth_events(seed, n_reads, tile, n_tiles, K):
+    """Depth-like items: reads of 100 bases every ~3 positions (a 30x
+    stack), two events each (+1 at the start, -1 at the end) and, for K >
+    1, random weights in the other lanes.  A piece of the kernel then
+    spans more rows than its accumulator holds.  The window is n_tiles *
+    tile positions, so the end events at its end fall in no tile."""
+    rng = np.random.default_rng(seed)
+    L = n_tiles * tile
+    pos = np.sort(rng.integers(0, L - 50, n_reads))
+    end = np.minimum(pos + 100, L)
+    rp = np.empty(2 * n_reads, np.int64)
+    rp[0::2], rp[1::2] = pos, end
+    W = rng.integers(-128, 128, (rp.size, K)).astype(np.int8)
+    W[0::2, 0], W[1::2, 0] = 1, -1
+    item_off = np.arange(0, 2 * n_reads + 1, 2)
+    from samtools_tpu_torch.ops.pileup_engine import tile_plan
+    plan = tile_plan(pos, end + 1, item_off, 0, L, tile)
+    return (torch.from_numpy(rp.astype(np.int32)), torch.from_numpy(W),
+            torch.from_numpy(plan.lo), torch.from_numpy(plan.hi), end)
+
+
+@pytest.mark.parametrize("K,tile", [(1, 1024), (3, 512), (4, 128)])
+def test_segment_contract_depth_events_equal_plain(cuda, K, tile):
+    n_tiles = 40
+    rp, W, lo, hi, end = _depth_events(K, 12000, tile, n_tiles, K)
+    P, win = piece_layout(4 + K, K)
+    # a piece's events span more rows than the accumulator: some items
+    # take the global-atomic path
+    assert int(rp[P - 1]) - int(rp[0]) > win
+    assert (end == n_tiles * tile).any()
+    want = segment_contract_plain(rp, W, lo, hi, 0, tile)
+    out = torch.zeros(n_tiles * tile, K, dtype=torch.int32, device=cuda)
+    segment_contract(rp.to(cuda), W.to(cuda), lo.to(cuda), hi.to(cuda), 0,
+                     tile, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    depth = torch.cumsum(want[:, 0].long(), 0)
+    assert int(depth.min()) >= 0 and int(depth.max()) > 20
+
+
+def _pileup_inputs(tmp_path):
+    from samtools_tpu_torch.io.bam import write_bam
+    L = 1 << 17
+    ref = sim.simulate_reference(L, seed=7)
+    b = sim.simulate_batch(ref_len=L, coverage=6.0, read_len=100, seed=3,
+                           paired=False, err_rate=0.01, ref=ref)
+    sim.simulate_messy(b, 11)
+    b.qual[b.seq_off[7]:b.seq_off[8]] = 0xFF
+    bam = str(tmp_path / "in.bam")
+    write_bam(bam, sim.make_header(L), b)
+    p = sim.simulate_overlapping_pairs(L, coverage=6.0, ref=ref, seed=5)
+    pairs = str(tmp_path / "pairs.bam")
+    write_bam(pairs, sim.make_header(L), p)
+    bed = str(tmp_path / "r.bed")
+    with open(bed, "w") as f:
+        for s in range(0, L - 5000, 3001):
+            f.write(f"sim1\t{s}\t{s + 1000 + s % 4000}\n")
+    return bam, pairs, bed
+
+
+@pytest.mark.parametrize("cmd,argv", [
+    ("depth", ["{bam}"]), ("depth", ["-a", "-q", "13", "-J", "{bam}"]),
+    ("depth", ["-s", "{pairs}", "{bam}"]),
+    ("coverage", ["{bam}", "{pairs}"]),
+    ("coverage", ["-r", "sim1:1001-90000", "{bam}"]),
+    ("bedcov", ["-c", "-d", "4", "{bed}", "-"])])
+def test_pileup_family_on_card_equals_cpu(cuda, tmp_path, monkeypatch, cmd,
+                                          argv):
+    """depth, coverage and bedcov on the card print the CPU port's bytes
+    (the 128 kbp messy BAM with one read stored without qualities, and
+    overlapping pairs); depth and coverage in 16 Kbp windows launch K1's
+    generic form and no other kernel."""
+    import contextlib
+    import io
+
+    from samtools_tpu_torch import cli
+    from samtools_tpu_torch.tools import coverage_cmd
+    bam, pairs, bed = _pileup_inputs(tmp_path)
+    args = [a.format(bam=bam, pairs=pairs, bed=bed) for a in argv]
+    monkeypatch.setattr(coverage_cmd, "STREAM_COLS", 1 << 14)
+    got = {}
+    for dev in (None, "cpu"):
+        kernels.reset_launches()
+        buf = io.StringIO()
+        old = sys.stdin
+        sys.stdin = io.TextIOWrapper(open(bam, "rb"))
+        try:
+            with contextlib.redirect_stdout(buf):
+                assert cli.main([cmd, *args], device=dev) == 0
+        finally:
+            sys.stdin.close()
+            sys.stdin = old
+        got[dev] = buf.getvalue()
+        launched = dict(kernels.launches)
+        if dev is None:
+            assert launched["segment_contract"] >= 1
+            assert all(launched[k] == 0 for k in
+                       ("segment_census", "baq_hmm", "baq_finalize"))
+    assert got[None].count("\n") > 1
     assert got[None] == got["cpu"]

@@ -1,5 +1,6 @@
-"""Inputs and runners shared by the port's mpileup tests
-(tests/test_torch_mpileup*.py).
+"""Inputs and runners shared by the port's tool tests
+(tests/test_torch_mpileup*.py, tests/test_torch_depth.py,
+tests/test_torch_coverage.py).
 
 Two BAMs over one 128 kbp simulated contig (FASTA with 60-column lines):
 
@@ -10,14 +11,26 @@ Two BAMs over one 128 kbp simulated contig (FASTA with 60-column lines):
   ``sim.simulate_overlapping_pairs``, so the overlap tweak runs), two read
   groups (``RG:Z:grpA``/``grpB``), written by the port.
 
-The JAX tool runs as ``python -m samtools_tpu mpileup`` in a subprocess on
-the JAX CPU backend; the port runs in-process through
+``make_pileup_inputs`` adds, for depth, coverage and bedcov: ``messy2``
+(the messy reads under a header with a second, unused contig),
+``indexed`` (the messy reads starting in [16000, 21000), with a
+``.bai``; ``unindexed`` the same without), ``qualless`` (a 5 kbp
+contig at 2x, one read stored without qualities), ``deep`` (a 20 kbp
+contig at 6x with 400 reads piled at one position: over 16,384 items in
+one tile, which takes several passes in the JAX plan), a BED of 40
+intervals and a SAM text file.
+
+The JAX tool runs as ``python -m samtools_tpu <command>`` in a subprocess
+on the JAX CPU backend; the port runs in-process through
 ``cli.main([...], device="cpu")``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
+import shutil
 import subprocess
 import sys
 
@@ -25,6 +38,7 @@ import numpy as np
 
 from samtools_tpu_torch import cli, sim
 from samtools_tpu_torch.io.bam import write_bam
+from samtools_tpu_torch.io.files import read_alignments
 from samtools_tpu_torch.io.header import SamHeader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,23 +78,99 @@ def make_inputs(d: str) -> dict:
     return {"dir": d, "ref": ref, "fa": fa, "messy": messy, "pairs": pairs}
 
 
-def run_jax(args: list[str], engine: str) -> bytes:
-    """stdout of the JAX tool; ``engine``: SAMTPU_DEVICE ("1" forces its
-    device engine, "0" the host HMM)."""
+def make_pileup_inputs(d: str) -> dict:
+    """make_inputs plus the depth/coverage/bedcov inputs (module doc)."""
+    from samtools_tpu.tools.index_cmd import main_index
+    got = make_inputs(d)
+    messy = read_alignments(got["messy"])
+    text = (f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:sim1\tLN:{REF_LEN}\n"
+            "@SQ\tSN:sim2\tLN:5000\n")
+    got["messy2"] = os.path.join(d, "messy2.bam")
+    write_bam(got["messy2"], SamHeader.from_text(text), messy.batch)
+    # the JAX index query fails on BAMs of more than a few BGZF blocks
+    # ("BAI chunk does not end on a record boundary"): two blocks here
+    b = messy.batch
+    got["indexed"] = os.path.join(d, "indexed.bam")
+    write_bam(got["indexed"], messy.header,
+              b.take(np.nonzero((b.pos >= 16000) & (b.pos < 21000))[0]))
+    got["unindexed"] = os.path.join(d, "unindexed.bam")
+    shutil.copy(got["indexed"], got["unindexed"])
+    assert main_index([got["indexed"]]) == 0
+    assert os.path.exists(got["indexed"] + ".bai")
+
+    ref = sim.simulate_reference(5000, seed=11)
+    b = sim.simulate_messy(sim.simulate_batch(
+        ref_len=5000, coverage=2.0, paired=False, seed=12, ref=ref), 12)
+    b.qual[b.seq_off[40]:b.seq_off[41]] = 0xFF
+    got["qualless"] = os.path.join(d, "qualless.bam")
+    write_bam(got["qualless"], sim.make_header(5000), b)
+
+    ref = sim.simulate_reference(20000, seed=13)
+    b = sim.simulate_messy(sim.simulate_batch(
+        ref_len=20000, coverage=6.0, paired=False, seed=14, ref=ref), 14)
+    mid = b.n // 2
+    b.pos[mid:mid + 400] = b.pos[mid]
+    got["deep"] = os.path.join(d, "deep.bam")
+    write_bam(got["deep"], sim.make_header(20000), b)
+
+    rng = np.random.default_rng(15)
+    starts = np.sort(rng.integers(0, REF_LEN - 3000, 40))
+    got["bed"] = os.path.join(d, "regions.bed")
+    with open(got["bed"], "w") as f:
+        for i, s0 in enumerate(starts):
+            f.write(f"sim1\t{s0}\t{s0 + rng.integers(100, 3000)}\tr{i}\n")
+    got["sam"] = os.path.join(d, "one.sam")
+    with open(got["sam"], "w") as f:
+        f.write(f"@SQ\tSN:sim1\tLN:{REF_LEN}\n"
+                "r1\t0\tsim1\t11\t60\t4M\t*\t0\t0\tACGT\tIIII\n")
+    return got
+
+
+def run_jax_tool(cmd: str, args: list[str], engine: str,
+                 stdin: str | None = None) -> bytes:
+    """stdout of ``python -m samtools_tpu <cmd>``; ``engine``:
+    SAMTPU_DEVICE ("1" forces its device branch, "0" its host branch);
+    ``stdin``: a file given as standard input."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
                SAMTPU_DEVICE=engine)
-    p = subprocess.run([sys.executable, "-m", "samtools_tpu", "mpileup"]
-                       + args, capture_output=True, env=env, cwd=REPO,
-                       timeout=600)
+    with open(stdin or os.devnull, "rb") as fin:
+        p = subprocess.run([sys.executable, "-m", "samtools_tpu", cmd]
+                           + args, capture_output=True, env=env, cwd=REPO,
+                           stdin=fin, timeout=600)
     assert p.returncode == 0, p.stderr.decode()[-2000:]
     return p.stdout
 
 
+def run_jax(args: list[str], engine: str) -> bytes:
+    """stdout of the JAX mpileup; ``engine``: SAMTPU_DEVICE ("1" forces
+    its device engine, "0" the host HMM)."""
+    return run_jax_tool("mpileup", args, engine)
+
+
 def run_port(args: list[str], out: str) -> bytes:
-    """The port's output file, run in-process on the CPU."""
+    """The port's mpileup output file, run in-process on the CPU."""
     assert cli.main(["mpileup", *args, "-o", out], device="cpu") == 0
     with open(out, "rb") as f:
         return f.read()
+
+
+def run_port_stdout(cmd: str, args: list[str], stdin: str | None = None,
+                    device="cpu") -> bytes:
+    """What the port's command writes to standard output, run in-process
+    (``stdin``: a file given as standard input)."""
+    buf = io.StringIO()
+    old_in = sys.stdin
+    try:
+        if stdin is not None:
+            sys.stdin = io.TextIOWrapper(open(stdin, "rb"))
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([cmd, *args], device=device)
+    finally:
+        if sys.stdin is not old_in:
+            sys.stdin.close()
+            sys.stdin = old_in
+    assert rc == 0, rc
+    return buf.getvalue().encode()
 
 
 def ref_codes(ref: np.ndarray) -> np.ndarray:
