@@ -65,6 +65,23 @@ from the sources in this checkout.  Phases, one JSON line each:
    standard input and a BED of 1,000 intervals of 1-10 kbp, card against
    ``SAMTPU_DEVICE=0``, byte-equal.  Per run: wall, aligned Mbases/s,
    output bytes and rows, launches.
+7. kernels_general -- K8 (``baq_apply``: K4 and K5 around torch ops) on a
+   group of 65,536 all-M reads of 100 bases from the clean BAM against its
+   plain version (applied quals equal on every read neither flags risky,
+   at most 1% of reads in the symmetric difference of the risky sets),
+   then ``apply_baq_batch`` through K8 with the host recompute of the
+   risky reads equal to ``io.native.baq_batch`` exactly; K13
+   (``stable_order``, ``torch.sort(stable=True)``) on the entry positions
+   of the clean BAM's first 1 Mi window equal to
+   ``np.argsort(kind="stable")`` exactly.  Beside each, the host
+   alternative's time (``io.native.baq_batch``, ``np.argsort``).
+8. general -- mpileup's general path and ``coverage -m`` in-process:
+   ``mpileup -f ref.fa -s -O`` on clean (8 Mbp x 30x), whose rows less
+   their two extra columns must equal the tool phase's fast-branch output
+   byte for byte; ``mpileup -r sim1:1-2000000 --output-extra FLAG,POS`` on
+   messy and pairs, and ``coverage -m -r sim1:1-2000000`` on clean, card
+   against ``SAMTPU_DEVICE=0``, byte-equal.  The card runs must launch K13
+   (and for mpileup K8 with its K4 and K5) and never K1 in either form.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -110,6 +127,12 @@ KERNEL_META = {
                 "samtools_tpu/ops/baq_device.py:114"),
     "baq_finalize": ("samtools_tpu_torch/csrc/baq_finalize.cu",
                      "samtools_tpu/ops/baq_device.py:303"),
+    # K8: K4 and K5 (the two sources above) around torch ops for the
+    # unpack and the gather; K13: torch.sort(stable=True)
+    "baq_apply": ("samtools_tpu_torch/ops/baq_device.py",
+                  "samtools_tpu/ops/baq_device.py:334"),
+    "stable_order": ("samtools_tpu_torch/ops/pileup.py",
+                     "samtools_tpu/ops/pileup.py:167"),
 }
 # what DeviceCensusPipeline launches; the generic K1 runs only in the
 # kernels phase
@@ -128,6 +151,18 @@ PILEUP_RUNS = (
      ["coverage", "-r", "sim1:1-2000000", "{clean}"], "clean"),
 )
 REGION_END = 2_000_000
+# mpileup's general path and coverage -m: (label, argv, reads counted,
+# engines).  The first holds its rows, less the two extra columns, to the
+# tool phase's fast-branch output; the others, card against host.
+GENERAL_RUNS = (
+    ("mpileup -s -O", ["mpileup", "-f", "{fa}", "-s", "-O", "{clean}"],
+     "clean", ("card",)),
+    ("mpileup -r --output-extra FLAG,POS (2 files)",
+     ["mpileup", "-f", "{fa}", "-r", "sim1:1-2000000", "--output-extra",
+      "FLAG,POS", "{messy}", "{pairs}"], "region2", ("card", "host")),
+    ("coverage -m -r", ["coverage", "-m", "-r", "sim1:1-2000000", "{clean}"],
+     "region", ("card", "host")),
+)
 
 
 def emit(obj: dict) -> None:
@@ -536,7 +571,7 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
                                         simulate_overlapping_pairs)
     fa = os.path.join(workdir, "ref.fa")
     write_fasta(fa, ref)
-    launches = {}
+    launches, texts = {}, {}
     for name, (bam, o_census, o_qsum, nrec) in oracles.items():
         out = os.path.join(workdir, f"{name}.pileup")
         cj = os.path.join(workdir, f"{name}.census.json")
@@ -562,6 +597,7 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
                 f"tool {name}: the main path's kernels are {MAIN_PATH}: "
                 f"{runs}")
         launches[name] = runs
+        texts[name] = out
         emit({"phase": "tool", "workload": name, "reads": int(nrec),
               "wall_s": round(wall, 3),
               "Mbases_per_s": round(nrec * READ_LEN / wall / 1e6, 3),
@@ -574,7 +610,8 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
               "risky_reads": sum(w.get("risky_reads", 0)
                                  for w in rec["windows"]),
               "launches": runs, "census_equal": True})
-        os.remove(out)
+        if name != "clean":
+            os.remove(out)
 
     # the command as a user runs it: card engine against host engine
     t0 = time.perf_counter()
@@ -615,7 +652,7 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
           "host_wall_s": round(walls["host"], 3),
           "output_bytes": len(card), "output_rows": card.count(b"\n"),
           "byte_equal": True})
-    return launches, (bam, n_pairs_reads)
+    return launches, (bam, n_pairs_reads), texts["clean"]
 
 
 def global_share(rp, lo, hi, wbeg: int, tile: int, P: int, win: int):
@@ -818,6 +855,184 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
     return launches
 
 
+def strip_extra_columns(path: str, want_path: str, n: int) -> int:
+    """Rows of ``path`` without their last ``n`` columns must equal the
+    rows of ``want_path``, in order: returns the row count."""
+    rows = 0
+    with open(path, "rb") as f, open(want_path, "rb") as g:
+        for a, b in zip(f, g):
+            require(a.rsplit(b"\t", n)[0] + b"\n" == b,
+                    f"general: row {rows} differs from the fast branch's")
+            rows += 1
+        require(f.read(1) == b"" and g.read(1) == b"",
+                "general: row counts differ from the fast branch's")
+    return rows
+
+
+def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
+                  bams: dict, clean_text: str, dev) -> dict:
+    """K8 and K13 against their plain versions at main-path shapes, then
+    mpileup's general path and coverage -m as a user runs them."""
+    import filecmp
+
+    import torch
+    from samtools_tpu_torch import cli, kernels
+    from samtools_tpu_torch.io import native
+    from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.ops import baq
+    from samtools_tpu_torch.ops import baq_device as bd
+    from samtools_tpu_torch.ops import pileup
+    from samtools_tpu_torch.ops.cigar import expand_ops
+    from samtools_tpu_torch.core.batch import ragged_gather_indices
+    rows = {}
+    # the reads each general run takes: all of clean, or those starting
+    # in the region (two files for the second run)
+    counts = {}
+    for name in ("messy", "pairs"):
+        m = read_alignments(bams[name], THREADS).batch
+        counts[name] = int((m.pos < REGION_END).sum())
+        del m
+    counts["region2"] = counts["messy"] + counts["pairs"]
+    b = read_alignments(bams["clean"], THREADS).batch
+    counts["clean"] = b.n
+    counts["region"] = int((b.pos < REGION_END).sum())
+
+    # --- K8 on a group of CHUNK all-M reads of 100 bases (one chunk)
+    k = np.nonzero((b.n_cigar == 1) & (b.l_qseq == READ_LEN))[0][:CHUNK]
+    group = b.take(k)
+    idx = group.seq_off[:-1][:, None] + np.arange(READ_LEN)[None, :]
+    pos, seq, qual = group.pos.astype(np.int64), group.seq[idx], \
+        group.qual[idx]
+    ref_dev = torch.from_numpy(ref_int).to(dev)
+    buf = np.empty((k.size, 4 + 2 * READ_LEN), np.uint8)
+    buf[:, :4] = pos.astype("<i4").view(np.uint8).reshape(-1, 4)
+    buf[:, 4:4 + READ_LEN] = seq
+    buf[:, 4 + READ_LEN:] = qual
+    buf_dev = torch.from_numpy(buf).to(dev)
+    kq, kr = bd.baq_apply(ref_dev, buf_dev)
+    pq, pr = bd.baq_apply_plain(ref_dev, buf_dev)
+    torch.cuda.synchronize()
+    both_ok = ~(kr | pr)
+    symdiff = int((kr ^ pr).sum())
+    k8_err = int((kq[both_ok].int() - pq[both_ok].int()).abs().max())
+    require(k8_err == 0, "K8: applied quals differ on non-risky reads")
+    require(symdiff <= 0.01 * k.size,
+            f"K8: risky sets differ on {symdiff} of {k.size} reads")
+    # after the host recompute of the risky reads: the host HMM's bytes
+    t0 = time.perf_counter()
+    want, _ = native.baq_batch(group.pos, group.cigar, group.cigar_off,
+                               group.seq, group.qual, group.seq_off, ref_int,
+                               flag=3, threads=THREADS)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    applied = group.take(np.arange(group.n))
+    baq.apply_baq_batch(applied, ref_int, device=dev, ref_dev=ref_dev)
+    require(np.array_equal(applied.qual, want),
+            "K8 + host recompute differs from io.native.baq_batch")
+    C, LQ = k.size, READ_LEN
+    l_ref = LQ + bd.APPLY_PAD
+    k4_ops = HMM_OPS_PER_CELL * 15 * LQ * C
+    k8_bytes = C * (4 + 2 * LQ) + C * l_ref + C * (LQ + 1)
+    rows["baq_apply"] = dict(
+        max_abs_err=k8_err,
+        ms=cuda_ms(lambda: bd.baq_apply(ref_dev, buf_dev)),
+        b2b_ms=cuda_ms(lambda: bd.baq_apply(ref_dev, buf_dev), per=10),
+        plain_ms=cuda_ms(lambda: bd.baq_apply_plain(ref_dev, buf_dev),
+                         reps=3),
+        library_ms=None, host_baq_batch_ms=host_ms,
+        host_baq_batch_threads=THREADS,
+        bound_sum_k4_ops_k5_bytes_ms=(
+            k4_ops / F32_OPS_PER_S + C * LQ * 8 / HBM_BYTES_PER_S) * 1e3,
+        detail={"reads": C, "risky_kernel": int(kr.sum()),
+                "risky_plain": int(pr.sum()), "risky_symdiff": symdiff,
+                "quals_equal_host_hmm": True},
+        **dict(zip(("bound_ms", "bound_by"), bound(k8_bytes, k4_ops))))
+    del group, applied, buf_dev
+
+    # --- K13 on the entry positions of the clean BAM's first 1 Mi window
+    sub = b.take(np.nonzero(b.pos < 1 << 20)[0], ragged=("cigar",))
+    del b
+    t = expand_ops(sub)
+    emit_ops = np.isin(t.op, (0, 2, 3, 7, 8))
+    epos = ragged_gather_indices(t.rpos[emit_ops], t.oplen[emit_ops])
+    keys = (epos - epos.min()).astype(np.int32)
+    del sub, t, epos
+    keys_dev = torch.from_numpy(keys).to(dev)
+    t0 = time.perf_counter()
+    want = np.argsort(keys, kind="stable")
+    host_sort_ms = (time.perf_counter() - t0) * 1e3
+    got = pileup.stable_order(keys_dev)
+    require(np.array_equal(got.cpu().numpy(), want),
+            "K13 differs from np.argsort(kind='stable')")
+    del want, got
+    n = keys.size
+    rows["stable_order"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: pileup.stable_order(keys_dev)),
+        b2b_ms=cuda_ms(lambda: pileup.stable_order(keys_dev), per=10),
+        plain_ms=host_sort_ms, host_argsort_ms=host_sort_ms,
+        library_ms=cuda_ms(lambda: torch.argsort(keys_dev, stable=True)),
+        detail={"entries": int(n)},
+        **dict(zip(("bound_ms", "bound_by"), bound(n * (4 + 8), 0))))
+    del keys_dev
+    emit({"phase": "kernels_general", **rows})
+
+    # --- the general path as a user runs it
+    fa = os.path.join(workdir, "ref.fa")
+    launches = {}
+    for label, argv, wl, engines in GENERAL_RUNS:
+        args = [a.format(fa=fa, **bams) for a in argv]
+        outs, walls, runs = {}, {}, {}
+        for engine in engines:
+            outs[engine] = os.path.join(workdir, f"general.{engine}.txt")
+            saved = os.environ.pop("SAMTPU_DEVICE", None)
+            if engine == "host":
+                os.environ["SAMTPU_DEVICE"] = "0"
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main([*args, "-o", outs[engine]])
+                torch.cuda.synchronize()
+            finally:
+                os.environ.pop("SAMTPU_DEVICE", None)
+                if saved is not None:
+                    os.environ["SAMTPU_DEVICE"] = saved
+            walls[engine] = time.perf_counter() - t0
+            runs[engine] = dict(kernels.launches)
+            require(rc == 0, f"{label} ({engine}): rc {rc}")
+        card = runs["card"]
+        is_mpileup = args[0] == "mpileup"
+        require(card["stable_order"] > 0 and card["segment_census"] == 0
+                and card["segment_contract"] == 0
+                and (card["baq_apply"] > 0) == is_mpileup
+                and (card["baq_hmm"] > 0) == is_mpileup
+                and (card["baq_finalize"] > 0) == is_mpileup,
+                f"{label}: the card run launched {card}")
+        if "host" in engines:
+            require(not any(runs["host"].values()),
+                    f"{label}: the host run launched {runs['host']}")
+            require(filecmp.cmp(outs["card"], outs["host"], shallow=False),
+                    f"{label}: the card's output differs from the host "
+                    "branch's")
+            n_rows = count_rows(outs["card"])
+        else:
+            # -s -O: without its two extra columns, the fast branch's rows
+            n_rows = strip_extra_columns(outs["card"], clean_text, 2)
+        require(n_rows > (1000 if is_mpileup else 10),
+                f"{label}: too few rows")
+        n = counts[wl]
+        emit({"phase": "general", "run": label, "reads": int(n),
+              **{f"{e}_wall_s": round(w, 3) for e, w in walls.items()},
+              "Mbases_per_s": round(n * READ_LEN / walls["card"] / 1e6, 3),
+              "output_bytes": os.path.getsize(outs["card"]),
+              "output_rows": n_rows, "launches": card,
+              "byte_equal": True})
+        launches[label] = card
+        for p in outs.values():
+            os.remove(p)
+    os.remove(clean_text)
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -833,7 +1048,8 @@ def main() -> int:
     rows = phase_kernels(ref, ref_int, torch.device("cuda"))
     with tempfile.TemporaryDirectory() as workdir:
         launches, oracles = phase_main(ref, ref_int, workdir)
-        tool_launches, (pairs, n_pairs) = phase_tool(ref, workdir, oracles)
+        tool_launches, (pairs, n_pairs), clean_text = phase_tool(
+            ref, workdir, oracles)
         bams = {"clean": oracles["clean"][0], "messy": oracles["messy"][0],
                 "pairs": pairs}
         pile_rows, region_reads = phase_kernels_pileup(
@@ -842,20 +1058,37 @@ def main() -> int:
             workdir, bams, {"clean": oracles["clean"][3],
                             "messy": oracles["messy"][3], "pairs": n_pairs,
                             "region": region_reads})
+        general_rows, general = phase_general(ref, ref_int, workdir, bams,
+                                              clean_text,
+                                              torch.device("cuda"))
+    rows.update(general_rows)
     table = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
         # launches: the mpileup command's run on clean (for the generic
-        # K1: the pileup family's card runs); core_launches: the census
+        # K1: the pileup family's card runs; for K8 and K13: the general
+        # path's mpileup -s -O run on clean); core_launches: the census
         # core's (phase 3)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
-               "launches": tool_launches["clean"][name],
+               "launches": (general[GENERAL_RUNS[0][0]][name]
+                            if name in general_rows
+                            else tool_launches["clean"][name]),
                "core_launches": launches["clean"][name],
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "b2b_ms": r["b2b_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"]}
+        if name == "baq_apply":
+            row.update(host_baq_batch_ms=r["host_baq_batch_ms"],
+                       bound_sum_k4_ops_k5_bytes_ms=r[
+                           "bound_sum_k4_ops_k5_bytes_ms"],
+                       general_launches={k: v[name]
+                                         for k, v in general.items()})
+        if name == "stable_order":
+            row.update(host_argsort_ms=r["host_argsort_ms"],
+                       general_launches={k: v[name]
+                                         for k, v in general.items()})
         if name == "segment_contract":
             row.update(launches=sum(family.values()),
                        depth_launches=family["depth clean"],

@@ -1,6 +1,6 @@
-"""The BAM aux-field walk the long-CIGAR fixup and mpileup's read-group
-filter need (SAM spec 4.2.4; counterpart of part of
-samtools_tpu/core/aux.py)."""
+"""The BAM aux-field walk the long-CIGAR fixup, mpileup's read-group
+filter, its extra tag columns and the stored BAQ tags need (SAM spec
+4.2.4; counterpart of part of samtools_tpu/core/aux.py)."""
 
 from __future__ import annotations
 
@@ -64,6 +64,20 @@ def delete_tag(buf: np.ndarray, tag: bytes) -> np.ndarray:
     if got is None:
         return buf
     return np.concatenate([buf[:got[0]], buf[got[1]:]])
+
+
+def delete_tags(buf: np.ndarray, tags: set[str]) -> np.ndarray:
+    """The aux bytes without the fields whose tag is in ``tags``."""
+    keep = []
+    i = 0
+    while i + 3 <= len(buf):
+        end = _skip_one(buf, i)
+        if bytes(buf[i:i + 2]).decode("latin-1") not in tags:
+            keep.append(buf[i:end])
+        i = end
+    if not keep:
+        return np.empty(0, np.uint8)
+    return np.concatenate(keep)
 
 
 def decode_value(buf: np.ndarray, i: int):

@@ -66,8 +66,15 @@ class ReadBatch:
     def n_cigar(self) -> np.ndarray:
         return (self.cigar_off[1:] - self.cigar_off[:-1]).astype(np.int64)
 
+    def qname_str(self, i: int) -> str:
+        return bytes(self.qname[self.qname_off[i]:
+                                self.qname_off[i + 1]]).decode()
+
     def cigar_of(self, i: int) -> np.ndarray:
         return self.cigar[self.cigar_off[i]:self.cigar_off[i + 1]]
+
+    def seq_of(self, i: int) -> np.ndarray:
+        return self.seq[self.seq_off[i]:self.seq_off[i + 1]]
 
     def aux_of(self, i: int) -> np.ndarray:
         return self.aux[self.aux_off[i]:self.aux_off[i + 1]]

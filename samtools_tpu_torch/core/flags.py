@@ -43,3 +43,6 @@ CDIFF = 8
 # Per-op: does the op consume query / reference bases?
 CIGAR_CONSUMES_QUERY = [1, 1, 0, 0, 1, 0, 0, 1, 1, 0]
 CIGAR_CONSUMES_REF = [1, 0, 1, 1, 0, 0, 0, 1, 1, 0]
+
+# 4-bit base codes (seq_nt16): =ACMGRSVTWYHKDBN
+SEQ_NT16_STR = "=ACMGRSVTWYHKDBN"

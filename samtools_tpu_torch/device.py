@@ -7,6 +7,7 @@ tests do — then every kernel wrapper takes its plain PyTorch version.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -19,3 +20,16 @@ def resolve(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on ``device``.  To the card the copy goes through pinned
+    memory, asynchronously on the current stream (the caching host
+    allocator keeps the pinned block until the copy has run), so the host
+    does not stall; on the CPU the tensor shares ``arr``'s memory."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cpu":
+        return t
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.copy_(t)
+    return pinned.to(device, non_blocking=True)

@@ -1,6 +1,7 @@
 """SAM header model (counterpart of samtools_tpu/io/header.py, only what
 ``decode_header``, the simulated ``@HD``/``@SQ`` header, mpileup's sample
-count and the name lookups of ``-r`` and ``bedcov`` need).
+count and RNAME/RNEXT columns, and the name lookups of ``-r`` and
+``bedcov`` need).
 
 Keeps the raw header text verbatim plus the @SQ (name, length) list.
 """
@@ -68,6 +69,9 @@ class SamHeader:
                         m.setdefault(a, m[sn])
             self._name2tid = m
         return self._name2tid.get(name, -1)
+
+    def ref_name(self, tid: int) -> str:
+        return self.ref_names[tid] if 0 <= tid < len(self.ref_names) else "*"
 
     def rg_to_sample(self) -> dict[str, str]:
         """RG ID -> SM map (samtools' sample.c bam_smpl_add); a read group

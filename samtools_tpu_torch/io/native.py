@@ -40,6 +40,7 @@ _SIGNATURES = {
                                    _I64, _P, _I64, _I64, _I64, _INT, _P,
                                    _INT, _INT, _INT, _INT, _INT, _P, _P]),
     "samtpu_ragged_gather": (_I64, [_P, _P, _P, _I64, _P, _P, _I64, _INT]),
+    "samtpu_ragged_copy": (_I64, [_P, _P, _P, _P, _P, _I64, _INT]),
 }
 
 
@@ -285,3 +286,27 @@ def ragged_gather(flat: np.ndarray, off: np.ndarray, rows: np.ndarray,
                                  out_off.ctypes.data, out.ctypes.data,
                                  flat.dtype.itemsize, threads)
     return out
+
+
+def ragged_copy(dst: np.ndarray, dst_start: np.ndarray, lens: np.ndarray,
+                src: np.ndarray, src_start: np.ndarray,
+                threads: int = 0) -> None:
+    """dst[dst_start[k] : +lens[k]] = src[src_start[k] : +lens[k]] for
+    every k, in place (uint8 arrays)."""
+    if dst.dtype != np.uint8 or src.dtype != np.uint8 \
+            or not dst.flags.c_contiguous:
+        raise TypeError("ragged_copy: dst and src must be uint8, dst "
+                        "contiguous")
+    lens = np.ascontiguousarray(lens, np.int64)
+    dst_start = np.ascontiguousarray(dst_start, np.int64)
+    src_start = np.ascontiguousarray(src_start, np.int64)
+    live = lens > 0
+    if live.any():
+        for start, arr in ((dst_start, dst), (src_start, src)):
+            s, e = start[live], start[live] + lens[live]
+            if int(s.min()) < 0 or int(e.max()) > arr.size:
+                raise IndexError("ragged_copy: range out of bounds")
+    src = np.ascontiguousarray(src)
+    _load().samtpu_ragged_copy(dst.ctypes.data, dst_start.ctypes.data,
+                               src.ctypes.data, src_start.ctypes.data,
+                               lens.ctypes.data, lens.size, threads)

@@ -7,7 +7,10 @@ come from ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream()``.  Each C entry point returns
 ``cudaGetLastError()``; a non-zero code raises here.  ``launches`` counts
 every launch of each kernel in this process (the wrappers add one where
-they launch, and nowhere else).
+they launch, and nowhere else).  Two kernels of the table are
+compositions, counted by their own wrappers where they run on the card:
+K8 ``baq_apply`` (ops/baq_device.py: one K4 and one K5 launch per chunk)
+and K13 ``stable_order`` (ops/pileup.py: ``torch.sort``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from . import build
 
 launches = {"segment_contract": 0, "segment_census": 0, "baq_hmm": 0,
-            "baq_finalize": 0}
+            "baq_finalize": 0, "baq_apply": 0, "stable_order": 0}
 
 _lib = None
 _lock = threading.Lock()

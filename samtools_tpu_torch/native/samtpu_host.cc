@@ -8,7 +8,8 @@
 //   * the f64 banded glocal BAQ HMM   (htslib sam_prob_realn analog)
 //   * the single-core BAQ + census oracle (samtpu_bench_baq_census)
 //   * device-eligibility classification and the two-lane census checksum
-//   * the mpileup text writer and the ragged row gather of ReadBatch.take
+//   * the mpileup text writer, the ragged row gather of ReadBatch.take and
+//     the ragged copy of the numpy row renderer
 //
 // All entry points are plain C ABI for ctypes.  Every function returns a
 // negative code on error, >=0 on success.
@@ -1130,6 +1131,34 @@ int64_t samtpu_ragged_gather(const uint8_t* flat, const int64_t* off,
       int64_t nbytes = (off[r + 1] - off[r]) * itemsize;
       if (nbytes > 0) std::memcpy(out + out_off[k] * itemsize, flat + s,
                                   (size_t)nbytes);
+    }
+  };
+  int nt = threads > 1 ? threads : 1;
+  if (nt <= 1 || m < (1 << 16)) {
+    work(0, m);
+    return m;
+  }
+  std::vector<std::thread> ws;
+  int64_t per = (m + nt - 1) / nt;
+  for (int t = 0; t < nt; ++t) {
+    int64_t lo = t * per, hi = lo + per < m ? lo + per : m;
+    if (lo >= hi) break;
+    ws.emplace_back([&, lo, hi] { work(lo, hi); });
+  }
+  for (auto& w : ws) w.join();
+  return m;
+}
+
+// dst[dst_start[k] : +lens[k]] = src[src_start[k] : +lens[k]] for every
+// k < m (bytes; the caller checks the bounds): the row writers' scatter of
+// ragged fields into one output buffer.
+int64_t samtpu_ragged_copy(uint8_t* dst, const int64_t* dst_start,
+                           const uint8_t* src, const int64_t* src_start,
+                           const int64_t* lens, int64_t m, int threads) {
+  auto work = [&](int64_t lo, int64_t hi) {
+    for (int64_t k = lo; k < hi; ++k) {
+      if (lens[k] > 0)
+        std::memcpy(dst + dst_start[k], src + src_start[k], (size_t)lens[k]);
     }
   };
   int nt = threads > 1 ? threads : 1;

@@ -1,9 +1,11 @@
-"""Device BAQ: the banded glocal pair-HMM (K4 ``baq_hmm``) and the
-finalize step (K5 ``baq_finalize``), each with its CUDA wrapper and its
-plain PyTorch version.
+"""Device BAQ: the banded glocal pair-HMM (K4 ``baq_hmm``), the finalize
+step (K5 ``baq_finalize``) and BAQ apply (K8 ``baq_apply``, their
+composition), each with its wrapper and its plain PyTorch version.
 
 Counterpart of samtools_tpu/ops/baq_device.py: ``_probaln_batch``
-(:111-299) with ``_decode_row`` (:60-99), and ``_finalize`` (:302-328).
+(:111-299) with ``_decode_row`` (:60-99), ``_finalize`` (:302-328), and
+``_get_fused_apply`` (:334-375) with ``baq_apply_device_nt16``
+(:378-410).
 The plain versions mirror those functions op by op on [W, B] band-major
 tensors (a loop over query rows); the kernels are csrc/baq_hmm.cu and
 csrc/baq_finalize.cu, whose source notes say what bounds each on the
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..device import h2d
 
 PD = 0.001
 PE = 0.1
@@ -304,3 +307,95 @@ def baq_finalize(bq, good, qual, seg):
                    good.data_ptr(), qual.data_ptr(), seg.data_ptr(), B, L,
                    out.data_ptr(), kernels.stream_of(qual))
     return out
+
+
+# ---------------------------------------------------------------- K8
+# reads per host->device copy of ``baq_apply_nt16``
+APPLY_CHUNK = 1 << 16
+# K8's ref window: the read's L bases and bw // 2 more (sam_prob_realn's
+# extent for an all-M read)
+APPLY_PAD = 3
+
+
+def _apply(ref_dev, buf, hmm, fin):
+    """K8's body: unpack ``buf`` u8[B, 4 + 2L] (LE int32 pos | nt16 bases |
+    quals), map nt16 to 0-4 codes, gather ref windows of L + 3 from the
+    contig codes ``ref_dev``, then the HMM (every base expected on the
+    diagonal, one window length and boundary probability for all) and
+    the finalize (one M op per read)."""
+    B = buf.shape[0]
+    L = (buf.shape[1] - 4) // 2
+    l_ref = L + APPLY_PAD
+    dev = buf.device
+    pc = buf[:, :4].contiguous().view(torch.int32)[:, 0]
+    nt16_to4 = torch.tensor([4, 0, 1, 4, 2, 4, 4, 4, 3, 4, 4, 4, 4, 4, 4, 4],
+                            dtype=torch.uint8, device=dev)
+    sq = nt16_to4[buf[:, 4:4 + L].long()]
+    qq = buf[:, 4 + L:4 + 2 * L].contiguous()
+    last = ref_dev.numel() - 1
+    idx = pc.clamp(max=last)[:, None] + torch.arange(l_ref, device=dev)
+    ref_win = ref_dev[idx.clamp(0, last).long()]
+    cdT = torch.zeros(L, B, dtype=torch.int32, device=dev)
+    lref = torch.full((B,), l_ref, dtype=torch.int32, device=dev)
+    bMv = torch.full((B,), (1 - PD) / l_ref, dtype=torch.float32, device=dev)
+    bIv = torch.full((B,), PD / l_ref, dtype=torch.float32, device=dev)
+    bq, good, risky = hmm(ref_win, sq, qq, cdT, lref, bMv, bIv, L, l_ref, 7)
+    seg = torch.zeros(B, L, dtype=torch.int32, device=dev)
+    return fin(bq, good, qq, seg), risky
+
+
+def baq_apply_plain(ref_dev, buf):
+    """K8's plain version: ``_apply`` over the plain K4 and K5."""
+    return _apply(ref_dev, buf, baq_hmm_plain, baq_finalize_plain)
+
+
+def baq_apply(ref_dev, buf):
+    """K8, BAQ apply of a uniform group of all-M reads: ref_dev u8[n]
+    contig codes (0-4), buf u8[B, 4 + 2L] -> (applied quals u8[B, L],
+    risky bool[B]).  CPU tensors take the plain version; CUDA tensors
+    launch K4 and K5 (csrc/baq_hmm.cu, csrc/baq_finalize.cu) around torch
+    ops for the unpack and the gather."""
+    kernels.check(ref_dev, "ref_dev", torch.uint8, (None,))
+    kernels.check(buf, "buf", torch.uint8, (None, None))
+    if not kernels.on_card(ref_dev, buf):
+        return baq_apply_plain(ref_dev, buf)
+    out = _apply(ref_dev, buf, baq_hmm, baq_finalize)
+    kernels.launches["baq_apply"] += 1
+    return out
+
+
+def apply_fits(l_query: int, device: torch.device) -> bool:
+    """Does K8 take reads of ``l_query`` bases on ``device``?  On the
+    card, when K4's shared memory per block for that length fits the
+    card's opt-in limit (K4 keeps each block's ref windows, queries and
+    quals there: ~17 KB + ~96 bytes a base); the plain version takes any
+    length."""
+    if device.type != "cuda":
+        return True
+    smem = hmm_layout(l_query, l_query + APPLY_PAD, 1)["smem_bytes"]
+    return smem <= torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def baq_apply_nt16(ref_dev, pos: np.ndarray, seq_nt16: np.ndarray,
+                   qual: np.ndarray, chunk: int = APPLY_CHUNK):
+    """K8 over a uniform group of all-M reads of L bases, on the device
+    ``ref_dev`` lies on: pos int64[B] (pos + L + 3 inside the contig),
+    seq_nt16 and qual u8[B, L].  One pinned host->device copy per chunk
+    of ``chunk`` reads and one device->host copy of the group's applied
+    quals and risky flags.  Returns (u8[B, L], bool[B]) as numpy."""
+    B, L = qual.shape
+    outs, risks = [], []
+    for lo in range(0, B, chunk):
+        hi = min(lo + chunk, B)
+        buf = np.empty((hi - lo, 4 + 2 * L), np.uint8)
+        buf[:, :4] = pos[lo:hi].astype("<i4").view(np.uint8).reshape(-1, 4)
+        buf[:, 4:4 + L] = seq_nt16[lo:hi]
+        buf[:, 4 + L:] = qual[lo:hi]
+        appq, rk = baq_apply(ref_dev, h2d(buf, ref_dev.device))
+        outs.append(appq)
+        risks.append(rk)
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    risky = torch.cat(risks) if len(risks) > 1 else risks[0]
+    both = torch.cat([out.reshape(-1), risky.to(torch.uint8)]).cpu().numpy()
+    return both[:B * L].reshape(B, L), both[B * L:].astype(bool)

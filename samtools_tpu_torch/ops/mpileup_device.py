@@ -37,7 +37,7 @@ import torch
 from ..core import flags as F
 from ..core.aux import has_tag
 from ..core.batch import ragged_gather_indices
-from ..device import resolve
+from ..device import h2d, resolve
 from ..io import native
 from .baq_device import baq_finalize, baq_hmm
 from .pileup_engine import padded_tiles, tile_plan
@@ -286,15 +286,9 @@ class DeviceCensusPipeline:
 
     # ------------------------------------------------------------------
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
-        """Copy to the device without stalling the host: through pinned
-        memory, asynchronously on the current stream (the caching host
-        allocator keeps the pinned block until the copy has run)."""
-        if self.device.type == "cpu":
-            return torch.from_numpy(arr)
-        pinned = torch.empty(arr.shape, dtype=torch.from_numpy(arr).dtype,
-                             pin_memory=True)
-        pinned.numpy()[...] = arr
-        return pinned.to(self.device, non_blocking=True)
+        """``device.h2d`` to this pipeline's device (a stage the profile
+        script times)."""
+        return h2d(arr, self.device)
 
     def _gather_rows(self, b, dsel):
         """[n, l_query] seq/qual matrices of the selected reads; a
@@ -567,9 +561,8 @@ class DeviceCensusPipeline:
         newq = sub.qual[gidx]
         if self.baq_flag:
             if stored_baq_tags(sub, rows):
-                raise NotImplementedError(
-                    "BAQ tag conversion (stored BQ/ZQ tags) is not ported "
-                    "yet")
+                raise ValueError("reads with stored BQ/ZQ tags: their "
+                                 "conversion is ops.baq.apply_baq_batch's")
             newq, _ = native.baq_batch(spos, cig, coff, seq_nt16, newq,
                                        soff, self.ref_int, flag=3,
                                        threads=threads)

@@ -18,6 +18,13 @@ reduction ``cov_reduce`` (the min-depth gate and the per-subwindow sums,
 in int64, so deep windows do not wrap).  ``coverage_items`` keeps each
 base's quality whole: lane 1 holds q & 127 and lane 3 q >> 7, where the
 JAX package caps the quality at 127 in one int8 lane.
+
+K1 indexes items with int32.  A window whose reads would make MAX_ITEMS
+items or more is cut at tile boundaries into sub-windows of fewer
+(``item_cuts``), planned from per-read item counts before any item is
+built, and run one after another: depth concatenates their columns,
+coverage adds their sums.  The JAX package's device branch wraps
+silently there; its host branch is the output held.
 """
 
 from __future__ import annotations
@@ -234,6 +241,56 @@ def depth_scan(diff: torch.Tensor, direct: torch.Tensor, L: int
     return d.cpu().numpy().astype(np.int32)
 
 
+def _cigar_counts(batch, sel: np.ndarray):
+    """Per selected read: (M/=/X ops of nonzero length, M/=/X bases, D
+    ops), from its CIGAR alone."""
+    ncig = batch.cigar_off[sel + 1] - batch.cigar_off[sel]
+    cig = batch.cigar[ragged_gather_indices(batch.cigar_off[sel], ncig)]
+    rid = np.repeat(np.arange(sel.size), ncig)
+    ops = cig & 0xF
+    lens = (cig >> 4).astype(np.int64)
+    m = (ops == F.CMATCH) | (ops == F.CEQUAL) | (ops == F.CDIFF)
+    n = sel.size
+    return (np.bincount(rid[m & (lens > 0)], minlength=n),
+            np.bincount(rid[m], weights=lens[m], minlength=n).astype(
+                np.int64),
+            np.bincount(rid[ops == F.CDEL], minlength=n))
+
+
+def item_cuts(files, wbeg: int, wend: int, tile: int) -> list:
+    """Sub-windows [a, b) of [wbeg, wend), cut at multiples of ``tile``
+    from wbeg, in each of which every file's reads that overlap it make
+    fewer than MAX_ITEMS items.  files: (read start, read end, items per
+    read) per file, reads in coordinate order; a read's items are counted
+    whole in every sub-window it overlaps.  Raises where one tile alone
+    holds MAX_ITEMS items."""
+    n_tiles = max(1, (wend - wbeg + tile - 1) // tile)
+    planned = []
+    for pos, end, items in files:
+        inw = (pos < wend) & (end > wbeg)
+        a = np.clip(pos[inw], wbeg, wend) - wbeg
+        e = np.clip(end[inw], wbeg, wend) - wbeg
+        c = items[inw].astype(np.float64)
+        # items of the reads whose first tile is below B, and of those
+        # whose last tile is below A: count(A, B) = by_first[B] - by_last[A]
+        by_first = np.concatenate([[0], np.cumsum(np.bincount(
+            a // tile, weights=c, minlength=n_tiles))]).astype(np.int64)
+        by_last = np.concatenate([[0], np.cumsum(np.bincount(
+            (e - 1) // tile, weights=c, minlength=n_tiles))]).astype(np.int64)
+        planned.append((by_first, by_last))
+    cuts, A = [], 0
+    while A < n_tiles:
+        B = min(int(np.searchsorted(f, MAX_ITEMS + int(d[A]), side="left"))
+                - 1 for f, d in planned)
+        if B <= A:
+            raise ValueError(f"tile {A} of the window at {wbeg} holds "
+                             f"{MAX_ITEMS} items or more")
+        B = min(B, n_tiles)
+        cuts.append((wbeg + A * tile, min(wbeg + B * tile, wend)))
+        A = B
+    return cuts
+
+
 def depth_window_device(batch, sel: np.ndarray, wbeg: int, wend: int,
                         min_qual: int, count_del: bool,
                         clips: np.ndarray | None = None,
@@ -243,8 +300,29 @@ def depth_window_device(batch, sel: np.ndarray, wbeg: int, wend: int,
     versions): the spans become +-1 difference events and, with a
     quality gate, each M base a 0/1 weight, K1 adds both per position
     and ``depth_scan`` gives int32[wend - wbeg].  ``device`` None means
-    the CUDA card."""
+    the CUDA card.  A window of MAX_ITEMS items or more runs as
+    ``item_cuts``' sub-windows, their columns concatenated."""
     device = resolve(device)
+    if sel.size == 0:
+        return np.zeros(wend - wbeg, np.int32)
+    # items per read, bounded from above: 2 events per M span (or one per
+    # M base with a quality gate) and 2 per deletion with -J
+    spans, bases, dels = _cigar_counts(batch, sel)
+    items = (bases if min_qual else 2 * spans) + (2 * dels if count_del
+                                                  else 0)
+    if int(items.sum()) < MAX_ITEMS:
+        return _depth_window(batch, sel, wbeg, wend, min_qual, count_del,
+                             clips, device)
+    pos, end = batch.pos[sel], batch.end_pos()[sel]
+    return np.concatenate([
+        _depth_window(batch, sel[(pos < b) & (end > a)], a, b, min_qual,
+                      count_del, clips, device)
+        for a, b in item_cuts([(pos, end, items)], wbeg, wend,
+                              pick_tile(wend - wbeg))])
+
+
+def _depth_window(batch, sel, wbeg, wend, min_qual, count_del, clips,
+                  device) -> np.ndarray:
     L = wend - wbeg
     if sel.size == 0:
         return np.zeros(L, np.int32)
@@ -324,8 +402,25 @@ def coverage_window_device(parts, wbeg: int, wend: int, min_baseq: int,
     ``cov_reduce``; only the subwindow sums come back.  ``device`` None
     means the CUDA card.
 
-    parts: iterable of (batch, sel) pairs, one per input file."""
+    parts: iterable of (batch, sel) pairs, one per input file.  Where a
+    file's reads would make MAX_ITEMS items or more, the window runs as
+    ``item_cuts``' sub-windows and their int64 sums add."""
     device = resolve(device)
+    parts = [(b, s) for b, s in parts if s.size]
+    # a read's items: one per base of its reference span
+    files = [(b.pos[s], b.end_pos()[s], b.ref_span()[s]) for b, s in parts]
+    if all(int(f[2].sum()) < MAX_ITEMS for f in files):
+        return _coverage_window(parts, wbeg, wend, min_baseq, min_depth,
+                                device, sub)
+    acc = np.zeros(3, np.int64)
+    for a, b in item_cuts(files, wbeg, wend, pick_tile(wend - wbeg)):
+        acc += _coverage_window(
+            [(bt, s[(p < b) & (e > a)]) for (bt, s), (p, e, _) in
+             zip(parts, files)], a, b, min_baseq, min_depth, device, sub)
+    return acc
+
+
+def _coverage_window(parts, wbeg, wend, min_baseq, min_depth, device, sub):
     census = None
     for batch, sel in parts:
         if sel.size == 0:

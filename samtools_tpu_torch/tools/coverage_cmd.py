@@ -10,12 +10,16 @@ Each window's census runs through ``coverage_window_device`` (K1's
 generic form and the coverage reduction, on the card), or with
 ``SAMTPU_DEVICE=0|host`` through the numpy ``window_host``.  Both sum
 every quality whole and in int64; the JAX package's device branch caps a
-base's quality at 127 and sums in int32.  ``-m``/``-D`` (the histograms),
-SAM and CRAM input exit 1 with one "not ported yet" line.
+base's quality at 127 and sums in int32.  ``-m``/``-D`` (the terminal
+histograms, ``_coverage_hist``) read the files whole and build each
+contig's pileup table (``ops.pileup.build_pileup``, ordered by K13 on the
+card, or by the host's numpy sort with ``SAMTPU_DEVICE=0|host``).  SAM
+and CRAM input exit 1 with one "not ported yet" line.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -26,6 +30,7 @@ from ..core.regions import RegionError, parse_region
 from ..io.files import FormatNotPorted, read_alignments
 from ..io.stream import BamStream, WindowedReader
 from ..ops.cigar import expand_ops
+from ..ops.pileup import build_pileup
 from ..ops.pileup_engine import coverage_window_device
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
                      no_card, not_ported, pick_device, print_error,
@@ -37,6 +42,10 @@ DEFAULT_FF = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
 # columns per window: streamed, and of the -r scan
 STREAM_COLS = 1 << 20
 REGION_COLS = 16 << 20
+
+BLOCK8 = ["\u2581", "\u2582", "\u2583", "\u2584", "\u2585", "\u2586",
+          "\u2587", "\u2588"]
+BLOCK2 = [".", ":"]
 
 
 def usage(fp):
@@ -196,6 +205,9 @@ def main_coverage(argv: list[str], device=None) -> int:
     file_list = None
     out_file = None
     print_header = True
+    histogram = plot_depth = False
+    full_utf = full_width = True
+    n_bins = -1
     try:
         opts, args = gnu_getopt(argv, "o:l:q:Q:hHw:r:b:mAd:D",
                                 ["rf=", "ff=", "incl-flags=", "excl-flags=",
@@ -216,6 +228,7 @@ def main_coverage(argv: list[str], device=None) -> int:
             min_depth = int(v)
         elif o in ("-o", "--output"):
             out_file = v
+            full_width = False
         elif o in ("-l", "--min-read-len"):
             min_len = int(v)
         elif o in ("-q", "--min-MQ", "--min-mq"):
@@ -225,15 +238,18 @@ def main_coverage(argv: list[str], device=None) -> int:
         elif o in ("-d", "--depth"):
             int(v)   # the depth cap: no cap here (as the JAX tool)
         elif o in ("-w", "--n-bins"):
-            int(v)   # histogram width: the histograms are not ported
+            n_bins = int(v)
+            full_width = False
         elif o in ("-r", "--region"):
             reg = v
         elif o in ("-b", "--bam-list"):
             file_list = v
-        elif o in ("-m", "--histogram", "-D", "--plot-depth"):
-            return not_ported("coverage", "-m/-D (histograms)")
+        elif o in ("-m", "--histogram"):
+            histogram = True
+        elif o in ("-D", "--plot-depth"):
+            histogram = plot_depth = True
         elif o in ("-A", "--ascii"):
-            pass     # shapes only the histograms
+            full_utf = False
         elif o in ("-H", "--no-header"):
             print_header = False
         elif o in ("-h", "--help"):
@@ -252,13 +268,17 @@ def main_coverage(argv: list[str], device=None) -> int:
     if not args:
         usage(sys.stdout)
         return 1
+    if n_bins <= 0 or full_width:
+        cols = int(os.environ.get("COLUMNS", "0") or 0)
+        n_bins = cols - 40 if cols > 60 else 40
     try:
         dev = pick_device(device)
     except RuntimeError as e:
         return no_card("coverage", e)
 
-    # no-region runs stream in bounded windows; -r reads whole files
-    if reg is None and "-" not in args:
+    # no-region tables stream in bounded windows; -r, standard input and
+    # the histograms read whole files
+    if reg is None and "-" not in args and not histogram:
         streams = []
         try:
             for path in args:
@@ -307,9 +327,14 @@ def main_coverage(argv: list[str], device=None) -> int:
     out = open(out_file, "w") if out_file and out_file != "-" \
         else sys.stdout
     try:
-        _coverage_in_memory(files, header, region, dev, fail_flags,
-                            required_flags, min_mapq, min_len, min_baseq,
-                            min_depth, out, print_header)
+        if histogram:
+            _coverage_hist(files, header, region, dev, fail_flags,
+                           required_flags, min_mapq, min_len, min_baseq,
+                           min_depth, out, n_bins, full_utf, plot_depth)
+        else:
+            _coverage_in_memory(files, header, region, dev, fail_flags,
+                                required_flags, min_mapq, min_len,
+                                min_baseq, min_depth, out, print_header)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -395,3 +420,115 @@ def _coverage_streamed(streams, dev, fail_flags, required_flags, min_mapq,
               + [t for t in range(n_targets) if not covered[t]]):
         stats.line(out, header, t, 0, header.ref_lens[t], hdr_flag)
     return 0
+
+
+def _coverage_hist(files, header, region, dev, fail_flags, required_flags,
+                   min_mapq, min_len, min_baseq, min_depth, out, n_bins,
+                   full_utf, plot_depth) -> None:
+    """-m/-D: per contig (or the region), the pileup of each file's reads
+    (``build_pileup``; K13 orders it on ``dev``), the depth of the M bases
+    of quality >= min_baseq per position, and a histogram of the covered
+    share (-m) or the depth (-D) in ``n_bins`` bins."""
+    stats = _Stats(header.n_refs)
+    selected = [stats.select(f.batch, fail_flags, required_flags, min_mapq,
+                             min_len) for f in files]
+    tids = sorted(set(int(t) for f, kp in zip(files, selected)
+                      for t in np.unique(f.batch.tid[kp])))
+    if region is not None:
+        tids = [region.tid]
+    blocks = []
+    for t in tids:
+        beg = region.beg if region else 0
+        end = min(region.end, header.ref_lens[t]) if region \
+            else header.ref_lens[t]
+        L = max(end - beg, 1)
+        depth = np.zeros(L, np.int64)
+        visited = np.zeros(L, bool)
+        bq_sum = np.zeros(L, np.int64)
+        for f, kp in zip(files, selected):
+            b = f.batch
+            sel = np.nonzero(kp & (b.tid == t))[0]
+            if region is not None and sel.size:
+                sel = sel[(b.pos[sel] < end) & (b.end_pos()[sel] > beg)]
+            sub = b.take(sel)
+            p = build_pileup(sub, dev)
+            inreg = (p.pos >= beg) & (p.pos < end)
+            visited |= np.bincount(p.pos[inreg] - beg, minlength=L) > 0
+            real = inreg & ~(p.is_del | p.is_refskip)
+            quals = sub.qual[sub.seq_off[p.rid[real]] + p.qpos[real]] \
+                .astype(np.int64)
+            okq = quals >= min_baseq
+            pr = p.pos[real][okq] - beg
+            np.add.at(depth, pr, 1)
+            np.add.at(bq_sum, pr, quals[okq])
+        pos_ok = visited & (depth > 0) & (depth >= min_depth)
+        # set, not added: one contig is one block
+        stats.n_cov_bases[t] = int(pos_ok.sum())
+        stats.summed_cov[t] = int(depth[pos_ok].sum())
+        stats.summed_baseq[t] = int(bq_sum[pos_ok].sum())
+        nb = min(n_bins, L)
+        bw = max(L // max(nb, 1), 1)
+        hist = np.zeros(nb, np.int64)
+        idx = np.minimum(np.arange(L) // bw, nb - 1)
+        np.add.at(hist, idx, depth if plot_depth else pos_ok.astype(np.int64))
+        blocks.append((t, beg, end, hist, bw, nb))
+    for i, (t, beg, end, hist, bw, nb) in enumerate(blocks):
+        _print_hist(out, header, stats, t, beg, end, hist, bw, nb, full_utf,
+                    plot_depth)
+        if i < len(blocks) - 1:
+            out.write("\n")
+
+
+def _print_hist(out, header, stats, t, beg, end, hist, bw, nb, full_utf,
+                plot_depth) -> None:
+    """coverage.c's terminal histogram of one contig, with its summary
+    beside it (the quality bases are the depth summed over the counted
+    positions)."""
+    blocks = BLOCK8 if full_utf else BLOCK2
+    blen = len(blocks)
+    vline = "\u2502" if full_utf else "|"
+    L = float(end - beg)
+    data = [(1 if plot_depth else 100) * h / bw for h in hist]
+    max_val = max(data) if data else 0.0
+    n_sel, n_reads = stats.n_selected[t], stats.n_reads[t]
+    out.write("%s (%sbp)\n" % (header.ref_names[t],
+                               readable_bps(header.ref_lens[t])))
+    n_rows = 10
+    row_bin = max_val / n_rows
+    for i in range(n_rows - 1, -1, -1):
+        cur = row_bin * i
+        if plot_depth:
+            out.write(">%8.1f " % (i * row_bin))
+        else:
+            out.write(">%7.2f%% " % cur)
+        out.write(vline)
+        for col in range(nb):
+            diff = round(blen * (data[col] - cur) / row_bin) - 1 \
+                if row_bin > 0 else -1
+            out.write(" " if diff < 0 else blocks[min(diff, blen - 1)])
+        out.write(vline + " ")
+        if i == 9:
+            out.write("Number of reads: %d" % n_sel)
+        elif i == 8 and n_reads - n_sel > 0:
+            out.write("    (%d filtered)" % (n_reads - n_sel))
+        elif i == 7:
+            out.write("Covered bases:   %sbp"
+                      % readable_bps(stats.n_cov_bases[t]))
+        elif i == 6:
+            out.write("Percent covered: %.4g%%"
+                      % (100.0 * stats.n_cov_bases[t] / L))
+        elif i == 5:
+            out.write("Mean coverage:   %.3gx" % (stats.summed_cov[t] / L))
+        elif i == 4:
+            out.write("Mean baseQ:      %.3g"
+                      % (stats.summed_baseq[t] / stats.summed_cov[t]
+                         if stats.summed_cov[t] else 0))
+        elif i == 3:
+            out.write("Mean mapQ:       %.3g"
+                      % (stats.summed_mapq[t] / n_sel if n_sel else 0))
+        elif i == 1:
+            out.write("Histo bin width: %sbp" % readable_bps(bw))
+        elif i == 0:
+            out.write("Histo max bin:   %.5g" % max_val if plot_depth
+                      else "Histo max bin:   %.5g%%" % max_val)
+        out.write("\n")

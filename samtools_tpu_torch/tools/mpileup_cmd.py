@@ -1,25 +1,38 @@
-"""samtools mpileup on the port: one coordinate-sorted BAM, streamed in
-windows of WINDOW_COLS columns, printed by the native text writer.
+"""samtools mpileup on the port.
 
-Counterpart of samtools_tpu/tools/mpileup_cmd.py's streamed single-BAM
-path (``main_mpileup``, ``_run_pileup``'s native branch, the window
-cursor, ``_prepare_sub`` and ``_DeviceBaqEngine``); its output is the JAX
-tool's, byte for byte.  Per window: the mplp_func read filters, BAQ (on
-the card through ``DeviceCensusPipeline``'s tool engine, K4 -> K5 -> K1's
-census form, or with ``SAMTPU_DEVICE=0|host`` the host library's f64
-HMM), the mapq/orphan filters, the depth cap, the overlap tweak, then the
-text.
+Counterpart of samtools_tpu/tools/mpileup_cmd.py (``main_mpileup``,
+``_run_pileup``, the window machinery, ``_prepare_sub``,
+``_DeviceBaqEngine``, ``FileState``, ``build_entry_pieces``, the row
+renderer and the per-column writer); its output is the JAX tool's, byte
+for byte.
 
-Options that need modules the port does not have yet exit 1 with one
-line on stderr (``_not_ported``): -r, -b and several input files, SAM or
-CRAM input, -O/--output-BP-5, -s, -M, --output-QNAME, --output-extra,
--C above 10, --checkpoint, SAMTPU_SHARDS and stored BQ/ZQ tags.
+Windows: coordinate-sorted BAMs stream in windows of WINDOW_COLS columns
+(one cursor per file, merged); with ``-r`` or a ``-`` (standard input)
+the files are read whole and each contig is one window (``wb = None``),
+filtered to the region's reads.  Per window and file: the mplp_func read
+filters, the Illumina-1.3 quals, BAQ, ``-C``'s mapping-quality cap, the
+mapq/orphan filters, the depth cap and the overlap tweak.  Then one of
+three writers, as in the JAX tool:
+
+* one file with the default columns: the native text writer, with BAQ
+  (at ``-C`` <= 10) through ``_DeviceBaqEngine`` (K4 -> K5 -> K1's
+  census form on the card), or through ``apply_baq_batch`` (K8 on the
+  card, the host HMM for the rest);
+* otherwise the pileup table (``ops.pileup.build_pileup``, ordered by K13
+  on the card) and ``build_entry_pieces``, rendered in bulk by
+  ``_render_rows`` (numpy; it also renders the per-read extra columns,
+  which the JAX renderer leaves to the per-column writer);
+* with ``--output-extra`` aux tags, the per-column writer
+  (``_append_file_column``).
+
+``SAMTPU_DEVICE=0|host`` runs the host branch: the host HMM, the numpy
+sort, no kernel.  Not ported yet, with one line on stderr and exit 1:
+``--checkpoint``, SAMTPU_SHARDS above 1, SAM or CRAM input.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import sys
 import types
 
@@ -28,21 +41,25 @@ import torch
 
 from ..core import aux as auxmod
 from ..core import flags as F
-from ..core.batch import ReadBatch
-from ..device import resolve
+from ..core.batch import ReadBatch, ragged_gather_indices
+from ..core.regions import RegionError, parse_region
 from ..io import bed as bedmod
 from ..io import fasta as fastamod
 from ..io import native
 from ..io.bam import BamError
 from ..io.bgzf import BgzfError
+from ..io.files import FormatNotPorted, read_alignments
 from ..io.stream import BamStream
 from ..ops import baq as baqmod
+from ..ops import basemods
 from ..ops.mpileup_device import (HOST_THREADS, NT16_TO4,
                                   DeviceCensusPipeline, _host_census,
                                   census_checksum, stored_baq_tags)
 from ..ops.overlaps import tweak_overlaps
+from ..ops.pileup import build_pileup
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, not_ported, print_error_errno)
+                     n_shards, no_card, not_ported, pick_device,
+                     print_error_errno)
 from .flags_cmd import str2flag
 
 DEFAULT_FF = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -50,21 +67,40 @@ DEFAULT_FF = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
 # streamed pileup window (columns per block)
 WINDOW_COLS = 1 << 20
 
-# options whose output needs the Python row renderer, the index or the
-# checkpoint machinery of the JAX tool
-_NOT_PORTED = {
-    "-r": "-r/--region (index query)", "--region": "-r/--region (index query)",
-    "-b": "-b/--bam-list (several input files)",
-    "--bam-list": "-b/--bam-list (several input files)",
-    "-O": "-O/--output-BP", "--output-BP": "-O/--output-BP",
-    "--output-bp": "-O/--output-BP", "--output-BP-5": "--output-BP-5",
-    "--output-bp-5": "--output-BP-5",
-    "-s": "-s/--output-MQ", "--output-MQ": "-s/--output-MQ",
-    "--output-mq": "-s/--output-MQ",
-    "-M": "-M/--output-mods", "--output-mods": "-M/--output-mods",
-    "--output-QNAME": "--output-QNAME", "--output-qname": "--output-QNAME",
-    "--output-extra": "--output-extra", "--checkpoint": "--checkpoint",
+# extra columns in output order (bam_plcmd.c's flag bits 11..26)
+COL_MAPQ_CHAR = 1 << 11
+COL_QPOS = 1 << 12
+COL_QNAME = 1 << 13
+COL_FLAG = 1 << 14
+COL_RNAME = 1 << 15
+COL_POS = 1 << 16
+COL_MAPQ = 1 << 17
+COL_CIGAR = 1 << 18
+COL_RNEXT = 1 << 19
+COL_PNEXT = 1 << 20
+COL_TLEN = 1 << 21
+COL_SEQ = 1 << 22
+COL_QUAL = 1 << 23
+COL_RLEN = 1 << 24
+COL_MODS = 1 << 25
+COL_QPOS5 = 1 << 26
+COL_LAST = 1 << 27
+
+# --output-extra names -> column (the subset samtools supports)
+_NAMED_COLS = {
+    "QNAME": COL_QNAME, "FLAG": COL_FLAG, "RNAME": COL_RNAME,
+    "POS": COL_POS, "MAPQ": COL_MAPQ, "RNEXT": COL_RNEXT,
+    "PNEXT": COL_PNEXT, "RLEN": COL_RLEN,
 }
+
+SEQ_LC = ",acmgrsvtwyhkdbn"
+SEQ_UC = ".ACMGRSVTWYHKDBN"
+NT16 = baqmod.NT16_LUT
+
+
+def _kputd(v: float) -> str:
+    """htslib kputd: the shortest %g-like rendering of a double."""
+    return "%g" % v
 
 
 def usage(fp):
@@ -112,8 +148,176 @@ def usage(fp):
         "  -a -a (or -aa)          output absolutely all positions, including unused ref. sequences\n")
 
 
-def _not_ported(what: str) -> int:
-    return not_ported("mpileup", what)
+class FileState:
+    """One input file's pileup of one window: its prepared reads, the
+    pileup table, each entry's rendered bytes (flat + offsets), qual char
+    and min-BQ pass."""
+
+    def __init__(self, sub, pileup, piece_flat, piece_off, qual_chars,
+                 pass_q):
+        self.sub = sub
+        self.p = pileup
+        self.piece_flat = piece_flat   # uint8 flat of per-entry strings
+        self.piece_off = piece_off     # int64[n_entries+1]
+        self.qual_chars = qual_chars
+        self.pass_q = pass_q
+        self._pos2col = None
+
+    @property
+    def pos2col(self):
+        """position -> column index (the per-column writer's lookup)."""
+        if self._pos2col is None:
+            self._pos2col = {int(p): i
+                             for i, p in enumerate(self.p.col_pos)}
+        return self._pos2col
+
+    def entry_bytes(self, i: int) -> str:
+        return bytes(self.piece_flat[self.piece_off[i]:
+                                     self.piece_off[i + 1]]) \
+            .decode("latin-1")
+
+
+def build_entry_pieces(sub, p, ref: bytes | None, ref_len: int, conf):
+    """Each entry's seq-column piece (flat uint8 + offsets), qual char and
+    min-BQ pass.  Plain entries (with ^q heads and $ tails) are array
+    scatters; only entries with an indel anchor or a base modification
+    take the Python string builder (pileup_seq's rare branches)."""
+    n = p.n_entries
+    rev = (sub.flag[p.rid] & F.FREVERSE) != 0
+    lq = sub.l_qseq[p.rid]
+    have_base = p.qpos < lq
+    code = np.full(n, 15, np.int64)
+    hv = np.nonzero(have_base)[0]
+    code[hv] = sub.seq[sub.seq_off[p.rid[hv]] + p.qpos[hv]]
+    if ref is not None:
+        rb = np.full(n, 15, np.int64)
+        inref = p.pos < ref_len
+        refarr = np.frombuffer(ref, np.uint8)
+        rb[inref] = NT16[refarr[p.pos[inref]]]
+        code = np.where(code == rb, 0, code)
+    uc = np.frombuffer(SEQ_UC.encode(), np.uint8)
+    lc = np.frombuffer(SEQ_LC.encode(), np.uint8)
+    base_ch = np.where(rev, lc[code], uc[code]).astype(np.uint8)
+    # deletion / reference-skip chars
+    del_ch = np.where(p.is_refskip,
+                      np.where(rev, ord("<"), ord(">")),
+                      np.where(rev & bool(conf["rev_del"]),
+                               ord("#"), ord("*"))).astype(np.uint8)
+    ch = np.where(p.is_del, del_ch, base_ch)
+
+    # qual char and pass mask
+    qv = np.zeros(n, np.int64)
+    qv[hv] = sub.qual[sub.seq_off[p.rid[hv]] + p.qpos[hv]]
+    pass_q = qv >= conf["min_baseQ"]
+    qch = np.minimum(qv + 33, 126).astype(np.uint8)
+
+    # mapq char of the ^ marker
+    mq = np.minimum(sub.mapq[p.rid].astype(np.int64) + 33, 126).astype(
+        np.uint8)
+
+    # base modifications (-M): {rid: {qpos: [(strand, code, qual)]}};
+    # entries with a mod annotation leave the plain path
+    want_mods = bool(conf["flag_cols"] & COL_MODS)
+    mods_by_rid: dict = {}
+    has_mod = np.zeros(n, bool)
+    if want_mods:
+        mods_by_rid = basemods.batch_mods(sub, p.rid)
+        if mods_by_rid:
+            mod_rows = np.nonzero(np.isin(
+                p.rid, np.fromiter(mods_by_rid, np.int64,
+                                   len(mods_by_rid))))[0]
+            for i in mod_rows:
+                m = mods_by_rid.get(int(p.rid[i]))
+                if m is not None and not p.is_del[i] \
+                        and int(p.qpos[i]) in m:
+                    has_mod[i] = True
+
+    no_ends = conf["no_ends"]
+    special = (p.indel != 0) | has_mod
+    headv = p.is_head & (not no_ends)
+    tailv = p.is_tail & (not no_ends)
+    lens = (1 + 2 * (headv & ~special) + (tailv & ~special)) \
+        .astype(np.int64)
+    spec_idx = np.nonzero(special)[0]
+    spec_strs: list[bytes] = []
+    if spec_idx.size:
+        chr_lut = [chr(i) for i in range(256)]
+        no_ins = conf["no_ins"]
+        no_del = conf["no_del"]
+        no_ins_mods = conf["no_ins_mods"] or no_ins
+        for i in spec_idx:
+            rmods = mods_by_rid.get(int(p.rid[i])) if want_mods else None
+            s = []
+            if p.is_head[i] and not no_ends:
+                s.append("^")
+                s.append(chr_lut[mq[i]])
+            s.append(chr_lut[ch[i]])
+            if rmods is not None and not p.is_del[i]:
+                lst = rmods.get(int(p.qpos[i]))
+                if lst:
+                    s.append(basemods.format_mods(lst))
+            ind = int(p.indel[i])
+            del_len = -ind
+            if ind > 0:
+                ins_str, del_after, ins_qpos = p.ins.get(int(i),
+                                                         ("", 0, []))
+                del_len = del_after
+                if no_ins < 2:
+                    s.append("+")
+                    s.append(str(len(ins_str)))
+                if not no_ins:
+                    ins_mods = (rmods if (rmods is not None and
+                                          not no_ins_mods) else None)
+                    if rev[i]:
+                        pad = "#" if conf["rev_del"] else "*"
+                        for k, c in enumerate(ins_str):
+                            s.append(pad if c == "*" else c.lower())
+                            if ins_mods is not None and ins_qpos[k] >= 0:
+                                lst = ins_mods.get(ins_qpos[k])
+                                if lst:
+                                    s.append(basemods.format_mods(lst))
+                    else:
+                        for k, c in enumerate(ins_str):
+                            s.append(c.upper())
+                            if ins_mods is not None and ins_qpos[k] >= 0:
+                                lst = ins_mods.get(ins_qpos[k])
+                                if lst:
+                                    s.append(basemods.format_mods(lst))
+            if del_len > 0:
+                if no_del < 2:
+                    s.append(str(-del_len))
+                if not no_del:
+                    refpart = []
+                    for j in range(1, del_len + 1):
+                        pj = int(p.pos[i]) + j
+                        c = chr(ref[pj]) if (ref is not None
+                                             and pj < ref_len) else "N"
+                        refpart.append(c.lower() if rev[i] else c.upper())
+                    s.append("".join(refpart))
+            if p.is_tail[i] and not no_ends:
+                s.append("$")
+            sb = "".join(s).encode("latin-1")
+            spec_strs.append(sb)
+            lens[i] = len(sb)
+
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    flat = np.empty(int(off[-1]), np.uint8)
+    pl = ~special
+    ph = pl & headv
+    # the base char lands after the optional ^q prefix
+    flat[off[:-1][pl] + 2 * ph[pl]] = ch[pl]
+    if ph.any():
+        hidx = off[:-1][ph]
+        flat[hidx] = ord("^")
+        flat[hidx + 1] = mq[ph]
+    pt = pl & tailv
+    if pt.any():
+        flat[off[:-1][pt] + 2 * ph[pt] + 1] = ord("$")
+    for k, i in enumerate(spec_idx):
+        sb = spec_strs[k]
+        flat[off[i]:off[i] + len(sb)] = np.frombuffer(sb, np.uint8)
+    return flat, off, qch, pass_q
 
 
 def _read_filter(b, conf, bedidx, header) -> np.ndarray:
@@ -145,11 +349,14 @@ def main_mpileup(argv: list[str], device=None) -> int:
         min_mq=0, min_baseQ=13, capQ_thres=0, max_depth=8000,
         rflag_require=0, rflag_filter=DEFAULT_FF, no_orphan=True, realn=True,
         smart_overlaps=True, redo_baq=False, illumina13=False,
-        ignore_rg=False, all=0, rev_del=0, no_ins=0, no_del=0, no_ends=0,
+        ignore_rg=False, all=0, rev_del=0, sep=",", empty="*", no_ins=0,
+        no_ins_mods=0, no_del=0, no_ends=0, flag_cols=0, auxtags=[],
         rghash=None, census_out=None)
+    reg = None
     bedidx = None
     fai = None
     out_fname = None
+    file_list = None
     has_index_file = False
     longopts = [
         "rf=", "ff=", "incl-flags=", "excl-flags=", "output=",
@@ -172,8 +379,6 @@ def main_mpileup(argv: list[str], device=None) -> int:
         usage(sys.stderr)
         return 1
     for o, v in opts:
-        if o in _NOT_PORTED:
-            return _not_ported(_NOT_PORTED[o])
         if o in ("-x", "--ignore-overlaps-removal",
                  "--disable-overlap-removal"):
             conf["smart_overlaps"] = False
@@ -181,18 +386,36 @@ def main_mpileup(argv: list[str], device=None) -> int:
             conf["rflag_require"] = str2flag(v)
         elif o in ("--ff", "--excl-flags"):
             conf["rflag_filter"] = str2flag(v)
+        elif o == "--checkpoint":
+            return not_ported("mpileup", "--checkpoint")
         elif o == "--census-out":
             # per-window BAQ-stage census checksums (the engine's
             # validation artifact)
             conf["census_out"] = v
         elif o in ("-o", "--output"):
             out_fname = v
+        elif o in ("--output-QNAME", "--output-qname"):
+            conf["flag_cols"] |= COL_QNAME
         elif o == "--reverse-del":
             conf["rev_del"] = 1
-        elif o in ("--output-sep", "--output-empty", "--no-output-ins-mods"):
-            pass   # they shape only the extra columns, not ported yet
+        elif o == "--output-extra":
+            for tag in v.split(","):
+                if tag in _NAMED_COLS:
+                    conf["flag_cols"] |= _NAMED_COLS[tag]
+                elif len(tag) == 2:
+                    conf["auxtags"].append(tag)
+                else:
+                    sys.stderr.write(
+                        f"[build_auxlist] tag '{tag}' has more than two "
+                        "characters or not supported\n")
+        elif o == "--output-sep":
+            conf["sep"] = v[0]
+        elif o == "--output-empty":
+            conf["empty"] = v[0]
         elif o == "--no-output-ins":
             conf["no_ins"] += 1
+        elif o == "--no-output-ins-mods":
+            conf["no_ins_mods"] = 1
         elif o == "--no-output-del":
             conf["no_del"] += 1
         elif o == "--no-output-ends":
@@ -206,6 +429,8 @@ def main_mpileup(argv: list[str], device=None) -> int:
                 return 1
         elif o in ("-d", "--max-depth"):
             conf["max_depth"] = int(v)
+        elif o in ("-r", "--region"):
+            reg = v
         elif o in ("-l", "--positions"):
             try:
                 bedidx = bedmod.read_bed(v)
@@ -223,12 +448,22 @@ def main_mpileup(argv: list[str], device=None) -> int:
             conf["illumina13"] = True
         elif o in ("-R", "--ignore-RG", "--ignore-rg"):
             conf["ignore_rg"] = True
+        elif o in ("-s", "--output-MQ", "--output-mq"):
+            conf["flag_cols"] |= COL_MAPQ_CHAR
+        elif o in ("-O", "--output-BP", "--output-bp"):
+            conf["flag_cols"] |= COL_QPOS
+        elif o in ("--output-BP-5", "--output-bp-5"):
+            conf["flag_cols"] |= COL_QPOS5
+        elif o in ("-M", "--output-mods"):
+            conf["flag_cols"] |= COL_MODS
         elif o in ("-C", "--adjust-MQ", "--adjust-mq"):
             conf["capQ_thres"] = int(v)
         elif o in ("-q", "--min-MQ", "--min-mq"):
             conf["min_mq"] = int(v)
         elif o in ("-Q", "--min-BQ", "--min-bq"):
             conf["min_baseQ"] = int(v)
+        elif o in ("-b", "--bam-list"):
+            file_list = v
         elif o in ("-A", "--count-orphans"):
             conf["no_orphan"] = False
         elif o in ("-G", "--exclude-RG", "--exclude-rg"):
@@ -259,75 +494,120 @@ def main_mpileup(argv: list[str], device=None) -> int:
     if not argv:
         usage(sys.stderr)
         return 1
-    if has_index_file:
+    if file_list:
+        with open(file_list) as fh:
+            args = [ln.strip() for ln in fh if ln.strip()]
+    elif has_index_file:
         args = args[:len(args) // 2]
     if not args:
         sys.stderr.write("[mpileup] no input file/data given\n")
         return 1
-    if conf["capQ_thres"] > 10:
-        return _not_ported("-C above 10 (mapping-quality capping)")
-    if len(args) > 1:
-        return _not_ported("several input files")
     if n_shards() > 1:
-        return _not_ported("SAMTPU_SHARDS (sharded runs)")
-    path = args[0]
-    if path == "-":
-        return _not_ported("input from standard input")
+        return not_ported("mpileup", "SAMTPU_SHARDS (sharded runs)")
     try:
-        stream = BamStream(path, threads=ga.nthreads or HOST_THREADS)
-    except OSError as e:
-        sys.stderr.write(f"[mpileup] failed to open {path}: {e.strerror}\n")
-        return 1
-    except (BamError, BgzfError):
-        return _not_ported("SAM or CRAM input")
-    with stream:
-        header = stream.header
-        sys.stderr.write(f"[mpileup] {_count_samples(header, conf)} "
-                         "samples in 1 input files\n")
-        engine = None
-        if (conf["realn"] and fai is not None
-                and os.environ.get("SAMTPU_DEVICE") not in ("0", "host")):
+        dev = pick_device(device)
+    except RuntimeError as e:     # no CUDA card
+        return no_card("mpileup", e)
+
+    files = []
+    try:
+        rc = _open_inputs(args, reg, ga.nthreads, files)
+        if rc:
+            return rc
+        header = files[0].header
+        sys.stderr.write(f"[mpileup] {_count_samples(files, args, conf)} "
+                         f"samples in {len(files)} input files\n")
+        region = None
+        if reg:
             try:
-                engine = _DeviceBaqEngine(conf, device)
-            except RuntimeError as e:     # no CUDA card
-                sys.stderr.write(f"[mpileup] {e} (SAMTPU_DEVICE=0 runs BAQ "
-                                 "on the host)\n")
+                region = parse_region(reg, header.tid)
+            except RegionError:
+                sys.stderr.write(f"[E::mpileup] fail to parse region "
+                                 f"'{reg}'\n")
                 return 1
         out = open(out_fname, "w") if out_fname else sys.stdout
         try:
-            return _run_pileup(stream, header, conf, bedidx, fai, engine,
-                               out)
-        except NotImplementedError as e:
-            sys.stderr.write(f"[mpileup] {e}\n")
-            return 1
+            return _run_pileup(files, header, conf, region, bedidx, fai,
+                               dev, out)
         finally:
             if out is not sys.stdout:
                 out.close()
+    finally:
+        for f in files:
+            if f.stream is not None:
+                f.stream.close()
 
 
-def _count_samples(header, conf) -> int:
+def _open_inputs(paths, reg, nthreads, files) -> int:
+    """Open each input into ``files``: a BamStream (``stream``), or with
+    ``-r`` and for ``-`` the whole file in memory (``batch``).  The
+    command's exit code on failure, else 0."""
+    for path in paths:
+        try:
+            if reg or path == "-":
+                got = read_alignments(path, threads=nthreads)
+                files.append(types.SimpleNamespace(
+                    header=got.header, batch=got.batch, stream=None))
+            else:
+                st = BamStream(path, threads=nthreads or HOST_THREADS)
+                files.append(types.SimpleNamespace(
+                    header=st.header, batch=None, stream=st))
+        except OSError as e:
+            sys.stderr.write(f"[mpileup] failed to open {path}: "
+                             f"{e.strerror}\n")
+            return 1
+        except (BamError, BgzfError, FormatNotPorted):
+            return not_ported("mpileup", "SAM or CRAM input")
+    return 0
+
+
+def _count_samples(files, paths, conf) -> int:
     """bam_smpl_add: one sample per distinct SM (the RG ID where SM is
     missing; the file name with no RG or with -R)."""
-    if conf["ignore_rg"]:
-        return 1
-    rgs = header.rg_to_sample()
-    return len(set(rgs.values())) if rgs else 1
+    samples = set()
+    for f, path in zip(files, paths):
+        if conf["ignore_rg"]:
+            samples.add(path)
+            continue
+        rgs = f.header.rg_to_sample()
+        if rgs:
+            samples.update(rgs.values())
+        else:
+            samples.add(path)
+    return len(samples)
 
 
-def _empty_row(name: str, pos: int, ref: bytes | None, ref_len: int) -> str:
+def _extra_columns(conf):
+    """The extra columns in output order, COL_MODS left out (it shapes
+    the seq column)."""
+    cols = []
+    fv = COL_MAPQ_CHAR
+    while fv < COL_LAST:
+        if fv != COL_MODS and (conf["flag_cols"] & fv):
+            cols.append(fv)
+        fv <<= 1
+    return cols
+
+
+def _empty_row(name: str, pos: int, ref: bytes | None, ref_len: int,
+               nf: int, conf) -> str:
     refc = chr(ref[pos]) if (ref is not None and pos < ref_len) else "N"
-    return f"{name}\t{pos + 1}\t{refc}\t0\t*\t*\n"
+    n_extra = len(_extra_columns(conf)) + len(conf["auxtags"])
+    percol = "\t0\t*\t*" + "\t*" * n_extra
+    return f"{name}\t{pos + 1}\t{refc}" + percol * nf + "\n"
 
 
 class _Refs:
     """Contig sequences from the FASTA, as the tool reads them: the last
-    few contigs' bytes, and the current contig's 0-4 codes."""
+    few contigs' bytes, the current contig's 0-4 codes and their copy on
+    the device."""
 
     def __init__(self, fai, header):
         self.fai = fai
         self.header = header
         self.cache = {}
         self._ints = (None, None)
+        self._dev = (None, None)
 
     def get(self, tid: int):
         """(sequence bytes, length), or (None, 0) without that contig."""
@@ -346,88 +626,186 @@ class _Refs:
             self._ints = (tid, baqmod._ref_ints(self.get(tid)[0]))
         return self._ints[1]
 
+    def on_device(self, tid: int, device) -> torch.Tensor | None:
+        """The contig's codes on ``device``, uploaded once per contig (None
+        for the host branch)."""
+        if device is None:
+            return None
+        if self._dev[0] != (tid, device):
+            self._dev = ((tid, device),
+                         torch.from_numpy(self.ints(tid)).to(device))
+        return self._dev[1]
 
-def _run_pileup(stream, header, conf, bedidx, fai, engine, out) -> int:
+
+def _write_bytes(out, data: bytes) -> None:
+    outb = getattr(out, "buffer", None)
+    if outb is not None:
+        # rows written through the text layer go first
+        out.flush()
+        outb.write(data)
+    else:
+        out.write(data.decode("latin-1"))
+
+
+def _run_pileup(files, header, conf, region, bedidx, fai, dev, out) -> int:
+    nf = len(files)
     refs = _Refs(fai, header)
+    streaming = region is None and all(f.stream is not None for f in files)
+    if streaming:
+        windows = _stream_windows([f.stream for f in files], conf, bedidx,
+                                  header)
+    else:
+        windows = _slurped_windows(files, conf, region, bedidx, header)
+    beg0 = region.beg if region else 0
+    end0 = region.end if region else (1 << 62)
+    # the native text writer: one file, default columns
+    native_fast = nf == 1 and conf["flag_cols"] == 0 and not conf["auxtags"]
+    # the card's engine (BAQ + census per window) on that path
+    engine = None
+    if (native_fast and conf["realn"] and conf["capQ_thres"] <= 10
+            and fai is not None and dev is not None):
+        engine = _DeviceBaqEngine(conf, dev)
+    bulk_ok = not conf["auxtags"]
+    caps = [types.SimpleNamespace(carry=None) for _ in files]
     last_tid = last_pos = -1
     one_seq = False
     w = out.write
-    cap_state = types.SimpleNamespace(carry=None)
 
-    for tid, wb, we, sub in _stream_windows(stream, conf, bedidx, header):
+    for tid, wb, we, subs in windows:
         name = header.ref_names[tid]
-        sub, ref, ref_len = _prepare_sub(sub, conf, tid, refs, cap_state,
-                                         wb, we, engine)
-        if sub.n == 0:
-            continue
-        e_end = min(we, int(sub.end_pos().max()))
-        first_cov = max(int(sub.pos.min()), wb)
-        if first_cov >= e_end:
-            continue
+        if native_fast:
+            nat_sub, _, _ = _prepare_sub(subs[0], conf, tid, refs, caps[0],
+                                         wb, we, dev, engine)
+            if nat_sub.n == 0:
+                continue
+            e_end = min(we if we is not None else 1 << 62, end0,
+                        int(nat_sub.end_pos().max()))
+            first_cov = max(int(nat_sub.pos.min()),
+                            wb if wb is not None else 0, beg0)
+            if first_cov >= e_end:
+                continue
+        else:
+            states = [_prepare_file_state(sub, conf, tid, refs, cap, wb, we,
+                                          dev)
+                      for sub, cap in zip(subs, caps)]
+            col_sets = [s.p.col_pos for s in states if s.p.n_entries]
+            if not col_sets:
+                continue
+            allpos = np.unique(np.concatenate(col_sets))
+            if wb is not None:
+                # halo reads make entries outside [wb, we): those columns
+                # belong to the neighbouring windows
+                allpos = allpos[(allpos >= wb) & (allpos < we)]
+            if region is not None:
+                allpos = allpos[(allpos >= beg0) & (allpos < end0)]
+            if allpos.size == 0:
+                continue
         one_seq = True
+
         # -a: the empty rows of the contigs before this one
         if conf["all"]:
             while tid > last_tid:
-                if last_tid >= 0:
+                if last_tid >= 0 and region is None:
                     r, rl = refs.get(last_tid)
                     lname = header.ref_names[last_tid]
                     for pp in range(last_pos + 1, header.ref_lens[last_tid]):
                         if bedidx is not None and not bedidx.overlap_one(
                                 lname, pp, pp + 1):
                             continue
-                        w(_empty_row(lname, pp, r, rl))
+                        w(_empty_row(lname, pp, r, rl, nf, conf))
                 last_tid += 1
                 last_pos = -1
                 if conf["all"] < 2:
                     break
+        ref, ref_len = refs.get(tid)
         last_tid = tid
-        if conf["all"]:
-            e_beg = min(max(last_pos + 1, 0), first_cov)
-            last_pos = e_end - 1
-        else:
-            e_beg = first_cov
-        mask = None
-        if bedidx is not None:
-            rng = np.arange(e_beg, e_end, dtype=np.int64)
-            mask = bedidx.overlap(name, rng, rng + 1)
-        text = native.mpileup_text(
-            sub, ref, name, e_beg, e_end, conf["all"] > 0, mask,
-            conf["min_baseQ"], conf["rev_del"], conf["no_ends"],
-            conf["no_ins"], conf["no_del"])
-        if text:
-            outb = getattr(out, "buffer", None)
-            if outb is not None:
-                # the -a rows above went through the text layer: flush
-                # them before these bytes
-                out.flush()
-                outb.write(text)
+
+        if native_fast:
+            if conf["all"]:
+                e_beg = min(max(last_pos + 1, beg0), first_cov)
+                last_pos = e_end - 1
             else:
-                out.write(text.decode("latin-1"))
+                e_beg = first_cov
+            mask = None
+            if bedidx is not None:
+                rng = np.arange(e_beg, e_end, dtype=np.int64)
+                mask = bedidx.overlap(name, rng, rng + 1)
+            text = native.mpileup_text(
+                nat_sub, ref, name, e_beg, e_end, conf["all"] > 0, mask,
+                conf["min_baseQ"], conf["rev_del"], conf["no_ends"],
+                conf["no_ins"], conf["no_del"])
+            if text:
+                _write_bytes(out, text)
+        elif bulk_ok:
+            if conf["all"]:
+                start = last_pos + 1
+                if region is not None:
+                    start = max(start, beg0)
+                start = min(start, int(allpos[0]))
+                emitpos = np.arange(start, int(allpos[-1]) + 1,
+                                    dtype=np.int64)
+                last_pos = int(allpos[-1])
+            else:
+                emitpos = allpos
+            if bedidx is not None and emitpos.size:
+                emitpos = emitpos[bedidx.overlap(name, emitpos,
+                                                 emitpos + 1)]
+            if emitpos.size:
+                _write_bytes(out, _render_rows(emitpos, states, name, ref,
+                                               ref_len, conf, header)
+                             .tobytes())
+        else:
+            for pos in allpos.tolist():
+                if conf["all"]:
+                    for pp in range(last_pos + 1, pos):
+                        if region is not None and pp < beg0:
+                            continue
+                        if bedidx is not None and not bedidx.overlap_one(
+                                name, pp, pp + 1):
+                            continue
+                        w(_empty_row(name, pp, ref, ref_len, nf, conf))
+                    last_pos = pos
+                if bedidx is not None and not bedidx.overlap_one(
+                        name, pos, pos + 1):
+                    continue
+                refc = chr(ref[pos]) if (ref is not None
+                                         and pos < ref_len) else "N"
+                row = [name, "\t", str(pos + 1), "\t", refc]
+                for s in states:
+                    _append_file_column(row, s, pos, conf, header)
+                row.append("\n")
+                w("".join(row))
 
     if engine is not None and conf["census_out"]:
         engine.write_census(conf["census_out"], header)
 
     # -a: the empty rows after the last covered column
     if conf["all"]:
-        if last_tid < 0 and not one_seq and conf["all"] > 1:
+        if last_tid < 0 and region is not None and conf["all"] > 1:
+            last_tid = region.tid
+            last_pos = beg0 - 1
+        elif last_tid < 0 and not one_seq and conf["all"] > 1:
             last_tid = 0
         while 0 <= last_tid < header.n_refs:
             r, rl = refs.get(last_tid)
             lname = header.ref_names[last_tid]
             for pp in range(last_pos + 1, header.ref_lens[last_tid]):
+                if pp >= end0:
+                    break
                 if bedidx is not None and not bedidx.overlap_one(
                         lname, pp, pp + 1):
                     continue
-                w(_empty_row(lname, pp, r, rl))
+                w(_empty_row(lname, pp, r, rl, nf, conf))
             last_tid += 1
             last_pos = -1
-            if conf["all"] < 2:
+            if conf["all"] < 2 or region is not None:
                 break
     return 0
 
 
+# ------------------------------------------------------------ the windows
 class _WindowCursor:
-    """Read cursor of the streamed windows.
+    """Read cursor of one file's streamed windows.
 
     Pulls decoded batches on demand, applies the mplp_func record filter,
     and hands out each window's overlap set: the reads with pos < window
@@ -503,38 +881,86 @@ class _WindowCursor:
         return fr is not None and fr[0] == tid
 
 
-def _stream_windows(stream, conf, bedidx, header):
-    """(tid, wb, we, reads) blocks of WINDOW_COLS columns in genomic
-    order, with bounded memory."""
-    cur = _WindowCursor(stream, conf, bedidx, header)
+def _stream_windows(streams, conf, bedidx, header):
+    """(tid, wb, we, one overlap set per file) blocks of WINDOW_COLS
+    columns in genomic order, merged over the files' streams, with
+    bounded memory."""
+    cursors = [_WindowCursor(st, conf, bedidx, header) for st in streams]
     while True:
-        fr = cur.front()
-        if fr is None:
+        live = [f for f in (c.front() for c in cursors) if f is not None]
+        if not live:
             return
-        tid, wb = fr
+        tid = min(f[0] for f in live)
+        wb = min(f[1] for f in live if f[0] == tid)
         while True:
             we = wb + WINDOW_COLS
-            yield tid, wb, we, cur.window(tid, wb, we)
-            if not cur.has_more_on(tid):
+            yield tid, wb, we, [c.window(tid, wb, we) for c in cursors]
+            if not any(c.has_more_on(tid) for c in cursors):
                 break
             wb = we
 
 
-def _prepare_sub(sub, conf, tid, refs, cap_state, wb, we, engine=None):
-    """mplp_func's per-read transforms and filters for one window's reads:
-    Illumina quals, BAQ, the min-mapQ/orphan filters, the depth cap, the
-    overlap tweak.  Returns (sub, ref, ref_len).
+def _slurped_windows(files, conf, region, bedidx, header):
+    """(tid, None, None, one batch per file): each contig of the reads
+    kept (with -r, the region's contig and the reads overlapping the
+    region) as one window, from whole files in memory."""
+    selections = [_read_filter(f.batch, conf, bedidx, header)
+                  for f in files]
+    tids = set()
+    for f, keep in zip(files, selections):
+        tids.update(np.unique(f.batch.tid[keep & (f.batch.tid >= 0)])
+                    .tolist())
+    if region is not None:
+        tids = {region.tid}
+    for tid in sorted(tids):
+        subs = []
+        for f, keep in zip(files, selections):
+            b = f.batch
+            sel = np.nonzero(keep & (b.tid == tid))[0]
+            if region is not None and sel.size:
+                end = b.end_pos()
+                sel = sel[(b.pos[sel] < region.end)
+                          & (end[sel] > region.beg)]
+            subs.append(b.take(sel))
+        yield tid, None, None, subs
 
-    With ``engine`` BAQ runs after the mapq/orphan/depth-cap filters:
-    the same output (those filters read no base qual, BAQ touches no
-    mapq), BAQ skips the dropped reads, and the engine's census counts
-    exactly the filtered reads."""
+
+# ------------------------------------------------- per window and file
+def _prepare_file_state(sub, conf, tid, refs, cap_state, wb, we,
+                        dev) -> FileState:
+    sub, ref, ref_len = _prepare_sub(sub, conf, tid, refs, cap_state, wb,
+                                     we, dev)
+    p = build_pileup(sub, dev)
+    return FileState(sub, p, *build_entry_pieces(sub, p, ref, ref_len,
+                                                 conf))
+
+
+def _prepare_sub(sub, conf, tid, refs, cap_state, wb, we, dev,
+                 engine=None):
+    """mplp_func's per-read transforms and filters for one file's reads
+    of one window: Illumina quals, BAQ, -C's cap, the min-mapQ/orphan
+    filters, the depth cap, the overlap tweak.  Returns (sub, ref,
+    ref_len).  ``wb`` None: the window is the whole contig.
+
+    With ``engine`` BAQ runs after the mapq/orphan/depth-cap filters: the
+    same output (those filters read no base qual, BAQ touches no mapq,
+    and the engine is offered only at -C <= 10), BAQ skips the dropped
+    reads, and the engine's census counts exactly the filtered reads."""
     if conf["illumina13"]:
         q = sub.qual.astype(np.int64)
         sub.qual = np.where(q > 31, q - 31, 0).astype(np.uint8)
     ref, ref_len = refs.get(tid)
-    if engine is None and ref is not None and conf["realn"]:
-        baqmod.apply_baq_batch(sub, refs.ints(tid))
+    if engine is None and ref is not None:
+        if conf["realn"]:
+            baqmod.apply_baq_batch(sub, refs.ints(tid), conf["redo_baq"],
+                                   dev, refs.on_device(tid, dev))
+        if conf["capQ_thres"] > 10:
+            newq = baqmod.cap_mapq_batch(sub, refs.ints(tid),
+                                         conf["capQ_thres"])
+            sub.mapq = np.where(newq >= 0, np.minimum(sub.mapq, newq),
+                                sub.mapq).astype(np.uint8)
+            if (newq < 0).any():
+                sub = sub.take(np.nonzero(newq >= 0)[0])
     # the min-mapQ and orphan filters come after BAQ (mplp_func's order)
     keep = sub.mapq.astype(np.int64) >= conf["min_mq"]
     if conf["no_orphan"]:
@@ -543,16 +969,21 @@ def _prepare_sub(sub, conf, tid, refs, cap_state, wb, we, engine=None):
     if not keep.all():
         sub = sub.take(np.nonzero(keep)[0])
     if conf["max_depth"]:
-        # a read's cap decision is made once, in its first window, and
-        # carried: it may depend on reads that ended before this window
-        prev = None
-        c = cap_state.carry
-        if c is not None and c[0] == tid and c[1] == wb:
-            prev = c[2]
-        keepm, nxt = _depth_cap_stream(sub, conf["max_depth"], wb, we, prev)
-        cap_state.carry = (tid, we, nxt)
-        if not keepm.all():
-            sub = sub.take(np.nonzero(keepm)[0])
+        if wb is None:
+            if sub.n > conf["max_depth"]:
+                sub = sub.take(_depth_cap_select(sub, conf["max_depth"]))
+        else:
+            # a read's cap decision is made once, in its first window, and
+            # carried: it may depend on reads that ended before this window
+            prev = None
+            c = cap_state.carry
+            if c is not None and c[0] == tid and c[1] == wb:
+                prev = c[2]
+            keepm, nxt = _depth_cap_stream(sub, conf["max_depth"], wb, we,
+                                           prev)
+            cap_state.carry = (tid, we, nxt)
+            if not keepm.all():
+                sub = sub.take(np.nonzero(keepm)[0])
     if engine is not None and ref is not None:
         engine.run_window(sub, tid, refs, wb, we)
     if conf["smart_overlaps"]:
@@ -568,43 +999,43 @@ class _DeviceBaqEngine:
     columns is kept as its two-lane checksum for ``--census-out`` (with
     the JAX tool's fields, ``reads_starting``: the window's reads that
     start in it, so the windows' sum counts every read once, and
-    ``risky_reads``: those the f32 HMM sent to the host).  A
-    window with no reference, stored BQ/ZQ tags, reads shorter than 8
-    bases or a contig past 64 Mi bases takes the host HMM whole, with the
-    same census recorded from its final quals."""
+    ``risky_reads``: those the f32 HMM sent to the host).  A window of
+    the whole contig (``wb`` None) counts [0, contig length).  A window
+    with no reference, stored BQ/ZQ tags, reads shorter than 8 bases or
+    a contig past 64 Mi bases takes ``apply_baq_batch`` whole (K8 and
+    the host HMM, or the tag conversions), with the same census recorded
+    from its final quals."""
 
-    def __init__(self, conf, device=None):
-        self.device = resolve(device)
+    def __init__(self, conf, device):
+        self.device = device
         self.min_baseq = conf["min_baseQ"]
+        self.redo = conf["redo_baq"]
         self.baq_flag = 7 if conf["redo_baq"] else 3
         self.want_census = bool(conf["census_out"])
         self.records: list = []
         self.n_reads = 0
         self.n_host = 0
         self.n_device_windows = 0
-        self._ref_dev = (None, None)   # (tid, contig codes on the device)
-
-    def _contig_on_device(self, tid: int, ref_int: np.ndarray):
-        if self._ref_dev[0] != tid:
-            self._ref_dev = (tid, torch.from_numpy(ref_int).to(self.device))
-        return self._ref_dev[1]
 
     def run_window(self, sub, tid, refs, wb, we):
         """BAQ one prepared window in place and record its census."""
         if sub.n == 0:
             return
         ref_len = refs.get(tid)[1]
+        if wb is None:
+            wb, we = 0, ref_len
         # the census window ends at the contig's end
         we = min(we, max(ref_len, wb + 1))
         wb = min(wb, we)
         ref_int = refs.ints(tid)
+        ref_dev = refs.on_device(tid, self.device)
         lens = sub.seq_off[1:] - sub.seq_off[:-1]
         lq = int(np.bincount(np.minimum(lens, 1 << 14)).argmax())
         if lq >= 8 and ref_len <= (64 << 20) and not stored_baq_tags(sub):
             pipe = DeviceCensusPipeline(
                 ref_int, wlen=we - wb, base=wb, min_baseq=self.min_baseq,
                 baq_flag=self.baq_flag, l_query=lq, device=self.device,
-                ref_dev=self._contig_on_device(tid, ref_int))
+                ref_dev=ref_dev)
             nh = pipe.apply_window(sub, wb, we)
             self.n_reads += sub.n
             self.n_host += nh
@@ -617,7 +1048,7 @@ class _DeviceBaqEngine:
                      "risky_reads": int(pipe.n_risky), "engine": "device",
                      "checksum": list(pipe.finish_checksum())})
             return
-        baqmod.apply_baq_batch(sub, ref_int)
+        baqmod.apply_baq_batch(sub, ref_int, self.redo, self.device, ref_dev)
         self.n_reads += sub.n
         self.n_host += sub.n
         if self.want_census:
@@ -694,3 +1125,286 @@ def _max_span_overlap(pos: np.ndarray, ends: np.ndarray) -> int:
     cnt = np.arange(1, n + 1) - np.searchsorted(np.sort(ends), pos,
                                                 side="right")
     return int(cnt.max())
+
+
+def _depth_cap_select(sub, maxcnt: int) -> np.ndarray:
+    """The depth cap over a whole contig's reads (bam_mplp_set_maxcnt):
+    the indices of the reads kept."""
+    import heapq
+    ends = sub.end_pos()
+    if _max_span_overlap(sub.pos, ends) < maxcnt:
+        return np.arange(sub.n, dtype=np.int64)
+    keep = []
+    active: list[int] = []
+    for i in range(sub.n):
+        p = int(sub.pos[i])
+        while active and active[0] <= p:
+            heapq.heappop(active)
+        if len(active) >= maxcnt:
+            continue
+        keep.append(i)
+        heapq.heappush(active, int(ends[i]))
+    return np.array(keep, np.int64)
+
+
+# ------------------------------------------------------------ the writers
+def _itoa(vals: np.ndarray):
+    """Vectorized non-negative decimal rendering: (flat uint8 digits,
+    digit counts int64, offsets int64[n+1]).  Values below 65,536 are
+    copied from a table of their renderings."""
+    v = np.asarray(vals, np.int64)
+    top = int(v.max()) if v.size else 0
+    if top < 1 << 16:
+        tab = [str(i).encode() for i in range(top + 1)]
+        toff = np.zeros(top + 2, np.int64)
+        np.cumsum([len(t) for t in tab], out=toff[1:])
+        nd = np.diff(toff)[v]
+        off = np.zeros(v.size + 1, np.int64)
+        np.cumsum(nd, out=off[1:])
+        flat = native.ragged_gather(np.frombuffer(b"".join(tab), np.uint8),
+                                    toff, v, off, int(off[-1]),
+                                    HOST_THREADS)
+        return flat, nd, off
+    nd = np.ones(v.size, np.int64)
+    t = 10
+    while t <= (int(v.max()) if v.size else 0):
+        nd[v >= t] += 1
+        t *= 10
+    off = np.zeros(v.size + 1, np.int64)
+    np.cumsum(nd, out=off[1:])
+    flat = np.empty(int(off[-1]), np.uint8)
+    end = off[1:] - 1
+    rem = v.copy()
+    for d in range(int(nd.max(initial=0))):
+        act = nd > d
+        flat[end[act] - d] = 48 + (rem[act] % 10)
+        rem[act] //= 10
+    return flat, nd, off
+
+
+def _extra_tokens(fv: int, s: FileState, pidx: np.ndarray, header):
+    """One extra column's value per passing entry ``pidx``, as (flat
+    uint8, lengths int64, separator): what ``_append_file_column``
+    writes for it."""
+    sub, p = s.sub, s.p
+    rid = p.rid[pidx].astype(np.int64)
+    if fv == COL_MAPQ_CHAR:
+        return (np.minimum(sub.mapq[rid].astype(np.int64) + 33, 126)
+                .astype(np.uint8), np.ones(rid.size, np.int64), b"")
+    if fv in (COL_QNAME, COL_RNAME, COL_RNEXT):
+        if fv == COL_QNAME:
+            flat, off = sub.qname, sub.qname_off
+            row = rid
+        else:
+            names = ["*"] + list(header.ref_names)
+            off = np.zeros(len(names) + 1, np.int64)
+            np.cumsum([len(n.encode()) for n in names], out=off[1:])
+            flat = np.frombuffer("".join(names).encode(), np.uint8)
+            t = (sub.tid if fv == COL_RNAME else sub.mtid)[rid].astype(
+                np.int64)
+            row = np.where((t >= 0) & (t < header.n_refs), t + 1, 0)
+        lens = off[row + 1] - off[row]
+        return flat[ragged_gather_indices(off[row], lens)], lens, b","
+    if fv == COL_QPOS:
+        vals = p.qpos[pidx].astype(np.int64) + 1
+    elif fv == COL_QPOS5:
+        q = p.qpos[pidx].astype(np.int64)
+        vals = np.where((sub.flag[rid] & F.FREVERSE) != 0,
+                        sub.l_qseq[rid] - q + p.is_del[pidx], q + 1)
+    elif fv == COL_FLAG:
+        vals = sub.flag[rid]
+    elif fv == COL_POS:
+        vals = sub.pos[rid] + 1
+    elif fv == COL_MAPQ:
+        vals = sub.mapq[rid]
+    elif fv == COL_PNEXT:
+        vals = sub.mpos[rid] + 1
+    else:   # COL_RLEN
+        vals = sub.l_qseq[rid]
+    flat, nd, _ = _itoa(vals)
+    return flat, nd, b","
+
+
+def _render_rows(emitpos: np.ndarray, states, name: str,
+                 ref: bytes | None, ref_len: int, conf,
+                 header) -> np.ndarray:
+    """One window's pileup text as one byte buffer.
+
+    In place of the per-column writer's loop, every field's bytes and
+    offsets are computed over all the rows at once and scattered into one
+    preallocated uint8 buffer.  A field is one file's count, seq column,
+    qual column or one of its extra columns: the passing entries' pieces
+    of a row are one contiguous run of the file's compacted pieces, and
+    a column without passing entries prints ``*``."""
+    nrow = emitpos.size
+    name_b = np.frombuffer(name.encode(), np.uint8)
+    if ref is not None:
+        refarr = np.frombuffer(ref, np.uint8)
+        refc = np.where(emitpos < ref_len,
+                        refarr[np.minimum(emitpos, max(ref_len - 1, 0))],
+                        ord("N")).astype(np.uint8)
+    else:
+        refc = np.full(nrow, ord("N"), np.uint8)
+    pos_flat, pos_nd, pos_off = _itoa(emitpos + 1)
+    extras = _extra_columns(conf)
+
+    # (flat, start per row, length per row, rows with passing entries or
+    # None for the count): a row's field is flat[start : start + length],
+    # or "*" where it has no passing entry
+    fields = []
+    for s in states:
+        p = s.p
+        ncols = p.col_pos.size
+        if ncols:
+            ci = np.searchsorted(p.col_pos, emitpos)
+            cic = np.minimum(ci, ncols - 1)
+            pres = (ci < ncols) & (p.col_pos[cic] == emitpos)
+            lo = np.where(pres, p.col_off[cic], 0)
+            hi = np.where(pres, p.col_off[np.minimum(cic + 1, ncols)], 0)
+        else:
+            lo = hi = np.zeros(nrow, np.int64)
+        # passing entries before each entry index: a row's passing
+        # entries are [cq[lo], cq[hi]) of the compacted ones
+        cq = np.zeros(p.n_entries + 1, np.int64)
+        np.cumsum(s.pass_q, out=cq[1:])
+        plo, phi = cq[lo], cq[hi]
+        cnt = phi - plo
+        nz = cnt > 0
+        pidx = np.nonzero(s.pass_q)[0]
+        cnt_flat, cnt_nd, cnt_off = _itoa(cnt)
+        fields.append((cnt_flat, cnt_off[:-1], cnt_nd, None))
+        plen = (s.piece_off[1:] - s.piece_off[:-1])[pidx]
+        pc = np.zeros(pidx.size + 1, np.int64)
+        np.cumsum(plen, out=pc[1:])
+        pflat = native.ragged_gather(s.piece_flat, s.piece_off, pidx, pc,
+                                     int(pc[-1]), HOST_THREADS)
+        fields.append((pflat, pc[plo], pc[phi] - pc[plo], nz))
+        fields.append((s.qual_chars[pidx], plo, cnt, nz))
+        for fv in extras:
+            tflat, tlen, sep = _extra_tokens(fv, s, pidx, header)
+            # each token followed by the separator; a row drops its last
+            k = len(sep)
+            toff = np.zeros(pidx.size + 1, np.int64)
+            np.cumsum(tlen + k, out=toff[1:])
+            joined = np.empty(int(toff[-1]), np.uint8)
+            src = np.zeros(pidx.size, np.int64)
+            np.cumsum(tlen[:-1], out=src[1:])
+            native.ragged_copy(joined, toff[:-1], tlen, tflat, src,
+                               HOST_THREADS)
+            if k:
+                joined[toff[1:] - 1] = sep[0]
+            fields.append((joined, toff[plo],
+                           toff[phi] - toff[plo] - k * nz, nz))
+
+    row_len = np.full(nrow, len(name_b) + 3 + 1, np.int64) + pos_nd
+    for _, _, ln, nz in fields:
+        row_len += 1 + (ln if nz is None else np.where(nz, ln, 1))
+    row_off = np.zeros(nrow + 1, np.int64)
+    np.cumsum(row_len, out=row_off[1:])
+    buf = np.empty(int(row_off[-1]), np.uint8)
+    cur = row_off[:-1].copy()
+    if len(name_b):
+        tgt = cur[:, None] + np.arange(len(name_b))[None, :]
+        buf[tgt.reshape(-1)] = np.tile(name_b, nrow)
+        cur += len(name_b)
+    buf[cur] = 9
+    cur += 1
+    native.ragged_copy(buf, cur, pos_nd, pos_flat, pos_off[:-1],
+                       HOST_THREADS)
+    cur += pos_nd
+    buf[cur] = 9
+    buf[cur + 1] = refc
+    cur += 2
+    for flat, start, ln, nz in fields:
+        buf[cur] = 9
+        cur += 1
+        if nz is None:
+            native.ragged_copy(buf, cur, ln, flat, start, HOST_THREADS)
+            cur += ln
+            continue
+        native.ragged_copy(buf, cur, np.where(nz, ln, 0), flat, start,
+                           HOST_THREADS)
+        buf[cur[~nz]] = ord("*")
+        cur += np.where(nz, ln, 1)
+    buf[cur] = 10
+    return buf
+
+
+def _append_file_column(row, s: FileState, pos: int, conf, header):
+    """One file's columns of the row at ``pos``, per entry in Python (the
+    writer for --output-extra aux tags)."""
+    ci = s.pos2col.get(pos)
+    if ci is None:
+        row.append("\t0\t*\t*")
+        row.extend("\t*" for _ in _extra_columns(conf))
+        row.extend("\t*" for _ in conf["auxtags"])
+        return
+    lo, hi = s.p.col_off[ci], s.p.col_off[ci + 1]
+    idx = np.arange(lo, hi)
+    passing = idx[s.pass_q[lo:hi]]
+    cnt = passing.size
+    row.append("\t")
+    row.append(str(cnt))
+    row.append("\t")
+    if cnt:
+        row.append("".join(s.entry_bytes(i) for i in passing))
+        row.append("\t")
+        row.append(bytes(s.qual_chars[passing]).decode("latin-1"))
+    else:
+        row.append("*\t*")
+    for fv in _extra_columns(conf):
+        row.append("\t")
+        vals = []
+        for i in passing:
+            rid = int(s.p.rid[i])
+            if fv == COL_MAPQ_CHAR:
+                vals.append(chr(min(int(s.sub.mapq[rid]) + 33, 126)))
+            elif fv == COL_QPOS:
+                vals.append(str(int(s.p.qpos[i]) + 1))
+            elif fv == COL_QPOS5:
+                if s.sub.flag[rid] & F.FREVERSE:
+                    vals.append(str(int(s.sub.l_qseq[rid])
+                                    - int(s.p.qpos[i])
+                                    + int(s.p.is_del[i])))
+                else:
+                    vals.append(str(int(s.p.qpos[i]) + 1))
+            elif fv == COL_QNAME:
+                vals.append(s.sub.qname_str(rid))
+            elif fv == COL_FLAG:
+                vals.append(str(int(s.sub.flag[rid])))
+            elif fv == COL_RNAME:
+                t = int(s.sub.tid[rid])
+                vals.append(header.ref_name(t) if t >= 0 else "*")
+            elif fv == COL_POS:
+                vals.append(str(int(s.sub.pos[rid]) + 1))
+            elif fv == COL_MAPQ:
+                vals.append(str(int(s.sub.mapq[rid])))
+            elif fv == COL_RNEXT:
+                t = int(s.sub.mtid[rid])
+                vals.append(header.ref_name(t) if t >= 0 else "*")
+            elif fv == COL_PNEXT:
+                vals.append(str(int(s.sub.mpos[rid]) + 1))
+            elif fv == COL_RLEN:
+                vals.append(str(int(s.sub.l_qseq[rid])))
+        if not vals:
+            row.append("*")
+        elif fv == COL_MAPQ_CHAR:
+            row.append("".join(vals))
+        else:
+            row.append(",".join(vals))
+    for tag in conf["auxtags"]:
+        row.append("\t")
+        vals = []
+        for i in passing:
+            got = auxmod.get_value(s.sub.aux_of(int(s.p.rid[i])), tag)
+            if got is None:
+                vals.append(conf["empty"])
+                continue
+            t, v = got
+            if t in "ZHIiCcSsA":
+                vals.append(str(v))
+            elif t in "df":
+                vals.append(_kputd(v))
+            else:
+                vals.append("*")
+        row.append(conf["sep"].join(vals) if vals else "*")

@@ -2,8 +2,8 @@
 coverage or bedcov command, goes on one CUDA card.
 
     python3 scripts/torch_core_profile.py [--ref-len N] [--coverage X]
-        [--messy | --pairs] [--tool | --pileup "CMD [OPTS]" ... [--host]]
-        [--out PATH.json]
+        [--messy | --pairs] [--tool [--mpileup-args "OPTS"] |
+        --pileup "CMD [OPTS]" ... [--host]] [--out PATH.json]
 
 Simulates the bench workload (8 Mbp x 30x x 100 bp by default), writes it
 as a BAM with the port's writer, then streams it through BamStream ->
@@ -33,6 +33,10 @@ in ``TOOL_STAGES``), one profiled (device busy time and idle share); then
 the command in a fresh process, plain (``fresh_process_wall_s``) and under
 cProfile (the top functions by self seconds, and the port's own by
 cumulative seconds).  ``tool_text_bytes`` is the output's size.
+``--mpileup-args "-s -O"`` passes those options to every run (before the
+BAM), which sends the command down its general path: BAQ through
+``apply_baq_batch`` (K8), the pileup table and its order (K13), the entry
+pieces and the row renderer, each a stage of ``TOOL_STAGES``.
 ``--pairs`` simulates overlapping messy pairs instead
 (``sim.simulate_overlapping_pairs``), so the overlap tweak has work.
 
@@ -73,7 +77,9 @@ from samtools_tpu_torch.io import stream  # noqa: E402
 from samtools_tpu_torch.io.bam import write_bam  # noqa: E402
 from samtools_tpu_torch.io.stream import BamStream  # noqa: E402
 from samtools_tpu_torch.ops import depth as dops  # noqa: E402
+from samtools_tpu_torch.ops import baq as baqmod  # noqa: E402
 from samtools_tpu_torch.ops import mpileup_device as md  # noqa: E402
+from samtools_tpu_torch.ops import pileup as plmod  # noqa: E402
 from samtools_tpu_torch.ops import pileup_engine as pe  # noqa: E402
 from samtools_tpu_torch.sim import (make_header, simulate_batch,  # noqa: E402
                                     simulate_messy,
@@ -101,7 +107,14 @@ TOOL_STAGES = (("mpileup_cmd._WindowCursor", "_pull"),
                ("mpileup_cmd", "tweak_overlaps"),
                ("mpileup_cmd.native", "mpileup_text"),
                ("ReadBatch", "take"),
-               ("ReadBatch", "concat"))
+               ("ReadBatch", "concat"),
+               # the general path
+               ("mpileup_cmd", "build_pileup"),
+               ("plmod", "entry_order"),
+               ("mpileup_cmd", "build_entry_pieces"),
+               ("mpileup_cmd", "_render_rows"),
+               ("baqmod", "_apply_baq_device"),
+               ("baqmod.native", "baq_batch"))
 # the same for the pileup family: whole-file reads, the stream cursor,
 # the host item build, K1 with its uploads, K9, the numpy branch, rows
 PILEUP_STAGES = (("depth_cmd", "read_alignments"),
@@ -122,6 +135,8 @@ PILEUP_STAGES = (("depth_cmd", "read_alignments"),
                  ("bedcov_cmd", "_mspan_depth"),
                  ("bedcov_cmd", "_build_states_streaming"),
                  ("depth_cmd", "_emit"),
+                 ("coverage_cmd", "build_pileup"),
+                 ("plmod", "entry_order"),
                  ("ReadBatch", "take"),
                  ("ReadBatch", "concat"))
 
@@ -178,7 +193,7 @@ def _owner(path: str):
     names = {"mpileup_cmd": mpileup_cmd, "md": md, "ReadBatch": ReadBatch,
              "depth_cmd": depth_cmd, "coverage_cmd": coverage_cmd,
              "bedcov_cmd": bedcov_cmd, "stream": stream, "pe": pe,
-             "dops": dops}
+             "dops": dops, "plmod": plmod, "baqmod": baqmod}
     head, *rest = path.split(".")
     obj = names[head]
     for r in rest:
@@ -186,17 +201,18 @@ def _owner(path: str):
     return obj
 
 
-def run_tool(fa, path, out):
+def run_tool(fa, path, out, extra=()):
     t0 = time.perf_counter()
-    rc = cli.main(["mpileup", "-f", fa, path, "-o", out])
+    rc = cli.main(["mpileup", "-f", fa, *extra, path, "-o", out])
     torch.cuda.synchronize()
     if rc != 0:
         raise RuntimeError(f"mpileup exited {rc}")
     return time.perf_counter() - t0
 
 
-def profile_tool(path, ref, d, n_reads):
-    """The mpileup command's warm-up, timed and profiled runs."""
+def profile_tool(path, ref, d, n_reads, extra=()):
+    """The mpileup command's warm-up, timed and profiled runs, with the
+    options ``extra``."""
     fa = os.path.join(d, "ref.fa")
     with open(fa, "wb") as f:
         f.write(b">sim1\n" + b"".join(ref[i:i + 60].tobytes() + b"\n"
@@ -204,14 +220,14 @@ def profile_tool(path, ref, d, n_reads):
     with open(fa + ".fai", "w") as f:
         f.write(f"sim1\t{ref.size}\t6\t60\t61\n")
     out = os.path.join(d, "tool.pileup")
-    warm = run_tool(fa, path, out)          # warm-up: the first run
+    warm = run_tool(fa, path, out, extra)   # warm-up: the first run
     timer = StageTimer()
     saved = [(_owner(o), a, getattr(_owner(o), a)) for o, a in TOOL_STAGES]
     for obj, a, fn in saved:
         wrapped = timer.wrap(a, fn)
         setattr(obj, a, staticmethod(wrapped) if a == "concat" else wrapped)
     try:
-        wall = run_tool(fa, path, out)
+        wall = run_tool(fa, path, out, extra)
     finally:
         for obj, a, fn in saved:
             setattr(obj, a, staticmethod(fn) if a == "concat" else fn)
@@ -219,7 +235,7 @@ def profile_tool(path, ref, d, n_reads):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        wall_prof = run_tool(fa, path, out)
+        wall_prof = run_tool(fa, path, out, extra)
     dev = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
@@ -229,7 +245,8 @@ def profile_tool(path, ref, d, n_reads):
     host_total = sum(timer.acc.values())
     # the command as a user starts it: a fresh process, once plain and
     # once under cProfile (its top functions by cumulative time)
-    cmd = ["-m", "samtools_tpu_torch", "mpileup", "-f", fa, path, "-o", out]
+    cmd = ["-m", "samtools_tpu_torch", "mpileup", "-f", fa, *extra, path,
+           "-o", out]
     t0 = time.perf_counter()
     subprocess.run([sys.executable, *cmd], check=True, cwd=ROOT,
                    stderr=subprocess.DEVNULL)
@@ -365,6 +382,9 @@ def main() -> int:
     mode.add_argument("--pileup", metavar="CMD", action="append",
                       help='profile a depth, coverage or bedcov command, '
                       'e.g. "depth -a" (repeatable)')
+    ap.add_argument("--mpileup-args", default="",
+                    help='with --tool: options for every mpileup run, '
+                    'e.g. "-s -O"')
     ap.add_argument("--host", action="store_true",
                     help="with --pileup: the numpy host branch too")
     ap.add_argument("--out", help="also write the JSON object here")
@@ -397,14 +417,16 @@ def main() -> int:
                    "workload": {"ref_len": args.ref_len,
                                 "coverage": args.coverage,
                                 "messy": args.messy, "pairs": args.pairs,
-                                "reads": int(n_reads)},
+                                "reads": int(n_reads),
+                                "mpileup_args": args.mpileup_args},
                    **({"runs": [profile_pileup(spec, path, d, n_reads, h,
                                                args.ref_len)
                                 for spec in args.pileup
                                 for h in ((False, True) if args.host
                                           else (False,))]}
                       if args.pileup else
-                      profile_tool(path, ref, d, n_reads))}
+                      profile_tool(path, ref, d, n_reads,
+                                   args.mpileup_args.split()))}
             if args.out:
                 os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                             exist_ok=True)

@@ -10,6 +10,8 @@ port's kernels):
   the JAX device branch (which caps a base's quality at 127), and the
   port's coverage reduction sums a deep window exactly where the JAX one
   wraps at 2^31;
+* ``coverage -m``/``-D`` print the JAX tool's histograms, on both of its
+  branches and on the port's host branch;
 * what they do not do yet exits 1 with one line; without CUDA they fail
   before any row;
 * the streamed window reader, the header's name lookup and the small
@@ -191,10 +193,35 @@ def test_bedcov_equals_jax_tool(inputs, case):
         assert port == run_jax_tool("bedcov", args, "1", stdin=stdin)
 
 
+# the histograms (-w sets the width; without it the width comes from
+# COLUMNS, which both tools read)
+HIST_CASES = {
+    "m": ["-m", "{messy}"],
+    "D": ["-D", "{messy}"],
+    "m_A_w40": ["-m", "-A", "-w", "40", "{messy}"],
+    "m_two_files_q": ["-m", "-Q", "20", "-q", "30", "{messy}", "{pairs}"],
+    "D_region": ["-D", "-r", "sim1:20001-60000", "{messy}"],
+    "m_two_contigs": ["-m", "-w", "70", "{messy2}"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(HIST_CASES))
+def test_coverage_histogram_equals_jax_tool(inputs, monkeypatch, case):
+    monkeypatch.setenv("COLUMNS", "100")
+    args = [a.format(**inputs) for a in HIST_CASES[case]]
+    kernels.reset_launches()
+    port = run_port_stdout("coverage", args)
+    assert kernels.launches == {k: 0 for k in kernels.launches}
+    assert port.count(b"\n") >= 11
+    for engine in ("1", "0"):
+        assert port == run_jax_tool("coverage", args, engine), engine
+    monkeypatch.setenv("SAMTPU_DEVICE", "host")
+    assert run_port_stdout("coverage", args, device=None) == port
+
+
 @pytest.mark.parametrize("cmd,argv,what", [
-    ("coverage", ["-m", "{messy}"], "-m/-D"),
-    ("coverage", ["-D", "{messy}"], "-m/-D"),
     ("coverage", ["{sam}"], "SAM"),
+    ("coverage", ["-m", "{sam}"], "SAM"),
     ("coverage", ["-r", "sim1", "{sam}"], "SAM"),
     ("bedcov", ["{bed}", "{sam}"], "SAM"),
 ])

@@ -442,3 +442,119 @@ def test_pileup_family_on_card_equals_cpu(cuda, tmp_path, monkeypatch, cmd,
                        ("segment_census", "baq_hmm", "baq_finalize"))
     assert got[None].count("\n") > 1
     assert got[None] == got["cpu"]
+
+
+def _apply_group(L, n, seed):
+    """A uniform group of n all-M reads of L bases on a 64 kbp contig:
+    (contig codes, pos, nt16 bases, quals)."""
+    ref_len = 1 << 16
+    ref = sim.simulate_reference(ref_len, seed=seed)
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    b = sim.simulate_batch(ref_len=ref_len - L - 8,
+                           coverage=n * L / (ref_len - L - 8) + 1,
+                           read_len=L, seed=seed, paired=False,
+                           err_rate=0.02, ref=ref[:ref_len - L - 8])
+    k = np.arange(n)
+    idx = b.seq_off[k][:, None] + np.arange(L)[None, :]
+    return lut[ref], b.pos[k].astype(np.int64), b.seq[idx], b.qual[idx]
+
+
+@pytest.mark.parametrize("L", [37, 100, 151])
+def test_baq_apply_equals_plain(cuda, L):
+    """K8 on the card against its plain version on the CPU, in chunks of
+    512 reads with a ragged last one: the applied quals equal on every
+    read neither flags risky, and at most 1% of reads in the symmetric
+    difference of the risky sets."""
+    ref_int, pos, seq, qual = _apply_group(L, 1300, L)
+    before = kernels.launches["baq_apply"]
+    kq, kr = bd.baq_apply_nt16(torch.from_numpy(ref_int).to(cuda), pos, seq,
+                               qual, chunk=512)
+    assert kernels.launches["baq_apply"] == before + 3
+    pq, pr = bd.baq_apply_nt16(torch.from_numpy(ref_int), pos, seq, qual,
+                               chunk=512)
+    assert kq.shape == (1300, L) and kq.dtype == np.uint8
+    ok = ~(kr | pr)
+    assert (kr ^ pr).sum() <= 13
+    assert np.array_equal(kq[ok], pq[ok])
+    assert (kq[ok] != qual[ok]).any()
+
+
+def test_apply_baq_batch_on_card_equals_host(cuda, monkeypatch):
+    """apply_baq_batch with K8 (groups of 256 reads and up): the quals
+    equal the host library's f64 HMM byte for byte, risky reads
+    recomputed there."""
+    from samtools_tpu_torch.io import native
+    from samtools_tpu_torch.ops import baq
+    monkeypatch.setattr(baq, "DEVICE_GROUP_MIN", 256)
+    ref = sim.simulate_reference(1 << 16, seed=21)
+    b = sim.simulate_batch(ref_len=1 << 16, coverage=8.0, read_len=100,
+                           seed=22, paired=False, err_rate=0.02, ref=ref)
+    sim.simulate_messy(b, 22)
+    ref_int = baq._ref_ints(ref.tobytes())
+    want, _ = native.baq_batch(b.pos, b.cigar, b.cigar_off, b.seq, b.qual,
+                               b.seq_off, ref_int, flag=3)
+    before = kernels.launches["baq_apply"]
+    baq.apply_baq_batch(b, ref_int, device=cuda)
+    assert kernels.launches["baq_apply"] > before
+    assert np.array_equal(b.qual, want)
+
+
+def test_stable_order_equals_host_sort(cuda):
+    """K13 on the card equals np.argsort(kind="stable") on keys with many
+    ties; keys whose span passes int32 take the host's sort and no
+    launch."""
+    from samtools_tpu_torch.ops import pileup
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1 << 20, 3_000_001).astype(np.int32)
+    before = kernels.launches["stable_order"]
+    got = pileup.stable_order(torch.from_numpy(keys).to(cuda)).cpu().numpy()
+    assert kernels.launches["stable_order"] == before + 1
+    assert np.array_equal(got, np.argsort(keys, kind="stable"))
+    pos = keys.astype(np.int64) * 4096 + 7
+    assert int(pos.max()) - int(pos.min()) >= 1 << 31
+    wide = pileup.entry_order(pos, cuda)
+    assert kernels.launches["stable_order"] == before + 1
+    assert np.array_equal(wide, np.lexsort((np.arange(pos.size), pos)))
+    assert np.array_equal(pileup.entry_order(pos[:100000] % 99991, cuda),
+                          np.argsort(pos[:100000] % 99991, kind="stable"))
+
+
+@pytest.mark.parametrize("cmd,argv", [
+    ("mpileup", ["-f", "{fa}", "-s", "-O", "{bam}", "{pairs}"]),
+    ("mpileup", ["-f", "{fa}", "-r", "sim1:20001-90000", "--output-extra",
+                 "FLAG,POS", "{bam}"]),
+    ("coverage", ["-m", "{bam}", "{pairs}"])])
+def test_general_path_on_card_equals_cpu(cuda, tmp_path, monkeypatch, cmd,
+                                         argv):
+    """mpileup's general path (two files with -s -O; -r with extra
+    columns) and coverage -m on the card print the CPU port's bytes, with
+    K13 (and, for mpileup, K8 at groups of 256 reads) launched and K1's
+    census form not."""
+    import contextlib
+    import io
+
+    from samtools_tpu_torch import cli
+    from samtools_tpu_torch.ops import baq
+    monkeypatch.setattr(baq, "DEVICE_GROUP_MIN", 256)
+    bam, pairs, _ = _pileup_inputs(tmp_path)
+    fa = str(tmp_path / "ref.fa")
+    ref = sim.simulate_reference(1 << 17, seed=7)
+    with open(fa, "wb") as f:
+        f.write(b">sim1\n" + b"".join(ref[i:i + 60].tobytes() + b"\n"
+                                      for i in range(0, ref.size, 60)))
+    args = [a.format(bam=bam, pairs=pairs, fa=fa) for a in argv]
+    got = {}
+    for dev in (None, "cpu"):
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main([cmd, *args], device=dev) == 0
+        got[dev] = buf.getvalue()
+        launched = dict(kernels.launches)
+        if dev is None:
+            assert launched["stable_order"] >= 1
+            assert (launched["baq_apply"] >= 1) == (cmd == "mpileup")
+            assert launched["segment_census"] == 0
+    assert got[None].count("\n") > 10
+    assert got[None] == got["cpu"]

@@ -39,7 +39,11 @@ COLUMNS = ("tid", "pos", "mapq", "flag", "mtid", "mpos", "tlen", "qname",
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
-    return make_pileup_inputs(str(tmp_path_factory.mktemp("depth")))
+    got = make_pileup_inputs(str(tmp_path_factory.mktemp("depth")))
+    got["list"] = got["dir"] + "/bams.txt"
+    with open(got["list"], "w") as f:
+        f.write(f"{got['messy']}\n{got['pairs']}\n")
+    return got
 
 
 def _both(path):
@@ -190,6 +194,13 @@ TOOL_CASES = {
     "two_files": ["{messy}", "{pairs}"],
     "l90": ["-l", "90", "{messy}"],
     "deep_q13": ["-a", "-q", "13", "{deep}"],
+    "f_list": ["-f", "{list}"],
+    "X_index": ["-X", "{indexed}", "{indexed}.bai"],
+    "g_unmap_dup": ["-g", "UNMAP,DUP", "{pairs}"],
+    "G_read2": ["-G", "READ2", "{pairs}"],
+    "incl_flags": ["--incl-flags", "READ1,MREVERSE", "{pairs}"],
+    "require_flags": ["--require-flags", "PAIRED,PROPER_PAIR,READ2",
+                      "{pairs}"],
 }
 
 

@@ -17,6 +17,7 @@ from samtools_tpu_torch import kernels
 from samtools_tpu_torch.device import resolve
 from samtools_tpu_torch.ops import baq_device as bd
 from samtools_tpu_torch.ops import mpileup_device as md
+from samtools_tpu_torch.ops.pileup import stable_order
 from samtools_tpu_torch.ops.segment_kernel import (segment_census,
                                                    segment_contract)
 
@@ -137,8 +138,16 @@ def test_cpu_tensors_never_count_a_launch():
                    torch.tensor([0, 10], dtype=torch.int32),
                    torch.tensor([10, 10], dtype=torch.int32), 0, 128, out)
     assert int(out[0, 0]) == 20 and int(out[0, 5]) == 210
+    buf = rng.integers(0, 16, (B, 4 + 2 * LQ)).astype(np.uint8)
+    buf[:, :4] = 0
+    buf[:, 4 + LQ:] = rng.integers(2, 40, (B, LQ))
+    appq, _ = bd.baq_apply(t(rng.integers(0, 4, 64).astype(np.uint8)),
+                           t(buf))
+    assert appq.shape == (B, LQ)
+    stable_order(torch.tensor([3, 1, 3, 0], dtype=torch.int32))
     assert kernels.launches == {"segment_contract": 0, "segment_census": 0,
-                                "baq_hmm": 0, "baq_finalize": 0}
+                                "baq_hmm": 0, "baq_finalize": 0,
+                                "baq_apply": 0, "stable_order": 0}
 
 
 def test_mixed_devices_raise():

@@ -4,7 +4,8 @@ the JAX tool's bytes, whichever engine the JAX tool runs, whatever the
 window size; its ``--census-out`` equals the single-core f64 oracle
 window by window; its chunk step's sparse qual deltas equal the JAX chunk
 step's; the overflow path gives the same bytes; without CUDA the command
-fails before it prints a row; options not ported yet say so and exit 1."""
+fails before it prints a row; what is not ported yet (--checkpoint,
+SAMTPU_SHARDS, SAM input) says so and exits 1."""
 
 import json
 import os
@@ -199,36 +200,11 @@ def _sam(d):
     return path
 
 
-def _bq_tagged(inputs):
-    """The messy BAM with a BQ tag on its first read."""
-    from samtools_tpu_torch.io.bam import write_bam
-    from samtools_tpu_torch.io.stream import BamStream
-    with BamStream(inputs["messy"]) as st:
-        b = next(st.batches())
-        header = st.header
-    tag = b"BQZ" + b"@" * int(b.seq_off[1]) + b"\0"
-    b.aux = np.frombuffer(tag, np.uint8).copy()
-    b.aux_off = np.concatenate([[0], np.full(b.n, len(tag))]).astype(
-        np.int64)
-    path = os.path.join(inputs["dir"], "bq.bam")
-    write_bam(path, header, b)
-    return path
-
-
 NOT_PORTED = {
-    "region": (["-r", "sim1:1-100"], "-r/--region"),
-    "bam_list": (["-b", "list.txt"], "-b/--bam-list"),
-    "two_files": (["{messy}"], "several input files"),
-    "output_bp": (["-O"], "-O/--output-BP"),
-    "output_mq": (["-s"], "-s/--output-MQ"),
-    "output_mods": (["-M"], "-M/--output-mods"),
-    "output_qname": (["--output-QNAME"], "--output-QNAME"),
-    "output_extra": (["--output-extra", "FLAG"], "--output-extra"),
-    "adjust_mq": (["-C", "50"], "-C above 10"),
     "checkpoint": (["--checkpoint", "ck.json"], "--checkpoint"),
     "shards": ([], "SAMTPU_SHARDS"),
     "sam_input": ([], "SAM or CRAM input"),
-    "bq_tags": ([], "BAQ tag conversion"),
+    "sam_input_region": (["-r", "sim1:1-50"], "SAM or CRAM input"),
 }
 
 
@@ -238,10 +214,8 @@ def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
     bam = inputs["messy"]
     if case == "shards":
         monkeypatch.setenv("SAMTPU_SHARDS", "2")
-    elif case == "sam_input":
+    elif case.startswith("sam_input"):
         bam = _sam(inputs["dir"])
-    elif case == "bq_tags":
-        bam = _bq_tagged(inputs)
     argv = ["mpileup", "-f", inputs["fa"], bam,
             *[a.format(**inputs) for a in extra]]
     capfd.readouterr()

@@ -11,6 +11,8 @@ Two BAMs over one 128 kbp simulated contig (FASTA with 60-column lines):
   ``sim.simulate_overlapping_pairs``, so the overlap tweak runs), two read
   groups (``RG:Z:grpA``/``grpB``), written by the port.
 
+``make_general_inputs`` adds mpileup's general-path inputs (a BAM list,
+reads with base-modification tags, reads with stored BQ / ZQ tags);
 ``make_pileup_inputs`` adds, for depth, coverage and bedcov: ``messy2``
 (the messy reads under a header with a second, unused contig),
 ``indexed`` (the messy reads starting in [16000, 21000), with a
@@ -31,6 +33,7 @@ import contextlib
 import io
 import os
 import shutil
+import struct
 import subprocess
 import sys
 
@@ -187,3 +190,61 @@ def oracle_census(bam: str, ref: np.ndarray):
         body = bgzf.decompress(f.read())
     _, off = decode_header(body)
     return native.bench_baq_census(body[off:], 0, ref_codes(ref))
+
+
+def _set_aux(b, blobs) -> None:
+    """Give read i of ``b`` the aux bytes blobs[i]."""
+    b.aux = np.frombuffer(b"".join(blobs), np.uint8).copy()
+    b.aux_off = np.concatenate([[0], np.cumsum([len(x) for x in blobs])]
+                               ).astype(np.int64)
+
+
+def _mods_blob(rng, L: int) -> bytes:
+    """MM/ML tags of one read: C+m (and sometimes C+h and A+a, a ChEBI
+    code, or an ML array shorter than MM asks for)."""
+    items, quals = [], []
+    for base, codes in (("C", "m"), ("C", "mh"), ("A", "a"), ("T", "17802")):
+        if rng.random() < 0.4:
+            continue
+        deltas = rng.integers(0, 4, int(rng.integers(1, 6)))
+        items.append(f"{base}+{codes}{'.' if rng.random() < 0.3 else ''},"
+                     + ",".join(str(int(x)) for x in deltas))
+        ncodes = 1 if codes.isdigit() else len(codes)
+        quals += rng.integers(0, 256, deltas.size * ncodes).tolist()
+    if rng.random() < 0.2:
+        quals = quals[:len(quals) // 2]
+    mm = ("".join(it + ";" for it in items)).encode()
+    ml = struct.pack("<I", len(quals)) + bytes(quals)
+    return b"MMZ" + mm + b"\0" + b"MLBC" + ml
+
+
+def make_general_inputs(d: str) -> dict:
+    """make_pileup_inputs plus mpileup's general-path inputs: ``list``
+    (a -b list of messy and pairs), ``mods`` (the messy reads starting in
+    [30000, 36000) with MM/ML tags), and ``bq`` / ``zq`` (those starting
+    in [40000, 43000), every other one with a stored BQ / ZQ tag, one
+    with both)."""
+    got = make_pileup_inputs(d)
+    got["list"] = os.path.join(d, "bams.txt")
+    with open(got["list"], "w") as f:
+        f.write(f"{got['messy']}\n\n{got['pairs']}\n")
+    messy = read_alignments(got["messy"])
+    b = messy.batch
+    rng = np.random.default_rng(17)
+    mods = b.take(np.nonzero((b.pos >= 30000) & (b.pos < 36000))[0])
+    _set_aux(mods, [_mods_blob(rng, int(n)) for n in mods.l_qseq])
+    got["mods"] = os.path.join(d, "mods.bam")
+    write_bam(got["mods"], messy.header, mods)
+    for tag in ("BQ", "ZQ"):
+        t = b.take(np.nonzero((b.pos >= 40000) & (b.pos < 43000))[0])
+        blobs = []
+        for i, n in enumerate(t.l_qseq):
+            vals = bytes(rng.integers(64, 84, int(n)).astype(np.uint8))
+            blob = tag.encode() + b"Z" + vals + b"\0" if i % 2 == 0 else b""
+            if i == 4:
+                blob += b"ZQZ" + vals + b"\0" if tag == "BQ" else b""
+            blobs.append(blob + b"XYZx\0")
+        _set_aux(t, blobs)
+        got[tag.lower()] = os.path.join(d, f"{tag.lower()}.bam")
+        write_bam(got[tag.lower()], messy.header, t)
+    return got
