@@ -56,13 +56,15 @@ from the sources in this checkout.  Phases, one JSON line each:
    depth scan with its narrowed copy; the coverage gate and reduction).
 6. pileup_family -- ``depth``, ``coverage`` and ``bedcov``, the commands
    a user runs: depth (default) on clean and messy, ``depth -a -q 13 -J``
-   on clean, ``depth -s`` on the pairs, ``coverage`` (streamed, 8 windows)
-   on clean and messy and ``coverage -r sim1:1-2000000`` on clean, each
-   in-process (``cli.main``) once on the card and once with
-   ``SAMTPU_DEVICE=0`` (numpy): byte-equal outputs, the card runs launch
-   K1's generic form and never the census form, K4 or K5, the host runs
-   launch nothing.  Then ``bedcov`` as a subprocess, the clean BAM on
-   standard input and a BED of 1,000 intervals of 1-10 kbp, card against
+   on clean's front (the reads that start in its first 3 Mbp, written as
+   a BAM of their own), ``depth -s`` on the pairs, ``coverage`` (streamed)
+   on clean (8 windows) and on messy's front (3 windows) and ``coverage
+   -r sim1:1-2000000`` on clean, each in-process (``cli.main``) once on
+   the card and once with ``SAMTPU_DEVICE=0`` (numpy): byte-equal
+   outputs, the card runs launch K1's generic form and never the census
+   form, K4 or K5, the host runs launch nothing.  Then ``bedcov`` as a
+   subprocess, clean's front on standard input and a BED of 1,000
+   intervals of 1-10 kbp in its first 3 Mbp, card against
    ``SAMTPU_DEVICE=0``, byte-equal.  Per run: wall, aligned Mbases/s,
    output bytes and rows, launches.
 7. kernels_general -- K8 (``baq_apply``: K4 and K5 around torch ops) on a
@@ -76,12 +78,33 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``np.argsort(kind="stable")`` exactly.  Beside each, the host
    alternative's time (``io.native.baq_batch``, ``np.argsort``).
 8. general -- mpileup's general path and ``coverage -m`` in-process:
-   ``mpileup -f ref.fa -s -O`` on clean (8 Mbp x 30x), whose rows less
-   their two extra columns must equal the tool phase's fast-branch output
-   byte for byte; ``mpileup -r sim1:1-2000000 --output-extra FLAG,POS`` on
-   messy and pairs, and ``coverage -m -r sim1:1-2000000`` on clean, card
+   ``mpileup -f ref.fa -s -O`` streamed over clean's front (three stream
+   windows of 1 Mi columns, each launching K13 and K8), whose rows less
+   their two extra columns must equal the tool phase's fast-branch rows up
+   to position 3,000,000 byte for byte; ``mpileup -r sim1:1-1000000
+   --output-extra FLAG,POS`` on messy and pairs, and ``coverage -m -r
+   sim1:1-2000000`` on clean, card
    against ``SAMTPU_DEVICE=0``, byte-equal.  The card runs must launch K13
    (and for mpileup K8 with its K4 and K5) and never K1 in either form.
+9. consensus -- ``consensus``, ``flagstat`` and ``mpileup --checkpoint``
+   in-process, each card run against its ``SAMTPU_DEVICE=0`` run, byte
+   for byte: ``consensus -r sim1:1-2000000 -o out.fa`` on clean (it must
+   launch K10 and K13), ``consensus -a --show-ins yes --show-del yes -f
+   fastq -r sim1:1-2000000`` on messy, ``flagstat`` on clean and
+   ``flagstat -O json`` on the pairs (K11 must launch); ``mpileup -f ref.fa
+   --checkpoint`` on clean, which must print the tool phase's bytes, then
+   resumed from its middle window's state with the output cut there and a
+   half-written line appended, which must print them again.  Then K10
+   (``consensus_segsum``) on the entries of clean's first 1 Mi window, as
+   the first run's host code built them: S, counts and depth equal the
+   host branch's f64 ``gap5_scores`` bit for bit (and so the five output
+   fields), the same bits on two calls; its plain version on the card
+   (gather, ``index_add_`` in f64, atomics in no fixed order) within the
+   rounding bound of two f64 sums, (n + 2) 2^-52 of each column's sum of
+   |contributions|, counts and depth exactly; and
+   K11 (``flagstat``) on clean's 2,516,582 reads equal to its plain
+   version and ``flagstat_numpy`` exactly.  Beside each, the library
+   alternative on the card and the host branch's time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -110,6 +133,8 @@ THREADS = max(1, min(8, os.cpu_count() or 1))
 # the H100 SXM's published peaks (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# f64 outside the tensor cores (the same data sheet): K10's adds
+F64_OPS_PER_S = 34e12
 # K4 f32 operations per (read, query row, band slot), counted from
 # csrc/baq_hmm.cu: forward 20 (emission 1, M 6, I 4, D chain 3, row sum
 # 3, normalize 3), backward 21 (emission and ee 2, bM 5, bI 3, D chain 3,
@@ -133,6 +158,10 @@ KERNEL_META = {
                   "samtools_tpu/ops/baq_device.py:334"),
     "stable_order": ("samtools_tpu_torch/ops/pileup.py",
                      "samtools_tpu/ops/pileup.py:167"),
+    "consensus_segsum": ("samtools_tpu_torch/csrc/consensus_segsum.cu",
+                         "samtools_tpu/ops/consensus_vec.py:346"),
+    "flagstat": ("samtools_tpu_torch/csrc/flagstat.cu",
+                 "samtools_tpu/ops/flagstat.py:67"),
 }
 # what DeviceCensusPipeline launches; the generic K1 runs only in the
 # kernels phase
@@ -142,23 +171,29 @@ MAIN_PATH = ("segment_census", "baq_hmm", "baq_finalize")
 PILEUP_RUNS = (
     ("depth", ["depth", "{clean}"], "clean"),
     ("depth", ["depth", "{messy}"], "messy"),
-    ("depth -a -q 13 -J", ["depth", "-a", "-q", "13", "-J", "{clean}"],
-     "clean"),
+    ("depth -a -q 13 -J", ["depth", "-a", "-q", "13", "-J",
+                           "{clean_front}"], "clean_front"),
     ("depth -s", ["depth", "-s", "{pairs}"], "pairs"),
     ("coverage", ["coverage", "{clean}"], "clean"),
-    ("coverage", ["coverage", "{messy}"], "messy"),
+    ("coverage", ["coverage", "{messy_front}"], "messy_front"),
     ("coverage -r sim1:1-2000000",
      ["coverage", "-r", "sim1:1-2000000", "{clean}"], "clean"),
 )
 REGION_END = 2_000_000
+# the shallower clean and messy ({clean_front}, {messy_front}): their
+# reads that start before this, so rows up to it are the whole BAM's
+FRONT_END = 3_000_000
+# the two-file general run's region
+REGION2_END = 1_000_000
 # mpileup's general path and coverage -m: (label, argv, reads counted,
-# engines).  The first holds its rows, less the two extra columns, to the
-# tool phase's fast-branch output; the others, card against host.
+# engines).  The first streams its windows and holds its rows, less the
+# two extra columns, to the tool phase's fast-branch output; the others,
+# card against host.
 GENERAL_RUNS = (
-    ("mpileup -s -O", ["mpileup", "-f", "{fa}", "-s", "-O", "{clean}"],
-     "clean", ("card",)),
+    ("mpileup -s -O", ["mpileup", "-f", "{fa}", "-s", "-O",
+                       "{clean_front}"], "clean_front", ("card",)),
     ("mpileup -r --output-extra FLAG,POS (2 files)",
-     ["mpileup", "-f", "{fa}", "-r", "sim1:1-2000000", "--output-extra",
+     ["mpileup", "-f", "{fa}", "-r", "sim1:1-1000000", "--output-extra",
       "FLAG,POS", "{messy}", "{pairs}"], "region2", ("card", "host")),
     ("coverage -m -r", ["coverage", "-m", "-r", "sim1:1-2000000", "{clean}"],
      "region", ("card", "host")),
@@ -482,6 +517,18 @@ def oracle(path: str, ref_int: np.ndarray):
     return census, qsum, sum(p[2] for p in parts)
 
 
+def write_front(src: str, dst: str) -> int:
+    """The reads of ``src`` that start before FRONT_END, as the BAM
+    ``dst`` under the same header: a shallower input on the same route.
+    Returns their count."""
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.io.files import read_alignments
+    got = read_alignments(src, THREADS)
+    front = np.nonzero(got.batch.pos < FRONT_END)[0]
+    write_bam(dst, got.header, got.batch.take(front), threads=THREADS)
+    return int(front.size)
+
+
 def write_fasta(path: str, ref: np.ndarray) -> None:
     """``ref`` as a FASTA of 60-column lines, with its .fai."""
     with open(path, "wb") as f:
@@ -763,10 +810,11 @@ def phase_kernels_pileup(clean: str, dev) -> tuple:
     return rows, region_reads
 
 
-def bed_intervals(path: str, n: int = 1000) -> None:
-    """n BED intervals of 1-10 kbp on sim1, seeded."""
+def bed_intervals(path: str, span: int, n: int = 1000) -> None:
+    """n BED intervals of 1-10 kbp on sim1's first ``span`` bases,
+    seeded."""
     rng = np.random.default_rng(21)
-    starts = np.sort(rng.integers(0, REF_LEN - 10_000, n))
+    starts = np.sort(rng.integers(0, span - 10_000, n))
     lens = rng.integers(1_000, 10_001, n)
     with open(path, "w") as f:
         for i, (s0, ln) in enumerate(zip(starts, lens)):
@@ -825,7 +873,7 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
 
     # bedcov as a user runs it: the BAM on standard input
     bed = os.path.join(workdir, "regions.bed")
-    bed_intervals(bed)
+    bed_intervals(bed, FRONT_END)
     got, walls = {}, {}
     for engine in ("card", "host"):
         env = dict(os.environ)
@@ -833,7 +881,7 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
         if engine == "host":
             env["SAMTPU_DEVICE"] = "0"
         t0 = time.perf_counter()
-        with open(bams["clean"], "rb") as fin:
+        with open(bams["clean_front"], "rb") as fin:
             p = subprocess.run([sys.executable, "-m", "samtools_tpu_torch",
                                 "bedcov", "-c", bed, "-"], stdin=fin,
                                env=env, capture_output=True, timeout=600)
@@ -845,34 +893,41 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
             "from the host branch's")
     require(got["card"].count(b"\n") == 1000, "bedcov: not 1,000 rows")
     emit({"phase": "pileup_family", "run": "bedcov -c (stdin)",
-          "workload": "clean", "reads": int(reads["clean"]),
+          "workload": "clean_front", "reads": int(reads["clean_front"]),
           "card_wall_s": round(walls["card"], 3),
           "host_wall_s": round(walls["host"], 3),
-          "Mbases_per_s": round(reads["clean"] * READ_LEN / walls["card"]
-                                / 1e6, 3),
+          "Mbases_per_s": round(reads["clean_front"] * READ_LEN
+                                / walls["card"] / 1e6, 3),
           "output_bytes": len(got["card"]),
           "output_rows": got["card"].count(b"\n"), "byte_equal": True})
     return launches
 
 
-def strip_extra_columns(path: str, want_path: str, n: int) -> int:
-    """Rows of ``path`` without their last ``n`` columns must equal the
-    rows of ``want_path``, in order: returns the row count."""
+def strip_extra_columns(path: str, want_path: str, n: int,
+                        end: int) -> int:
+    """Rows of ``path`` up to position ``end``, without their last ``n``
+    columns, must equal the rows of ``want_path`` up to that position, in
+    order: returns the row count compared."""
     rows = 0
     with open(path, "rb") as f, open(want_path, "rb") as g:
-        for a, b in zip(f, g):
+        for a in f:
+            if int(a.split(b"\t", 2)[1]) > end:
+                break
+            b = g.readline()
             require(a.rsplit(b"\t", n)[0] + b"\n" == b,
                     f"general: row {rows} differs from the fast branch's")
             rows += 1
-        require(f.read(1) == b"" and g.read(1) == b"",
+        nxt = g.readline()
+        require(not nxt or int(nxt.split(b"\t", 2)[1]) > end,
                 "general: row counts differ from the fast branch's")
     return rows
 
 
 def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
-                  bams: dict, clean_text: str, dev) -> dict:
+                  bams: dict, clean_text: str, dev) -> tuple:
     """K8 and K13 against their plain versions at main-path shapes, then
-    mpileup's general path and coverage -m as a user runs them."""
+    mpileup's general path and coverage -m as a user runs them; also the
+    messy reads that start in the region."""
     import filecmp
 
     import torch
@@ -891,11 +946,14 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
     for name in ("messy", "pairs"):
         m = read_alignments(bams[name], THREADS).batch
         counts[name] = int((m.pos < REGION_END).sum())
+        counts["region2"] = counts.get("region2", 0) + int(
+            (m.pos < REGION2_END).sum())
         del m
-    counts["region2"] = counts["messy"] + counts["pairs"]
     b = read_alignments(bams["clean"], THREADS).batch
     counts["clean"] = b.n
     counts["region"] = int((b.pos < REGION_END).sum())
+    counts["clean_front"] = int((b.pos < FRONT_END).sum())
+    n_windows = -(-(FRONT_END + READ_LEN) // (1 << 20))
 
     # --- K8 on a group of CHUNK all-M reads of 100 bases (one chunk)
     k = np.nonzero((b.n_cigar == 1) & (b.l_qseq == READ_LEN))[0][:CHUNK]
@@ -1007,6 +1065,11 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
                 and (card["baq_hmm"] > 0) == is_mpileup
                 and (card["baq_finalize"] > 0) == is_mpileup,
                 f"{label}: the card run launched {card}")
+        if wl == "clean_front":
+            # the streamed windows each build their table and apply BAQ
+            require(card["stable_order"] >= n_windows
+                    and card["baq_apply"] >= n_windows,
+                    f"{label}: {card} over {n_windows} stream windows")
         if "host" in engines:
             require(not any(runs["host"].values()),
                     f"{label}: the host run launched {runs['host']}")
@@ -1016,7 +1079,8 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
             n_rows = count_rows(outs["card"])
         else:
             # -s -O: without its two extra columns, the fast branch's rows
-            n_rows = strip_extra_columns(outs["card"], clean_text, 2)
+            n_rows = strip_extra_columns(outs["card"], clean_text, 2,
+                                         FRONT_END)
         require(n_rows > (1000 if is_mpileup else 10),
                 f"{label}: too few rows")
         n = counts[wl]
@@ -1029,7 +1093,252 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
         launches[label] = card
         for p in outs.values():
             os.remove(p)
-    os.remove(clean_text)
+    return rows, launches, counts["messy"]
+
+
+# consensus and flagstat in-process, card against SAMTPU_DEVICE=0: (label,
+# argv, reads counted, output: "-o" or standard output)
+CONSENSUS_RUNS = (
+    ("consensus -r", ["consensus", "-r", "sim1:1-2000000", "{clean}"],
+     "region", "-o"),
+    ("consensus -a --show-ins --show-del -f fastq -r",
+     ["consensus", "-a", "--show-ins", "yes", "--show-del", "yes", "-f",
+      "fastq", "-r", "sim1:1-2000000", "{messy}"], "messy_region", "-o"),
+    ("flagstat", ["flagstat", "{clean}"], "clean", "stdout"),
+    ("flagstat -O json", ["flagstat", "-O", "json", "{pairs}"], "pairs",
+     "stdout"),
+)
+
+
+def run_cli(argv: list[str], out: str, to: str, host: bool) -> float:
+    """One in-process run of the port's command, its output in ``out``
+    (``-o``, or standard output redirected there), on the card or the
+    host branch; its wall."""
+    import contextlib
+
+    import torch
+    from samtools_tpu_torch import cli
+    saved = os.environ.pop("SAMTPU_DEVICE", None)
+    if host:
+        os.environ["SAMTPU_DEVICE"] = "0"
+    t0 = time.perf_counter()
+    try:
+        if to == "-o":
+            rc = cli.main([*argv, "-o", out])
+        else:
+            with open(out, "w") as f, contextlib.redirect_stdout(f):
+                rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("SAMTPU_DEVICE", None)
+        if saved is not None:
+            os.environ["SAMTPU_DEVICE"] = saved
+    require(rc == 0, f"{' '.join(argv[:3])}: rc {rc}")
+    return time.perf_counter() - t0
+
+
+def phase_consensus(workdir: str, bams: dict, clean_text: str,
+                    counts: dict, dev) -> tuple:
+    """consensus, flagstat and mpileup --checkpoint as a user runs them,
+    then K10 and K11 against their plain versions at those runs' shapes."""
+    import filecmp
+
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.ops import consensus_vec as cv
+    from samtools_tpu_torch.ops import flagstat as fs
+    rows, launches = {}, {}
+    # the entries of the first window K10 scores (clean's first 1 Mi
+    # columns), kept from the first card run
+    first = []
+    scorer = cv.gap5_scores_device
+
+    def keep_first(*args):
+        if not first:
+            first.append(args)
+        return scorer(*args)
+    for label, argv, wl, to in CONSENSUS_RUNS:
+        args = [a.format(**bams) for a in argv]
+        outs, walls, runs = {}, {}, {}
+        for engine in ("card", "host"):
+            outs[engine] = os.path.join(workdir, f"cons.{engine}.out")
+            kernels.reset_launches()
+            cv.gap5_scores_device = keep_first
+            try:
+                walls[engine] = run_cli(args, outs[engine], to,
+                                        engine == "host")
+            finally:
+                cv.gap5_scores_device = scorer
+            runs[engine] = dict(kernels.launches)
+        require(filecmp.cmp(outs["card"], outs["host"], shallow=False),
+                f"{label}: the card's output differs from the host "
+                "branch's")
+        card = runs["card"]
+        want = (("consensus_segsum", "stable_order")
+                if args[0] == "consensus" else ("flagstat",))
+        require(all(card[k] > 0 for k in want) and not any(
+            v for k, v in card.items() if k not in want),
+            f"{label}: the card run launched {card}")
+        require(not any(runs["host"].values()),
+                f"{label}: the host run launched {runs['host']}")
+        n_rows = count_rows(outs["card"])
+        require(n_rows > (1000 if args[0] == "consensus" else 10),
+                f"{label}: too few rows")
+        n = counts[wl]
+        emit({"phase": "consensus", "run": label, "reads": int(n),
+              **{f"{e}_wall_s": round(w, 3) for e, w in walls.items()},
+              "Mbases_per_s": round(n * READ_LEN / walls["card"] / 1e6, 3),
+              "output_bytes": os.path.getsize(outs["card"]),
+              "output_rows": n_rows, "launches": card, "byte_equal": True})
+        launches[label] = card
+        for p in outs.values():
+            os.remove(p)
+
+    # --- mpileup --checkpoint: whole, then resumed from its middle state
+    fa = os.path.join(workdir, "ref.fa")
+    out, ck = os.path.join(workdir, "ck.pileup"), os.path.join(workdir,
+                                                               "ck.json")
+    states = []
+    replace = os.replace
+
+    def keep_state(a, b):
+        replace(a, b)
+        if b == ck:
+            with open(ck) as f:
+                states.append(json.load(f))
+    walls = {}
+    for stage in ("whole", "resumed"):
+        if stage == "resumed":
+            n_states = len(states)
+            mid = states[n_states // 2]
+            with open(ck, "w") as f:
+                json.dump(mid, f)
+            with open(out, "r+") as f:
+                f.truncate(mid["out_off"])
+                f.seek(mid["out_off"])
+                f.write("PARTIAL###")
+        kernels.reset_launches()
+        os.replace = keep_state
+        try:
+            walls[stage] = run_cli(["mpileup", "-f", fa, "--checkpoint", ck,
+                                    bams["clean"]], out, "-o", False)
+        finally:
+            os.replace = replace
+        runs = dict(kernels.launches)
+        require(filecmp.cmp(out, clean_text, shallow=False),
+                f"mpileup --checkpoint ({stage}): the output differs from "
+                "the tool phase's")
+        require(all(runs[k] > 0 for k in MAIN_PATH),
+                f"mpileup --checkpoint ({stage}) launched {runs}")
+        launches[f"mpileup --checkpoint {stage}"] = runs
+    require(n_states == 8 and 0 < mid["out_off"] < os.path.getsize(out)
+            and [st["wb"] for st in states[n_states:]]
+            == [st["wb"] for st in states[:n_states] if st["wb"] > mid["wb"]],
+            f"mpileup --checkpoint: {n_states} states, then "
+            f"{len(states) - n_states} after the resume")
+    emit({"phase": "consensus", "run": "mpileup --checkpoint",
+          "reads": int(counts["clean"]),
+          "whole_wall_s": round(walls["whole"], 3),
+          "resumed_wall_s": round(walls["resumed"], 3),
+          "resumed_at": [mid["tid"], mid["wb"]], "states": n_states,
+          "output_bytes": os.path.getsize(out),
+          "launches": launches["mpileup --checkpoint whole"],
+          "resumed_launches": runs, "byte_equal": True})
+    os.remove(out)
+
+    # --- K10 on clean's first 1 Mi window, as the first run built it
+    col_off, b6, q, q2, keep, cp, _ = first[0]
+    ncols, n = col_off.size - 1, b6.size
+    T = cv.segsum_table(cp, dev)
+    ent = np.stack([b6, q, q2, keep], 1).astype(np.uint8)
+    ent_d = torch.from_numpy(ent).to(dev)
+    off_d = torch.from_numpy(np.ascontiguousarray(col_off, np.int64)).to(dev)
+    before = kernels.launches["consensus_segsum"]
+    got = cv.consensus_segsum(T, ent_d, off_d)
+    again = cv.consensus_segsum(T, ent_d, off_d)
+    require(kernels.launches["consensus_segsum"] == before + 2,
+            "K10 did not launch")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            "K10: two calls give different bits")
+    # the host branch's f64 loop: the same S, counts and depth, bit for bit
+    t0 = time.perf_counter()
+    S64, hc, hd = cv.gap5_scores(col_off, b6, q, q2, keep, cp)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    kS = got[0].cpu().numpy()
+    kc = got[1].cpu().numpy().astype(np.int64)
+    kd = got[2].cpu().numpy().astype(np.int64)
+    require(np.array_equal(kS.view(np.uint64), S64.view(np.uint64))
+            and np.array_equal(kc, hc) and np.array_equal(kd, hd),
+            "K10 differs from the f64 gap5_scores")
+    require(all(np.array_equal(a, b) for a, b in zip(
+        cv.gap5_finalize(kS, kc, kd, cp), cv.gap5_finalize(S64, hc, hd, cp))),
+        "K10's five output fields differ from the f64 path's")
+    # its plain version on the card adds with atomics, in no fixed order:
+    # within the rounding bound of two f64 sums of a column's n terms
+    plain = cv.consensus_segsum_plain(T, ent_d, off_d)
+    require(torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2]),
+            "K10: counts or depth differ from its plain version")
+    e = ent_d.long()
+    kept_d = e[:, 3] != 0
+    col_k = torch.repeat_interleave(torch.arange(ncols, device=dev),
+                                    torch.diff(off_d))[kept_d]
+    rows_k = ((e[:, 0] * 101 + e[:, 1]) * 101 + e[:, 2])[kept_d]
+    absc = torch.zeros(ncols, 15, dtype=torch.float64, device=dev)
+    absc.index_add_(0, col_k, T[rows_k, :15].abs())
+    n_c = torch.diff(off_d).double()[:, None]
+    dS = (got[0] - plain[0]).abs()
+    require(bool((dS <= (n_c + 2) * 2.0 ** -52 * absc).all()),
+            "K10: S differs from its plain version beyond the rounding "
+            "bound")
+    scratch = torch.zeros(ncols, 15, dtype=torch.float64, device=dev)
+
+    def library():
+        scratch.zero_()
+        scratch.index_add_(0, col_k, T[rows_k, :15])
+    kept = int(keep.sum())
+    rows["consensus_segsum"] = dict(
+        max_abs_err=float(dS.max()), max_abs_err_host=0.0,
+        ms=cuda_ms(lambda: cv.consensus_segsum(T, ent_d, off_d)),
+        b2b_ms=cuda_ms(lambda: cv.consensus_segsum(T, ent_d, off_d),
+                       per=10),
+        plain_ms=cuda_ms(lambda: cv.consensus_segsum_plain(T, ent_d, off_d),
+                         reps=3),
+        library_ms=cuda_ms(library, reps=3), host_gap5_scores_ms=host_ms,
+        detail={"columns": int(ncols), "entries": int(n), "kept": kept,
+                "max_depth": int(np.diff(col_off).max()),
+                "equal_f64_path_bits": True},
+        **dict(zip(("bound_ms", "bound_by"), max(
+            (bound(n * 4 + (ncols + 1) * 8 + ncols * (15 * 8 + 6 * 4 + 4),
+                   0)[0], "bytes"),
+            (kept * 15 / F64_OPS_PER_S * 1e3, "operations")))))
+    del got, again, plain, e, kept_d, col_k, rows_k, absc, dS, scratch
+
+    # --- K11 on clean's reads
+    b = read_alignments(bams["clean"], THREADS).batch
+    t0 = time.perf_counter()
+    want = fs.flagstat_numpy(b)
+    np_ms = (time.perf_counter() - t0) * 1e3
+    args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+            for a, dt in ((b.flag, np.uint16), (b.mapq, np.uint8),
+                          (b.tid, np.int32), (b.mtid, np.int32))]
+    got = fs.flagstat_census(*args)
+    plain = fs.flagstat_plain(*args)
+    require(torch.equal(got, plain), "K11 differs from its plain version")
+    require({k: (int(got[i, 0]), int(got[i, 1]))
+             for i, k in enumerate(fs.COUNTERS)} == want,
+            "K11 differs from flagstat_numpy")
+    rows["flagstat"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: fs.flagstat_census(*args)),
+        b2b_ms=cuda_ms(lambda: fs.flagstat_census(*args), per=10),
+        plain_ms=cuda_ms(lambda: fs.flagstat_plain(*args)),
+        library_ms=cuda_ms(lambda: fs.flagstat_plain(*args)),
+        host_flagstat_numpy_ms=np_ms,
+        detail={"reads": int(b.n)},
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(b.n * 11 + 16 * 2 * 8, b.n * 32))))
+    emit({"phase": "kernels_consensus", **rows})
     return rows, launches
 
 
@@ -1052,28 +1361,41 @@ def main() -> int:
             ref, workdir, oracles)
         bams = {"clean": oracles["clean"][0], "messy": oracles["messy"][0],
                 "pairs": pairs}
+        fronts = {}
+        for name in ("clean", "messy"):
+            bams[f"{name}_front"] = os.path.join(workdir,
+                                                 f"{name}_front.bam")
+            fronts[f"{name}_front"] = write_front(bams[name],
+                                                  bams[f"{name}_front"])
         pile_rows, region_reads = phase_kernels_pileup(
             bams["clean"], torch.device("cuda"))
         family = phase_pileup_family(
             workdir, bams, {"clean": oracles["clean"][3],
                             "messy": oracles["messy"][3], "pairs": n_pairs,
-                            "region": region_reads})
-        general_rows, general = phase_general(ref, ref_int, workdir, bams,
-                                              clean_text,
-                                              torch.device("cuda"))
+                            "region": region_reads, **fronts})
+        general_rows, general, messy_region = phase_general(
+            ref, ref_int, workdir, bams, clean_text, torch.device("cuda"))
+        cons_rows, cons = phase_consensus(
+            workdir, bams, clean_text,
+            {"clean": oracles["clean"][3], "pairs": n_pairs,
+             "region": region_reads,
+             "messy_region": messy_region},
+            torch.device("cuda"))
+        os.remove(clean_text)
     rows.update(general_rows)
+    rows.update(cons_rows)
     table = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
         # launches: the mpileup command's run on clean (for the generic
         # K1: the pileup family's card runs; for K8 and K13: the general
-        # path's mpileup -s -O run on clean); core_launches: the census
+        # path's streamed mpileup -s -O run); core_launches: the census
         # core's (phase 3)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
                "launches": (general[GENERAL_RUNS[0][0]][name]
                             if name in general_rows
-                            else tool_launches["clean"][name]),
+                            else tool_launches["clean"].get(name, 0)),
                "core_launches": launches["clean"][name],
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "b2b_ms": r["b2b_ms"], "plain_ms": r["plain_ms"],
@@ -1088,7 +1410,18 @@ def main() -> int:
         if name == "stable_order":
             row.update(host_argsort_ms=r["host_argsort_ms"],
                        general_launches={k: v[name]
-                                         for k, v in general.items()})
+                                         for k, v in general.items()},
+                       consensus_launches={k: v[name]
+                                           for k, v in cons.items()})
+        if name in ("consensus_segsum", "flagstat"):
+            # launches: consensus -r on clean; flagstat on clean
+            row.update(launches=cons[CONSENSUS_RUNS[0][0] if name ==
+                                     "consensus_segsum" else "flagstat"][
+                                         name],
+                       run_launches={k: v[name] for k, v in cons.items()},
+                       host_ms=r.get("host_gap5_scores_ms",
+                                     r.get("host_flagstat_numpy_ms")),
+                       detail=r["detail"])
         if name == "segment_contract":
             row.update(launches=sum(family.values()),
                        depth_launches=family["depth clean"],

@@ -22,12 +22,14 @@ Usage:   samtools <command> [options]
 
 Commands:
   -- File operations
+     consensus      produce a consensus Pileup/FASTA/FASTQ
      mpileup        multi-way pileup
 
   -- Statistics
      bedcov         read depth per BED region
      coverage       alignment depth and percent coverage
      depth          compute the depth
+     flagstat       simple stats
 
   -- Misc
      help [cmd]     display this help message or help for [cmd]

@@ -76,6 +76,9 @@ class ReadBatch:
     def seq_of(self, i: int) -> np.ndarray:
         return self.seq[self.seq_off[i]:self.seq_off[i + 1]]
 
+    def qual_of(self, i: int) -> np.ndarray:
+        return self.qual[self.seq_off[i]:self.seq_off[i + 1]]
+
     def aux_of(self, i: int) -> np.ndarray:
         return self.aux[self.aux_off[i]:self.aux_off[i + 1]]
 

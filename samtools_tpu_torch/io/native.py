@@ -41,6 +41,9 @@ _SIGNATURES = {
                                    _INT, _INT, _INT, _INT, _INT, _P, _P]),
     "samtpu_ragged_gather": (_I64, [_P, _P, _P, _I64, _P, _P, _I64, _INT]),
     "samtpu_ragged_copy": (_I64, [_P, _P, _P, _P, _P, _I64, _INT]),
+    "samtpu_nm_init_batch": (_I64, [_P, _P, _P, _P, _P, _P, _P, _I64, _INT,
+                                    _INT, _INT, ctypes.c_double, _INT, _INT,
+                                    _P]),
 }
 
 
@@ -310,3 +313,28 @@ def ragged_copy(dst: np.ndarray, dst_start: np.ndarray, lens: np.ndarray,
     _load().samtpu_ragged_copy(dst.ctypes.data, dst_start.ctypes.data,
                                src.ctypes.data, src_start.ctypes.data,
                                lens.ctypes.data, lens.size, threads)
+
+
+def nm_init_batch(qual: np.ndarray, seq: np.ndarray, seq_off: np.ndarray,
+                  cigar: np.ndarray, cigar_off: np.ndarray,
+                  md: np.ndarray, md_off: np.ndarray, use_mqual: int,
+                  adj_qual: int, bayes116: int, homopoly_fix: float,
+                  nm_halo: int, sc_cost: int):
+    """consensus's nm_init (bam_consensus.c:1012) over a batch: (int32
+    local NM profile with the homopolymer length in the top 8 bits, per
+    base; the quals, smoothed in place when ``homopoly_fix`` is set)."""
+    n = seq_off.size - 1
+    qual = np.ascontiguousarray(qual, np.uint8)
+    seq = np.ascontiguousarray(seq, np.uint8)
+    seq_off = np.ascontiguousarray(seq_off, np.int64)
+    cigar = np.ascontiguousarray(cigar, np.uint32)
+    cigar_off = np.ascontiguousarray(cigar_off, np.int64)
+    md = np.ascontiguousarray(md, np.uint8)
+    md_off = np.ascontiguousarray(md_off, np.int64)
+    out = np.zeros(int(seq_off[-1]), np.int32)
+    _load().samtpu_nm_init_batch(
+        qual.ctypes.data, seq.ctypes.data, seq_off.ctypes.data,
+        cigar.ctypes.data, cigar_off.ctypes.data, md.ctypes.data,
+        md_off.ctypes.data, n, use_mqual, adj_qual, bayes116,
+        homopoly_fix, nm_halo, sc_cost, out.ctypes.data)
+    return out, qual

@@ -4,8 +4,13 @@ Counterpart of samtools_tpu/io/stream.py (:72-342) without the index and
 random access: the compressed file is read in fixed windows, BGZF blocks
 are inflated per window, complete records are decoded per window, and a
 partial tail record carries into the next one.  Memory stays
-O(window_bytes) for any file size.  ``WindowedReader`` walks one or more
-coordinate-sorted streams in genomic windows (the streamed ``coverage``).
+O(window_bytes) for any file size.  After each batch, the stream's
+``next_record_voffset`` is the virtual offset (``coffset << 16 |
+uoffset``) of the first record not yet yielded, and ``batches`` resumes
+from such an offset (``mpileup --checkpoint``).  ``SAMTPU_STREAM_WINDOW``
+overrides the window's byte size, as in the JAX package.
+``WindowedReader`` walks one or more coordinate-sorted streams in genomic
+windows (the streamed ``coverage`` and ``consensus``).
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ class BamStream:
                  window_bytes: int = 32 << 20):
         self.path = path
         self.threads = threads
-        self.window_bytes = window_bytes
+        env_win = os.environ.get("SAMTPU_STREAM_WINDOW")
+        self.window_bytes = int(env_win) if env_win else window_bytes
         self._f = open(path, "rb")
         self._size = os.fstat(self._f.fileno()).st_size
         self.header, self._hdr_voffset = self._read_header()
@@ -71,23 +77,39 @@ class BamStream:
                 raise BamError("truncated BAM header")
             want *= 4
 
-    def batches(self, fields: int = native.FIELD_ALL):
-        """Yield ReadBatch chunks of the whole file, in file order."""
-        cpos = self._hdr_voffset >> 16
-        skip = self._hdr_voffset & 0xFFFF
+    def batches(self, fields: int = native.FIELD_ALL,
+                start_voffset: int | None = None):
+        """Yield ReadBatch chunks of the file in file order, from the first
+        record or from the record-aligned virtual offset
+        ``start_voffset``; before each yield ``next_record_voffset`` is set
+        to the offset of the first record after the chunk."""
+        voff = self._hdr_voffset if start_voffset is None else start_voffset
+        cpos = voff >> 16
+        skip = voff & 0xFFFF
         leftover = np.empty(0, np.uint8)
+        self.next_record_voffset = voff
         while cpos < self._size:
-            data, _, coffs, cend = self._inflate_span(
+            wdata, uoffs, coffs, cend = self._inflate_span(
                 cpos, cpos + self.window_bytes)
             if coffs.size == 0:
                 break
-            if skip:
-                data = data[skip:]
+            data = wdata[skip:] if skip else wdata
             if leftover.size:
                 data = np.concatenate([leftover, data])
             offs, consumed = native.bam_scan_partial(data, 0)
+            lsize = leftover.size
             leftover = data[consumed:].copy()
             if offs.size:
+                # the first byte after the consumed records, in this
+                # window's inflated data
+                rel = consumed - lsize + skip
+                if rel >= wdata.size and uoffs.size > 1:
+                    nxt = cend << 16
+                else:
+                    blk = int(np.searchsorted(uoffs, rel, "right") - 1)
+                    blk = max(0, min(blk, coffs.size - 1))
+                    nxt = (int(coffs[blk]) << 16) | int(rel - uoffs[blk])
+                self.next_record_voffset = nxt
                 yield decode_records(data, offs, self.threads, fields)
             cpos = cend
             skip = 0

@@ -10,11 +10,13 @@
 //   * device-eligibility classification and the two-lane census checksum
 //   * the mpileup text writer, the ragged row gather of ReadBatch.take and
 //     the ragged copy of the numpy row renderer
+//   * consensus's per-read preparation (samtpu_nm_init_batch)
 //
 // All entry points are plain C ABI for ctypes.  Every function returns a
 // negative code on error, >=0 on success.
 
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <string>
@@ -1175,6 +1177,201 @@ int64_t samtpu_ragged_copy(uint8_t* dst, const int64_t* dst_start,
   }
   for (auto& w : ws) w.join();
   return m;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Consensus per-read preparation (bam_consensus.c:1012 nm_init):
+// local NM profile + quality adjustment + homopolymer lengths packed
+// into the top 8 bits, plus the optional homopolymer qual smoothing
+// (:943).  A copy of samtools_tpu/native/samtpu.cc:1325-1517; the port's
+// Python per-read nm_init (tools/consensus_cmd.py) is its oracle in the
+// tests.
+
+namespace {
+
+static inline double cons_fast_log2(double val) {
+  uint64_t x;
+  std::memcpy(&x, &val, 8);
+  int64_t E = (int64_t)((x >> 52) & 2047) - 1024;
+  x &= ~(2047ULL << 52);
+  x += 1023ULL << 52;
+  double m;
+  std::memcpy(&m, &x, 8);
+  return (double)E + ((-1.0 / 3.0) * m + 2) * m - 2.0 / 3.0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int64_t samtpu_nm_init_batch(
+    uint8_t* qual, const uint8_t* seq, const int64_t* seq_off,
+    const uint32_t* cigar, const int64_t* cigar_off, const uint8_t* md,
+    const int64_t* md_off, int64_t n, int use_mqual, int adj_qual,
+    int bayes116, double homopoly_fix, int nm_halo, int sc_cost,
+    int32_t* out_nm) {
+  if (!use_mqual) return 0;
+  const double poly_adj = homopoly_fix != 0.0 ? homopoly_fix : 1.0;
+  for (int64_t r = 0; r < n; ++r) {
+    const int64_t q0 = seq_off[r];
+    const int64_t qlen = seq_off[r + 1] - q0;
+    if (qlen <= 0) continue;
+    uint8_t* qu = qual + q0;
+    const uint8_t* sq = seq + q0;
+    int32_t* nm = out_nm + q0;
+    for (int64_t i = 0; i < qlen; ++i) nm[i] = 0;
+
+    if (adj_qual) {
+      const int64_t qhalo = 8, qhalop = 2;
+      int64_t qmin = qu[0], qminp = qu[0];
+      int base = sq[0];
+      int64_t polyl = 0, polyr = 0;
+      for (int64_t i = 1; i < qlen; ++i) {
+        if (sq[i] != base) break;
+        if (i < qhalop && qminp > qu[i]) qminp = qu[i];
+      }
+      int64_t i = 0;
+      while (i < qlen && i < qhalo) {
+        if (qmin > qu[i]) qmin = qu[i];
+        ++i;
+      }
+      while (i < qlen - qhalo) {
+        if (homopoly_fix != 0.0 && sq[i] != base) {
+          polyl = i;
+          base = sq[i];
+          qminp = qu[i];
+          int64_t j = i + 1;
+          while (j < qlen) {
+            if (sq[j] != base) break;
+            if (i < qhalop && qminp > qu[j]) qminp = qu[j];
+            ++j;
+          }
+          polyr = j - 1;
+        } else {
+          polyr = polyl;
+        }
+        int64_t pl = polyr - polyl;
+        int64_t t;
+        if (bayes116)
+          t = (qu[i] + 5 * qmin) / 4;
+        else
+          t = (int64_t)(qu[i] / 3.0 + (qminp - pl * 2) * poly_adj);
+        if (t < (int64_t)qu[i]) nm[i] += (int32_t)(qu[i] - t);
+        qminp = qu[i];
+        int64_t klo = polyl > i - qhalop ? polyl : i - qhalop;
+        int64_t khi = polyr < i + qhalop ? polyr : i + qhalop;
+        for (int64_t k = klo; k <= khi; ++k)
+          if (qminp > qu[k]) qminp = qu[k];
+        if (qmin > qu[i + qhalo]) {
+          qmin = qu[i + qhalo];
+        } else if (qmin <= qu[i - qhalo]) {
+          qmin = 99;
+          for (int64_t j = i - qhalo + 1; j <= i + qhalo; ++j)
+            if (qmin > qu[j]) qmin = qu[j];
+        }
+        ++i;
+      }
+      while (i < qlen) {
+        int64_t t;
+        if (bayes116)
+          t = (qu[i] + 5 * qmin) / 4;
+        else
+          t = (int64_t)(qu[i] / 3.0 + qminp * poly_adj);
+        if (t < (int64_t)qu[i]) nm[i] += (int32_t)(qu[i] - t);
+        ++i;
+      }
+    }
+
+    if (homopoly_fix != 0.0) {
+      // _homopoly_qual_fix (bam_consensus.c:943): smooth quals across
+      // homopolymer runs, mutating the qual buffer
+      int64_t i = 0;
+      while (i < qlen) {
+        int64_t s = i;
+        int base = sq[i];
+        while (i + 1 < qlen && sq[i + 1] == base) ++i;
+        if (s != i) {
+          int64_t j = s, k = i;
+          while (j < k) {
+            double e = std::pow(10.0, qu[j] / -10.0)
+                + std::pow(10.0, qu[k] / -10.0);
+            int v = (int)(-cons_fast_log2(e / 2) * 3.0104 + .49);
+            qu[j] = (uint8_t)v;
+            qu[k] = (uint8_t)v;
+            ++j;
+            --k;
+          }
+        }
+        ++i;
+      }
+    }
+
+    {  // poly-X lengths into the top 8 bits
+      int64_t i = 0;
+      while (i < qlen) {
+        int base = sq[i];
+        int64_t j = i + 1;
+        while (j < qlen && sq[j] == base) ++j;
+        int64_t poly = j - i - 1 < 100 ? j - i - 1 : 100;
+        for (int64_t k = i; k < j; ++k)
+          nm[k] = (int32_t)(((poly > (nm[k] >> 24) ? poly
+                                                   : (nm[k] >> 24))
+                             << 24)
+                            | (nm[k] & ((1 << 24) - 1)));
+        i = j;
+      }
+    }
+
+    const int64_t mlen = md_off[r + 1] - md_off[r];
+    if (mlen <= 0) continue;
+    const uint8_t* mdp = md + md_off[r];
+    const int64_t halo = nm_halo;
+    const int64_t c0 = cigar_off[r], c1 = cigar_off[r + 1];
+    if (c1 > c0) {
+      uint32_t op0 = cigar[c0] & 0xF;
+      uint32_t op1 = c1 - c0 > 1 ? cigar[c0 + 1] & 0xF : 0xFFFFFFFF;
+      if (op0 == 4 || (op0 == 5 && c1 - c0 > 1 && op1 == 4)) {
+        int64_t i = 0;
+        while (i < halo && i < qlen) nm[i++] += sc_cost;
+        while (i < halo * 2 && i < qlen) nm[i++] += sc_cost >> 1;
+      }
+      uint32_t opn = cigar[c1 - 1] & 0xF;
+      uint32_t opn1 = c1 - c0 > 1 ? cigar[c1 - 2] & 0xF : 0xFFFFFFFF;
+      if (opn == 4 || (opn == 5 && c1 - c0 > 1 && opn1 == 4)) {
+        int64_t i = qlen - 1;
+        while (i >= qlen - halo && i >= 0) nm[i--] += sc_cost;
+        while (i >= qlen - halo * 2 && i >= 0) nm[i--] += sc_cost >> 1;
+      }
+    }
+    {  // MD mismatch halos
+      int64_t mi = 0, pos = 0;
+      while (mi < mlen) {
+        uint8_t ch = mdp[mi];
+        if (ch >= '0' && ch <= '9') {
+          int64_t v = 0;
+          while (mi < mlen && mdp[mi] >= '0' && mdp[mi] <= '9') {
+            v = v * 10 + (mdp[mi] - '0');
+            ++mi;
+          }
+          pos += v;
+          continue;
+        }
+        if (ch == '^') {
+          ++mi;
+          while (mi < mlen && !(mdp[mi] >= '0' && mdp[mi] <= '9')) ++mi;
+          continue;
+        }
+        int64_t i = pos - halo * 2 >= 0 ? pos - halo * 2 : 0;
+        while (i < pos - halo && i < qlen) nm[i++] += 5;
+        while (i < pos + halo && i < qlen) nm[i++] += 10;
+        while (i < pos + halo * 2 && i < qlen) nm[i++] += 5;
+        ++mi;
+      }
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -11,6 +11,9 @@ COMMANDS = {
     "bedcov": ("samtools_tpu_torch.tools.bedcov_cmd", "main_bedcov"),
     "coverage": ("samtools_tpu_torch.tools.coverage_cmd", "main_coverage"),
     "depth": ("samtools_tpu_torch.tools.depth_cmd", "main_depth"),
+    "consensus": ("samtools_tpu_torch.tools.consensus_cmd",
+                  "main_consensus"),
+    "flagstat": ("samtools_tpu_torch.tools.flagstat_cmd", "main_flagstat"),
 }
 
 

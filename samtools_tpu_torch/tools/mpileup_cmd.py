@@ -25,14 +25,22 @@ three writers, as in the JAX tool:
 * with ``--output-extra`` aux tags, the per-column writer
   (``_append_file_column``).
 
+``--checkpoint FILE`` (with ``-o``): after each streamed window the
+output is flushed and FILE (written to FILE.tmp, then renamed) records
+the window's end, the ``-a`` cursor, the output's length and, per file, a
+record virtual offset from which re-streaming rebuilds every read still
+held; a run that finds a FILE for the same inputs truncates the output
+there and resumes.
+
 ``SAMTPU_DEVICE=0|host`` runs the host branch: the host HMM, the numpy
 sort, no kernel.  Not ported yet, with one line on stderr and exit 1:
-``--checkpoint``, SAMTPU_SHARDS above 1, SAM or CRAM input.
+SAMTPU_SHARDS above 1, SAM or CRAM input.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import types
 
@@ -351,7 +359,7 @@ def main_mpileup(argv: list[str], device=None) -> int:
         smart_overlaps=True, redo_baq=False, illumina13=False,
         ignore_rg=False, all=0, rev_del=0, sep=",", empty="*", no_ins=0,
         no_ins_mods=0, no_del=0, no_ends=0, flag_cols=0, auxtags=[],
-        rghash=None, census_out=None)
+        rghash=None, census_out=None, checkpoint=None)
     reg = None
     bedidx = None
     fai = None
@@ -387,7 +395,7 @@ def main_mpileup(argv: list[str], device=None) -> int:
         elif o in ("--ff", "--excl-flags"):
             conf["rflag_filter"] = str2flag(v)
         elif o == "--checkpoint":
-            return not_ported("mpileup", "--checkpoint")
+            conf["checkpoint"] = v
         elif o == "--census-out":
             # per-window BAQ-stage census checksums (the engine's
             # validation artifact)
@@ -502,7 +510,7 @@ def main_mpileup(argv: list[str], device=None) -> int:
     if not args:
         sys.stderr.write("[mpileup] no input file/data given\n")
         return 1
-    if n_shards() > 1:
+    if n_shards() > 1 and not conf["checkpoint"]:
         return not_ported("mpileup", "SAMTPU_SHARDS (sharded runs)")
     try:
         dev = pick_device(device)
@@ -525,10 +533,25 @@ def main_mpileup(argv: list[str], device=None) -> int:
                 sys.stderr.write(f"[E::mpileup] fail to parse region "
                                  f"'{reg}'\n")
                 return 1
-        out = open(out_fname, "w") if out_fname else sys.stdout
+        ck_state = None
+        if conf["checkpoint"]:
+            if not out_fname:
+                sys.stderr.write("[mpileup] --checkpoint requires -o FILE;"
+                                 " ignoring\n")
+                conf["checkpoint"] = None
+            else:
+                ck_state = _load_checkpoint(conf["checkpoint"], args)
+        if ck_state and os.path.exists(out_fname):
+            # resume: the output up to the last complete window stays
+            out = open(out_fname, "r+")
+            out.truncate(ck_state["out_off"])
+            out.seek(ck_state["out_off"])
+        else:
+            ck_state = None
+            out = open(out_fname, "w") if out_fname else sys.stdout
         try:
-            return _run_pileup(files, header, conf, region, bedidx, fai,
-                               dev, out)
+            return _run_pileup(files, args, header, conf, region, bedidx,
+                               fai, dev, out, ck_state)
         finally:
             if out is not sys.stdout:
                 out.close()
@@ -647,13 +670,67 @@ def _write_bytes(out, data: bytes) -> None:
         out.write(data.decode("latin-1"))
 
 
-def _run_pileup(files, header, conf, region, bedidx, fai, dev, out) -> int:
+def _checkpoint_sig(paths):
+    """The inputs a checkpoint belongs to: each path with its size."""
+    sig = []
+    for p in paths:
+        try:
+            sig.append([p, os.path.getsize(p)])
+        except OSError:
+            sig.append([p, -1])
+    return sig
+
+
+def _load_checkpoint(path, paths):
+    """The state a previous run over the same inputs saved, or None.
+    Each window's output is independent of the others, so the output
+    truncates to the last complete window and the streams re-enter at the
+    saved record offsets."""
+    try:
+        with open(path) as fh:
+            st = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    if st.get("sig") != _checkpoint_sig(paths):
+        return None
+    return st
+
+
+def _save_checkpoint(ck_path, paths, tid, we, cursors, last_tid, last_pos,
+                     out) -> None:
+    out.flush()
+    st = {"sig": _checkpoint_sig(paths), "tid": tid, "wb": we,
+          "voffs": [c.checkpoint_voffset() for c in cursors],
+          "last_tid": last_tid, "last_pos": last_pos,
+          "out_off": out.tell()}
+    with open(ck_path + ".tmp", "w") as fh:
+        json.dump(st, fh)
+    os.replace(ck_path + ".tmp", ck_path)
+
+
+def _run_pileup(files, paths, header, conf, region, bedidx, fai, dev, out,
+                ck_state=None) -> int:
     nf = len(files)
     refs = _Refs(fai, header)
     streaming = region is None and all(f.stream is not None for f in files)
+    last_tid = last_pos = -1
+    ck_path = conf["checkpoint"] if streaming else None
     if streaming:
-        windows = _stream_windows([f.stream for f in files], conf, bedidx,
-                                  header)
+        resume = None
+        if ck_state:
+            cursors = [_WindowCursor(f.stream, conf, bedidx, header,
+                                     start_voffset=v,
+                                     purge_before=(ck_state["tid"],
+                                                   ck_state["wb"]))
+                       for f, v in zip(files, ck_state["voffs"])]
+            resume = (ck_state["tid"], ck_state["wb"])
+            last_tid = ck_state["last_tid"]
+            last_pos = ck_state["last_pos"]
+        else:
+            cursors = [_WindowCursor(f.stream, conf, bedidx, header)
+                       for f in files]
+        windows = _stream_windows(None, conf, bedidx, header, cursors,
+                                  resume)
     else:
         windows = _slurped_windows(files, conf, region, bedidx, header)
     beg0 = region.beg if region else 0
@@ -667,7 +744,6 @@ def _run_pileup(files, header, conf, region, bedidx, fai, dev, out) -> int:
         engine = _DeviceBaqEngine(conf, dev)
     bulk_ok = not conf["auxtags"]
     caps = [types.SimpleNamespace(carry=None) for _ in files]
-    last_tid = last_pos = -1
     one_seq = False
     w = out.write
 
@@ -775,6 +851,9 @@ def _run_pileup(files, header, conf, region, bedidx, fai, dev, out) -> int:
                     _append_file_column(row, s, pos, conf, header)
                 row.append("\n")
                 w("".join(row))
+        if ck_path:
+            _save_checkpoint(ck_path, paths, tid, we, cursors, last_tid,
+                             last_pos, out)
 
     if engine is not None and conf["census_out"]:
         engine.write_census(conf["census_out"], header)
@@ -811,29 +890,52 @@ class _WindowCursor:
     and hands out each window's overlap set: the reads with pos < window
     end whose footprint can still touch the window, carried halo reads
     included (samtools re-queries its index with overlap; a sequential
-    stream carries the boundary reads instead)."""
+    stream carries the boundary reads instead).  Each batch keeps the
+    record offset it was read from, so ``checkpoint_voffset`` can name
+    where a restarted run re-enters the stream; on such a run
+    ``purge_before`` = (tid, wb) drops the reads that end before the
+    resumed window."""
 
-    def __init__(self, stream, conf, bedidx, header):
-        self.gen = stream.batches()
+    def __init__(self, stream, conf, bedidx, header,
+                 start_voffset: int | None = None, purge_before=None):
+        self.stream = stream
+        self.gen = stream.batches(start_voffset=start_voffset)
         self.conf = conf
         self.bedidx = bedidx
         self.header = header
-        self.pending: list = []       # filtered batches not yet consumed
+        self.pending: list = []       # (filtered batch, origin voffset)
         self.carry = None             # (halo ReadBatch, tid)
+        self.carry_voff = None
         self.done = False
+        self.purge_before = purge_before
+
+    def _origin(self) -> int:
+        # before its first batch a stream has no next_record_voffset:
+        # the header's end, as the JAX tool reads it
+        return getattr(self.stream, "next_record_voffset",
+                       self.stream._hdr_voffset)
 
     def _pull(self) -> bool:
         if self.done:
             return False
+        origin = self._origin()
         nb = next(self.gen, None)
         if nb is None:
             self.done = True
             return False
         keep = _read_filter(nb, self.conf, self.bedidx, self.header)
+        if self.purge_before is not None:
+            rtid, rwb = self.purge_before
+            keep &= (nb.tid > rtid) | ((nb.tid == rtid)
+                                       & (nb.end_pos() > rwb))
+            # sorted input: once a batch starts at or past the resumed
+            # window, no later read can end before it
+            if nb.n and (int(nb.tid[0]), int(nb.pos[0])) >= (rtid, rwb):
+                self.purge_before = None
         if keep.all():
-            self.pending.append(nb)
+            self.pending.append((nb, origin))
         elif keep.any():
-            self.pending.append(nb.take(np.nonzero(keep)[0]))
+            self.pending.append((nb.take(np.nonzero(keep)[0]), origin))
         return True
 
     def front(self):
@@ -841,30 +943,46 @@ class _WindowCursor:
         while not self.pending:
             if not self._pull():
                 return None
-        b = self.pending[0]
+        b = self.pending[0][0]
         return int(b.tid[0]), int(b.pos[0])
+
+    def checkpoint_voffset(self) -> int:
+        """A record offset from which re-streaming rebuilds every read
+        this cursor still holds (pending and carried)."""
+        cands = []
+        if self.carry is not None and self.carry_voff is not None:
+            cands.append(self.carry_voff)
+        if self.pending:
+            cands.append(self.pending[0][1])
+        if not cands:
+            cands.append(self._origin())
+        return min(cands)
 
     def window(self, tid: int, wb: int, we: int) -> ReadBatch:
         """The overlap set of [wb, we) on tid: consumes the reads with
         pos < we and carries those that end past we into the next
         window.  Every read of the result is a copy its caller owns."""
-        parts = []
+        parts, voffs = [], []
         if self.carry is not None:
             cb, ctid = self.carry
             if ctid == tid:
                 parts.append(cb.take(np.nonzero(cb.end_pos() > wb)[0]))
+                if self.carry_voff is not None:
+                    voffs.append(self.carry_voff)
             self.carry = None
+            self.carry_voff = None
         while True:
             fr = self.front()
             if fr is None or fr[0] > tid or (fr[0] == tid and fr[1] >= we):
                 break
-            b = self.pending.pop(0)
+            b, origin = self.pending.pop(0)
+            voffs.append(origin)
             m = (b.tid == tid) & (b.pos < we)
             if m.all():
                 parts.append(b)
                 continue
             parts.append(b.take(np.nonzero(m)[0]))
-            self.pending.insert(0, b.take(np.nonzero(~m)[0]))
+            self.pending.insert(0, (b.take(np.nonzero(~m)[0]), origin))
             break
         sub = (ReadBatch.concat(parts) if len(parts) > 1 else
                parts[0] if parts else ReadBatch())
@@ -872,6 +990,7 @@ class _WindowCursor:
             hal = np.nonzero(sub.end_pos() > we)[0]
             if hal.size:
                 self.carry = (sub.take(hal), tid)
+                self.carry_voff = min(voffs) if voffs else None
         return sub
 
     def has_more_on(self, tid: int) -> bool:
@@ -881,17 +1000,26 @@ class _WindowCursor:
         return fr is not None and fr[0] == tid
 
 
-def _stream_windows(streams, conf, bedidx, header):
+def _stream_windows(streams, conf, bedidx, header, cursors=None,
+                    resume=None):
     """(tid, wb, we, one overlap set per file) blocks of WINDOW_COLS
-    columns in genomic order, merged over the files' streams, with
-    bounded memory."""
-    cursors = [_WindowCursor(st, conf, bedidx, header) for st in streams]
+    columns in genomic order, merged over the files' streams (or the
+    given ``cursors``), with bounded memory.  ``resume`` = (tid, wb)
+    forces the first window there (a checkpoint restart: the cursors
+    re-entered their streams at the saved offsets, so that window's
+    overlap set rebuilds exactly)."""
+    if cursors is None:
+        cursors = [_WindowCursor(st, conf, bedidx, header) for st in streams]
+    forced = resume
     while True:
         live = [f for f in (c.front() for c in cursors) if f is not None]
         if not live:
             return
-        tid = min(f[0] for f in live)
-        wb = min(f[1] for f in live if f[0] == tid)
+        if forced is not None:
+            (tid, wb), forced = forced, None
+        else:
+            tid = min(f[0] for f in live)
+            wb = min(f[1] for f in live if f[0] == tid)
         while True:
             we = wb + WINDOW_COLS
             yield tid, wb, we, [c.window(tid, wb, we) for c in cursors]

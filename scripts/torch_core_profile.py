@@ -1,5 +1,5 @@
 """Where the time of the port's census core, or of its mpileup, depth,
-coverage or bedcov command, goes on one CUDA card.
+coverage, bedcov, consensus or flagstat command, goes on one CUDA card.
 
     python3 scripts/torch_core_profile.py [--ref-len N] [--coverage X]
         [--messy | --pairs] [--tool [--mpileup-args "OPTS"] |
@@ -40,8 +40,10 @@ pieces and the row renderer, each a stage of ``TOOL_STAGES``.
 ``--pairs`` simulates overlapping messy pairs instead
 (``sim.simulate_overlapping_pairs``), so the overlap tweak has work.
 
-With ``--pileup "depth -a"`` (or ``coverage ...``, ``bedcov ...``) the
-runs are that command in-process on the BAM (``-o`` to a file; bedcov
+With ``--pileup "depth -a"`` (or ``coverage ...``, ``bedcov ...``,
+``consensus ...``, ``flagstat``) the runs are that command in-process on
+the BAM (``-o`` to a file; flagstat writes to standard output, captured;
+bedcov
 reads a seeded BED of 1,000 intervals of 1-10 kbp and the BAM on
 standard input, its in-memory branch, and writes to standard output,
 captured): a warm-up, a timed run (host seconds per
@@ -85,8 +87,9 @@ from samtools_tpu_torch.sim import (make_header, simulate_batch,  # noqa: E402
                                     simulate_messy,
                                     simulate_overlapping_pairs,
                                     simulate_reference)
-from samtools_tpu_torch.tools import (bedcov_cmd, coverage_cmd,  # noqa: E402
-                                      depth_cmd, mpileup_cmd)
+from samtools_tpu_torch.tools import (bedcov_cmd,  # noqa: E402
+                                      consensus_cmd, coverage_cmd,
+                                      depth_cmd, flagstat_cmd, mpileup_cmd)
 
 STAGES = ("_gather_rows", "_make_buf", "_plan", "_h2d", "_expand",
           "_weights", "_chunk_step", "_drain", "_host_reads", "finish")
@@ -137,6 +140,25 @@ PILEUP_STAGES = (("depth_cmd", "read_alignments"),
                  ("depth_cmd", "_emit"),
                  ("coverage_cmd", "build_pileup"),
                  ("plmod", "entry_order"),
+                 # consensus: the reads, the table, per-read preparation,
+                 # the scorer (K10 with its copies, or the f64 host loop),
+                 # the insertion sites, the writer
+                 ("consensus_cmd", "read_alignments"),
+                 ("consensus_cmd", "build_pileup"),
+                 ("consensus_cmd", "expand_ops"),
+                 ("consensus_cmd.auxmod", "batch_tag_values"),
+                 ("consensus_cmd.natmod", "nm_init_batch"),
+                 ("consensus_cmd.CV", "entry_quals"),
+                 ("consensus_cmd.CV", "gap5_scores_device"),
+                 ("consensus_cmd.CV", "gap5_scores"),
+                 ("consensus_cmd.CV", "gap5_finalize"),
+                 ("consensus_cmd.CV", "consensus_base_vec"),
+                 ("consensus_cmd", "_ins_sites_vec"),
+                 ("consensus_cmd", "_fasta_emit"),
+                 ("consensus_cmd", "dump_fastq"),
+                 # flagstat: the batches, K11 with its copies, numpy
+                 ("flagstat_cmd.fsops", "flagstat_counts"),
+                 ("flagstat_cmd.fsops", "flagstat_numpy"),
                  ("ReadBatch", "take"),
                  ("ReadBatch", "concat"))
 
@@ -193,7 +215,8 @@ def _owner(path: str):
     names = {"mpileup_cmd": mpileup_cmd, "md": md, "ReadBatch": ReadBatch,
              "depth_cmd": depth_cmd, "coverage_cmd": coverage_cmd,
              "bedcov_cmd": bedcov_cmd, "stream": stream, "pe": pe,
-             "dops": dops, "plmod": plmod, "baqmod": baqmod}
+             "dops": dops, "plmod": plmod, "baqmod": baqmod,
+             "consensus_cmd": consensus_cmd, "flagstat_cmd": flagstat_cmd}
     head, *rest = path.split(".")
     obj = names[head]
     for r in rest:
@@ -321,6 +344,8 @@ def profile_pileup(spec, path, d, n_reads, host, ref_len):
                                            1000)):
                 f.write(f"sim1\t{s0}\t{s0 + rng.integers(1000, 10001)}\n")
         argv, stdin = [*words, bed, "-"], path
+    elif words[0] == "flagstat":
+        argv, stdin = [*words, path], None
     else:
         argv, stdin = [*words, path, "-o", out], None
     if host:

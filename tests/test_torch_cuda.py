@@ -558,3 +558,153 @@ def test_general_path_on_card_equals_cpu(cuda, tmp_path, monkeypatch, cmd,
             assert launched["segment_census"] == 0
     assert got[None].count("\n") > 10
     assert got[None] == got["cpu"]
+
+
+def _segsum_case(seed, depths, keep_share=0.95):
+    """K10's inputs: columns of the given depths (ragged, some empty) of
+    random (b6, q, q2, keep) entries."""
+    from samtools_tpu_torch.ops import consensus_vec as cv
+    from samtools_tpu_torch.tools.consensus_cmd import ConsProbs, Opts
+    rng = np.random.default_rng(seed)
+    o = Opts()
+    cp = ConsProbs(o.P_het, o.P_indel, o.het_scale, o.homopoly_redux,
+                   o.qcal, o.mode)
+    col_off = np.concatenate([[0], np.cumsum(depths)]).astype(np.int64)
+    n = int(col_off[-1])
+    ent = np.stack([rng.integers(0, 6, n), rng.integers(1, 101, n),
+                    rng.integers(1, 101, n),
+                    rng.random(n) < keep_share], 1).astype(np.uint8)
+    T = cv.segsum_table(cp, torch.device("cpu"))
+    return T, torch.from_numpy(ent), torch.from_numpy(col_off)
+
+
+@pytest.mark.parametrize("case", ["ragged", "deep", "none_kept"])
+def test_consensus_segsum_equals_plain(cuda, case):
+    """K10 on the card equals its plain version on the CPU (f64 sums in
+    entry order) bit for bit, counts and depth too; on ragged columns
+    with empty ones, a column of 20,000 entries, and keep all false."""
+    from samtools_tpu_torch.ops import consensus_vec as cv
+    rng = np.random.default_rng(3)
+    depths = rng.integers(0, 70, 3000)
+    depths[::17] = 0
+    if case == "deep":
+        depths[1500] = 20000
+    T, ent, off = _segsum_case(4, depths,
+                               0.0 if case == "none_kept" else 0.95)
+    want = cv.consensus_segsum_plain(T, ent, off)
+    kernels.reset_launches()
+    got = [t.cpu() for t in cv.consensus_segsum(T.to(cuda), ent.to(cuda),
+                                                off.to(cuda))]
+    assert kernels.launches["consensus_segsum"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if case == "none_kept":
+        assert not got[0].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 100_003])
+def test_flagstat_equals_plain(cuda, n):
+    """K11 on the card equals its plain version exactly, at sizes that
+    are and are not multiples of its block, and on no records."""
+    from samtools_tpu_torch.ops import flagstat as fs
+    rng = np.random.default_rng(n)
+    args = (torch.from_numpy(rng.integers(0, 1 << 12, n).astype(np.uint16)),
+            torch.from_numpy(rng.integers(0, 10, n).astype(np.uint8)),
+            torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32)),
+            torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32)))
+    want = fs.flagstat_plain(*args)
+    kernels.reset_launches()
+    got = fs.flagstat_census(*(a.to(cuda) for a in args)).cpu()
+    assert torch.equal(got, want)
+    assert kernels.launches["flagstat"] == (1 if n else 0)
+
+
+def _consensus_inputs(tmp_path):
+    from samtools_tpu_torch.io.bam import write_bam
+    L = 1 << 16
+    ref = sim.simulate_reference(L, seed=9)
+    b = sim.simulate_batch(ref_len=L, coverage=8.0, read_len=100, seed=10,
+                           paired=False, err_rate=0.02, ref=ref)
+    sim.simulate_messy(b, 12)
+    bam = str(tmp_path / "cons.bam")
+    write_bam(bam, sim.make_header(L), b)
+    return bam
+
+
+@pytest.mark.parametrize("argv", [
+    ["consensus", "{bam}"],
+    ["consensus", "-a", "--show-ins", "yes", "--show-del", "yes", "-f",
+     "fastq", "-r", "sim1:1001-50000", "{bam}"],
+    ["consensus", "-m", "bayesian_m", "{bam}"],
+    ["flagstat", "{bam}"], ["flagstat", "-O", "json", "{bam}"]])
+def test_consensus_and_flagstat_on_card_equal_cpu(cuda, tmp_path, argv):
+    """consensus and flagstat on the card print the CPU port's bytes;
+    consensus launches K10 and K13, flagstat K11."""
+    import contextlib
+    import io
+
+    from samtools_tpu_torch import cli
+    bam = _consensus_inputs(tmp_path)
+    args = [a.format(bam=bam) for a in argv]
+    got = {}
+    for dev in (None, "cpu"):
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(args, device=dev) == 0
+        got[dev] = buf.getvalue()
+        launched = dict(kernels.launches)
+        if dev is None:
+            if args[0] == "consensus":
+                assert launched["consensus_segsum"] >= 1
+                assert launched["stable_order"] >= 1
+            else:
+                assert launched["flagstat"] >= 1
+    assert got[None].count("\n") > 1
+    assert got[None] == got["cpu"]
+
+
+def test_mpileup_checkpoint_resume_on_card(cuda, tmp_path, monkeypatch):
+    """mpileup --checkpoint on the card, cut after its middle window and
+    resumed: the uninterrupted bytes."""
+    import json
+    import os
+
+    from samtools_tpu_torch import cli
+    from samtools_tpu_torch.tools import mpileup_cmd
+    bam = _consensus_inputs(tmp_path)
+    fa = str(tmp_path / "ref.fa")
+    ref = sim.simulate_reference(1 << 16, seed=9)
+    with open(fa, "wb") as f:
+        f.write(b">sim1\n" + ref.tobytes() + b"\n")
+    monkeypatch.setattr(mpileup_cmd, "WINDOW_COLS", 1 << 13)
+    full, out = str(tmp_path / "full.txt"), str(tmp_path / "ck.txt")
+    ck = str(tmp_path / "ck.json")
+    assert cli.main(["mpileup", "-f", fa, bam, "-o", full]) == 0
+    states = []
+    orig = os.replace
+
+    def spy(a, b):
+        orig(a, b)
+        if b == ck:
+            with open(ck) as g:
+                states.append(json.load(g))
+    monkeypatch.setattr(os, "replace", spy)
+    assert cli.main(["mpileup", "-f", fa, bam, "-o", out, "--checkpoint",
+                     ck]) == 0
+    with open(full, "rb") as f:
+        truth = f.read()
+    with open(out, "rb") as f:
+        assert f.read() == truth
+    mid = states[len(states) // 2]
+    with open(ck, "w") as g:
+        json.dump(mid, g)
+    with open(out, "r+") as f:
+        f.truncate(mid["out_off"])
+        f.seek(mid["out_off"])
+        f.write("PARTIAL###")
+    kernels.reset_launches()
+    assert cli.main(["mpileup", "-f", fa, bam, "-o", out, "--checkpoint",
+                     ck]) == 0
+    assert kernels.launches["segment_census"] >= 1
+    with open(out, "rb") as f:
+        assert f.read() == truth

@@ -17,6 +17,8 @@ from samtools_tpu_torch import kernels
 from samtools_tpu_torch.device import resolve
 from samtools_tpu_torch.ops import baq_device as bd
 from samtools_tpu_torch.ops import mpileup_device as md
+from samtools_tpu_torch.ops.consensus_vec import consensus_segsum
+from samtools_tpu_torch.ops.flagstat import flagstat_census
 from samtools_tpu_torch.ops.pileup import stable_order
 from samtools_tpu_torch.ops.segment_kernel import (segment_census,
                                                    segment_contract)
@@ -145,9 +147,20 @@ def test_cpu_tensors_never_count_a_launch():
                            t(buf))
     assert appq.shape == (B, LQ)
     stable_order(torch.tensor([3, 1, 3, 0], dtype=torch.int32))
+    S, _, depth = consensus_segsum(
+        torch.ones(6 * 101 * 101, 16, dtype=torch.float64),
+        torch.tensor([[0, 1, 1, 1], [2, 3, 4, 1]], dtype=torch.uint8),
+        torch.tensor([0, 2]))
+    assert int(depth[0]) == 2 and float(S[0, 0]) == 2.0
+    got = flagstat_census(torch.tensor([0, 512], dtype=torch.uint16),
+                          torch.zeros(2, dtype=torch.uint8),
+                          torch.zeros(2, dtype=torch.int32),
+                          torch.zeros(2, dtype=torch.int32))
+    assert got[0].tolist() == [1, 1]
     assert kernels.launches == {"segment_contract": 0, "segment_census": 0,
                                 "baq_hmm": 0, "baq_finalize": 0,
-                                "baq_apply": 0, "stable_order": 0}
+                                "baq_apply": 0, "stable_order": 0,
+                                "consensus_segsum": 0, "flagstat": 0}
 
 
 def test_mixed_devices_raise():

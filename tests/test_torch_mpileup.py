@@ -4,8 +4,9 @@ the JAX tool's bytes, whichever engine the JAX tool runs, whatever the
 window size; its ``--census-out`` equals the single-core f64 oracle
 window by window; its chunk step's sparse qual deltas equal the JAX chunk
 step's; the overflow path gives the same bytes; without CUDA the command
-fails before it prints a row; what is not ported yet (--checkpoint,
-SAMTPU_SHARDS, SAM input) says so and exits 1."""
+fails before it prints a row; what is not ported yet (SAMTPU_SHARDS, SAM
+input) says so and exits 1 (``--checkpoint``:
+tests/test_torch_mpileup_checkpoint.py)."""
 
 import json
 import os
@@ -201,7 +202,6 @@ def _sam(d):
 
 
 NOT_PORTED = {
-    "checkpoint": (["--checkpoint", "ck.json"], "--checkpoint"),
     "shards": ([], "SAMTPU_SHARDS"),
     "sam_input": ([], "SAM or CRAM input"),
     "sam_input_region": (["-r", "sim1:1-50"], "SAM or CRAM input"),

@@ -20,7 +20,13 @@ reads with base-modification tags, reads with stored BQ / ZQ tags);
 contig at 2x, one read stored without qualities), ``deep`` (a 20 kbp
 contig at 6x with 400 reads piled at one position: over 16,384 items in
 one tile, which takes several passes in the JAX plan), a BED of 40
-intervals and a SAM text file.
+intervals and a SAM text file.  ``make_consensus_inputs`` adds
+consensus's: ``small`` (the messy reads starting before 40,000;
+``small2`` the same under the two-contig header of ``messy2``;
+``pairs_small`` the pairs starting there), ``padins`` (a 12 kbp contig at
+8x whose reads carry insertions of 1-12 bases, some with a deletion or
+pads beside them, pads alone in the first 4 kbp, and MD tags;
+``longins`` the same reads without their pads) and a BED of regions.
 
 The JAX tool runs as ``python -m samtools_tpu <command>`` in a subprocess
 on the JAX CPU backend; the port runs in-process through
@@ -36,6 +42,7 @@ import shutil
 import struct
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -248,3 +255,94 @@ def make_general_inputs(d: str) -> dict:
         got[tag.lower()] = os.path.join(d, f"{tag.lower()}.bam")
         write_bam(got[tag.lower()], messy.header, t)
     return got
+
+
+def _cigar_batch(b, cigars: list[list[tuple[int, int]]]) -> None:
+    """Give read i of ``b`` the cigar cigars[i], as (op, len) pairs."""
+    flat = [(n << 4) | op for ops in cigars for op, n in ops]
+    b.cigar = np.array(flat, np.uint32)
+    b.cigar_off = np.concatenate([[0], np.cumsum([len(c) for c in cigars])]
+                                 ).astype(np.int64)
+
+
+def make_consensus_inputs(d: str) -> dict:
+    """make_pileup_inputs plus consensus's inputs (module doc)."""
+    got = make_pileup_inputs(d)
+    messy = read_alignments(got["messy"])
+    b = messy.batch
+    small = b.take(np.nonzero(b.pos < 40000)[0])
+    got["small"] = os.path.join(d, "small.bam")
+    write_bam(got["small"], messy.header, small)
+    got["small2"] = os.path.join(d, "small2.bam")
+    write_bam(got["small2"], read_alignments(got["messy2"]).header, small)
+    pairs = read_alignments(got["pairs"])
+    b = pairs.batch
+    got["pairs_small"] = os.path.join(d, "pairs_small.bam")
+    write_bam(got["pairs_small"], pairs.header,
+              b.take(np.nonzero(b.pos < 40000)[0]))
+
+    L = 12000
+    ref = sim.simulate_reference(L, seed=31)
+    b = sim.simulate_batch(ref_len=L, coverage=8.0, paired=False, seed=32,
+                           ref=ref)
+    rng = np.random.default_rng(33)
+    cigars, mds = [], []
+    for i in range(b.n):
+        n = int(b.l_qseq[i])
+        k = int(rng.integers(1, 13))
+        r = rng.random()
+        pads = int(b.pos[i]) < 4000
+        if r < 0.3:
+            ops = [(0, 40), (1, k), (0, n - 40 - k)]
+        elif r < 0.4:
+            ops = [(0, 30), (1, k), (2, 2), (0, n - 30 - k)]
+        elif r < 0.5 and pads:
+            ops = [(0, 35), (1, k), (6, 2), (0, n - 35 - k)]
+        elif r < 0.6 and pads:
+            ops = [(0, 50), (6, 1), (0, n - 50)]
+        elif r < 0.7:
+            ops = [(4, 5), (0, n - 5 - k), (1, k)]
+        else:
+            ops = [(0, n)]
+        cigars.append(ops)
+        mds.append(f"{int(rng.integers(0, 40))}A{int(rng.integers(0, 30))}"
+                   f"^C{int(rng.integers(0, 20))}".encode()
+                   if rng.random() < 0.5 else None)
+    _set_aux(b, [b"MDZ" + m + b"\0" if m else b"" for m in mds])
+    # padins: with the pads; longins: the same reads without them (one
+    # window of either: pads send the whole window to the scalar engine)
+    for name, keep_pads in (("padins", True), ("longins", False)):
+        _cigar_batch(b, [[(op, n) for op, n in ops if keep_pads or op != 6]
+                         for ops in cigars])
+        got[name] = os.path.join(d, f"{name}.bam")
+        write_bam(got[name], sim.make_header(L), b)
+    got["padins_fa"] = os.path.join(d, "padins.fa")
+    with open(got["padins_fa"], "w") as f:
+        f.write(">sim1\n" + ref.tobytes().decode() + "\n")
+
+    got["cons_bed"] = os.path.join(d, "cons.bed")
+    with open(got["cons_bed"], "w") as f:
+        f.write("sim1\t30000\t36000\n#x\nsim1\t1000\t4500\n"
+                "sim2\t10\t20\nsim1\t35000\t37000\n")
+    return got
+
+
+def check_consensus_case(inputs, extra: list[str], which: str,
+                         monkeypatch) -> None:
+    """consensus with arguments ``extra`` ({x}: an input of ``inputs``) on
+    ``inputs[which]``: the port on the CPU prints the JAX tool's bytes on
+    both of its branches (run side by side), launches no kernel, and its
+    host branch (``SAMTPU_DEVICE=0``) prints the same."""
+    from samtools_tpu_torch import kernels
+    args = [a.format(**inputs) for a in extra] + [inputs[which]]
+    kernels.reset_launches()
+    mine = run_port_stdout("consensus", args)
+    assert not any(kernels.launches.values())   # CPU tensors never count
+    assert mine.count(b"\n") > 1
+    with ThreadPoolExecutor(2) as ex:
+        dev, host = ex.map(lambda e: run_jax_tool("consensus", args, e),
+                           ("1", "0"))
+    assert mine == dev
+    assert mine == host
+    monkeypatch.setenv("SAMTPU_DEVICE", "0")
+    assert run_port_stdout("consensus", args) == mine
