@@ -33,8 +33,9 @@ from the sources in this checkout.  Phases, one JSON line each:
    the qual sums must equal the single-core f64 oracle
    (io.native.bench_baq_census) over the same records exactly, and the
    checksums must equal census_checksum of the oracle's arrays.  The
-   census form, K4 and K5 must have launched during the run, and the
-   generic K1 not.
+   census form, K4 and K5 must have launched during the run, the generic
+   K1 not, and finish() must have fetched through K7n census_narrow (its
+   two passes); its time is beside that of the int32 fetch it replaced.
 4. tool -- the user's entry point, ``python -m samtools_tpu_torch
    mpileup -f ref.fa in.bam``, run in-process (``cli.main``, ``-o`` to a
    file) on the same two BAMs: tool wall, aligned Mbases/s, output bytes
@@ -88,15 +89,16 @@ from the sources in this checkout.  Phases, one JSON line each:
    (and for mpileup K8 with its K4 and K5) and never K1 in either form.
 9. consensus -- ``consensus``, ``flagstat`` and ``mpileup --checkpoint``
    in-process, each card run against its ``SAMTPU_DEVICE=0`` run, byte
-   for byte: ``consensus -r sim1:1-2000000 -o out.fa`` on clean (it must
+   for byte: ``consensus -r sim1:1-1000000 -o out.fa`` on clean (it must
    launch K10 and K13), ``consensus -a --show-ins yes --show-del yes -f
-   fastq -r sim1:1-2000000`` on messy, ``flagstat`` on clean and
+   fastq -r sim1:1-1000000`` on messy, ``flagstat`` on clean and
    ``flagstat -O json`` on the pairs (K11 must launch); ``mpileup -f ref.fa
    --checkpoint`` on clean, which must print the tool phase's bytes, then
    resumed from its middle window's state with the output cut there and a
    half-written line appended, which must print them again.  Then K10
-   (``consensus_segsum``) on the entries of clean's first 1 Mi window, as
-   the first run's host code built them: S, counts and depth equal the
+   (``consensus_segsum``) on the entries of the first window of the
+   first run (the region's 1 Mbp of clean), as its host code built them:
+   S, counts and depth equal the
    host branch's f64 ``gap5_scores`` bit for bit (and so the five output
    fields), the same bits on two calls; its plain version on the card
    (gather, ``index_add_`` in f64, atomics in no fixed order) within the
@@ -105,9 +107,25 @@ from the sources in this checkout.  Phases, one JSON line each:
    K11 (``flagstat``) on clean's 2,516,582 reads equal to its plain
    version and ``flagstat_numpy`` exactly.  Beside each, the library
    alternative on the card and the host branch's time.
+10. stats -- ``stats`` in-process on clean (all 8 Mbp), on the pairs and
+   ``stats -r ref.fa`` on messy's front, each card run against its
+   ``SAMTPU_DEVICE=0`` run, byte for byte; the card runs must launch K12
+   (``stats_hists``) at least once per 65,536-record chunk and nothing
+   else, the host runs nothing.  Per run: wall, reads/s, aligned
+   Mbases/s, output bytes and rows, launches.
+11. kernels_stats -- K12 on the first 65,536 reads of clean and of the
+   pairs (nbases 300) and on 16,384 synthetic reads of 30-1,000 bases
+   (nbases 1,000), each equal to its plain version on the card and to the
+   host library's ``stats_orig_hists`` exactly, beside five
+   ``torch.bincount`` calls on fused keys and the host pass's time; K7n
+   on the census core's clean census (8,388,608 rows, u8 counts) and on
+   a census of 300x reads over 4 kbp (u16 counts), equal to its
+   plain version, beside ``amax`` with ``.to()``; K7's checksum
+   (``census_checksum_dev``) on the clean census, equal to
+   ``census_checksum``, beside ``torch.sum`` of the weighted lanes.
 
-Then the kernel table, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
+Then the kernel table, the script's wall against its 1,200 s limit, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is not 0 and that last line is not printed.
 """
 
@@ -162,6 +180,10 @@ KERNEL_META = {
                          "samtools_tpu/ops/consensus_vec.py:346"),
     "flagstat": ("samtools_tpu_torch/csrc/flagstat.cu",
                  "samtools_tpu/ops/flagstat.py:67"),
+    "stats_hists": ("samtools_tpu_torch/csrc/stats_hists.cu",
+                    "samtools_tpu/ops/stats_kernels.py:77"),
+    "census_narrow": ("samtools_tpu_torch/csrc/census_narrow.cu",
+                      "samtools_tpu/ops/mpileup_device.py:401"),
 }
 # what DeviceCensusPipeline launches; the generic K1 runs only in the
 # kernels phase
@@ -490,7 +512,12 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     for r in k1:
         if r["chunk"] == "deep_pile":
             rows[r["kernel"]] = r
-    emit({"phase": "kernels", **rows,
+    # K6, the chunk step: the sum of its parts' bounds at this chunk (K4
+    # by operations, K5 and K1's census form by bytes)
+    chunk_step = {"bound_ms": sum(rows[k]["bound_ms"] for k in (
+        "baq_hmm", "baq_finalize", "segment_census")),
+        "bound_by": "sum of K4, K5 and K1 census-form bounds"}
+    emit({"phase": "kernels", **rows, "chunk_step": chunk_step,
           "k1_plain_30x": [r for r in k1 if r["chunk"] == "plain_30x"]})
     return rows
 
@@ -539,7 +566,7 @@ def write_fasta(path: str, ref: np.ndarray) -> None:
         f.write(f"sim1\t{ref.size}\t6\t60\t61\n")
 
 
-def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
+def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str):
     from samtools_tpu_torch import kernels
     from samtools_tpu_torch.io.bam import write_bam
     from samtools_tpu_torch.io.stream import BamStream
@@ -567,11 +594,26 @@ def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
         with BamStream(path, threads=THREADS, window_bytes=64 << 20) as st:
             for batch in st.batches():
                 pipe.add_batch(batch)
+        pipe._flush()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         census, qsum = pipe.finish()
         torch.cuda.synchronize()
         t_core = time.perf_counter() - t0
+        t_finish = time.perf_counter() - t1
         ck = pipe.finish_checksum()
         runs = dict(kernels.launches)
+        # the finish() K7n replaced: the int32 census fetched as it is,
+        # widened, the host part added
+        t1 = time.perf_counter()
+        c = pipe.census_dev[:pipe.wlen].cpu().numpy().astype(np.int64)
+        wide = (c[:, :5] + pipe.host_census, c[:, 5] + pipe.host_qsum)
+        t_wide = time.perf_counter() - t1
+        require(np.array_equal(wide[0], census) and np.array_equal(
+            wide[1], qsum), f"{name}: finish() differs from the int32 fetch")
+        del c, wide
+        if name == "clean":
+            core_census = pipe.census_dev
 
         t0 = time.perf_counter()
         o_census, o_qsum, nrec = oracle(path, ref_int)
@@ -585,6 +627,9 @@ def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
         require(all(runs[k] > 0 for k in MAIN_PATH) and
                 runs["segment_contract"] == 0,
                 f"{name}: the main path's kernels are {MAIN_PATH}: {runs}")
+        require(runs["census_narrow"] == 2,
+                f"{name}: finish() launched K7n {runs['census_narrow']} "
+                "times, not its two passes")
         launches[name] = runs
         oracles[name] = (path, o_census, o_qsum, nrec)
         emit({"phase": "main_path", "workload": name,
@@ -594,8 +639,10 @@ def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str) -> dict:
               "host_reads": int(pipe.n_host_reads),
               "risky_reads": int(pipe.n_risky),
               "oracle_s_threads": [round(t_oracle, 3), THREADS],
+              "finish_s": round(t_finish, 4),
+              "int32_finish_s": round(t_wide, 4),
               "launches": runs, "census_equal": True, "checksum": list(ck)})
-    return launches, oracles
+    return launches, oracles, core_census
 
 
 def count_rows(path: str) -> int:
@@ -613,20 +660,32 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
     import torch
     from samtools_tpu_torch import cli, kernels
     from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.ops import mpileup_device as md
     from samtools_tpu_torch.ops.mpileup_device import census_checksum
     from samtools_tpu_torch.sim import (make_header,
                                         simulate_overlapping_pairs)
     fa = os.path.join(workdir, "ref.fa")
     write_fasta(fa, ref)
     launches, texts = {}, {}
+    checksum = md.census_checksum_dev
+    n_checksums = []
+
+    def count_checksum(*args):
+        n_checksums.append(1)
+        return checksum(*args)
     for name, (bam, o_census, o_qsum, nrec) in oracles.items():
         out = os.path.join(workdir, f"{name}.pileup")
         cj = os.path.join(workdir, f"{name}.census.json")
         kernels.reset_launches()
+        n_checksums.clear()
+        md.census_checksum_dev = count_checksum
         t0 = time.perf_counter()
-        rc = cli.main(["mpileup", "-f", fa, bam, "-o", out,
-                       "--census-out", cj])
-        torch.cuda.synchronize()
+        try:
+            rc = cli.main(["mpileup", "-f", fa, bam, "-o", out,
+                           "--census-out", cj])
+            torch.cuda.synchronize()
+        finally:
+            md.census_checksum_dev = checksum
         wall = time.perf_counter() - t0
         runs = dict(kernels.launches)
         require(rc == 0, f"tool {name}: rc {rc}")
@@ -656,7 +715,10 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
               "host_reads": rec["host_reads"],
               "risky_reads": sum(w.get("risky_reads", 0)
                                  for w in rec["windows"]),
+              "census_checksum_calls": len(n_checksums),
               "launches": runs, "census_equal": True})
+        if name == "clean":
+            tool_checksums = len(n_checksums)
         if name != "clean":
             os.remove(out)
 
@@ -699,7 +761,7 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
           "host_wall_s": round(walls["host"], 3),
           "output_bytes": len(card), "output_rows": card.count(b"\n"),
           "byte_equal": True})
-    return launches, (bam, n_pairs_reads), texts["clean"]
+    return launches, (bam, n_pairs_reads), texts["clean"], tool_checksums
 
 
 def global_share(rp, lo, hi, wbeg: int, tile: int, P: int, win: int):
@@ -945,13 +1007,14 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
     counts = {}
     for name in ("messy", "pairs"):
         m = read_alignments(bams[name], THREADS).batch
-        counts[name] = int((m.pos < REGION_END).sum())
-        counts["region2"] = counts.get("region2", 0) + int(
-            (m.pos < REGION2_END).sum())
+        counts[f"{name}_region2"] = int((m.pos < REGION2_END).sum())
+        counts["region2"] = counts.get("region2", 0) + counts[
+            f"{name}_region2"]
         del m
     b = read_alignments(bams["clean"], THREADS).batch
     counts["clean"] = b.n
     counts["region"] = int((b.pos < REGION_END).sum())
+    counts["clean_region2"] = int((b.pos < REGION2_END).sum())
     counts["clean_front"] = int((b.pos < FRONT_END).sum())
     n_windows = -(-(FRONT_END + READ_LEN) // (1 << 20))
 
@@ -1093,17 +1156,17 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
         launches[label] = card
         for p in outs.values():
             os.remove(p)
-    return rows, launches, counts["messy"]
+    return rows, launches, counts
 
 
 # consensus and flagstat in-process, card against SAMTPU_DEVICE=0: (label,
 # argv, reads counted, output: "-o" or standard output)
 CONSENSUS_RUNS = (
-    ("consensus -r", ["consensus", "-r", "sim1:1-2000000", "{clean}"],
-     "region", "-o"),
+    ("consensus -r", ["consensus", "-r", "sim1:1-1000000", "{clean}"],
+     "clean_region2", "-o"),
     ("consensus -a --show-ins --show-del -f fastq -r",
      ["consensus", "-a", "--show-ins", "yes", "--show-del", "yes", "-f",
-      "fastq", "-r", "sim1:1-2000000", "{messy}"], "messy_region", "-o"),
+      "fastq", "-r", "sim1:1-1000000", "{messy}"], "messy_region2", "-o"),
     ("flagstat", ["flagstat", "{clean}"], "clean", "stdout"),
     ("flagstat -O json", ["flagstat", "-O", "json", "{pairs}"], "pairs",
      "stdout"),
@@ -1342,7 +1405,244 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
     return rows, launches
 
 
+# stats in-process, card against SAMTPU_DEVICE=0: (label, argv, reads
+# counted); {name} a BAM of the earlier phases, {fa} the reference
+STATS_RUNS = (
+    ("stats", ["stats", "{clean}"], "clean"),
+    ("stats", ["stats", "{pairs}"], "pairs"),
+    ("stats -r", ["stats", "-r", "{fa}", "{messy_front}"], "messy_front"),
+)
+
+
+def phase_stats(bams: dict, workdir: str, counts: dict) -> dict:
+    """stats as a user runs it, card (K12 every chunk) against the host
+    branch, byte for byte."""
+    import filecmp
+
+    from samtools_tpu_torch import kernels
+    launches = {}
+    for label, argv, wl in STATS_RUNS:
+        args = [a.format(fa=os.path.join(workdir, "ref.fa"), **bams)
+                for a in argv]
+        outs, walls, runs = {}, {}, {}
+        for engine in ("card", "host"):
+            outs[engine] = os.path.join(workdir, f"stats.{engine}.txt")
+            kernels.reset_launches()
+            walls[engine] = run_cli(args, outs[engine], "stdout",
+                                    engine == "host")
+            runs[engine] = dict(kernels.launches)
+        require(filecmp.cmp(outs["card"], outs["host"], shallow=False),
+                f"{label} ({wl}): the card's output differs from the host "
+                "branch's")
+        n = counts[wl]
+        card = runs["card"]
+        chunks = -(-n // CHUNK)
+        require(card["stats_hists"] >= chunks and not any(
+            v for k, v in card.items() if k != "stats_hists"),
+            f"{label} ({wl}): {chunks} chunks, the card run launched "
+            f"{card}")
+        require(not any(runs["host"].values()),
+                f"{label} ({wl}): the host run launched {runs['host']}")
+        n_rows = count_rows(outs["card"])
+        require(n_rows > 500, f"{label} ({wl}): too few rows")
+        emit({"phase": "stats", "run": label, "input": wl, "reads": int(n),
+              **{f"{e}_wall_s": round(w, 3) for e, w in walls.items()},
+              "reads_per_s": round(n / walls["card"], 1),
+              "Mbases_per_s": round(n * READ_LEN / walls["card"] / 1e6, 3),
+              "output_bytes": os.path.getsize(outs["card"]),
+              "output_rows": n_rows, "launches": card, "byte_equal": True})
+        launches[f"{label} {wl}"] = card
+        for p in outs.values():
+            os.remove(p)
+    return launches
+
+
+def _k12_case(seq, qual, off, oidx, order, rev, nbases: int, qrows: int,
+              dev) -> dict:
+    """K12 on one chunk: equal to its plain version on the card and to
+    the host library's pass; times beside its bound."""
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.io import native
+    from samtools_tpu_torch.ops import stats_kernels as sk
+    args = sk.chunk_inputs(seq, qual, off, oidx, order, rev, dev)
+    max_len = int((off[oidx + 1] - off[oidx]).max())
+    before = kernels.launches["stats_hists"]
+    got = sk.stats_hists(*args, nbases, qrows, max_len)
+    torch.cuda.synchronize()
+    require(kernels.launches["stats_hists"] == before + 1,
+            "K12 did not launch once")
+    plain = sk.stats_hists_plain(*args, nbases, qrows)
+    require(torch.equal(got, plain), "K12 differs from its plain version")
+    host = [np.zeros((qrows, 257), np.int64) for _ in range(2)] + [
+        np.zeros((nbases, 6), np.int64) for _ in range(3)]
+    t0 = time.perf_counter()
+    gc, qsum, mq = native.stats_orig_hists(seq, qual, off, oidx, order, rev,
+                                           nbases, *host)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    h = sk.split_hists(got.cpu().numpy(), oidx.size, nbases, qrows)
+    require(all(np.array_equal(h[k], w) for k, w in
+                zip(("q1", "q2", "a1", "a2", "ar"), host))
+            and np.array_equal(h["gc"], gc)
+            and np.array_equal(h["qsum"], qsum) and int(h["maxq"][0]) == mq,
+            "K12 differs from the host library's stats_orig_hists")
+    # the library alternative: five bincounts of fused keys, built once
+    # from the same bases (not timed)
+    seq_t, qual_t, off_t, oidx_t, order_t, rev_t = args
+    lens = off_t[oidx_t + 1] - off_t[oidx_t]
+    seg = torch.repeat_interleave(torch.arange(oidx_t.numel(), device=dev),
+                                  lens)
+    local = torch.arange(seg.numel(), device=dev) - (torch.cumsum(lens, 0)
+                                                     - lens)[seg]
+    at = off_t[oidx_t][seg] + local
+    rv = rev_t.bool()[seg]
+    cyc = torch.where(rv, lens[seg] - 1 - local, local)
+    q = qual_t[at].long()
+    col = torch.from_numpy(sk.ACGTNO_COL).to(dev)[seq_t[at].long() & 15]
+    ordb = order_t[seg]
+    keys = []
+    for o in (1, 2):
+        m = ordb == o
+        keys += [(cyc[m] * 257 + q[m], qrows * 257),
+                 (cyc[m] * 6 + col[m], nbases * 6)]
+    acgt = ((ordb == 1) | (ordb == 2)) & (col < 4)
+    keys.append(((cyc * 6 + torch.where(rv, 3 - col, col))[acgt],
+                 nbases * 6))
+    del seg, local, at, rv, cyc, q, col, ordb
+
+    def library():
+        return [torch.bincount(k, minlength=n) for k, n in keys]
+    parts = sk.split_hists(plain, oidx.size, nbases, qrows)
+    require(all(torch.equal(a, parts[k].reshape(-1)) for a, k in zip(
+        library(), ("q1", "a1", "q2", "a2", "ar"))),
+        "the bincounts of fused keys differ from K12's plain version")
+    nb = int(seq_t.numel())
+    nbytes = (2 * nb + off_t.numel() * 8 + oidx.size * (8 + 2)
+              + got.numel() * 8)
+
+    def kernel():
+        sk.stats_hists(*args, nbases, qrows, max_len)
+    return dict(max_abs_err=0, max_abs_err_host=0, ms=cuda_ms(kernel),
+                b2b_ms=cuda_ms(kernel, per=10),
+                plain_ms=cuda_ms(lambda: sk.stats_hists_plain(
+                    *args, nbases, qrows), reps=3),
+                library_ms=cuda_ms(library), host_stats_orig_hists_ms=host_ms,
+                detail={"reads": int(oidx.size), "bases": nb,
+                        "nbases": nbases, "qrows": qrows,
+                        "max_len": max_len},
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0))))
+
+
+def _census_narrow_case(census, wlen: int) -> dict:
+    """K7n on a resident census: equal to its plain version (types and
+    bytes); times beside its bound."""
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.ops import mpileup_device as md
+    before = kernels.launches["census_narrow"]
+    got = md.census_narrow(census, wlen)
+    torch.cuda.synchronize()
+    require(kernels.launches["census_narrow"] == before + 2,
+            "K7n did not launch its two passes")
+    want = md.census_narrow_plain(census, wlen)
+    require(got[1:] == want[1:] and torch.equal(got[0], want[0]),
+            "K7n differs from its plain version")
+    cdt, qdt = got[1], got[2]
+    c = census[:wlen]
+
+    def library():
+        return (c[:, :5].amax(), c[:, 5].amax(), c[:, :5].to(cdt),
+                c[:, 5].to(qdt))
+    return dict(max_abs_err=0, ms=cuda_ms(lambda: md.census_narrow(
+        census, wlen)), b2b_ms=cuda_ms(lambda: md.census_narrow(
+            census, wlen), per=10),
+        plain_ms=cuda_ms(lambda: md.census_narrow_plain(census, wlen)),
+        library_ms=cuda_ms(library),
+        detail={"rows": wlen, "counts": str(cdt), "qual_sums": str(qdt),
+                "fetched_bytes": int(got[0].numel()),
+                "int32_bytes": wlen * 24},
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(wlen * 24 + got[0].numel() + 8, 0))))
+
+
+def phase_kernels_stats(bams: dict, ref: np.ndarray, ref_int: np.ndarray,
+                        dev, core_census, tool_checksums: int) -> dict:
+    """K12 on chunks of clean, the pairs and long synthetic reads; K7n on
+    clean's core census and on a 300x census; K7's checksum on clean's
+    core census."""
+    import torch
+    from samtools_tpu_torch.io.stream import BamStream
+    from samtools_tpu_torch.ops import mpileup_device as md
+    from samtools_tpu_torch.sim import simulate_batch
+    rows, k12 = {}, {}
+    for name in ("clean", "pairs"):
+        with BamStream(bams[name], threads=THREADS) as st:
+            b = next(iter(st.batches()))
+        oidx = np.arange(min(b.n, CHUNK), dtype=np.int64)
+        flag = b.flag[oidx].astype(np.int64)
+        order = np.where(flag & 1, ((flag & 64) != 0)
+                         + 2 * ((flag & 128) != 0), 1).astype(np.uint8)
+        rev = ((flag & 16) != 0).astype(np.uint8)
+        # a run's first chunk: nbases 300, as many quality rows
+        k12[name] = _k12_case(b.seq, b.qual, b.seq_off, oidx, order, rev,
+                              300, 300, dev)
+        del b
+    # reads of 30-1,000 bases after the histograms grew to 1,000 cycles
+    rng = np.random.default_rng(21)
+    n = 16384
+    lens = rng.integers(30, 1001, n)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    seq = rng.choice(np.array([1, 2, 4, 8, 15, 5], np.uint8), int(off[-1]),
+                     p=[.24, .24, .24, .24, .02, .02])
+    qual = rng.integers(0, 256, int(off[-1])).astype(np.uint8)
+    k12["long"] = _k12_case(seq, qual, off, np.arange(n, dtype=np.int64),
+                            rng.integers(0, 3, n).astype(np.uint8),
+                            rng.integers(0, 2, n).astype(np.uint8), 1000,
+                            1001, dev)
+    rows["stats_hists"] = dict(k12["clean"], chunks=k12)
+    emit({"phase": "kernels_stats", "stats_hists": k12})
+
+    # an amplicon-deep census: 300x reads over 4 kbp, counts past 255 (a
+    # pile of displaced reads does not do: BAQ drops their mismatching
+    # bases below the quality gate)
+    L = 4096
+    deep = md.DeviceCensusPipeline(ref_int[:L], L, device=dev)
+    deep.add_batch(simulate_batch(ref_len=L, coverage=300.0,
+                                  read_len=READ_LEN, seed=23, paired=False,
+                                  err_rate=0.01, ref=ref[:L]))
+    deep._flush()
+    narrow = {"core_clean": _census_narrow_case(core_census, REF_LEN),
+              "deep_300x": _census_narrow_case(deep.census_dev, L)}
+    require(narrow["deep_300x"]["detail"]["counts"] == "torch.uint16",
+            "the 300x census did not narrow to u16")
+    del deep
+    rows["census_narrow"] = dict(narrow["core_clean"], censuses=narrow)
+    # K7's checksum on the same census; the library: torch.sum of the
+    # weighted lanes (built once, not timed)
+    c = core_census[:REF_LEN]
+    v = torch.cat([c[:, :5].reshape(-1), c[:, 5]]).to(torch.int64)
+    idx = torch.arange(v.numel(), dtype=torch.int64, device=dev)
+    weighted = md._mulmod32(v, md._mulmod32(idx, torch.full_like(
+        idx, 2654435761)))
+    del v, idx
+    got = md.census_checksum_dev(core_census, REF_LEN)
+    h = c.cpu().numpy()
+    want = md.census_checksum(h[:, :5], h[:, 5])
+    require(got == want, "K7's checksum differs from census_checksum")
+    checksum = dict(
+        ms=cuda_ms(lambda: md.census_checksum_dev(core_census, REF_LEN)),
+        library_ms=cuda_ms(lambda: torch.sum(weighted)),
+        launches_tool_clean=tool_checksums, launches_core=1,
+        detail={"rows": REF_LEN},
+        **dict(zip(("bound_ms", "bound_by"), bound(REF_LEN * 24 + 8, 0))))
+    del weighted
+    emit({"phase": "kernels_stats", "census_narrow": narrow,
+          "census_checksum": checksum})
+    return rows
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1356,9 +1656,9 @@ def main() -> int:
     ref_int = ref_codes(ref)
     rows = phase_kernels(ref, ref_int, torch.device("cuda"))
     with tempfile.TemporaryDirectory() as workdir:
-        launches, oracles = phase_main(ref, ref_int, workdir)
-        tool_launches, (pairs, n_pairs), clean_text = phase_tool(
-            ref, workdir, oracles)
+        launches, oracles, core_census = phase_main(ref, ref_int, workdir)
+        tool_launches, (pairs, n_pairs), clean_text, tool_checksums = \
+            phase_tool(ref, workdir, oracles)
         bams = {"clean": oracles["clean"][0], "messy": oracles["messy"][0],
                 "pairs": pairs}
         fronts = {}
@@ -1373,17 +1673,22 @@ def main() -> int:
             workdir, bams, {"clean": oracles["clean"][3],
                             "messy": oracles["messy"][3], "pairs": n_pairs,
                             "region": region_reads, **fronts})
-        general_rows, general, messy_region = phase_general(
+        general_rows, general, counts = phase_general(
             ref, ref_int, workdir, bams, clean_text, torch.device("cuda"))
         cons_rows, cons = phase_consensus(
             workdir, bams, clean_text,
-            {"clean": oracles["clean"][3], "pairs": n_pairs,
-             "region": region_reads,
-             "messy_region": messy_region},
+            {"clean": oracles["clean"][3], "pairs": n_pairs, **counts},
             torch.device("cuda"))
         os.remove(clean_text)
+        stats = phase_stats(bams, workdir, {
+            "clean": oracles["clean"][3], "pairs": n_pairs, **fronts})
+        stats_rows = phase_kernels_stats(bams, ref, ref_int,
+                                         torch.device("cuda"), core_census,
+                                         tool_checksums)
+        del core_census
     rows.update(general_rows)
     rows.update(cons_rows)
+    rows.update(stats_rows)
     table = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
@@ -1422,6 +1727,23 @@ def main() -> int:
                        host_ms=r.get("host_gap5_scores_ms",
                                      r.get("host_flagstat_numpy_ms")),
                        detail=r["detail"])
+        if name == "stats_hists":
+            # launches: stats on clean (every 65,536-record chunk)
+            row.update(launches=stats[f"{STATS_RUNS[0][0]} clean"][name],
+                       run_launches={k: v[name] for k, v in stats.items()},
+                       host_ms=r["host_stats_orig_hists_ms"],
+                       chunks={k: {f: v[f] for f in (
+                           "ms", "b2b_ms", "plain_ms", "library_ms",
+                           "host_stats_orig_hists_ms", "bound_ms",
+                           "detail")} for k, v in r["chunks"].items()})
+        if name == "census_narrow":
+            # launches: the census core's finish() on clean (two passes);
+            # the mpileup command fetches per-window checksums instead
+            row.update(launches=launches["clean"][name],
+                       censuses={k: {f: v[f] for f in (
+                           "ms", "b2b_ms", "plain_ms", "library_ms",
+                           "bound_ms", "detail")}
+                           for k, v in r["censuses"].items()})
         if name == "segment_contract":
             row.update(launches=sum(family.values()),
                        depth_launches=family["depth clean"],
@@ -1431,6 +1753,8 @@ def main() -> int:
         require(row["launches"] > 0, f"{name} never launched on its path")
         table.append(row)
     emit({"kernels": table})
+    emit({"phase": "done", "wall_s": round(time.perf_counter() - t_start, 1),
+          "limit_s": 1200})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)

@@ -30,6 +30,7 @@ Commands:
      coverage       alignment depth and percent coverage
      depth          compute the depth
      flagstat       simple stats
+     stats          generate stats (former bamcheck)
 
   -- Misc
      help [cmd]     display this help message or help for [cmd]

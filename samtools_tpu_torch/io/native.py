@@ -1,6 +1,7 @@
 """ctypes bindings for the port's host library (native/samtpu_host.cc).
 
-Counterpart of samtools_tpu/io/native.py (:247-292, :411-520, :545-610).  The
+Counterpart of samtools_tpu/io/native.py (:247-292, :411-520, :545-610,
+:644-728).  The
 library is built with ``g++`` into the port's build directory at first
 use (see ``samtools_tpu_torch.build``); a failed build raises.
 """
@@ -44,6 +45,15 @@ _SIGNATURES = {
     "samtpu_nm_init_batch": (_I64, [_P, _P, _P, _P, _P, _P, _P, _I64, _INT,
                                     _INT, _INT, ctypes.c_double, _INT, _INT,
                                     _P]),
+    "samtpu_stats_crc32_batch": (_I64, [_P, _P, _P, _P, _P, _P, _I64, _P]),
+    "samtpu_aux_find_batch": (_I64, [_P, _P, _P, _I64, ctypes.c_uint8,
+                                     ctypes.c_uint8, _P, _P]),
+    "samtpu_stats_cov_gcd": (_I64, [_I64, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _INT, _I64, _P, _I64, _P, _I64,
+                                    _I64, _I64, _I64, _P, _P, _I64]),
+    "samtpu_stats_orig_hists": (_I64, [_P, _P, _P, _P, _I64, _P, _P, _I64,
+                                       _I64, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _INT]),
 }
 
 
@@ -338,3 +348,90 @@ def nm_init_batch(qual: np.ndarray, seq: np.ndarray, seq_off: np.ndarray,
         md_off.ctypes.data, n, use_mqual, adj_qual, bayes116,
         homopoly_fix, nm_halo, sc_cost, out.ctypes.data)
     return out, qual
+
+
+def has_stats_native() -> bool:
+    """The stats passes are part of the host library, which builds at
+    first use (a failed build raises)."""
+    return _load() is not None
+
+
+def stats_crc32_batch(qname: np.ndarray, qname_off: np.ndarray,
+                      seq: np.ndarray, qual: np.ndarray,
+                      seq_off: np.ndarray, idx: np.ndarray):
+    """(names, reads, quals) CRC32 sums over the selected records
+    (update_checksum, stats.c:783), each CRC zlib's."""
+    qname = np.ascontiguousarray(qname, np.uint8)
+    qname_off = np.ascontiguousarray(qname_off, np.int64)
+    seq = np.ascontiguousarray(seq, np.uint8)
+    qual = np.ascontiguousarray(qual, np.uint8)
+    seq_off = np.ascontiguousarray(seq_off, np.int64)
+    idx = np.ascontiguousarray(idx, np.int64)
+    out = np.zeros(3, np.uint32)
+    _load().samtpu_stats_crc32_batch(
+        qname.ctypes.data, qname_off.ctypes.data, seq.ctypes.data,
+        qual.ctypes.data, seq_off.ctypes.data, idx.ctypes.data, idx.size,
+        out.ctypes.data)
+    return int(out[0]), int(out[1]), int(out[2])
+
+
+def aux_find_batch(aux: np.ndarray, aux_off: np.ndarray, idx: np.ndarray,
+                   tag: str):
+    """Per selected record: (value offset into aux, type char byte) of the
+    tag, offset -1 when absent."""
+    aux = np.ascontiguousarray(aux, np.uint8)
+    aux_off = np.ascontiguousarray(aux_off, np.int64)
+    idx = np.ascontiguousarray(idx, np.int64)
+    out_off = np.empty(idx.size, np.int64)
+    out_type = np.empty(idx.size, np.uint8)
+    _load().samtpu_aux_find_batch(
+        aux.ctypes.data, aux_off.ctypes.data, idx.ctypes.data, idx.size,
+        ord(tag[0]), ord(tag[1]), out_off.ctypes.data,
+        out_type.ctypes.data)
+    return out_off, out_type
+
+
+def stats_cov_gcd(n: int, state: np.ndarray, tid: np.ndarray,
+                  pos: np.ndarray, readlen: np.ndarray,
+                  active: np.ndarray, gc_term: np.ndarray,
+                  span_off: np.ndarray, span_beg: np.ndarray,
+                  span_end: np.ndarray, fai_mode: int, gcd_bin_size: int,
+                  rbuf: np.ndarray, cov: np.ndarray, cov_min: int,
+                  cov_max: int, cov_step: int, gcd_gc: np.ndarray,
+                  gcd_depth: np.ndarray) -> int:
+    """Drive the sorted-block residue; see samtpu_host.cc
+    samtpu_stats_cov_gcd for the state/return contract.  All arrays are
+    mutated in place and must be contiguous and of the C types."""
+    return int(_load().samtpu_stats_cov_gcd(
+        n, state.ctypes.data, tid.ctypes.data, pos.ctypes.data,
+        readlen.ctypes.data, active.ctypes.data, gc_term.ctypes.data,
+        span_off.ctypes.data, span_beg.ctypes.data, span_end.ctypes.data,
+        fai_mode, gcd_bin_size, rbuf.ctypes.data, rbuf.size,
+        cov.ctypes.data, cov.size, cov_min, cov_max, cov_step,
+        gcd_gc.ctypes.data, gcd_depth.ctypes.data, gcd_gc.size))
+
+
+def stats_orig_hists(seq, qual, seq_off, oidx, order, rev, nbases, q1, q2,
+                     a1, a2, ar, threads=2):
+    """K12's host branch: the per-base original-read histograms,
+    accumulated into q1/q2/a1/a2/ar (int64, in place); returns (gc_count,
+    qual_sum) per selected read and the largest qual."""
+    no = oidx.size
+    gc_out = np.zeros(no, np.int64)
+    qsum_out = np.zeros(no, np.int64)
+    maxq = np.zeros(1, np.int64)
+    oidx = np.ascontiguousarray(oidx, np.int64)
+    order = np.ascontiguousarray(order, np.uint8)
+    rev = np.ascontiguousarray(rev, np.uint8)
+    for a in (q1, q2, a1, a2, ar):
+        if a.dtype != np.int64 or not a.flags.c_contiguous:
+            raise TypeError("stats_orig_hists: histograms must be "
+                            "contiguous int64")
+    _load().samtpu_stats_orig_hists(
+        seq.ctypes.data, qual.ctypes.data, seq_off.ctypes.data,
+        oidx.ctypes.data, no, order.ctypes.data, rev.ctypes.data,
+        nbases, q1.shape[0], q1.ctypes.data, q2.ctypes.data,
+        a1.ctypes.data, a2.ctypes.data, ar.ctypes.data,
+        gc_out.ctypes.data, qsum_out.ctypes.data, maxq.ctypes.data,
+        threads)
+    return gc_out, qsum_out, int(maxq[0])

@@ -24,7 +24,8 @@ from . import build
 
 launches = {"segment_contract": 0, "segment_census": 0, "baq_hmm": 0,
             "baq_finalize": 0, "baq_apply": 0, "stable_order": 0,
-            "consensus_segsum": 0, "flagstat": 0}
+            "consensus_segsum": 0, "flagstat": 0, "stats_hists": 0,
+            "census_narrow": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -41,6 +42,11 @@ _SIGNATURES = {
     "samtpu_baq_finalize": [_P, _P, _P, _P, _INT, _INT, _P, _P],
     "samtpu_consensus_segsum": [_P, _P, _P, _P, _P, _P, _INT, _P],
     "samtpu_flagstat": [_P, _P, _P, _P, ctypes.c_int64, _P, _P],
+    "samtpu_stats_hists": [_P, _P, _P, _P, _P, _P, ctypes.c_int64, _INT,
+                           _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "samtpu_census_max": [_P, ctypes.c_int64, _P, _P],
+    "samtpu_census_cast": [_P, ctypes.c_int64, _INT, _INT, _P,
+                           ctypes.c_int64, _P],
 }
 # launch-geometry queries: (int arguments, int64 values written)
 _LAYOUTS = {"samtpu_baq_hmm_layout": (3, 4)}

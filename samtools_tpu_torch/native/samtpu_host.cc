@@ -11,6 +11,10 @@
 //   * the mpileup text writer, the ragged row gather of ReadBatch.take and
 //     the ragged copy of the numpy row renderer
 //   * consensus's per-read preparation (samtpu_nm_init_batch)
+//   * samtools stats' batched passes: per-record CRC32 sums (with a CRC32
+//     of its own, zlib's polynomial), aux tag lookup, the sorted-block
+//     residue (coverage round buffer, GC-depth bins) and the per-base
+//     histogram pass that is K12's host branch
 //
 // All entry points are plain C ABI for ctypes.  Every function returns a
 // negative code on error, >=0 on success.
@@ -1372,6 +1376,383 @@ int64_t samtpu_nm_init_batch(
     }
   }
   return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// samtools stats' batched host passes.  Copied from samtools_tpu/native/
+// samtpu.cc (:1540-1860), with the CRC32 computed here (zlib's polynomial,
+// slice-by-8 tables) in place of the compression library's: crc32(0, buf,
+// len) equals Python's zlib.crc32(buf).
+
+namespace stats_detail {
+
+struct Crc32Tables {
+  uint32_t t[8][256];
+  Crc32Tables() {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      t[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; ++i)
+      for (int k = 1; k < 8; ++k)
+        t[k][i] = (t[k - 1][i] >> 8) ^ t[0][t[k - 1][i] & 0xFF];
+  }
+};
+
+const Crc32Tables& crc_tables() {
+  static const Crc32Tables tables;
+  return tables;
+}
+
+// zlib's crc32(crc, buf, len): the reflected CRC-32 of IEEE 802.3
+uint32_t crc32(uint32_t crc, const uint8_t* p, size_t n) {
+  const Crc32Tables& T = crc_tables();
+  uint32_t c = ~crc;
+  while (n && ((uintptr_t)p & 7)) {
+    c = T.t[0][(c ^ *p++) & 0xFF] ^ (c >> 8);
+    --n;
+  }
+  while (n >= 8) {
+    uint32_t lo, hi;
+    std::memcpy(&lo, p, 4);
+    std::memcpy(&hi, p + 4, 4);
+    lo ^= c;  // little-endian byte order, as on x86-64 and aarch64
+    c = T.t[7][lo & 0xFF] ^ T.t[6][(lo >> 8) & 0xFF] ^
+        T.t[5][(lo >> 16) & 0xFF] ^ T.t[4][lo >> 24] ^
+        T.t[3][hi & 0xFF] ^ T.t[2][(hi >> 8) & 0xFF] ^
+        T.t[1][(hi >> 16) & 0xFF] ^ T.t[0][hi >> 24];
+    p += 8;
+    n -= 8;
+  }
+  while (n--) c = T.t[0][(c ^ *p++) & 0xFF] ^ (c >> 8);
+  return ~c;
+}
+
+struct CovGcd {
+  int64_t* state;
+  int32_t* rbuf;
+  int64_t size;
+  int64_t* cov;
+  int64_t ncov, cov_min, cov_max, cov_step;
+
+  inline int64_t cov_idx(int64_t v) const {
+    if (v < cov_min) return 0;
+    if (v > cov_max) return ncov - 1;
+    return 1 + (v - cov_min) / cov_step;
+  }
+  inline void flush_span(int64_t a, int64_t b) {
+    for (int64_t i = a; i < b; ++i) {
+      if (rbuf[i]) {
+        ++cov[cov_idx(rbuf[i])];
+        rbuf[i] = 0;
+      }
+    }
+  }
+  // round_buffer_flush (stats.c:329); returns false on the ascending-order
+  // error (payload in state[10..11]).
+  inline bool flush(int64_t pos) {
+    int64_t& start = state[0];
+    int64_t& rpos = state[1];
+    if (pos == rpos) return true;
+    int64_t new_pos = pos;
+    if (pos == -1 || pos - rpos >= size) pos = rpos + size - 1;
+    if (pos < rpos) {
+      state[10] = pos;
+      state[11] = rpos;
+      return false;
+    }
+    int64_t ifrom = start;
+    int64_t ito = (start + (pos - 1 - rpos) % size) % size;
+    if (ifrom > ito) {
+      flush_span(ifrom, size);
+      ifrom = 0;
+    }
+    flush_span(ifrom, ito + 1);
+    start = new_pos == -1 ? 0 : (start + (pos - rpos) % size) % size;
+    rpos = new_pos;
+    return true;
+  }
+  // round_buffer_insert_read (stats.c:372); 0 ok, else error code.
+  inline int64_t insert(int64_t frm, int64_t to) {
+    int64_t start = state[0], rpos = state[1];
+    if (to - frm > size) {
+      state[10] = to - frm;
+      state[11] = size;
+      return -1;
+    }
+    if (frm < rpos) {
+      state[10] = frm;
+      state[11] = rpos;
+      return -3;
+    }
+    int64_t ifrom = (start + (frm - rpos) % size) % size;
+    int64_t ito = (start + (to - rpos) % size) % size;
+    if (ifrom > ito) {
+      for (int64_t i = ifrom; i < size; ++i) ++rbuf[i];
+      ifrom = 0;
+    }
+    for (int64_t i = ifrom; i < ito; ++i) ++rbuf[i];
+    return 0;
+  }
+};
+
+}  // namespace stats_detail
+
+extern "C" {
+
+// Sum of per-record CRC32s (names / packed seq / qual), mod 2^32.
+// idx selects records; seq holds one nt16 code PER BASE (unpacked) and is
+// packed 2-per-byte here exactly like the BAM encoding before the CRC
+// (update_checksum computes the CRC over the packed representation).
+// out[0]+=names, out[1]+=reads, out[2]+=quals.  qual/seq share offsets.
+// Records with zero-length seq contribute the name CRC only.
+int64_t samtpu_stats_crc32_batch(
+    const uint8_t* qname, const int64_t* qname_off, const uint8_t* seq,
+    const uint8_t* qual, const int64_t* seq_off, const int64_t* idx,
+    int64_t nidx, uint32_t* out) {
+  uint32_t names = 0, reads = 0, quals = 0;
+  std::vector<uint8_t> packed;
+  for (int64_t k = 0; k < nidx; ++k) {
+    int64_t i = idx[k];
+    names += stats_detail::crc32(0, qname + qname_off[i],
+                                 (size_t)(qname_off[i + 1] - qname_off[i]));
+    int64_t s0 = seq_off[i], s1 = seq_off[i + 1];
+    int64_t len = s1 - s0;
+    if (!len) continue;
+    packed.resize((size_t)((len + 1) / 2));
+    for (int64_t j = 0; j + 1 < len; j += 2)
+      packed[(size_t)(j / 2)] =
+          (uint8_t)((seq[s0 + j] << 4) | seq[s0 + j + 1]);
+    if (len & 1) packed[(size_t)(len / 2)] = (uint8_t)(seq[s1 - 1] << 4);
+    reads += stats_detail::crc32(0, packed.data(), packed.size());
+    quals += stats_detail::crc32(0, qual + s0, (size_t)len);
+  }
+  out[0] += names;
+  out[1] += reads;
+  out[2] += quals;
+  return nidx;
+}
+
+// Find one aux tag per selected record (SAM spec 4.2.4 walk).  For record
+// idx[k]: out_off[k] = absolute offset of the VALUE byte (past the type
+// char) in aux, out_type[k] = type char, or out_off[k] = -1 if absent or
+// the aux block is malformed.
+int64_t samtpu_aux_find_batch(
+    const uint8_t* aux, const int64_t* aux_off, const int64_t* idx,
+    int64_t nidx, uint8_t tag0, uint8_t tag1, int64_t* out_off,
+    uint8_t* out_type) {
+  for (int64_t k = 0; k < nidx; ++k) {
+    int64_t i = idx[k];
+    int64_t p = aux_off[i], end = aux_off[i + 1];
+    out_off[k] = -1;
+    out_type[k] = 0;
+    while (p + 3 <= end) {
+      uint8_t t0 = aux[p], t1 = aux[p + 1], tc = aux[p + 2];
+      int64_t v = p + 3;
+      int64_t sz;
+      switch (tc) {
+        case 'A': case 'c': case 'C': sz = 1; break;
+        case 's': case 'S': sz = 2; break;
+        case 'i': case 'I': case 'f': sz = 4; break;
+        case 'd': sz = 8; break;
+        case 'Z': case 'H': {
+          int64_t q = v;
+          while (q < end && aux[q] != 0) ++q;
+          sz = q - v + 1;
+          break;
+        }
+        case 'B': {
+          if (v + 5 > end) { p = end + 1; continue; }
+          uint8_t sub = aux[v];
+          uint32_t cnt;
+          std::memcpy(&cnt, aux + v + 1, 4);
+          int64_t es;
+          switch (sub) {
+            case 'c': case 'C': es = 1; break;
+            case 's': case 'S': es = 2; break;
+            case 'i': case 'I': case 'f': es = 4; break;
+            default: es = 0; break;
+          }
+          if (!es) { p = end + 1; continue; }
+          sz = 5 + (int64_t)cnt * es;
+          break;
+        }
+        default: p = end + 1; continue;
+      }
+      if (t0 == tag0 && t1 == tag1) {
+        out_off[k] = v;
+        out_type[k] = tc;
+        break;
+      }
+      p = v + sz;
+    }
+  }
+  return nidx;
+}
+
+// Sequential residue of collect_stats' sorted block (stats.c:1395-1500):
+// is_sorted tracking, tid-change flush, GC-depth bins, coverage round
+// buffer.  Vectorized feeders supply, per record: active[i] (the record
+// reaches the sorted block), readlen[i] (seq len + deletions), gc_term[i]
+// (float gc_count/seq_len), and the absolute [beg,end) spans of its
+// M/=/X ops (span_beg/span_end flat, span_off per record).
+//
+// state[16]: 0 rbuf_start, 1 rbuf_pos, 2 tid, 3 gcd_pos, 4 igcd,
+//   5 is_sorted, 6 prev_pos, 7 resume_i, 8 inc_done_i, 9 pause_i(out),
+//   10/11 payload(out), 12 unsorted_at, 13 rseq_pos, 14 nrseq_buf.
+// Returns 0 done; 1 fai ref/bin pause at state[9] (Python runs the
+// inc_ref/inc_gcd branch of stats.c:1404 and resumes with
+// inc_done_i = pause_i); 3 gcd arrays full (grow + resume); -1 read-too-
+// big; -3 unsorted insert; -4 flush order error (payloads state[10..11]).
+int64_t samtpu_stats_cov_gcd(
+    int64_t n, int64_t* state, const int32_t* tid, const int64_t* pos,
+    const int64_t* readlen, const uint8_t* active, const float* gc_term,
+    const int64_t* span_off, const int64_t* span_beg,
+    const int64_t* span_end, int fai_mode, int64_t gcd_bin_size,
+    int32_t* rbuf, int64_t rbuf_size, int64_t* cov, int64_t ncov,
+    int64_t cov_min, int64_t cov_max, int64_t cov_step, float* gcd_gc,
+    int64_t* gcd_depth, int64_t gcd_cap) {
+  stats_detail::CovGcd rb{state,    rbuf,    rbuf_size, cov,
+                          ncov,     cov_min, cov_max,   cov_step};
+  for (int64_t i = state[7]; i < n; ++i) {
+    if (!active[i]) continue;
+    int64_t rtid = tid[i], rpos = pos[i];
+    // is_sorted check + pos update (stats.c:1390)
+    if (state[2] == rtid && rpos < state[6]) {
+      if (state[5]) {
+        state[5] = 0;
+        state[12] = i;
+      }
+    }
+    state[6] = rpos;
+    if (!state[5]) continue;
+    // tid-change flush (stats.c:1396)
+    if (state[2] == -1 || state[2] != rtid) {
+      if (!rb.flush(-1)) {
+        state[9] = i;
+        return -4;
+      }
+    }
+    if (fai_mode) {
+      if (state[8] != i) {
+        // pause for Python whenever the inc_ref/inc_gcd branch would run
+        int64_t rseq_pos = state[13], nrseq = state[14];
+        bool inc = (rseq_pos == -1 || state[2] != rtid ||
+                    rseq_pos + nrseq < rpos + readlen[i]) ||
+                   (state[3] + gcd_bin_size < rpos + readlen[i]);
+        if (inc) {
+          state[7] = i;
+          state[9] = i;
+          return 1;
+        }
+      }
+    } else if (state[3] == -1 || state[2] != rtid ||
+               rpos - state[3] > gcd_bin_size) {
+      if (state[4] + 1 >= gcd_cap) {
+        state[7] = i;
+        state[9] = i;
+        return 3;
+      }
+      state[2] = rtid;
+      state[3] = rpos;
+      ++state[4];
+    }
+    gcd_depth[state[4]] += 1;
+    if (!fai_mode) gcd_gc[state[4]] += gc_term[i];
+    // coverage round buffer (stats.c:1453)
+    if (!rb.flush(rpos)) {
+      state[9] = i;
+      return -4;
+    }
+    for (int64_t s = span_off[i]; s < span_off[i + 1]; ++s) {
+      int64_t rc = rb.insert(span_beg[s], span_end[s]);
+      if (rc) {
+        state[9] = i;
+        return rc;
+      }
+    }
+  }
+  state[7] = n;
+  return 0;
+}
+
+// Per-base histogram pass for stats' original-read accumulators
+// (collect_orig_read_stats, stats.c:917): first/last-fragment quality
+// matrices, ACGT-per-cycle, reverse-complement base matrix, per-read GC
+// counts and quality sums.  One pass over the flat seq / qual columns;
+// threads split the read range with private histograms merged at the
+// end.  The host branch (SAMTPU_DEVICE=0) of K12 (csrc/stats_hists.cu),
+// and the oracle it is held to.
+int64_t samtpu_stats_orig_hists(
+    const uint8_t* seq, const uint8_t* qual, const int64_t* seq_off,
+    const int64_t* oidx, int64_t no, const uint8_t* order,
+    const uint8_t* rev, int64_t nbases, int64_t qrows, int64_t* q1,
+    int64_t* q2, int64_t* a1, int64_t* a2, int64_t* ar, int64_t* gc_out,
+    int64_t* qsum_out, int64_t* maxq_io, int nthreads) {
+  static const uint8_t kCol[16] = {5, 0, 1, 5, 2, 5, 5, 5,
+                                   3, 5, 5, 5, 5, 5, 5, 4};
+  if (nthreads < 1) nthreads = 1;
+  if (nthreads > 8) nthreads = 8;
+  struct Local {
+    std::vector<int64_t> q1, q2, a1, a2, ar;
+    int64_t maxq = 0;
+  };
+  std::vector<Local> locals((size_t)nthreads);
+  std::vector<std::thread> threads;
+  int64_t chunk = (no + nthreads - 1) / nthreads;
+  auto work = [&](int t) {
+    Local& L = locals[(size_t)t];
+    L.q1.assign((size_t)(qrows * 257), 0);
+    L.q2.assign((size_t)(qrows * 257), 0);
+    L.a1.assign((size_t)(nbases * 6), 0);
+    L.a2.assign((size_t)(nbases * 6), 0);
+    L.ar.assign((size_t)(nbases * 6), 0);
+    int64_t lo = t * chunk, hi = lo + chunk;
+    if (hi > no) hi = no;
+    for (int64_t k = lo; k < hi; ++k) {
+      int64_t i = oidx[k];
+      int64_t s0 = seq_off[i], len = seq_off[i + 1] - s0;
+      int ord = order[k];
+      bool rv = rev[k] != 0;
+      int64_t* qh = ord == 1 ? L.q1.data() : ord == 2 ? L.q2.data() : nullptr;
+      int64_t* ah = ord == 1 ? L.a1.data() : ord == 2 ? L.a2.data() : nullptr;
+      int64_t gc = 0, qs = 0;
+      for (int64_t j = 0; j < len; ++j) {
+        uint8_t b = seq[s0 + j];
+        uint8_t q = qual[s0 + j];
+        uint8_t c = kCol[b & 0xF];
+        gc += (b == 2 || b == 4);
+        int64_t cyc = rv ? len - 1 - j : j;
+        if (ah) {
+          ah[cyc * 6 + c] += 1;
+          if (c < 4) L.ar.data()[cyc * 6 + (rv ? 3 - c : c)] += 1;
+          qh[cyc * 257 + q] += 1;
+          qs += q;
+          if (q > L.maxq) L.maxq = q;
+        }
+      }
+      gc_out[k] = gc;
+      qsum_out[k] = qs;
+    }
+  };
+  for (int t = 0; t < nthreads; ++t) threads.emplace_back(work, t);
+  for (auto& th : threads) th.join();
+  for (auto& L : locals) {
+    for (int64_t x = 0; x < qrows * 257; ++x) {
+      q1[x] += L.q1[(size_t)x];
+      q2[x] += L.q2[(size_t)x];
+    }
+    for (int64_t x = 0; x < nbases * 6; ++x) {
+      a1[x] += L.a1[(size_t)x];
+      a2[x] += L.a2[(size_t)x];
+      ar[x] += L.ar[(size_t)x];
+    }
+    if (L.maxq > *maxq_io) *maxq_io = L.maxq;
+  }
+  return no;
 }
 
 }  // extern "C"

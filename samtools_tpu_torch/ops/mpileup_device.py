@@ -7,7 +7,8 @@ Counterpart of samtools_tpu/ops/mpileup_device.py (its census path):
   banded pair-HMM BAQ (K4), finalize (K5) -> census contraction (K1's
   census form: quality and ownership gate, one-hot and qual lane built
   in its load step) added in place into a resident int32 [pad_len, 6]
-  census -> ONE device->host fetch at the end.
+  census -> ONE device->host fetch at the end, narrowed on the card to
+  the smallest lossless types first (K7n, ``census_narrow``).
 
 Reads the device path cannot take (N/B cigar ops, more than MAXOPS ops,
 indels past the band, contig-edge windows, 0xFF qual sentinels) and the
@@ -34,6 +35,7 @@ import os
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core import flags as F
 from ..core.aux import has_tag
 from ..core.batch import ragged_gather_indices
@@ -242,6 +244,78 @@ def census_checksum_dev(census_dev: torch.Tensor, wlen: int):
     s1 = int(_mulmod32(v, w1).sum()) & _M32
     s2 = int(_mulmod32(v, w2).sum()) & _M32
     return s1, s2
+
+
+def narrow_types(cmax: int, qmax: int) -> tuple[torch.dtype, torch.dtype]:
+    """The smallest lossless types of the fetched counts and qual sums
+    (the JAX package's thresholds, samtools_tpu/ops/mpileup_device.py:
+    868-870)."""
+    cdt = (torch.uint8 if cmax < 256 else
+           torch.uint16 if cmax < 65536 else torch.int32)
+    qdt = torch.uint16 if qmax < 65536 else torch.int32
+    return cdt, qdt
+
+
+def _narrow_offsets(wlen: int, cdt: torch.dtype,
+                    qdt: torch.dtype) -> tuple[int, int]:
+    """(byte offset of the qual sums, total bytes) of a narrowed fetch:
+    counts [wlen, 5] first, the qual sums at the next 4-byte boundary."""
+    q_off = (wlen * 5 * cdt.itemsize + 3) & ~3
+    return q_off, q_off + wlen * qdt.itemsize
+
+
+def narrow_split(buf, wlen: int, cdt: torch.dtype, qdt: torch.dtype):
+    """(counts [wlen, 5], qual sums [wlen]) of a narrowed fetch's bytes
+    (a tensor, or a numpy array of the host copy), as views."""
+    q_off, end = _narrow_offsets(wlen, cdt, qdt)
+    if isinstance(buf, np.ndarray):
+        cn = torch.empty(0, dtype=cdt).numpy().dtype
+        qn = torch.empty(0, dtype=qdt).numpy().dtype
+        return (buf[:wlen * 5 * cdt.itemsize].view(cn).reshape(wlen, 5),
+                buf[q_off:end].view(qn))
+    return (buf[:wlen * 5 * cdt.itemsize].view(cdt).reshape(wlen, 5),
+            buf[q_off:end].view(qdt))
+
+
+def census_narrow_plain(census: torch.Tensor, wlen: int):
+    """K7n's plain version: rows [0, wlen) of the int32 [pad_len, 6]
+    census narrowed by their maxima (``amax``, then ``.to``), as one byte
+    buffer; returns (buffer, counts type, qual-sum type)."""
+    c = census[:wlen]
+    cmax = int(c[:, :5].amax()) if wlen else 0
+    qmax = int(c[:, 5].amax()) if wlen else 0
+    cdt, qdt = narrow_types(cmax, qmax)
+    q_off, end = _narrow_offsets(wlen, cdt, qdt)
+    buf = torch.zeros(end, dtype=torch.uint8, device=census.device)
+    counts, qsum = narrow_split(buf, wlen, cdt, qdt)
+    counts.copy_(c[:, :5].to(cdt))
+    qsum.copy_(c[:, 5].to(qdt))
+    return buf, cdt, qdt
+
+
+def census_narrow(census: torch.Tensor, wlen: int):
+    """K7n: ``census_narrow_plain``'s result, on the card by two kernel
+    launches (the maxima, then the cast; csrc/census_narrow.cu) around
+    one 8-byte read of the maxima.  A CPU tensor takes the plain
+    version."""
+    kernels.check(census, "census", torch.int32, (None, CENSUS_K))
+    if wlen > census.shape[0]:
+        raise ValueError(f"wlen {wlen} exceeds the census's "
+                         f"{census.shape[0]} rows")
+    if not kernels.on_card(census):
+        return census_narrow_plain(census, wlen)
+    stream = kernels.stream_of(census)
+    mx = torch.zeros(2, dtype=torch.int32, device=census.device)
+    kernels.launch("census_narrow", "samtpu_census_max", census.data_ptr(),
+                   wlen, mx.data_ptr(), stream)
+    cmax, qmax = mx.tolist()
+    cdt, qdt = narrow_types(cmax, qmax)
+    q_off, end = _narrow_offsets(wlen, cdt, qdt)
+    buf = torch.empty(end, dtype=torch.uint8, device=census.device)
+    kernels.launch("census_narrow", "samtpu_census_cast", census.data_ptr(),
+                   wlen, cdt.itemsize, qdt.itemsize, buf.data_ptr(), q_off,
+                   stream)
+    return buf, cdt, qdt
 
 
 class DeviceCensusPipeline:
@@ -614,7 +688,16 @@ class DeviceCensusPipeline:
 
     def finish(self):
         """One device->host fetch, host contributions merged.  Returns
-        (census int64[wlen, 5], qsum int64[wlen])."""
+        (census int64[wlen, 5], qsum int64[wlen]).  The census is narrowed
+        on its device first (K7n ``census_narrow``) and fetched in one
+        copy (into pinned memory from the card), then widened here."""
         self._flush()
-        c = self.census_dev[:self.wlen].cpu().numpy().astype(np.int64)
-        return c[:, :5] + self.host_census, c[:, 5] + self.host_qsum
+        buf, cdt, qdt = census_narrow(self.census_dev, self.wlen)
+        if buf.device.type == "cuda":
+            host = torch.empty(buf.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(buf)
+            buf = host
+        counts, qsum = narrow_split(buf.numpy(), self.wlen, cdt, qdt)
+        # int64 + the narrow type widens in the one pass of the add
+        return self.host_census + counts, self.host_qsum + qsum

@@ -14,6 +14,7 @@ COMMANDS = {
     "consensus": ("samtools_tpu_torch.tools.consensus_cmd",
                   "main_consensus"),
     "flagstat": ("samtools_tpu_torch.tools.flagstat_cmd", "main_flagstat"),
+    "stats": ("samtools_tpu_torch.tools.stats_cmd", "main_stats"),
 }
 
 

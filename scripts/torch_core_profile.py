@@ -1,5 +1,6 @@
 """Where the time of the port's census core, or of its mpileup, depth,
-coverage, bedcov, consensus or flagstat command, goes on one CUDA card.
+coverage, bedcov, consensus, flagstat or stats command, goes on one CUDA
+card.
 
     python3 scripts/torch_core_profile.py [--ref-len N] [--coverage X]
         [--messy | --pairs] [--tool [--mpileup-args "OPTS"] |
@@ -41,8 +42,9 @@ pieces and the row renderer, each a stage of ``TOOL_STAGES``.
 (``sim.simulate_overlapping_pairs``), so the overlap tweak has work.
 
 With ``--pileup "depth -a"`` (or ``coverage ...``, ``bedcov ...``,
-``consensus ...``, ``flagstat``) the runs are that command in-process on
-the BAM (``-o`` to a file; flagstat writes to standard output, captured;
+``consensus ...``, ``flagstat``, ``stats ...``) the runs are that command
+in-process on the BAM (``-o`` to a file; flagstat and stats write to
+standard output, captured;
 bedcov
 reads a seeded BED of 1,000 intervals of 1-10 kbp and the BAM on
 standard input, its in-memory branch, and writes to standard output,
@@ -89,7 +91,8 @@ from samtools_tpu_torch.sim import (make_header, simulate_batch,  # noqa: E402
                                     simulate_reference)
 from samtools_tpu_torch.tools import (bedcov_cmd,  # noqa: E402
                                       consensus_cmd, coverage_cmd,
-                                      depth_cmd, flagstat_cmd, mpileup_cmd)
+                                      depth_cmd, flagstat_cmd, mpileup_cmd,
+                                      stats_batch, stats_cmd)
 
 STAGES = ("_gather_rows", "_make_buf", "_plan", "_h2d", "_expand",
           "_weights", "_chunk_step", "_drain", "_host_reads", "finish")
@@ -159,6 +162,20 @@ PILEUP_STAGES = (("depth_cmd", "read_alignments"),
                  # flagstat: the batches, K11 with its copies, numpy
                  ("flagstat_cmd.fsops", "flagstat_counts"),
                  ("flagstat_cmd.fsops", "flagstat_numpy"),
+                 # stats: the batch engine's passes, K12 with its copies
+                 # (orig_hists) or the host library's pass, the CRC pass,
+                 # the sorted-block residue, mismatches per cycle, output
+                 ("stats_batch", "collect_batch"),
+                 ("stats_batch", "_orig_read_stats"),
+                 ("stats_batch.K", "orig_hists"),
+                 ("stats_batch.native", "stats_orig_hists"),
+                 ("stats_batch.native", "stats_crc32_batch"),
+                 ("stats_batch", "_count_indels_batch"),
+                 ("stats_batch", "_isize_batch"),
+                 ("stats_batch", "_sorted_block"),
+                 ("stats_batch.native", "stats_cov_gcd"),
+                 ("stats_batch", "_mismatches_batch"),
+                 ("stats_cmd.Stats", "output"),
                  ("ReadBatch", "take"),
                  ("ReadBatch", "concat"))
 
@@ -216,7 +233,8 @@ def _owner(path: str):
              "depth_cmd": depth_cmd, "coverage_cmd": coverage_cmd,
              "bedcov_cmd": bedcov_cmd, "stream": stream, "pe": pe,
              "dops": dops, "plmod": plmod, "baqmod": baqmod,
-             "consensus_cmd": consensus_cmd, "flagstat_cmd": flagstat_cmd}
+             "consensus_cmd": consensus_cmd, "flagstat_cmd": flagstat_cmd,
+             "stats_batch": stats_batch, "stats_cmd": stats_cmd}
     head, *rest = path.split(".")
     obj = names[head]
     for r in rest:
@@ -344,7 +362,7 @@ def profile_pileup(spec, path, d, n_reads, host, ref_len):
                                            1000)):
                 f.write(f"sim1\t{s0}\t{s0 + rng.integers(1000, 10001)}\n")
         argv, stdin = [*words, bed, "-"], path
-    elif words[0] == "flagstat":
+    elif words[0] in ("flagstat", "stats"):
         argv, stdin = [*words, path], None
     else:
         argv, stdin = [*words, path, "-o", out], None
@@ -405,8 +423,9 @@ def main() -> int:
     mode.add_argument("--tool", action="store_true",
                       help="profile the mpileup command, not the core")
     mode.add_argument("--pileup", metavar="CMD", action="append",
-                      help='profile a depth, coverage or bedcov command, '
-                      'e.g. "depth -a" (repeatable)')
+                      help='profile a depth, coverage, bedcov, consensus, '
+                      'flagstat or stats command, e.g. "depth -a" '
+                      '(repeatable)')
     ap.add_argument("--mpileup-args", default="",
                     help='with --tool: options for every mpileup run, '
                     'e.g. "-s -O"')

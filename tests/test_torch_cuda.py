@@ -708,3 +708,116 @@ def test_mpileup_checkpoint_resume_on_card(cuda, tmp_path, monkeypatch):
     assert kernels.launches["segment_census"] >= 1
     with open(out, "rb") as f:
         assert f.read() == truth
+
+
+def _stats_reads(nbases: int, seed: int, n: int):
+    """Reads of 1..nbases bases with every nt16 code, quals up to 255,
+    orders 0/1/2 and both strands, as flat batch columns."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, nbases + 1, n)
+    lens[0] = nbases
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    seq = rng.integers(0, 16, int(off[-1])).astype(np.uint8)
+    qual = rng.integers(0, 256, int(off[-1])).astype(np.uint8)
+    oidx = np.flatnonzero(rng.random(n) < 0.9).astype(np.int64)
+    order = rng.integers(0, 3, oidx.size).astype(np.uint8)
+    rev = rng.integers(0, 2, oidx.size).astype(np.uint8)
+    return seq, qual, off, oidx, order, rev
+
+
+@pytest.mark.parametrize("nbases,n", [(1, 500), (100, 20_000), (300, 7000),
+                                      (1000, 3000), (40, 0)])
+def test_stats_hists_equals_plain_and_host(cuda, nbases, n):
+    """K12 on the card equals its plain version and the host library's
+    pass exactly, one launch a chunk (none for no reads)."""
+    from samtools_tpu_torch.io import native
+    from samtools_tpu_torch.ops import stats_kernels as sk
+    seq, qual, off, oidx, order, rev = _stats_reads(nbases, nbases + n,
+                                                    max(n, 1))
+    if n == 0:
+        oidx = oidx[:0]
+        order, rev = order[:0], rev[:0]
+    for qrows in (nbases, nbases + 1):
+        kernels.reset_launches()
+        got = sk.orig_hists(seq, qual, off, oidx, order, rev, nbases, qrows,
+                            cuda)
+        torch.cuda.synchronize()
+        assert kernels.launches["stats_hists"] == (1 if n else 0)
+        want = sk.orig_hists(seq, qual, off, oidx, order, rev, nbases,
+                             qrows, torch.device("cpu"))
+        assert all(np.array_equal(got[k], want[k]) for k in want)
+        host = [np.zeros((qrows, 257), np.int64) for _ in range(2)] + [
+            np.zeros((nbases, 6), np.int64) for _ in range(3)]
+        gc, qsum, mq = native.stats_orig_hists(seq, qual, off, oidx, order,
+                                               rev, nbases, *host)
+        assert all(np.array_equal(got[k], h) for k, h in
+                   zip(("q1", "q2", "a1", "a2", "ar"), host))
+        assert np.array_equal(got["gc"], gc)
+        assert np.array_equal(got["qsum"], qsum)
+        assert int(got["maxq"][0]) == mq
+
+
+def test_stats_hists_on_card_never_takes_the_plain_version(cuda,
+                                                            monkeypatch):
+    from samtools_tpu_torch.ops import stats_kernels as sk
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+    monkeypatch.setattr(sk, "stats_hists_plain", refuse)
+    seq, qual, off, oidx, order, rev = _stats_reads(100, 1, 100)
+    got = sk.orig_hists(seq, qual, off, oidx, order, rev, 100, 101, cuda)
+    assert got["q1"].sum() > 0
+
+
+@pytest.mark.parametrize("cmax,qmax", [(200, 60_000), (300, 70_000),
+                                       (70_000, 100)])
+def test_census_narrow_equals_plain(cuda, cmax, qmax):
+    """K7n on the card: the plain version's types and bytes, two
+    launches."""
+    rng = np.random.default_rng(cmax)
+    wlen = 200_003
+    c = np.zeros((1 << 18, 6), np.int32)
+    c[:wlen, :5] = rng.integers(0, cmax + 1, (wlen, 5))
+    c[:wlen, 5] = rng.integers(0, qmax + 1, wlen)
+    c[5, 1], c[6, 5] = cmax, qmax
+    c[wlen + 3] = 1 << 30            # past the window: not fetched
+    want = md.census_narrow_plain(torch.from_numpy(c), wlen)
+    kernels.reset_launches()
+    got = md.census_narrow(torch.from_numpy(c).to(cuda), wlen)
+    torch.cuda.synchronize()
+    assert kernels.launches["census_narrow"] == 2
+    assert got[1:] == want[1:]
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+def test_stats_on_card_equals_host_branch(cuda, tmp_path, monkeypatch):
+    """stats on the card (K12 every chunk) prints the host branch's
+    bytes, with and without -r."""
+    import contextlib
+    import io
+
+    from samtools_tpu_torch import cli
+    from samtools_tpu_torch.tools import stats_batch
+    bam = _consensus_inputs(tmp_path)
+    fa = str(tmp_path / "ref.fa")
+    ref = sim.simulate_reference(1 << 16, seed=9)
+    with open(fa, "wb") as f:
+        f.write(b">sim1\n" + ref.tobytes() + b"\n")
+    monkeypatch.setattr(stats_batch, "CHUNK_RECORDS", 2000)
+    for extra in ([], ["-r", fa]):
+        got = {}
+        for engine in ("card", "host"):
+            if engine == "host":
+                monkeypatch.setenv("SAMTPU_DEVICE", "0")
+            kernels.reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(["stats", *extra, bam]) == 0
+            got[engine] = buf.getvalue()
+            if engine == "card":
+                assert kernels.launches["stats_hists"] >= 2
+            else:
+                assert not any(kernels.launches.values())
+            monkeypatch.delenv("SAMTPU_DEVICE", raising=False)
+        assert got["card"].count("\n") > 100
+        assert got["card"] == got["host"]

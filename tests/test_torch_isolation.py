@@ -22,6 +22,7 @@ from samtools_tpu_torch.ops.flagstat import flagstat_census
 from samtools_tpu_torch.ops.pileup import stable_order
 from samtools_tpu_torch.ops.segment_kernel import (segment_census,
                                                    segment_contract)
+from samtools_tpu_torch.ops.stats_kernels import split_hists, stats_hists
 
 torch.set_num_threads(1)
 
@@ -157,10 +158,18 @@ def test_cpu_tensors_never_count_a_launch():
                           torch.zeros(2, dtype=torch.int32),
                           torch.zeros(2, dtype=torch.int32))
     assert got[0].tolist() == [1, 1]
+    u8 = torch.tensor([2, 4, 8], dtype=torch.uint8)
+    hists = stats_hists(u8, u8, torch.tensor([0, 3]), torch.tensor([0]),
+                        torch.tensor([1], dtype=torch.uint8),
+                        torch.tensor([0], dtype=torch.uint8), 3, 4, 3)
+    assert int(split_hists(hists, 1, 3, 4)["gc"][0]) == 2
+    buf, cdt, _ = md.census_narrow(torch.ones(8, 6, dtype=torch.int32), 4)
+    assert cdt == torch.uint8 and buf.numel() == 28
     assert kernels.launches == {"segment_contract": 0, "segment_census": 0,
                                 "baq_hmm": 0, "baq_finalize": 0,
                                 "baq_apply": 0, "stable_order": 0,
-                                "consensus_segsum": 0, "flagstat": 0}
+                                "consensus_segsum": 0, "flagstat": 0,
+                                "stats_hists": 0, "census_narrow": 0}
 
 
 def test_mixed_devices_raise():

@@ -27,6 +27,11 @@ consensus's: ``small`` (the messy reads starting before 40,000;
 8x whose reads carry insertions of 1-12 bases, some with a deletion or
 pads beside them, pads alone in the first 4 kbp, and MD tags;
 ``longins`` the same reads without their pads) and a BED of regions.
+``make_stats_inputs`` adds stats's: ``realloc`` (reads of 30-500 bases,
+so the histograms grow past 300 cycles mid-file, with hard clips,
+indels, every flag stats counts and NM tags: the JAX stats tests'
+``_messy_sam``), ``unsorted`` (the same kind of reads at random
+positions) and a targets file for ``-t``.
 
 The JAX tool runs as ``python -m samtools_tpu <command>`` in a subprocess
 on the JAX CPU backend; the port runs in-process through
@@ -47,6 +52,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from samtools_tpu_torch import cli, sim
+from samtools_tpu_torch.core.batch import ReadBatch
 from samtools_tpu_torch.io.bam import write_bam
 from samtools_tpu_torch.io.files import read_alignments
 from samtools_tpu_torch.io.header import SamHeader
@@ -346,3 +352,73 @@ def check_consensus_case(inputs, extra: list[str], which: str,
     assert mine == host
     monkeypatch.setenv("SAMTPU_DEVICE", "0")
     assert run_port_stdout("consensus", args) == mine
+
+
+def _sam_as_bam(sam: str, bam: str) -> None:
+    """A SAM file written as BAM by the port's writer (read by the JAX
+    package, which reads SAM text)."""
+    from samtools_tpu.io.files import read_alignments as jread
+    got = jread(sam)
+    h = got.header
+    write_bam(bam, SamHeader.from_text(h.text, h.ref_names, h.ref_lens),
+              ReadBatch.from_columns(vars(got.batch)))
+
+
+def make_stats_inputs(d: str) -> dict:
+    """make_pileup_inputs plus stats's inputs (module doc)."""
+    import pathlib
+
+    from test_stats_batch import _messy_sam
+    got = make_pileup_inputs(d)
+    tmp = pathlib.Path(d)
+    for name, seed, unsorted, long_reads in (("realloc", 2, False, True),
+                                             ("unsorted", 3, True, False)):
+        got[name] = os.path.join(d, f"{name}.bam")
+        _sam_as_bam(_messy_sam(tmp, seed=seed, n=600, unsorted=unsorted,
+                               long_reads=long_reads), got[name])
+    got["targets"] = os.path.join(d, "targets.txt")
+    with open(got["targets"], "w") as f:
+        f.write("# name beg end\nsim1 1000 20000\nsim1 30000 30500\n"
+                "sim1 60001 90000\n")
+    return got
+
+
+def check_stats_case(inputs, extra: list[str], which: str, monkeypatch,
+                     scalar: bool = True, split: str | None = None) -> bytes:
+    """stats with arguments ``extra`` ({x}: an input of ``inputs``) on
+    ``inputs[which]``: the port on the CPU (K12's plain version) prints
+    the JAX tool's bytes (its default host branch), launches no kernel,
+    and so do its host branch (``SAMTPU_DEVICE=0``) and, with ``scalar``,
+    its per-record path (``SAMTPU_STATS_SCALAR=1``).  ``split``: the
+    ``-P`` prefix of a ``-S`` run, whose .bamstat files must be the JAX
+    tool's too.  Returns the port's bytes."""
+    import glob
+
+    from samtools_tpu_torch import kernels
+
+    def bamstats():
+        got = {}
+        for p in sorted(glob.glob(f"{split}_*.bamstat")):
+            with open(p, "rb") as f:
+                got[os.path.basename(p)] = f.read()
+            os.remove(p)
+        return got
+    args = [a.format(**inputs) for a in extra] + [inputs[which]]
+    want = run_jax_tool("stats", args, "0")
+    want_files = bamstats() if split else None
+    kernels.reset_launches()
+    mine = run_port_stdout("stats", args)
+    assert not any(kernels.launches.values())   # CPU tensors never count
+    assert mine.count(b"\n") > 40
+    assert mine == want
+    if split:
+        assert bamstats() == want_files and want_files
+    envs = [("SAMTPU_DEVICE", "0")] + (
+        [("SAMTPU_STATS_SCALAR", "1")] if scalar else [])
+    for var, val in envs:
+        with monkeypatch.context() as m:
+            m.setenv(var, val)
+            assert run_port_stdout("stats", args) == want, var
+        if split:
+            assert bamstats() == want_files, var
+    return mine
