@@ -26,6 +26,9 @@ from the sources in this checkout.  Phases, one JSON line each:
    Beside the census form, the cost it replaces: the weight build alone
    and the weight build followed by the generic form, back to back.  The
    generic form must launch here: the main path no longer calls it.
+   Then K6, the chunk step (``_chunk_step``: K4, K5, K1's census form and
+   the torch ops around them) on the clean chunk, in the census core's
+   form and in the tool's (with the sparse qual deltas).
 3. main path — 8 Mbp x 30x x 100 bp simulated reads (the JAX package's
    bench workload) and its messy indel/soft-clip variant, written as BAMs
    by the port's writer, streamed through BamStream ->
@@ -82,7 +85,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``mpileup -f ref.fa -s -O`` streamed over clean's front (three stream
    windows of 1 Mi columns, each launching K13 and K8), whose rows less
    their two extra columns must equal the tool phase's fast-branch rows up
-   to position 3,000,000 byte for byte; ``mpileup -r sim1:1-1000000
+   to position 3,000,000 byte for byte; ``mpileup -r sim1:1-500000
    --output-extra FLAG,POS`` on messy and pairs, and ``coverage -m -r
    sim1:1-2000000`` on clean, card
    against ``SAMTPU_DEVICE=0``, byte-equal.  The card runs must launch K13
@@ -123,6 +126,21 @@ from the sources in this checkout.  Phases, one JSON line each:
    plain version, beside ``amax`` with ``.to()``; K7's checksum
    (``census_checksum_dev``) on the clean census, equal to
    ``census_checksum``, beside ``torch.sum`` of the weighted lanes.
+12. regions -- ``index`` in-process on clean (BAI), ``index -c`` on a
+   copy (CSI); ``BamStream.query`` through each on five seeded regions
+   (1 kbp, 1 kbp around a read whose bytes cross a BGZF block boundary,
+   100 kbp, 2 Mbp, the contig's last 50 kbp) equal to the whole-file
+   batch filtered by overlap, record for record; ``idxstats`` through the
+   BAI and the CSI equal to ``idxstats`` on an unindexed copy.  Then, on
+   the card, ``mpileup -f ref.fa -r sim1:3000001-4000000`` and ``depth -a
+   -r sim1:3000001-4000000`` on the indexed BAM against the unindexed
+   copy, and ``consensus -r sim1:1-1000000`` against the consensus
+   phase's run on the then unindexed file: the same bytes and the same
+   kernels launched, the walls side by side.  Last, a SAM of clean's
+   reads that start in its first 1 Mbp: ``mpileup -f ref.fa``,
+   ``flagstat`` and ``stats`` on it print the bytes of the same commands
+   on the BAM of those reads (less stats' command-line line) and launch
+   the same kernels.
 
 Then the kernel table, the script's wall against its 1,200 s limit, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -205,8 +223,9 @@ REGION_END = 2_000_000
 # the shallower clean and messy ({clean_front}, {messy_front}): their
 # reads that start before this, so rows up to it are the whole BAM's
 FRONT_END = 3_000_000
-# the two-file general run's region
+# consensus -r's region, and the two-file general run's
 REGION2_END = 1_000_000
+GENERAL2_END = 500_000
 # mpileup's general path and coverage -m: (label, argv, reads counted,
 # engines).  The first streams its windows and holds its rows, less the
 # two extra columns, to the tool phase's fast-branch output; the others,
@@ -215,8 +234,9 @@ GENERAL_RUNS = (
     ("mpileup -s -O", ["mpileup", "-f", "{fa}", "-s", "-O",
                        "{clean_front}"], "clean_front", ("card",)),
     ("mpileup -r --output-extra FLAG,POS (2 files)",
-     ["mpileup", "-f", "{fa}", "-r", "sim1:1-1000000", "--output-extra",
-      "FLAG,POS", "{messy}", "{pairs}"], "region2", ("card", "host")),
+     ["mpileup", "-f", "{fa}", "-r", f"sim1:1-{GENERAL2_END}",
+      "--output-extra", "FLAG,POS", "{messy}", "{pairs}"], "region2",
+     ("card", "host")),
     ("coverage -m -r", ["coverage", "-m", "-r", "sim1:1-2000000", "{clean}"],
      "region", ("card", "host")),
 )
@@ -293,7 +313,8 @@ def phase_build() -> None:
 
 def chunk_inputs(batch, ref_int: np.ndarray, ref_len: int, dev):
     """The tensors the main path hands the kernels for the first chunk of
-    ``batch``: (pipeline, expanded chunk dict, lo, hi, wbeg, ntp)."""
+    ``batch``: (pipeline, expanded chunk dict, lo, hi, wbeg, ntp, the
+    chunk's packed buffer on the card)."""
     import torch
     from samtools_tpu_torch.ops.mpileup_device import (DeviceCensusPipeline,
                                                        classify_reads)
@@ -306,9 +327,9 @@ def chunk_inputs(batch, ref_int: np.ndarray, ref_len: int, dev):
     buf = pipe._make_buf(pos, lead[elig], lref[elig], cig8[elig], seqm,
                          qual, 0, dsel.size)
     lo, hi, wbeg, ntp = pipe._plan(pos)
-    x = pipe._expand(torch.from_numpy(buf).to(dev))
-    return (pipe, x, torch.from_numpy(lo).to(dev),
-            torch.from_numpy(hi).to(dev), wbeg, ntp)
+    buf = torch.from_numpy(buf).to(dev)
+    return (pipe, pipe._expand(buf), torch.from_numpy(lo).to(dev),
+            torch.from_numpy(hi).to(dev), wbeg, ntp, buf)
 
 
 def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
@@ -335,7 +356,8 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
                            err_rate=0.01, ref=ref[:sub_len])
         if messy:
             simulate_messy(b, 9)
-        pipe, x, lo, hi, wbeg, ntp = chunk_inputs(b, ref_int, ref_len, dev)
+        pipe, x, lo, hi, wbeg, ntp, buf = chunk_inputs(b, ref_int, ref_len,
+                                                       dev)
         C = x["sq"].shape[0]
         LQ, LRM = READ_LEN, x["ref_win"].shape[1]
         args = (x["ref_win"], x["sq"], x["qq"], x["cdT"], x["lref"],
@@ -404,6 +426,17 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
             k4_bytes = C * (LRM + LQ + LQ + 4 * LQ + 12) + C * (2 * LQ + 1)
             k4_ops = HMM_OPS_PER_CELL * 15 * LQ * C
             k5_bytes = C * LQ * (1 + 1 + 1 + 4 + 1)
+            # K6, the whole chunk step on this clean chunk: the census
+            # core's form, and the tool's (with the applied quals and
+            # their sparse deltas)
+            step = (buf, lo, hi, wbeg, ntp, 0, pipe.wlen)
+            step_t = {
+                "ms": cuda_ms(lambda: pipe._chunk_step(*step)),
+                "b2b_ms": cuda_ms(lambda: pipe._chunk_step(*step), per=10),
+                "tool_ms": cuda_ms(lambda: pipe._chunk_step(
+                    *step, collect=True)),
+                "tool_b2b_ms": cuda_ms(lambda: pipe._chunk_step(
+                    *step, collect=True), per=10), "reads": C}
     rows["baq_hmm"] = dict(max_abs_err=max(h["bq_max_abs_err"]
                                            for h in hmm_stats), ms=hmm_t,
                            b2b_ms=hmm_b2b, plain_ms=hmm_plain_t,
@@ -429,7 +462,8 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
         if pile:
             mid = b.n // 2
             b.pos[mid:mid + 300] = b.pos[mid]
-        pipe, x, lo, hi, wbeg, ntp = chunk_inputs(b, ref_int, ref_len, dev)
+        pipe, x, lo, hi, wbeg, ntp, _ = chunk_inputs(b, ref_int, ref_len,
+                                                     dev)
         kq, kg, kr = bd.baq_hmm(x["ref_win"], x["sq"], x["qq"], x["cdT"],
                                 x["lref"], x["bMv"], x["bIv"], READ_LEN,
                                 x["ref_win"].shape[1], 7)
@@ -516,7 +550,7 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     # by operations, K5 and K1's census form by bytes)
     chunk_step = {"bound_ms": sum(rows[k]["bound_ms"] for k in (
         "baq_hmm", "baq_finalize", "segment_census")),
-        "bound_by": "sum of K4, K5 and K1 census-form bounds"}
+        "bound_by": "sum of K4, K5 and K1 census-form bounds", **step_t}
     emit({"phase": "kernels", **rows, "chunk_step": chunk_step,
           "k1_plain_30x": [r for r in k1 if r["chunk"] == "plain_30x"]})
     return rows
@@ -1008,8 +1042,8 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
     for name in ("messy", "pairs"):
         m = read_alignments(bams[name], THREADS).batch
         counts[f"{name}_region2"] = int((m.pos < REGION2_END).sum())
-        counts["region2"] = counts.get("region2", 0) + counts[
-            f"{name}_region2"]
+        counts["region2"] = counts.get("region2", 0) + int(
+            (m.pos < GENERAL2_END).sum())
         del m
     b = read_alignments(bams["clean"], THREADS).batch
     counts["clean"] = b.n
@@ -1211,7 +1245,7 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
     from samtools_tpu_torch.io.files import read_alignments
     from samtools_tpu_torch.ops import consensus_vec as cv
     from samtools_tpu_torch.ops import flagstat as fs
-    rows, launches = {}, {}
+    rows, launches, whole_runs = {}, {}, {}
     # the entries of the first window K10 scores (clean's first 1 Mi
     # columns), kept from the first card run
     first = []
@@ -1255,6 +1289,12 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
               "output_bytes": os.path.getsize(outs["card"]),
               "output_rows": n_rows, "launches": card, "byte_equal": True})
         launches[label] = card
+        if label == CONSENSUS_RUNS[0][0]:
+            # the whole-file run the regions phase holds the index to
+            whole_runs[label] = (os.path.join(workdir,
+                                              "consensus_region.out"),
+                                 walls["card"])
+            os.replace(outs.pop("card"), whole_runs[label][0])
         for p in outs.values():
             os.remove(p)
 
@@ -1402,7 +1442,7 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
         **dict(zip(("bound_ms", "bound_by"),
                    bound(b.n * 11 + 16 * 2 * 8, b.n * 32))))
     emit({"phase": "kernels_consensus", **rows})
-    return rows, launches
+    return rows, launches, whole_runs
 
 
 # stats in-process, card against SAMTPU_DEVICE=0: (label, argv, reads
@@ -1640,6 +1680,225 @@ def phase_kernels_stats(bams: dict, ref: np.ndarray, ref_int: np.ndarray,
           "census_checksum": checksum})
     return rows
 
+# the regions phase's card runs: (label, argv; {bam}: the input)
+REGION = "sim1:3000001-4000000"
+REGION_RUNS = (
+    ("mpileup -r", ["mpileup", "-f", "{fa}", "-r", REGION, "{bam}"],
+     "stdout"),
+    ("depth -a -r", ["depth", "-a", "-r", REGION, "{bam}"], "stdout"),
+)
+SAM_END = 1_000_000
+SAM_RUNS = (
+    ("mpileup", ["mpileup", "-f", "{fa}", "{bam}"]),
+    ("flagstat", ["flagstat", "{bam}"]),
+    ("stats", ["stats", "{bam}"]),
+)
+QUERY_FIELDS = ("pos", "flag", "cigar", "cigar_off", "seq", "seq_off", "qual")
+
+
+def write_sam(path: str, header, b) -> None:
+    """``b`` as SAM text (reads without aux fields, mates or '=' bases)."""
+    require(b.aux.size == 0 and bool((b.mtid < 0).all()),
+            "write_sam takes reads without aux fields or mates")
+    seq = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)[b.seq].tobytes()
+    qual = (b.qual + 33).astype(np.uint8).tobytes()
+    qname = b.qname.tobytes()
+    so, co, qo = (b.seq_off.tolist(), b.cigar_off.tolist(),
+                  b.qname_off.tolist())
+    cig = b.cigar.tolist()
+    names = header.ref_names
+    lines = [header.text]
+    for i, (flag, tid, pos, mapq) in enumerate(zip(
+            b.flag.tolist(), b.tid.tolist(), b.pos.tolist(),
+            b.mapq.tolist())):
+        c = "".join(f"{x >> 4}{'MIDNSHP=XB'[x & 15]}"
+                    for x in cig[co[i]:co[i + 1]]) or "*"
+        lines.append(
+            f"{qname[qo[i]:qo[i + 1]].decode()}\t{flag}\t"
+            f"{names[tid] if tid >= 0 else '*'}\t{pos + 1}\t{mapq}\t{c}"
+            f"\t*\t0\t0\t{seq[so[i]:so[i + 1]].decode()}\t"
+            f"{qual[so[i]:so[i + 1]].decode()}\n")
+    with open(path, "w") as f:
+        f.write("".join(lines))
+
+
+def phase_regions(workdir: str, bams: dict, cons: dict,
+                  cons_whole: dict) -> None:
+    """``index`` (BAI, then CSI on a copy), ``BamStream.query`` and
+    ``idxstats`` on clean against whole-file reads; ``-r`` through the
+    index in mpileup, depth and consensus against the unindexed file;
+    SAM text against BAM."""
+    import filecmp
+    import shutil
+
+    from samtools_tpu_torch import cli, kernels
+    from samtools_tpu_torch.io import bgzf
+    from samtools_tpu_torch.io.bam import read_bam_indexed, write_bam
+    from samtools_tpu_torch.io.stream import BamStream
+    clean = bams["clean"]
+    fa = os.path.join(workdir, "ref.fa")
+    noidx = os.path.join(workdir, "clean_noidx.bam")
+    csi = os.path.join(workdir, "clean_csi.bam")
+    shutil.copy(clean, noidx)
+    shutil.copy(clean, csi)
+    walls = {}
+    for label, argv in (("index", ["index", clean]),
+                        ("index -c", ["index", "-c", csi])):
+        t0 = time.perf_counter()
+        require(cli.main(argv) == 0, f"{label} failed")
+        walls[label] = time.perf_counter() - t0
+    require(os.path.exists(clean + ".bai") and os.path.exists(csi + ".csi"),
+            "index wrote no BAI or CSI")
+    t0 = time.perf_counter()
+    header, whole, vstart, vend = read_bam_indexed(clean, THREADS)
+    walls["whole-file read"] = time.perf_counter() - t0
+    with open(clean, "rb") as f:
+        nblocks = int(bgzf.scan_blocks(f.read())[0].size)
+    # five seeded regions: 1 kbp, 1 kbp around a read whose bytes cross a
+    # BGZF block boundary, 100 kbp, 2 Mbp, the contig's last 50 kbp
+    rng = np.random.default_rng(9)
+    cross = np.nonzero(((vstart >> np.uint64(16)) != (vend >> np.uint64(16)))
+                       & ((vend & np.uint64(0xFFFF)) != 0))[0]
+    require(cross.size > 0, "no read crosses a block boundary")
+    at = int(whole.pos[cross[cross.size // 2]])
+    regions = []
+    for beg, span in ((int(rng.integers(0, REF_LEN - 1000)), 1000),
+                      (at - 500, 1000),
+                      (int(rng.integers(0, REF_LEN - 100_000)), 100_000),
+                      (int(rng.integers(0, REF_LEN - 2_000_000)), 2_000_000),
+                      (REF_LEN - 50_000, 50_000)):
+        regions.append((beg, beg + span))
+    end_pos = whole.end_pos()
+    queries = []
+    for path, fmt in ((clean, "bai"), (csi, "csi")):
+        with BamStream(path, threads=THREADS) as st:
+            require(st.index() is not None, f"no {fmt} index found")
+            for beg, end in regions:
+                t0 = time.perf_counter()
+                got = st.query(0, beg, end)
+                t_q = time.perf_counter() - t0
+                want = whole.take(np.nonzero((whole.pos < end)
+                                             & (end_pos > beg))[0])
+                require(got.n == want.n > 0 and all(
+                    np.array_equal(getattr(got, k), getattr(want, k))
+                    for k in QUERY_FIELDS),
+                    f"{fmt} query [{beg}, {end}) differs from the "
+                    "whole-file filter")
+                queries.append({"index": fmt, "beg": beg, "end": end,
+                                "reads": int(got.n),
+                                "query_s": round(t_q, 4)})
+    emit({"phase": "regions", "run": "index, query", "reads": int(whole.n),
+          "bgzf_blocks": nblocks,
+          **{f"{k}_wall_s": round(v, 3) for k, v in walls.items()},
+          "queries": queries, "equal_whole_file_filter": True})
+    front = whole.take(np.nonzero(whole.pos < SAM_END)[0])
+    del whole, vstart, vend, end_pos
+
+    # idxstats: the BAI's and the CSI's counts against a whole-file count
+    outs = {}
+    for label, path in (("bai", clean), ("csi", csi), ("none", noidx)):
+        outs[label] = os.path.join(workdir, f"idxstats.{label}.txt")
+        walls[f"idxstats {label}"] = run_cli(["idxstats", path],
+                                             outs[label], "stdout", False)
+    require(filecmp.cmp(outs["bai"], outs["none"], shallow=False)
+            and filecmp.cmp(outs["csi"], outs["none"], shallow=False),
+            "idxstats through the index differs from the whole-file count")
+    with open(outs["none"]) as f:
+        idxstats_text = f.read()
+    emit({"phase": "regions", "run": "idxstats", "output": idxstats_text,
+          **{f"{k}_wall_s": round(walls[f"idxstats {k}"], 3)
+             for k in outs}, "byte_equal": True})
+    for p in outs.values():
+        os.remove(p)
+
+    # -r through the index on the card, against the unindexed copy
+    runs = [(label, [a.format(fa=fa, bam=noidx) for a in argv], to)
+            for label, argv, to in REGION_RUNS]
+    for label, argv, to in runs:
+        outs, launched, w = {}, {}, {}
+        for which, bam in (("indexed", clean), ("whole", noidx)):
+            outs[which] = os.path.join(workdir, f"region.{which}.out")
+            kernels.reset_launches()
+            w[which] = run_cli([bam if a == noidx else a for a in argv],
+                               outs[which], to, False)
+            launched[which] = dict(kernels.launches)
+        require(filecmp.cmp(outs["indexed"], outs["whole"], shallow=False),
+                f"{label}: the indexed run differs from the whole-file run")
+        used = {k for k, v in launched["indexed"].items() if v}
+        require(used and used == {k for k, v in launched["whole"].items()
+                                  if v},
+                f"{label}: launches {launched}")
+        emit({"phase": "regions", "run": label, "region": REGION,
+              "indexed_wall_s": round(w["indexed"], 3),
+              "whole_file_wall_s": round(w["whole"], 3),
+              "output_bytes": os.path.getsize(outs["indexed"]),
+              "output_rows": count_rows(outs["indexed"]),
+              "launches": launched["indexed"],
+              "whole_file_launches": launched["whole"], "byte_equal": True})
+        for p in outs.values():
+            os.remove(p)
+    label = CONSENSUS_RUNS[0][0]
+    whole_out, whole_wall = cons_whole[label]
+    out = os.path.join(workdir, "region.indexed.out")
+    kernels.reset_launches()
+    wall = run_cli([a.format(clean=clean) for a in CONSENSUS_RUNS[0][1]],
+                   out, "-o", False)
+    launched = dict(kernels.launches)
+    require(filecmp.cmp(out, whole_out, shallow=False),
+            f"{label}: the indexed run differs from the whole-file run")
+    require({k for k, v in launched.items() if v}
+            == {k for k, v in cons[label].items() if v},
+            f"{label}: launches {launched} against {cons[label]}")
+    emit({"phase": "regions", "run": label, "region": "sim1:1-1000000",
+          "indexed_wall_s": round(wall, 3),
+          "whole_file_wall_s": round(whole_wall, 3),
+          "output_bytes": os.path.getsize(out), "launches": launched,
+          "whole_file_launches": cons[label], "byte_equal": True})
+    os.remove(out)
+    os.remove(whole_out)
+
+    # SAM text of clean's reads that start in its first 1 Mbp, against
+    # the BAM of the same reads
+    sam = os.path.join(workdir, "clean_1m.sam")
+    bam = os.path.join(workdir, "clean_1m.bam")
+    t0 = time.perf_counter()
+    write_sam(sam, header, front)
+    t_sam = time.perf_counter() - t0
+    write_bam(bam, header, front, threads=THREADS)
+    n_front = int(front.n)
+    del front
+    for label, argv in SAM_RUNS:
+        outs, launched, w = {}, {}, {}
+        for which, path in (("sam", sam), ("bam", bam)):
+            outs[which] = os.path.join(workdir, f"sam.{which}.out")
+            kernels.reset_launches()
+            w[which] = run_cli([a.format(fa=fa, bam=path) for a in argv],
+                               outs[which], "stdout", False)
+            launched[which] = dict(kernels.launches)
+        # stats names its input on one line
+        texts = {}
+        for which, o in outs.items():
+            with open(o, "rb") as f:
+                texts[which] = [ln for ln in f.read().split(b"\n")
+                                if not ln.startswith(b"# The command line")]
+        require(texts["sam"] == texts["bam"],
+                f"{label}: SAM input prints other bytes than BAM input")
+        used = {k for k, v in launched["sam"].items() if v}
+        require(used and used == {k for k, v in launched["bam"].items()
+                                  if v},
+                f"{label}: launches {launched}")
+        emit({"phase": "regions", "run": f"{label} SAM", "reads": n_front,
+              "write_sam_s": round(t_sam, 3),
+              "sam_wall_s": round(w["sam"], 3),
+              "bam_wall_s": round(w["bam"], 3),
+              "output_bytes": os.path.getsize(outs["sam"]),
+              "launches": launched["sam"], "bam_launches": launched["bam"],
+              "byte_equal": True})
+        for p in outs.values():
+            os.remove(p)
+    for p in (sam, bam, noidx, csi, csi + ".csi", clean + ".bai"):
+        os.remove(p)
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1675,7 +1934,7 @@ def main() -> int:
                             "region": region_reads, **fronts})
         general_rows, general, counts = phase_general(
             ref, ref_int, workdir, bams, clean_text, torch.device("cuda"))
-        cons_rows, cons = phase_consensus(
+        cons_rows, cons, cons_whole = phase_consensus(
             workdir, bams, clean_text,
             {"clean": oracles["clean"][3], "pairs": n_pairs, **counts},
             torch.device("cuda"))
@@ -1686,6 +1945,7 @@ def main() -> int:
                                          torch.device("cuda"), core_census,
                                          tool_checksums)
         del core_census
+        phase_regions(workdir, bams, cons, cons_whole)
     rows.update(general_rows)
     rows.update(cons_rows)
     rows.update(stats_rows)

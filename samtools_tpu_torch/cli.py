@@ -21,6 +21,9 @@ Version: {SAMTOOLS_PARITY_VERSION} (samtools_tpu_torch {__version__})
 Usage:   samtools <command> [options]
 
 Commands:
+  -- Indexing
+     index          index alignment
+
   -- File operations
      consensus      produce a consensus Pileup/FASTA/FASTQ
      mpileup        multi-way pileup
@@ -30,6 +33,7 @@ Commands:
      coverage       alignment depth and percent coverage
      depth          compute the depth
      flagstat       simple stats
+     idxstats       BAM index stats
      stats          generate stats (former bamcheck)
 
   -- Misc

@@ -1,6 +1,7 @@
 """The BAM aux-field walk the long-CIGAR fixup, mpileup's read-group
-filter, its extra tag columns and the stored BAQ tags need (SAM spec
-4.2.4; counterpart of part of samtools_tpu/core/aux.py)."""
+filter, its extra tag columns and the stored BAQ tags need, and the SAM
+text field's conversion to BAM bytes (SAM spec 4.2.4; counterpart of
+part of samtools_tpu/core/aux.py)."""
 
 from __future__ import annotations
 
@@ -121,3 +122,49 @@ def batch_tag_values(batch, tag: str) -> np.ndarray:
 
 def has_tag(buf: np.ndarray, tag: bytes) -> bool:
     return _find(buf, tag) is not None
+
+
+def _best_int_type(v: int) -> tuple[str, str]:
+    """The smallest BAM integer type that holds a SAM ``i`` value, as
+    htslib picks it: (type char, struct format)."""
+    if v >= 0:
+        for tc, fmt, top in (("C", "<B", 0xFF), ("S", "<H", 0xFFFF),
+                             ("I", "<I", 0xFFFFFFFF)):
+            if v <= top:
+                return tc, fmt
+    else:
+        for tc, fmt, low in (("c", "<b", -0x80), ("s", "<h", -0x8000),
+                             ("i", "<i", -0x80000000)):
+            if v >= low:
+                return tc, fmt
+    raise AuxError(f"integer aux value out of range: {v}")
+
+
+def sam_field_to_aux(field: str) -> bytes:
+    """One SAM text aux field (``TG:T:value``) as BAM bytes."""
+    if len(field) < 5 or field[2] != ":" or field[4] != ":":
+        raise AuxError(f"malformed aux field: {field!r}")
+    tag = field[:2].encode("latin-1")
+    t = field[3]
+    val = field[5:]
+    if t == "A":
+        return tag + b"A" + val[:1].encode("latin-1")
+    if t in "iIcCsS":
+        # any integer letter: htslib stores the smallest fitting type
+        tc, fmt = _best_int_type(int(val))
+        return tag + tc.encode() + struct.pack(fmt, int(val))
+    if t == "f":
+        return tag + b"f" + struct.pack("<f", float(val))
+    if t == "d":
+        return tag + b"d" + struct.pack("<d", float(val))
+    if t in "ZH":
+        return tag + t.encode() + val.encode("latin-1") + b"\0"
+    if t == "B":
+        sub, *vals = val.split(",")
+        if sub == "f":
+            data = struct.pack("<%df" % len(vals), *[float(x) for x in vals])
+        else:
+            data = struct.pack("<%d%s" % (len(vals), _B_FMTS[ord(sub)]),
+                               *[int(x) for x in vals])
+        return tag + b"B" + sub.encode() + struct.pack("<I", len(vals)) + data
+    raise AuxError(f"unknown SAM aux type {t!r}")

@@ -1,8 +1,10 @@
 """BAM binary codec: header parse, columnar record decode and the
 vectorized writer (SAM spec 4.2).
 
-Counterpart of samtools_tpu/io/bam.py (:72-106, :140-243, :315-396).
+Counterpart of samtools_tpu/io/bam.py (:72-106, :140-243, :261-396).
 Record decode runs in the port's host library; the writer is numpy.
+``read_bam_indexed`` gives each record's virtual offsets, what the
+BAI/CSI builder (``io/index.py``) needs.
 """
 
 from __future__ import annotations
@@ -108,6 +110,46 @@ def reg2bin_vec(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
         out[hit] = base + (beg[hit] >> shift)
         done |= hit
     return out
+
+
+def reg2bin(beg: int, end: int) -> int:
+    """BAI bin of the interval [beg, end) (SAM spec 5.3)."""
+    end -= 1
+    for shift, base in ((14, 4681), (17, 585), (20, 73), (23, 9), (26, 1)):
+        if beg >> shift == end >> shift:
+            return base + (beg >> shift)
+    return 0
+
+
+def uoffset_to_voffset(uoffs: np.ndarray, coffs: np.ndarray,
+                       offsets: np.ndarray) -> np.ndarray:
+    """BGZF virtual offsets ``coffset << 16 | within_block`` of positions
+    in the uncompressed stream, from ``bgzf.decompress_with_index``'s
+    block table (``coffs`` extended by the end-of-data block)."""
+    blk = np.minimum(np.searchsorted(uoffs, offsets, "right") - 1,
+                     coffs.size - 1)
+    return ((coffs[blk].astype(np.uint64) << np.uint64(16))
+            | (offsets - uoffs[blk]).astype(np.uint64))
+
+
+def read_bam_indexed(path: str, threads: int = 2):
+    """Read a whole BGZF BAM: (header, batch, vstart, vend), the virtual
+    offsets of each record's first byte and of the byte after it."""
+    with open(path, "rb") as f:
+        comp = f.read()
+    raw, coffs, uoffs = bgzf.decompress_with_index(comp, threads)
+    # the end-of-data block, so a record ending the data resolves
+    coffs = np.append(coffs, len(comp) - len(bgzf.BGZF_EOF)
+                      if comp.endswith(bgzf.BGZF_EOF) else len(comp))
+    header, off = decode_header(raw)
+    offs = native.bam_record_offsets(raw, off)
+    batch = decode_records(raw, offs, threads)
+    if not offs.size:
+        empty = np.empty(0, np.uint64)
+        return header, batch, empty, empty
+    rec_end = np.append(offs[1:], raw.size)
+    return (header, batch, uoffset_to_voffset(uoffs, coffs, offs),
+            uoffset_to_voffset(uoffs, coffs, rec_end))
 
 
 def pack_nibbles(codes: np.ndarray, lens: np.ndarray) -> np.ndarray:

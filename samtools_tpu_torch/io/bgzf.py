@@ -1,10 +1,10 @@
 """BGZF blocked-gzip codec on Python's zlib (SAM spec 4.1).
 
-Counterpart of samtools_tpu/io/bgzf.py (:56-157, :236-275).  The port's
-host library carries no compression code: blocks are inflated and
-deflated by ``zlib`` on a thread pool (zlib releases the GIL), giving one
-contiguous uncompressed buffer per call — the shape the columnar BAM
-decoder wants.
+Counterpart of samtools_tpu/io/bgzf.py (:56-157, :199-222, :236-275).
+The port's host library carries no compression code: blocks are
+inflated and deflated by ``zlib`` on a thread pool (zlib releases the
+GIL), giving one contiguous uncompressed buffer per call — the shape the
+columnar BAM decoder wants.
 """
 
 from __future__ import annotations
@@ -97,6 +97,15 @@ def decompress(data: bytes, threads: int = 2) -> np.ndarray:
     """Inflate a whole BGZF buffer to one uint8 array."""
     coffs, bsizes = scan_blocks(data)
     return inflate_blocks(data, coffs, bsizes, threads)[0]
+
+
+def decompress_with_index(data: bytes, threads: int = 2):
+    """Inflate a whole BGZF buffer; also returns the blocks' compressed
+    offsets and their uncompressed offsets (``uoffs[nblk+1]``), the table
+    that maps uncompressed positions to virtual offsets."""
+    coffs, bsizes = scan_blocks(data)
+    out, uoffs = inflate_blocks(data, coffs, bsizes, threads)
+    return out, coffs, uoffs
 
 
 def is_bgzf(data: bytes) -> bool:

@@ -53,6 +53,10 @@ class SamHeader:
         """The tid of a contig name, or -1 (htslib's sam_hdr_name2tid:
         an @SQ AN alternative name resolves to its contig; primary names
         take precedence)."""
+        return self.name2tid().get(name, -1)
+
+    def name2tid(self) -> dict:
+        """Contig name (or @SQ AN alternative name) -> tid."""
         if self._name2tid is None:
             m = {n: i for i, n in enumerate(self.ref_names)}
             for line in self.text.splitlines():
@@ -68,7 +72,7 @@ class SamHeader:
                     for a in alts:
                         m.setdefault(a, m[sn])
             self._name2tid = m
-        return self._name2tid.get(name, -1)
+        return self._name2tid
 
     def ref_name(self, tid: int) -> str:
         return self.ref_names[tid] if 0 <= tid < len(self.ref_names) else "*"

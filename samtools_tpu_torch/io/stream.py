@@ -1,10 +1,13 @@
-"""Streaming BAM reader: bounded memory over a whole file.
+"""Streaming and index-driven BAM access.
 
-Counterpart of samtools_tpu/io/stream.py (:72-342) without the index and
-random access: the compressed file is read in fixed windows, BGZF blocks
-are inflated per window, complete records are decoded per window, and a
-partial tail record carries into the next one.  Memory stays
-O(window_bytes) for any file size.  After each batch, the stream's
+Counterpart of samtools_tpu/io/stream.py (:72-342).  ``batches`` reads
+the compressed file in fixed windows, inflates the BGZF blocks of each
+window, decodes its complete records and carries a partial tail record
+into the next one, so memory stays O(window_bytes) for any file size.
+``query`` reads only the BAI/CSI chunks of a region (htslib's sam_itr
+with the linear-index lower bound): each chunk [vbeg, vend) is read and
+inflated from vbeg's block through vend's, however many blocks it spans,
+and exactly its records are decoded.  After each batch, the stream's
 ``next_record_voffset`` is the virtual offset (``coffset << 16 |
 uoffset``) of the first record not yet yielded, and ``batches`` resumes
 from such an offset (``mpileup --checkpoint``).  ``SAMTPU_STREAM_WINDOW``
@@ -24,10 +27,13 @@ from ..core.batch import ReadBatch
 from . import bgzf, native
 from .bam import BamError, decode_header, decode_records
 from .header import SamHeader
+from .index import BamIndex, find_index_file, load_index
 
 
 class BamStream:
-    """Streaming BAM reader (use as a context manager)."""
+    """Streaming BAM reader with index queries (use as a context
+    manager).  Raises BgzfError or BamError for a file that is not a
+    BGZF-compressed BAM."""
 
     def __init__(self, path: str, threads: int = 2,
                  window_bytes: int = 32 << 20):
@@ -37,7 +43,15 @@ class BamStream:
         self.window_bytes = int(env_win) if env_win else window_bytes
         self._f = open(path, "rb")
         self._size = os.fstat(self._f.fileno()).st_size
-        self.header, self._hdr_voffset = self._read_header()
+        self._index: BamIndex | None = None
+        self._index_tried = False
+        try:
+            if not bgzf.is_bgzf(self._f.read(1 << 10)):
+                raise bgzf.BgzfError(f"{path} is not BGZF-compressed")
+            self.header, self._hdr_voffset = self._read_header()
+        except BaseException:
+            self._f.close()
+            raise
 
     def close(self):
         self._f.close()
@@ -115,6 +129,57 @@ class BamStream:
             skip = 0
         if leftover.size:
             raise BamError("truncated BAM record at end of stream")
+
+    def index(self) -> BamIndex | None:
+        """The file's BAI/CSI (``find_index_file``), or None when there is
+        none or it cannot be read."""
+        if not self._index_tried:
+            self._index_tried = True
+            self._index = load_index(find_index_file(self.path))
+        return self._index
+
+    def query(self, tid: int, beg: int, end: int,
+              fields: int = native.FIELD_ALL) -> ReadBatch | None:
+        """The reads of tid that overlap [beg, end), read through the
+        index; None when the file has no index (the caller scans the
+        whole file)."""
+        idx = self.index()
+        if idx is None:
+            return None
+        batch = ReadBatch.concat([
+            self._chunk_records(int(vb), int(ve), fields)
+            for vb, ve in idx.query_chunks(tid, beg, end)])
+        # the index's bins are a superset: the exact overlap filter
+        keep = (batch.tid == tid) & (batch.pos < end) & (batch.end_pos() > beg)
+        return batch.take(np.nonzero(keep)[0])
+
+    def _chunk_records(self, vbeg: int, vend: int, fields: int) -> ReadBatch:
+        """Decode exactly the records of the index chunk [vbeg, vend): the
+        blocks from vbeg's through the one before vend's, plus vend's
+        own block when vend points inside it."""
+        cbeg, ubeg = vbeg >> 16, vbeg & 0xFFFF
+        cend, uend = vend >> 16, vend & 0xFFFF
+        span = cend - cbeg
+        self._f.seek(cbeg)
+        # a BGZF block holds at most 64 KiB
+        raw = self._f.read(span + ((1 << 16) if uend else 0))
+        coffs, bsizes = bgzf.scan_blocks_partial(raw)
+        nblk = int(np.searchsorted(coffs, span))
+        whole = (int(coffs[nblk - 1] + bsizes[nblk - 1]) if nblk else 0)
+        if whole != span or (uend and (nblk == coffs.size
+                                       or coffs[nblk] != span)):
+            raise BamError(f"index chunk {vbeg:#x}-{vend:#x} does not "
+                           "match the file's BGZF blocks")
+        if uend:
+            nblk += 1
+        data, uoffs = bgzf.inflate_blocks(raw, coffs[:nblk], bsizes[:nblk],
+                                          self.threads)
+        stop = int(uoffs[nblk - 1]) + uend if uend else data.size
+        data = data[ubeg:stop]
+        offs, consumed = native.bam_scan_partial(data, 0)
+        if consumed != data.size:
+            raise BamError("index chunk does not end on a record boundary")
+        return decode_records(data, offs, self.threads, fields)
 
 
 class WindowedReader:

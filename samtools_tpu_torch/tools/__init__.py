@@ -5,22 +5,28 @@ from __future__ import annotations
 
 import importlib
 
-# subcommand -> (module, function), imported when the command runs
+# subcommand -> (module, function), imported when the command runs, in
+# the JAX package's order
 COMMANDS = {
-    "mpileup": ("samtools_tpu_torch.tools.mpileup_cmd", "main_mpileup"),
-    "bedcov": ("samtools_tpu_torch.tools.bedcov_cmd", "main_bedcov"),
-    "coverage": ("samtools_tpu_torch.tools.coverage_cmd", "main_coverage"),
+    "flagstat": ("samtools_tpu_torch.tools.flagstat_cmd", "main_flagstat"),
+    "idxstats": ("samtools_tpu_torch.tools.idxstats_cmd", "main_idxstats"),
+    "index": ("samtools_tpu_torch.tools.index_cmd", "main_index"),
     "depth": ("samtools_tpu_torch.tools.depth_cmd", "main_depth"),
+    "mpileup": ("samtools_tpu_torch.tools.mpileup_cmd", "main_mpileup"),
+    "stats": ("samtools_tpu_torch.tools.stats_cmd", "main_stats"),
+    "coverage": ("samtools_tpu_torch.tools.coverage_cmd", "main_coverage"),
+    "bedcov": ("samtools_tpu_torch.tools.bedcov_cmd", "main_bedcov"),
     "consensus": ("samtools_tpu_torch.tools.consensus_cmd",
                   "main_consensus"),
-    "flagstat": ("samtools_tpu_torch.tools.flagstat_cmd", "main_flagstat"),
-    "stats": ("samtools_tpu_torch.tools.stats_cmd", "main_stats"),
 }
+
+# commands that do no device work and take no ``device``
+HOST_COMMANDS = ("idxstats", "index")
 
 
 def run_command(name: str, argv: list[str], device=None) -> int:
     """Run one subcommand; ``device`` as the port's entry points take it
     (None: the CUDA card)."""
     mod_name, fn_name = COMMANDS[name]
-    return getattr(importlib.import_module(mod_name), fn_name)(
-        argv, device=device)
+    fn = getattr(importlib.import_module(mod_name), fn_name)
+    return fn(argv) if name in HOST_COMMANDS else fn(argv, device=device)

@@ -9,8 +9,9 @@ of two interval depths: the reads' whole footprints (M/D/N) and, for
 through numpy only; the in-memory branch (standard input, ``-``)
 computes the M/=/X depth with ``depth_window_device`` (K1's generic form
 and the depth scan, on the card), or with ``SAMTPU_DEVICE=0|host`` with
-the numpy ``_mspan_depth``.  SAM and CRAM input exit 1 with one "not
-ported yet" line.
+the numpy ``_mspan_depth``.  When any input is not a BGZF BAM (SAM
+text, gzip'd SAM) every file takes the in-memory branch, as in the JAX
+tool.  CRAM input exits 1 with one "not ported yet" line.
 """
 
 from __future__ import annotations
@@ -22,12 +23,11 @@ import numpy as np
 from ..core import flags as F
 from ..io.files import FormatNotPorted, read_alignments
 from ..io.native import FIELD_CIGAR
-from ..io.stream import BamStream
 from ..ops.cigar import expand_ops
 from ..ops.pileup_engine import depth_window_device
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     no_card, not_ported, pick_device, print_error,
-                     print_error_errno)
+                     no_card, not_ported, open_streams, pick_device,
+                     print_error, print_error_errno)
 from .flags_cmd import str2flag
 
 DEFAULT_FLAGS = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -261,23 +261,21 @@ def main_bedcov(argv: list[str], device=None) -> int:
     except RuntimeError as e:
         return no_card("bedcov", e)
 
-    streams, files = [], []
-    use_stream = "-" not in bam_paths
+    # BGZF BAMs stream; when any input is not one (standard input, SAM)
+    # every file is read whole, as in the JAX tool
+    files = []
     try:
-        for path in bam_paths:
-            if use_stream:
-                streams.append(BamStream(path, threads=ga.nthreads or 2))
-            else:
+        streams = open_streams(bam_paths, ga.nthreads)
+        if not streams:
+            for path in bam_paths:
                 files.append(read_alignments(path, threads=ga.nthreads))
-    except OSError:
-        for st in streams:
-            st.close()
-        sys.stderr.write(f"ERROR: fail to open index BAM file '{path}'\n")
+    except OSError as e:
+        sys.stderr.write(f"ERROR: fail to open index BAM file "
+                         f"'{e.filename}'\n")
         return 2
-    except (FormatNotPorted, RuntimeError):   # RuntimeError: BamError
-        for st in streams:
-            st.close()
-        return not_ported("bedcov", "SAM and CRAM input")
+    except FormatNotPorted as e:
+        return not_ported("bedcov", str(e))
+    use_stream = bool(streams)
     header = streams[0].header if use_stream else files[0].header
 
     try:

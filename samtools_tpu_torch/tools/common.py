@@ -1,8 +1,9 @@
 """Shared command-line plumbing of the port's subcommands.
 
-Counterpart of samtools_tpu/tools/common.py (:17-123); samtools' analogs
-are sam_opts.c (the global long options every tool accepts) and
-sam_utils.c (print_error / print_error_errno).  Also the port's own rules
+Counterpart of samtools_tpu/tools/common.py (:17-150); samtools' analogs
+are sam_opts.c (the global long options every tool accepts),
+sam_utils.c (print_error / print_error_errno) and the region iterator
+the tools open (``try_region_read``).  Also the port's own rules
 for where a command's device work runs (``pick_device``) and for what it
 does not do yet (``not_ported``).
 """
@@ -14,7 +15,10 @@ import os
 import sys
 from dataclasses import dataclass, field
 
+from ..core.regions import parse_region
 from ..device import resolve
+from ..io.files import AlignmentFile
+from ..io.stream import BamStream
 
 
 def print_error(subcommand: str, fmt: str, *args):
@@ -112,6 +116,60 @@ def gnu_getopt(argv: list[str], shortopts: str, longopts: list[str]):
         return getopt.gnu_getopt(argv, shortopts, longopts + GLOBAL_LONG_OPTS)
     except getopt.GetoptError as e:
         raise UsageError(str(e)) from None
+
+
+def open_stream(path: str, threads: int) -> BamStream | None:
+    """A BamStream on ``path``, or None when the file is not a
+    BGZF-compressed BAM (the caller reads it whole).  OSError
+    propagates."""
+    try:
+        return BamStream(path, threads=threads or 2)
+    except RuntimeError:        # BgzfError, BamError
+        return None
+
+
+def open_streams(paths: list[str], threads: int) -> list[BamStream]:
+    """A BamStream on each path, or [] when any path is ``-`` or not a
+    BGZF BAM (the caller reads every file whole, as the JAX tools do).
+    OSError propagates; no stream is left open but those returned."""
+    streams = []
+    try:
+        for path in paths:
+            st = None if path == "-" else open_stream(path, threads)
+            if st is None:
+                break
+            streams.append(st)
+        else:
+            return streams
+    except OSError:
+        for st in streams:
+            st.close()
+        raise
+    for st in streams:
+        st.close()
+    return []
+
+
+def try_region_read(path: str, threads: int, reg: str):
+    """(AlignmentFile, Region) holding only the reads of ``reg`` that the
+    BAI/CSI chunks give (the sam_itr_querys path of samtools'
+    bam_plcmd.c:541-550), or None when the file is not an indexed BAM or
+    the region names no contig (the caller reads the whole file).
+    Raises RegionError for a region that does not parse."""
+    if path == "-":
+        return None
+    st = open_stream(path, threads)
+    if st is None:
+        return None
+    with st:
+        if st.index() is None:
+            return None
+        region = parse_region(reg, st.header.tid)
+        if region.tid < 0:
+            return None
+        batch = st.query(region.tid, region.beg, region.end)
+        return (AlignmentFile(header=st.header, batch=batch, format="bam"),
+                region)
 
 
 def not_ported(cmd: str, what: str) -> int:

@@ -19,11 +19,15 @@ bit), where the JAX tool sums in f32 and recomputes the columns its
 ``gap5_scores`` loop and sorts with numpy.  ``-m simple``,
 ``-f pileup`` and windows holding pad (P) ops run the scalar engine
 (``pileup_loop``).  A BGZF BAM streams in windows of 1 Mi columns; with
-``-r`` or ``--regions-file`` the file is read whole and the region's
-reads are selected in memory (no index query).  Not ported yet, with
-one line on stderr and exit 1: SAM and CRAM input, ``SAMTPU_SHARDS``
-above 1 where the JAX tool would split the genome, and the
-``SAMTPU_CONSENSUS_SPAN`` worker protocol.
+``-r`` or ``--regions-file`` an indexed BAM is read through the index,
+a window (or, for the scalar engine, a region) at a time
+(``BamStream.query``).  An unindexed BAM then takes the JAX tool's
+``_NoIndex`` fallback in the port's form: it is read whole and the
+region's reads are selected in memory, for both engines (the JAX tool
+runs the scalar engine over a streamed scan; the bytes are the same).
+SAM is read whole.  Not ported yet, with one line on stderr and exit 1:
+CRAM input, ``SAMTPU_SHARDS`` above 1 where the JAX tool would split
+the genome, and the ``SAMTPU_CONSENSUS_SPAN`` worker protocol.
 """
 
 from __future__ import annotations
@@ -42,13 +46,13 @@ from ..core.regions import RegionError, parse_region
 from ..io import fasta as fastamod
 from ..io import native as natmod
 from ..io.files import FormatNotPorted, read_alignments
-from ..io.stream import BamStream, WindowedReader
+from ..io.stream import WindowedReader
 from ..ops import consensus_vec as CV
 from ..ops.cigar import expand_ops
 from ..ops.pileup import _ENTRY_LUT, build_pileup
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, no_card, not_ported, pick_device, print_error,
-                     print_error_errno)
+                     n_shards, no_card, not_ported, open_stream, pick_device,
+                     print_error, print_error_errno)
 from .flags_cmd import str2flag
 
 MODE_SIMPLE = 0
@@ -1241,10 +1245,16 @@ def _filtered_reads(b, opts, sel):
 
 
 def _stream_reads(src, opts, c: Ctx):
-    """Record iterator for pileup_loop: the batches of a BamStream, or the
-    selection of an in-memory batch (regions read whole files)."""
-    if isinstance(src, tuple):  # ("stream", BamStream): no region
-        for wb in src[1].batches():
+    """Record iterator for pileup_loop: the batches of a BamStream (with a
+    region, the reads its index gives), or the selection of an in-memory
+    batch."""
+    if isinstance(src, tuple):  # ("stream", BamStream)
+        st = src[1]
+        if c.iter:
+            qb = st.query(*c.iter)
+            yield from _filtered_reads(qb, opts, np.arange(qb.n))
+            return
+        for wb in st.batches():
             yield from _filtered_reads(wb, opts, np.arange(wb.n))
         return
     b = src
@@ -1292,8 +1302,15 @@ def _pileup_vec(opts, src, c: Ctx) -> int:
 
     def windows():
         if c.iter:
-            # region windows of 1 Mi columns over the whole file's reads
+            # region windows of 1 Mi columns: read through the index, or
+            # selected from the whole file's reads
             W = 1 << 20
+            if isinstance(src, tuple):
+                for blk in range(it_beg, it_end, W):
+                    be = min(blk + W, it_end)
+                    qb = src[1].query(it_tid, blk, be)
+                    yield it_tid, blk, be, [qb.take(np.nonzero(flt(qb))[0])]
+                return
             b = src
             keep = flt(b)
             endp = _endpos_arr(b)
@@ -1928,20 +1945,20 @@ def main_consensus(argv: list[str], device=None) -> int:
         return no_card("consensus", e)
 
     # a BGZF BAM streams in bounded windows (the reference's span-block
-    # memory profile); with a region the file is read whole
+    # memory profile), and with regions reads them through its index;
+    # without an index (the JAX tool's _NoIndex fallback) and for other
+    # formats the file is read whole
     stream = None
     try:
-        try:
-            stream = BamStream(args[0], threads=ga.nthreads or 2)
-        except RuntimeError:      # BgzfError, BamError: not a BGZF BAM
+        stream = open_stream(args[0], ga.nthreads)
+        if (stream is not None and (opts.reg or opts.bed)
+                and stream.index() is None):
+            stream.close()
             stream = None
-        if stream is not None and not (opts.reg or opts.bed):
+        if stream is not None:
             opts.header = stream.header
             b = ("stream", stream)
         else:
-            if stream is not None:
-                stream.close()
-                stream = None
             f = read_alignments(args[0], threads=ga.nthreads)
             opts.header = f.header
             b = f.batch
@@ -1949,15 +1966,15 @@ def main_consensus(argv: list[str], device=None) -> int:
         print_error_errno("consensus", 'Cannot open input file "%s"',
                           args[0], exc=e)
         return 1
-    except FormatNotPorted:
-        return not_ported("consensus", "SAM or CRAM input")
+    except FormatNotPorted as e:
+        return not_ported("consensus", str(e))
 
     vec = opts.fmt != PILEUP and opts.mode != MODE_SIMPLE
     if vec and os.environ.get("SAMTPU_CONSENSUS_SPAN"):
         rc = not_ported("consensus", "SAMTPU_CONSENSUS_SPAN (the span-worker "
                         "protocol)")
-    elif (vec and stream is not None and n_shards() > 1
-          and _n_spans(opts.header, n_shards()) > 1):
+    elif (vec and stream is not None and not (opts.reg or opts.bed)
+          and n_shards() > 1 and _n_spans(opts.header, n_shards()) > 1):
         rc = not_ported("consensus", "SAMTPU_SHARDS (sharded runs)")
     else:
         rc = None

@@ -13,8 +13,10 @@ every quality whole and in int64; the JAX package's device branch caps a
 base's quality at 127 and sums in int32.  ``-m``/``-D`` (the terminal
 histograms, ``_coverage_hist``) read the files whole and build each
 contig's pileup table (``ops.pileup.build_pileup``, ordered by K13 on the
-card, or by the host's numpy sort with ``SAMTPU_DEVICE=0|host``).  SAM
-and CRAM input exit 1 with one "not ported yet" line.
+card, or by the host's numpy sort with ``SAMTPU_DEVICE=0|host``).  When
+any input is not a BGZF BAM (SAM text, gzip'd SAM, standard input) every
+file is read whole, as in the JAX tool; ``-r`` never reads an index
+there either.  CRAM input exits 1 with one "not ported yet" line.
 """
 
 from __future__ import annotations
@@ -28,13 +30,13 @@ from ..core import flags as F
 from ..core.batch import ragged_gather_indices
 from ..core.regions import RegionError, parse_region
 from ..io.files import FormatNotPorted, read_alignments
-from ..io.stream import BamStream, WindowedReader
+from ..io.stream import WindowedReader
 from ..ops.cigar import expand_ops
 from ..ops.pileup import build_pileup
 from ..ops.pileup_engine import coverage_window_device
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     no_card, not_ported, pick_device, print_error,
-                     print_error_errno)
+                     no_card, not_ported, open_streams, pick_device,
+                     print_error, print_error_errno)
 from .flags_cmd import str2flag
 
 DEFAULT_FF = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -276,23 +278,17 @@ def main_coverage(argv: list[str], device=None) -> int:
     except RuntimeError as e:
         return no_card("coverage", e)
 
-    # no-region tables stream in bounded windows; -r, standard input and
-    # the histograms read whole files
-    if reg is None and "-" not in args and not histogram:
-        streams = []
+    # no-region tables stream in bounded windows; -r, the histograms,
+    # standard input and SAM read whole files
+    streams = []
+    if reg is None and not histogram:
         try:
-            for path in args:
-                streams.append(BamStream(path, threads=ga.nthreads or 2))
+            streams = open_streams(args, ga.nthreads)
         except OSError as e:
-            for st in streams:
-                st.close()
-            print_error_errno("coverage", 'Could not open "%s"', path,
+            print_error_errno("coverage", 'Could not open "%s"', e.filename,
                               exc=e)
             return 1
-        except RuntimeError:    # BamError, BgzfError: not a BAM
-            for st in streams:
-                st.close()
-            return not_ported("coverage", "SAM and CRAM input")
+    if streams:
         out = open(out_file, "w") if out_file and out_file != "-" \
             else sys.stdout
         try:

@@ -2,12 +2,13 @@
 
 Counterpart of samtools_tpu/tools/depth_cmd.py (``usage``, ``qlen_used``,
 ``_emit``, ``main_depth``); its output is the JAX tool's, byte for byte.
-Whole files are read (``-r`` filters the reads by overlap, which gives
-the index query's rows); each contig's window of each file goes through
-``depth_window_device`` (K1's generic form and the depth scan, on the
-card), or with ``SAMTPU_DEVICE=0|host`` through the numpy
-``ops.depth.depth_window``.  SAM and CRAM input and ``SAMTPU_SHARDS``
-above 1 exit 1 with one "not ported yet" line.
+Whole files are read (SAM too), except that ``-r`` on an indexed BAM
+reads the index's chunks for the region (``try_region_read``); each
+contig's window of each file goes through ``depth_window_device`` (K1's
+generic form and the depth scan, on the card), or with
+``SAMTPU_DEVICE=0|host`` through the numpy ``ops.depth.depth_window``.
+CRAM input and ``SAMTPU_SHARDS`` above 1 exit 1 with one "not ported
+yet" line.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..ops import depth as dops
 from ..ops.pileup_engine import depth_window_device
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
                      n_shards, no_card, not_ported, pick_device, print_error,
-                     print_error_errno)
+                     print_error_errno, try_region_read)
 from .flags_cmd import str2flag
 
 DEFAULT_EXCL = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -236,7 +237,12 @@ def main_depth(argv: list[str], device=None) -> int:
     files = []
     for path in args:
         try:
-            files.append(read_alignments(path, threads=ga.nthreads))
+            got = try_region_read(path, ga.nthreads, reg) if reg else None
+            files.append(got[0] if got else
+                         read_alignments(path, threads=ga.nthreads))
+        except RegionError:
+            print_error("depth", 'could not parse region "%s"', reg)
+            return 1
         except FormatNotPorted as e:
             return not_ported("depth", str(e))
         except OSError as e:

@@ -3,12 +3,12 @@
 Counterpart of samtools_tpu/tools/flagstat_cmd.py (``percent``, the
 default / JSON / TSV writers, ``main_flagstat``); its output is the JAX
 tool's, byte for byte.  A BGZF BAM streams in batches that decode only
-the fixed-width fields; standard input and other BAMs are read whole.
-Each batch's counts come from K11 (``ops.flagstat.flagstat_counts``, on
-the card), or with ``SAMTPU_DEVICE=0|host`` from numpy.  SAM and CRAM
-input and ``SAMTPU_SHARDS`` above 1 exit 1 with one "not ported yet"
-line.  Percentages reproduce the reference's single-precision
-``(float)n / total * 100.0`` exactly.
+the fixed-width fields; standard input, other BAMs and SAM are read
+whole.  Each batch's counts come from K11
+(``ops.flagstat.flagstat_counts``, on the card), or with
+``SAMTPU_DEVICE=0|host`` from numpy.  CRAM input and ``SAMTPU_SHARDS``
+above 1 exit 1 with one "not ported yet" line.  Percentages reproduce
+the reference's single-precision ``(float)n / total * 100.0`` exactly.
 """
 
 from __future__ import annotations
@@ -18,11 +18,10 @@ import sys
 import numpy as np
 
 from ..io.files import FormatNotPorted, read_alignments
-from ..io.stream import BamStream
 from ..ops import flagstat as fsops
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, no_card, not_ported, pick_device, print_error,
-                     print_error_errno)
+                     n_shards, no_card, not_ported, open_stream, pick_device,
+                     print_error, print_error_errno)
 
 
 def usage(fp):
@@ -196,12 +195,7 @@ def main_flagstat(argv: list[str], device=None) -> int:
     try:
         # a BGZF BAM streams with bounded memory; flagstat needs only the
         # fixed-width fields, so fields=0 skips every ragged copy
-        st = None
-        if args[0] != "-":
-            try:
-                st = BamStream(args[0], threads=ga.nthreads or 2)
-            except RuntimeError:      # BgzfError, BamError: read whole
-                st = None
+        st = open_stream(args[0], ga.nthreads) if args[0] != "-" else None
         if st is not None:
             with st:
                 for part in st.batches(fields=0):
@@ -211,8 +205,8 @@ def main_flagstat(argv: list[str], device=None) -> int:
                         for k in s}
         if s is None:
             s = count_fn(read_alignments(args[0], threads=ga.nthreads).batch)
-    except FormatNotPorted:
-        return not_ported("flagstat", "SAM or CRAM input")
+    except FormatNotPorted as e:
+        return not_ported("flagstat", str(e))
     except OSError as e:
         print_error_errno("flagstat",
                           'Cannot open input file "%s"', args[0], exc=e)

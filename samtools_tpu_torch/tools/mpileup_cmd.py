@@ -7,11 +7,13 @@ renderer and the per-column writer); its output is the JAX tool's, byte
 for byte.
 
 Windows: coordinate-sorted BAMs stream in windows of WINDOW_COLS columns
-(one cursor per file, merged); with ``-r`` or a ``-`` (standard input)
-the files are read whole and each contig is one window (``wb = None``),
-filtered to the region's reads.  Per window and file: the mplp_func read
-filters, the Illumina-1.3 quals, BAQ, ``-C``'s mapping-quality cap, the
-mapq/orphan filters, the depth cap and the overlap tweak.  Then one of
+(one cursor per file, merged); with ``-r`` an indexed BAM gives the
+index's chunks for the region (``try_region_read``) and any other input
+is read whole, as are ``-`` (standard input) and SAM; then each contig
+is one window (``wb = None``), filtered to the region's reads.  Per
+window and file: the mplp_func read filters, the Illumina-1.3 quals,
+BAQ, ``-C``'s mapping-quality cap, the mapq/orphan filters, the depth
+cap and the overlap tweak.  Then one of
 three writers, as in the JAX tool:
 
 * one file with the default columns: the native text writer, with BAQ
@@ -34,7 +36,7 @@ there and resumes.
 
 ``SAMTPU_DEVICE=0|host`` runs the host branch: the host HMM, the numpy
 sort, no kernel.  Not ported yet, with one line on stderr and exit 1:
-SAMTPU_SHARDS above 1, SAM or CRAM input.
+SAMTPU_SHARDS above 1, CRAM input.
 """
 
 from __future__ import annotations
@@ -54,10 +56,7 @@ from ..core.regions import RegionError, parse_region
 from ..io import bed as bedmod
 from ..io import fasta as fastamod
 from ..io import native
-from ..io.bam import BamError
-from ..io.bgzf import BgzfError
 from ..io.files import FormatNotPorted, read_alignments
-from ..io.stream import BamStream
 from ..ops import baq as baqmod
 from ..ops import basemods
 from ..ops.mpileup_device import (HOST_THREADS, NT16_TO4,
@@ -66,8 +65,8 @@ from ..ops.mpileup_device import (HOST_THREADS, NT16_TO4,
 from ..ops.overlaps import tweak_overlaps
 from ..ops.pileup import build_pileup
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, no_card, not_ported, pick_device,
-                     print_error_errno)
+                     n_shards, no_card, not_ported, open_stream, pick_device,
+                     print_error_errno, try_region_read)
 from .flags_cmd import str2flag
 
 DEFAULT_FF = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -562,25 +561,32 @@ def main_mpileup(argv: list[str], device=None) -> int:
 
 
 def _open_inputs(paths, reg, nthreads, files) -> int:
-    """Open each input into ``files``: a BamStream (``stream``), or with
-    ``-r`` and for ``-`` the whole file in memory (``batch``).  The
-    command's exit code on failure, else 0."""
+    """Open each input into ``files``: with ``-r``, the reads the index
+    gives for the region (``try_region_read``) or the whole file;
+    without, a BamStream (``stream``) for a BGZF BAM, else the whole file
+    in memory (``batch``: standard input, SAM).  The command's exit code
+    on failure, else 0."""
     for path in paths:
         try:
-            if reg or path == "-":
-                got = read_alignments(path, threads=nthreads)
-                files.append(types.SimpleNamespace(
-                    header=got.header, batch=got.batch, stream=None))
-            else:
-                st = BamStream(path, threads=nthreads or HOST_THREADS)
+            got = try_region_read(path, nthreads, reg) if reg else None
+            st = (open_stream(path, nthreads or HOST_THREADS)
+                  if not reg and path != "-" else None)
+            if st is not None:
                 files.append(types.SimpleNamespace(
                     header=st.header, batch=None, stream=st))
+                continue
+            got = got[0] if got else read_alignments(path, threads=nthreads)
+            files.append(types.SimpleNamespace(
+                header=got.header, batch=got.batch, stream=None))
+        except RegionError:
+            sys.stderr.write(f"[E::mpileup] fail to parse region '{reg}'\n")
+            return 1
         except OSError as e:
             sys.stderr.write(f"[mpileup] failed to open {path}: "
                              f"{e.strerror}\n")
             return 1
-        except (BamError, BgzfError, FormatNotPorted):
-            return not_ported("mpileup", "SAM or CRAM input")
+        except FormatNotPorted as e:
+            return not_ported("mpileup", str(e))
     return 0
 
 

@@ -16,7 +16,9 @@ K12 (``ops/stats_kernels.py``) on the command's device, or through the
 host library with ``SAMTPU_DEVICE=0|host``.  Target regions (``-t``),
 read groups (``-I``), ``-p``, ``-S`` splits and regions on the command
 line take the per-record oracle, as ``SAMTPU_STATS_SCALAR=1`` makes
-every run do.  SAM and CRAM input exit 1 with one "not ported yet" line.
+every run do.  A BGZF BAM streams; SAM and other inputs are read whole
+(regions select from the reads, with no index query, as in the JAX
+tool).  CRAM input exits 1 with one "not ported yet" line.
 
 Sections: CHK SN FFQ LFQ MPC GCF GCL GCC GCT FBC FTC LBC LTC (barcodes:
 BCC/QTQ/CRC/CYQ/OXC/BZQ/RXC/QXQ) IS RL FRL LRL MAPQ ID IC COV GCD RFS.
@@ -36,10 +38,9 @@ from ..core import flags as F
 from ..core.regions import HTS_POS_MAX, parse_region
 from ..io import fasta as fastamod
 from ..io.files import FormatNotPorted, read_alignments
-from ..io.stream import BamStream
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     no_card, not_ported, pick_device, print_error,
-                     print_error_errno)
+                     no_card, not_ported, open_stream, pick_device,
+                     print_error, print_error_errno)
 from .flags_cmd import str2flag
 
 BWA_MIN_RDLEN = 35            # stats.c:66
@@ -1698,19 +1699,18 @@ def main_stats(argv: list[str], device=None) -> int:
         stream = None
         b = None
         try:
-            stream = BamStream(bam_fname, threads=ga.nthreads or 2)
-            info.header = stream.header
+            stream = open_stream(bam_fname, ga.nthreads)
         except OSError as e:
             print_error_errno("stats", "failed to open \"%s\"", bam_fname,
                               exc=e)
             return 1
-        except Exception:
-            stream = None
-        if stream is None:
+        if stream is not None:
+            info.header = stream.header
+        else:
             try:
                 f = read_alignments(bam_fname, threads=ga.nthreads)
-            except FormatNotPorted:
-                return not_ported("stats", "SAM or CRAM input")
+            except FormatNotPorted as e:
+                return not_ported("stats", str(e))
             except OSError as e:
                 print_error_errno("stats", "failed to open \"%s\"",
                                   bam_fname, exc=e)

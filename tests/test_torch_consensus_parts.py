@@ -294,8 +294,9 @@ NOT_PORTED = {
     "shards": ("SAMTPU_SHARDS", "small2", {"SAMTPU_SHARDS": "2"}),
     "span_worker": ("SAMTPU_CONSENSUS_SPAN", "small",
                     {"SAMTPU_CONSENSUS_SPAN": "0:0:1000"}),
-    "sam_input": ("SAM or CRAM input", "sam", {}),
-    "sam_input_region": ("SAM or CRAM input", "sam", {}),
+    # SAM is read now (tests/test_torch_sam_input.py); CRAM is not
+    "sam_input": ("CRAM input", "cram", {}),
+    "sam_input_region": ("CRAM input", "cram", {}),
 }
 
 

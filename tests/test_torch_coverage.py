@@ -219,11 +219,15 @@ def test_coverage_histogram_equals_jax_tool(inputs, monkeypatch, case):
     assert run_port_stdout("coverage", args, device=None) == port
 
 
+# SAM is read now (tests/test_torch_sam_input.py); CRAM is not
 @pytest.mark.parametrize("cmd,argv,what", [
-    ("coverage", ["{sam}"], "SAM"),
-    ("coverage", ["-m", "{sam}"], "SAM"),
-    ("coverage", ["-r", "sim1", "{sam}"], "SAM"),
-    ("bedcov", ["{bed}", "{sam}"], "SAM"),
+    pytest.param("coverage", ["{cram}"], "CRAM", id="coverage-argv0-SAM"),
+    pytest.param("coverage", ["-m", "{cram}"], "CRAM",
+                 id="coverage-argv1-SAM"),
+    pytest.param("coverage", ["-r", "sim1", "{cram}"], "CRAM",
+                 id="coverage-argv2-SAM"),
+    pytest.param("bedcov", ["{bed}", "{cram}"], "CRAM",
+                 id="bedcov-argv3-SAM"),
 ])
 def test_not_ported_exits_1_with_one_line(inputs, capfd, cmd, argv, what):
     capfd.readouterr()

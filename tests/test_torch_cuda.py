@@ -821,3 +821,52 @@ def test_stats_on_card_equals_host_branch(cuda, tmp_path, monkeypatch):
             monkeypatch.delenv("SAMTPU_DEVICE", raising=False)
         assert got["card"].count("\n") > 100
         assert got["card"] == got["host"]
+
+
+def test_mpileup_region_through_index_on_card(cuda, tmp_path):
+    """``mpileup -r`` on an indexed BAM of more than 50 BGZF blocks reads
+    the index's chunks on the card and prints the bytes of the same run on
+    an unindexed copy; both launch the census form, K4 and K5."""
+    import contextlib
+    import io
+    import shutil
+
+    from samtools_tpu_torch import cli
+    from samtools_tpu_torch.io import bgzf, stream
+    from samtools_tpu_torch.io.bam import write_bam
+    L = 1 << 17
+    ref = sim.simulate_reference(L, seed=7)
+    b = sim.simulate_batch(ref_len=L, coverage=20.0, read_len=100, seed=21,
+                           paired=False, err_rate=0.01, ref=ref)
+    sim.simulate_messy(b, 21)
+    bam, fa = str(tmp_path / "in.bam"), str(tmp_path / "ref.fa")
+    write_bam(bam, sim.make_header(L), b)
+    with open(bam, "rb") as f:
+        assert bgzf.scan_blocks(f.read())[0].size > 50
+    shutil.copy(bam, str(tmp_path / "whole.bam"))
+    assert cli.main(["index", bam]) == 0
+    with open(fa, "wb") as f:
+        f.write(b">sim1\n" + b"".join(ref[i:i + 60].tobytes() + b"\n"
+                                      for i in range(0, L, 60)))
+    queried = []
+    real = stream.BamStream.query
+
+    def counting(self, *a, **k):
+        queried.append(1)
+        return real(self, *a, **k)
+    got = {}
+    for which in ("in", "whole"):
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), pytest.MonkeyPatch.context() \
+                as m:
+            m.setattr(stream.BamStream, "query", counting)
+            assert cli.main(["mpileup", "-f", fa, "-r", "sim1:40001-60000",
+                             str(tmp_path / f"{which}.bam")]) == 0
+        got[which] = buf.getvalue()
+        assert all(kernels.launches[k] > 0 for k in
+                   ("segment_census", "baq_hmm", "baq_finalize"))
+        assert kernels.launches["segment_contract"] == 0
+        assert len(queried) == 1      # the indexed run's one query
+    assert got["in"].count("\n") > 19_000
+    assert got["in"] == got["whole"]

@@ -238,14 +238,14 @@ def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
     if case == "shards":
         monkeypatch.setenv("SAMTPU_SHARDS", "2")
     else:
-        path = inputs["sam"]
+        path = inputs["cram"]    # SAM is read now; CRAM is not
     capfd.readouterr()
     assert cli.main(["depth", path], device="cpu") == 1
     out, err = capfd.readouterr()
     assert out == ""
     said = [ln for ln in err.splitlines() if "not ported yet" in ln]
     assert len(said) == 1 and said[0].startswith("[depth]"), err
-    assert ("SAMTPU_SHARDS" if case == "shards" else "SAM") in said[0]
+    assert ("SAMTPU_SHARDS" if case == "shards" else "CRAM") in said[0]
 
 
 def test_without_cuda_fails_before_any_row(inputs, capfd, monkeypatch):

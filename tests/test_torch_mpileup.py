@@ -193,18 +193,11 @@ def test_tool_without_cuda_fails_before_any_row(inputs):
     assert b"CUDA" in p.stderr
 
 
-def _sam(d):
-    path = os.path.join(d, "x.sam")
-    with open(path, "w") as f:
-        f.write("@SQ\tSN:sim1\tLN:100\nr\t0\tsim1\t1\t60\t4M\t*\t0\t0\tACGT"
-                "\tIIII\n")
-    return path
-
-
 NOT_PORTED = {
     "shards": ([], "SAMTPU_SHARDS"),
-    "sam_input": ([], "SAM or CRAM input"),
-    "sam_input_region": (["-r", "sim1:1-50"], "SAM or CRAM input"),
+    # SAM is read now (tests/test_torch_sam_input.py); CRAM is not
+    "sam_input": ([], "CRAM input"),
+    "sam_input_region": (["-r", "sim1:1-50"], "CRAM input"),
 }
 
 
@@ -215,7 +208,7 @@ def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
     if case == "shards":
         monkeypatch.setenv("SAMTPU_SHARDS", "2")
     elif case.startswith("sam_input"):
-        bam = _sam(inputs["dir"])
+        bam = inputs["cram"]
     argv = ["mpileup", "-f", inputs["fa"], bam,
             *[a.format(**inputs) for a in extra]]
     capfd.readouterr()

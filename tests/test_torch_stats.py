@@ -73,12 +73,14 @@ def test_stats_equals_jax_device_branch(inputs):
 
 
 def test_sam_input_exits_1_with_one_line(inputs, capfd):
+    """SAM is read now (tests/test_torch_sam_input.py); CRAM, the input
+    still to port, exits 1 with one line."""
     capfd.readouterr()
-    assert cli.main(["stats", inputs["sam"]], device="cpu") == 1
+    assert cli.main(["stats", inputs["cram"]], device="cpu") == 1
     out, err = capfd.readouterr()
     assert out == ""
     said = [ln for ln in err.splitlines() if "not ported yet" in ln]
-    assert len(said) == 1 and "SAM or CRAM input" in said[0], err
+    assert len(said) == 1 and "CRAM input" in said[0], err
     assert err.startswith("[stats]")
 
 

@@ -9,7 +9,10 @@ Two BAMs over one 128 kbp simulated contig (FASTA with 60-column lines):
   package;
 * ``pairs``: 6x properly paired reads whose mates overlap (the port's
   ``sim.simulate_overlapping_pairs``, so the overlap tweak runs), two read
-  groups (``RG:Z:grpA``/``grpB``), written by the port.
+  groups (``RG:Z:grpA``/``grpB``), written by the port;
+
+and ``cram``, the first 200 messy reads as CRAM (written by the JAX
+package), the input the port does not read yet.
 
 ``make_general_inputs`` adds mpileup's general-path inputs (a BAM list,
 reads with base-modification tags, reads with stored BQ / ZQ tags);
@@ -19,8 +22,8 @@ reads with base-modification tags, reads with stored BQ / ZQ tags);
 ``.bai``; ``unindexed`` the same without), ``qualless`` (a 5 kbp
 contig at 2x, one read stored without qualities), ``deep`` (a 20 kbp
 contig at 6x with 400 reads piled at one position: over 16,384 items in
-one tile, which takes several passes in the JAX plan), a BED of 40
-intervals and a SAM text file.  ``make_consensus_inputs`` adds
+one tile, which takes several passes in the JAX plan) and a BED of 40
+intervals.  ``make_consensus_inputs`` adds
 consensus's: ``small`` (the messy reads starting before 40,000;
 ``small2`` the same under the two-contig header of ``messy2``;
 ``pairs_small`` the pairs starting there), ``padins`` (a 12 kbp contig at
@@ -71,14 +74,18 @@ def write_fasta(path: str, ref: np.ndarray) -> None:
 
 def make_inputs(d: str) -> dict:
     from samtools_tpu.io.bam import write_bam as jwrite_bam
+    from samtools_tpu.io.files import write_alignments as jwrite
     from samtools_tpu.sim import make_header as jmake_header
     from test_mpileup_device_tool import _messy_batch
     ref = sim.simulate_reference(REF_LEN, seed=7)
     fa = os.path.join(d, "ref.fa")
     write_fasta(fa, ref)
     messy = os.path.join(d, "messy.bam")
-    jwrite_bam(messy, jmake_header(REF_LEN), _messy_batch(ref, REF_LEN),
-               threads=2)
+    mb = _messy_batch(ref, REF_LEN)
+    jwrite_bam(messy, jmake_header(REF_LEN), mb, threads=2)
+    cram = os.path.join(d, "messy200.cram")
+    jwrite(cram, jmake_header(REF_LEN), mb.take(np.arange(200)), fmt="cram",
+           reference=fa)
 
     b = sim.simulate_overlapping_pairs(REF_LEN, coverage=6.0, ref=ref,
                                        seed=5)
@@ -91,7 +98,8 @@ def make_inputs(d: str) -> dict:
             "@RG\tID:grpA\tSM:s1\n@RG\tID:grpB\tSM:s2\n")
     pairs = os.path.join(d, "pairs.bam")
     write_bam(pairs, SamHeader.from_text(text), b)
-    return {"dir": d, "ref": ref, "fa": fa, "messy": messy, "pairs": pairs}
+    return {"dir": d, "ref": ref, "fa": fa, "messy": messy, "pairs": pairs,
+            "cram": cram}
 
 
 def make_pileup_inputs(d: str) -> dict:
@@ -135,10 +143,6 @@ def make_pileup_inputs(d: str) -> dict:
     with open(got["bed"], "w") as f:
         for i, s0 in enumerate(starts):
             f.write(f"sim1\t{s0}\t{s0 + rng.integers(100, 3000)}\tr{i}\n")
-    got["sam"] = os.path.join(d, "one.sam")
-    with open(got["sam"], "w") as f:
-        f.write(f"@SQ\tSN:sim1\tLN:{REF_LEN}\n"
-                "r1\t0\tsim1\t11\t60\t4M\t*\t0\t0\tACGT\tIIII\n")
     return got
 
 
