@@ -106,7 +106,15 @@ from the sources in this checkout.  Phases, one JSON line each:
    fields), the same bits on two calls; its plain version on the card
    (gather, ``index_add_`` in f64, atomics in no fixed order) within the
    rounding bound of two f64 sums, (n + 2) 2^-52 of each column's sum of
-   |contributions|, counts and depth exactly; and
+   |contributions|, counts and depth exactly.  The same checks hold K10
+   on its hard shapes: 2,000 amplicon columns 5,000 deep (entries drawn
+   from clean's window), q and q2 uniform on 1-100 over 200,000 columns
+   (more distinct rows a block than an SM's L1 holds), quals binned,
+   nothing kept.  Each gives ``device_ms`` (the kernel alone: a CUDA
+   graph of bare C-entry calls on preallocated outputs), the distinct
+   table rows of each block's columns (min, median, max; counted on the
+   host) and the table bytes its entries request (128 B a kept entry,
+   served by L1 or L2: the split is not measured); and
    K11 (``flagstat``) on clean's 2,516,582 reads equal to its plain
    version and ``flagstat_numpy`` exactly.  Beside each, the library
    alternative on the card and the host branch's time.
@@ -118,9 +126,14 @@ from the sources in this checkout.  Phases, one JSON line each:
    Mbases/s, output bytes and rows, launches.
 11. kernels_stats -- K12 on the first 65,536 reads of clean and of the
    pairs (nbases 300) and on 16,384 synthetic reads of 30-1,000 bases
-   (nbases 1,000), each equal to its plain version on the card and to the
-   host library's ``stats_orig_hists`` exactly, beside five
-   ``torch.bincount`` calls on fused keys and the host pass's time; K7n
+   (nbases 1,000), and on its hard shapes (clean's chunk with quals
+   binned to 4 values, with gaps of 8,192 reads in oidx, one read; 65,536
+   reads a quarter of them with no bases; 200 reads of 20,000 bases), each
+   equal to its plain version on the card and to the host library's
+   ``stats_orig_hists`` exactly, beside five ``torch.bincount`` calls on
+   fused keys and the host pass's time, with ``device_ms`` (as K10's),
+   the launch plan and the global atomics the plan implies (each block's
+   nonzero cells, counted on the host); K7n
    on the census core's clean census (8,388,608 rows, u8 counts) and on
    a census of 300x reads over 4 kbp (u16 counts), equal to its
    plain version, beside ``amax`` with ``.to()``; K7's checksum
@@ -270,6 +283,37 @@ def cuda_ms(fn, reps: int = 5, per: int = 1) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / per)
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn``, without the host's: ``calls``
+    calls captured in one CUDA graph, replayed between CUDA events; the
+    median of ``reps`` replays, over ``calls``.  ``fn`` calls a kernel's
+    bare C entry point on preallocated outputs (no wrapper, no count)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del g
     return statistics.median(times)
 
 
@@ -1350,13 +1394,56 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
           "resumed_launches": runs, "byte_equal": True})
     os.remove(out)
 
-    # --- K10 on clean's first 1 Mi window, as the first run built it
+    # --- K10 on clean's first 1 Mi window, as the first run built it,
+    # then on its hard shapes
     col_off, b6, q, q2, keep, cp, _ = first[0]
+    k10 = {"clean": _k10_case(col_off, b6, q, q2, keep, cp, dev)}
+    for shape, case in k10_stress_inputs(col_off, b6, q, q2, keep).items():
+        k10[shape] = _k10_case(*case, cp, dev)
+    rows["consensus_segsum"] = dict(k10["clean"], shapes=k10)
+
+    # --- K11 on clean's reads
+    b = read_alignments(bams["clean"], THREADS).batch
+    t0 = time.perf_counter()
+    want = fs.flagstat_numpy(b)
+    np_ms = (time.perf_counter() - t0) * 1e3
+    args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+            for a, dt in ((b.flag, np.uint16), (b.mapq, np.uint8),
+                          (b.tid, np.int32), (b.mtid, np.int32))]
+    got = fs.flagstat_census(*args)
+    plain = fs.flagstat_plain(*args)
+    require(torch.equal(got, plain), "K11 differs from its plain version")
+    require({k: (int(got[i, 0]), int(got[i, 1]))
+             for i, k in enumerate(fs.COUNTERS)} == want,
+            "K11 differs from flagstat_numpy")
+    rows["flagstat"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: fs.flagstat_census(*args)),
+        b2b_ms=cuda_ms(lambda: fs.flagstat_census(*args), per=10),
+        plain_ms=cuda_ms(lambda: fs.flagstat_plain(*args)),
+        library_ms=cuda_ms(lambda: fs.flagstat_plain(*args)),
+        host_flagstat_numpy_ms=np_ms,
+        detail={"reads": int(b.n)},
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(b.n * 11 + 16 * 2 * 8, b.n * 32))))
+    emit({"phase": "kernels_consensus", **rows})
+    return rows, launches, whole_runs
+
+
+def _k10_case(col_off, b6, q, q2, keep, cp, dev) -> dict:
+    """K10 on one window's entries: equal to the host's f64 gap5_scores
+    bit for bit, the same bits on two calls, within the rounding bound of
+    its plain version on the card; times beside its bound, with the
+    distinct table rows of each block's columns."""
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.ops import consensus_vec as cv
     ncols, n = col_off.size - 1, b6.size
     T = cv.segsum_table(cp, dev)
     ent = np.stack([b6, q, q2, keep], 1).astype(np.uint8)
     ent_d = torch.from_numpy(ent).to(dev)
     off_d = torch.from_numpy(np.ascontiguousarray(col_off, np.int64)).to(dev)
+    plan = cv.segsum_plan(ncols, kernels.sm_count(dev))
     before = kernels.launches["consensus_segsum"]
     got = cv.consensus_segsum(T, ent_d, off_d)
     again = cv.consensus_segsum(T, ent_d, off_d)
@@ -1399,50 +1486,76 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
     def library():
         scratch.zero_()
         scratch.index_add_(0, col_k, T[rows_k, :15])
+    # the kernel alone: its bare C entry point on preallocated outputs
+    lib = kernels._load()
+    outs = [torch.empty_like(t) for t in got]
+    ptrs = [t.data_ptr() for t in (T, ent_d, off_d, *outs)]
+
+    def bare():
+        return lib.samtpu_consensus_segsum(*ptrs, ncols, *plan,
+                                           kernels.stream_of(T))
+    require(bare() == 0, "K10's C entry point failed")
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(outs, got)),
+            "K10's C entry point differs from K10")
+    # the distinct table rows of each block's columns (its kept entries),
+    # counted on the host: what the L1 of the block's SM must hold
+    rid = (b6.astype(np.int64) * 101 + q) * 101 + q2
+    span = plan[0] * plan[1]
+    cuts = col_off[np.minimum(np.arange(plan[2] + 1) * span, ncols)]
+    distinct = np.array([np.unique(rid[lo:hi][keep[lo:hi] != 0]).size
+                         for lo, hi in zip(cuts[:-1], cuts[1:])])
     kept = int(keep.sum())
-    rows["consensus_segsum"] = dict(
-        max_abs_err=float(dS.max()), max_abs_err_host=0.0,
+    return dict(
+        max_abs_err=float(dS.max()) if ncols else 0.0, max_abs_err_host=0.0,
         ms=cuda_ms(lambda: cv.consensus_segsum(T, ent_d, off_d)),
         b2b_ms=cuda_ms(lambda: cv.consensus_segsum(T, ent_d, off_d),
                        per=10),
+        device_ms=graph_ms(bare, calls=10),
         plain_ms=cuda_ms(lambda: cv.consensus_segsum_plain(T, ent_d, off_d),
                          reps=3),
         library_ms=cuda_ms(library, reps=3), host_gap5_scores_ms=host_ms,
         detail={"columns": int(ncols), "entries": int(n), "kept": kept,
                 "max_depth": int(np.diff(col_off).max()),
+                "plan": dict(zip(("streams", "columns_a_stream", "blocks"),
+                                 plan)),
+                "distinct_rows_a_block": [int(distinct.min()),
+                                          int(np.median(distinct)),
+                                          int(distinct.max())],
+                "table_bytes_requested": kept * cv.ROW * 8,
                 "equal_f64_path_bits": True},
         **dict(zip(("bound_ms", "bound_by"), max(
             (bound(n * 4 + (ncols + 1) * 8 + ncols * (15 * 8 + 6 * 4 + 4),
                    0)[0], "bytes"),
             (kept * 15 / F64_OPS_PER_S * 1e3, "operations")))))
-    del got, again, plain, e, kept_d, col_k, rows_k, absc, dS, scratch
 
-    # --- K11 on clean's reads
-    b = read_alignments(bams["clean"], THREADS).batch
-    t0 = time.perf_counter()
-    want = fs.flagstat_numpy(b)
-    np_ms = (time.perf_counter() - t0) * 1e3
-    args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
-            for a, dt in ((b.flag, np.uint16), (b.mapq, np.uint8),
-                          (b.tid, np.int32), (b.mtid, np.int32))]
-    got = fs.flagstat_census(*args)
-    plain = fs.flagstat_plain(*args)
-    require(torch.equal(got, plain), "K11 differs from its plain version")
-    require({k: (int(got[i, 0]), int(got[i, 1]))
-             for i, k in enumerate(fs.COUNTERS)} == want,
-            "K11 differs from flagstat_numpy")
-    rows["flagstat"] = dict(
-        max_abs_err=0,
-        ms=cuda_ms(lambda: fs.flagstat_census(*args)),
-        b2b_ms=cuda_ms(lambda: fs.flagstat_census(*args), per=10),
-        plain_ms=cuda_ms(lambda: fs.flagstat_plain(*args)),
-        library_ms=cuda_ms(lambda: fs.flagstat_plain(*args)),
-        host_flagstat_numpy_ms=np_ms,
-        detail={"reads": int(b.n)},
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(b.n * 11 + 16 * 2 * 8, b.n * 32))))
-    emit({"phase": "kernels_consensus", **rows})
-    return rows, launches, whole_runs
+
+def k10_stress_inputs(col_off, b6, q, q2, keep) -> dict:
+    """K10's hard shapes, from clean's window entries (its column offsets
+    and per-entry arrays) and seeded draws: name -> (col_off, b6, q, q2,
+    keep)."""
+    rng = np.random.default_rng(31)
+    got = {}
+    # amplicon: 2,000 columns 5,000 deep, entries drawn from clean's
+    depth = 5000
+    pick = rng.integers(0, b6.size, 2000 * depth)
+    amp_off = np.arange(2001, dtype=np.int64) * depth
+    got["amplicon"] = (amp_off, b6[pick], q[pick], q2[pick], keep[pick])
+    # q and q2 uniform on 1-100 over all six bases: a block touches far
+    # more distinct rows than an SM's L1 holds
+    m = 200_000
+    so = col_off[:m + 1]
+    k = int(so[-1])
+    got["overflow"] = (so, rng.integers(0, 6, k), rng.integers(1, 101, k),
+                       rng.integers(1, 101, k), np.ones(k, bool))
+    # quals binned to 4 values
+    bins = np.array([2, 12, 23, 37])
+
+    def binq(x):
+        return bins[np.searchsorted([10, 20, 30], x, side="right")]
+    got["binned"] = (so, b6[:k], binq(q[:k]), binq(q2[:k]), keep[:k])
+    got["none_kept"] = (so, b6[:k], q[:k], q2[:k], np.zeros(k, bool))
+    return got
 
 
 # stats in-process, card against SAMTPU_DEVICE=0: (label, argv, reads
@@ -1562,15 +1675,68 @@ def _k12_case(seq, qual, off, oidx, order, rev, nbases: int, qrows: int,
 
     def kernel():
         sk.stats_hists(*args, nbases, qrows, max_len)
+    # the kernel alone: its bare C entry point (zeroing and launch) on a
+    # preallocated output
+    lib = kernels._load()
+    plan = sk.hists_plan(oidx.size, max_len, kernels.sm_count(dev))
+    out = torch.empty_like(got)
+    ptrs = [t.data_ptr() for t in args]
+
+    def bare():
+        return lib.samtpu_stats_hists(*ptrs, oidx.size, nbases, qrows,
+                                      max_len, *plan, out.data_ptr(),
+                                      kernels.stream_of(out))
+    require(bare() == 0, "K12's C entry point failed")
+    torch.cuda.synchronize()
+    require(torch.equal(out, got), "K12's C entry point differs from K12")
     return dict(max_abs_err=0, max_abs_err_host=0, ms=cuda_ms(kernel),
-                b2b_ms=cuda_ms(kernel, per=10),
+                b2b_ms=cuda_ms(kernel, per=10), device_ms=graph_ms(bare),
                 plain_ms=cuda_ms(lambda: sk.stats_hists_plain(
                     *args, nbases, qrows), reps=3),
                 library_ms=cuda_ms(library), host_stats_orig_hists_ms=host_ms,
                 detail={"reads": int(oidx.size), "bases": nb,
                         "nbases": nbases, "qrows": qrows,
-                        "max_len": max_len},
+                        "max_len": max_len,
+                        "plan": dict(zip(("tiles", "rt", "groups",
+                                          "per_block"), plan)),
+                        "global_atomics": _k12_atomics(
+                            seq, qual, off, oidx, order, rev, plan)},
                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0))))
+
+
+def _k12_atomics(seq, qual, off, oidx, order, rev, plan) -> dict:
+    """The global atomics K12 makes on these reads under ``plan``,
+    counted on the host from its rules: a block adds each of its nonzero
+    cells once (the per-block flush), and with several row tiles each
+    (read, tile) adds its nonzero GC count and qual sum."""
+    from samtools_tpu_torch.ops.stats_kernels import ACGTNO_COL
+    tiles, rt, _, per_block = plan
+    lens = off[oidx + 1] - off[oidx]
+    k = np.repeat(np.arange(oidx.size), lens)
+    local = np.arange(k.size) - np.repeat(np.cumsum(lens) - lens, lens)
+    at = np.repeat(off[oidx], lens) + local
+    b = seq[at].astype(np.int64)
+    q = qual[at].astype(np.int64)
+    rv = np.repeat(rev, lens).astype(bool)
+    cyc = np.where(rv, np.repeat(lens, lens) - 1 - local, local)
+    o = np.repeat(order, lens).astype(np.int64)
+    tile = cyc // rt
+    cell = ((k // per_block) * tiles + tile) * rt + cyc % rt
+    col = ACGTNO_COL[b & 15]
+    m = (o == 1) | (o == 2)
+    acgt = m & (col < 4)
+    flush = sum(np.unique(x).size for x in (
+        cell[m] * 514 + (o[m] - 1) * 257 + q[m],
+        (cell * 6 + col)[o == 1], (cell * 6 + col)[o == 2],
+        (cell * 6 + np.where(rv, 3 - col, col))[acgt]))
+    per_read = 0
+    if tiles > 1:
+        rt_key = k * tiles + tile
+        gc = (b == 2) | (b == 4)
+        per_read = (np.unique(rt_key[gc]).size
+                    + np.unique(rt_key[m & (q > 0)]).size)
+    return {"flush": int(flush), "per_read": int(per_read),
+            "maxq_blocks_at_most": int(plan[0] * plan[2])}
 
 
 def _census_narrow_case(census, wlen: int) -> dict:
@@ -1605,6 +1771,44 @@ def _census_narrow_case(census, wlen: int) -> dict:
                    bound(wlen * 24 + got[0].numel() + 8, 0))))
 
 
+def k12_stress_inputs(seq, qual, off, order, rev) -> dict:
+    """K12's hard shapes, from a chunk of clean (its flat columns, the
+    orders and strands of its first CHUNK reads) and seeded synthetic
+    reads: name -> (seq, qual, off, oidx, order, rev, nbases, qrows)."""
+    rng = np.random.default_rng(29)
+    n = order.size
+    oidx = np.arange(n, dtype=np.int64)
+    codes = np.array([1, 2, 4, 8, 15, 5], np.uint8)
+    p = [.24, .24, .24, .24, .02, .02]
+    got = {}
+    # quals binned to 4 values, as Illumina reports them: shared-atomic
+    # collisions across warps
+    binned = np.array([2, 12, 23, 37], np.uint8)[
+        np.searchsorted([10, 20, 30], qual, side="right")]
+    got["binned"] = (seq, binned, off, oidx, order, rev, 300, 300)
+    # runs of 4,096 selected reads with gaps of 8,192 between them
+    keep = (oidx // 4096) % 3 == 0
+    got["gaps"] = (seq, qual, off, oidx[keep], order[keep], rev[keep], 300,
+                   301)
+    got["single"] = (seq, qual, off, oidx[:1], order[:1], rev[:1], 300, 300)
+    # a quarter of the reads with no bases
+    lens = rng.integers(1, 151, n)
+    lens[rng.random(n) < .25] = 0
+    so = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    got["empty"] = (rng.choice(codes, int(so[-1]), p=p),
+                    rng.integers(2, 41, int(so[-1])).astype(np.uint8), so,
+                    oidx, order, rev, 150, 151)
+    # 200 reads of 20,000 bases: a hundred row tiles
+    m = 200
+    so = np.arange(m + 1, dtype=np.int64) * 20000
+    got["long_20k"] = (rng.choice(codes, int(so[-1]), p=p),
+                       rng.integers(0, 94, int(so[-1])).astype(np.uint8), so,
+                       np.arange(m, dtype=np.int64),
+                       rng.integers(0, 3, m).astype(np.uint8),
+                       rng.integers(0, 2, m).astype(np.uint8), 20000, 20001)
+    return got
+
+
 def phase_kernels_stats(bams: dict, ref: np.ndarray, ref_int: np.ndarray,
                         dev, core_census, tool_checksums: int) -> dict:
     """K12 on chunks of clean, the pairs and long synthetic reads; K7n on
@@ -1626,6 +1830,10 @@ def phase_kernels_stats(bams: dict, ref: np.ndarray, ref_int: np.ndarray,
         # a run's first chunk: nbases 300, as many quality rows
         k12[name] = _k12_case(b.seq, b.qual, b.seq_off, oidx, order, rev,
                               300, 300, dev)
+        if name == "clean":
+            for shape, case in k12_stress_inputs(
+                    b.seq, b.qual, b.seq_off, order, rev).items():
+                k12[shape] = _k12_case(*case, dev)
         del b
     # reads of 30-1,000 bases after the histograms grew to 1,000 cycles
     rng = np.random.default_rng(21)
@@ -1987,15 +2195,25 @@ def main() -> int:
                        host_ms=r.get("host_gap5_scores_ms",
                                      r.get("host_flagstat_numpy_ms")),
                        detail=r["detail"])
+        if name == "consensus_segsum":
+            # device_ms: the kernel alone (CUDA graph of bare calls)
+            row.update(device_ms=r["device_ms"],
+                       shapes={k: {f: v[f] for f in (
+                           "ms", "b2b_ms", "device_ms", "plain_ms",
+                           "library_ms", "host_gap5_scores_ms", "bound_ms",
+                           "bound_by", "detail")}
+                           for k, v in r["shapes"].items()})
         if name == "stats_hists":
             # launches: stats on clean (every 65,536-record chunk)
             row.update(launches=stats[f"{STATS_RUNS[0][0]} clean"][name],
                        run_launches={k: v[name] for k, v in stats.items()},
                        host_ms=r["host_stats_orig_hists_ms"],
+                       device_ms=r["device_ms"],
                        chunks={k: {f: v[f] for f in (
-                           "ms", "b2b_ms", "plain_ms", "library_ms",
-                           "host_stats_orig_hists_ms", "bound_ms",
-                           "detail")} for k, v in r["chunks"].items()})
+                           "ms", "b2b_ms", "device_ms", "plain_ms",
+                           "library_ms", "host_stats_orig_hists_ms",
+                           "bound_ms", "detail")}
+                           for k, v in r["chunks"].items()})
         if name == "census_narrow":
             # launches: the census core's finish() on clean (two passes);
             # the mpileup command fetches per-window checksums instead

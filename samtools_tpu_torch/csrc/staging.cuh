@@ -1,6 +1,7 @@
 // Shared-memory staging used by K1 segment_contract / segment_census, K4
 // baq_hmm and K5 baq_finalize: a block's items or reads are one contiguous
-// span of each input, copied into shared memory 16 bytes at a time.
+// span of each input, copied into shared memory 16 bytes at a time.  K10
+// consensus_segsum and K12 stats_hists use its wait and attribute helpers.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -40,10 +40,12 @@ _SIGNATURES = {
     "samtpu_baq_hmm": [_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
                        ctypes.POINTER(ctypes.c_float), _P, _P, _P, _P, _P],
     "samtpu_baq_finalize": [_P, _P, _P, _P, _INT, _INT, _P, _P],
-    "samtpu_consensus_segsum": [_P, _P, _P, _P, _P, _P, _INT, _P],
+    "samtpu_consensus_segsum": [_P, _P, _P, _P, _P, _P, _INT, _INT, _INT,
+                                _INT, _P],
     "samtpu_flagstat": [_P, _P, _P, _P, ctypes.c_int64, _P, _P],
     "samtpu_stats_hists": [_P, _P, _P, _P, _P, _P, ctypes.c_int64, _INT,
-                           _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                           _INT, _INT, _INT, _INT, ctypes.c_int64,
+                           ctypes.c_int64, _P, _P],
     "samtpu_census_max": [_P, ctypes.c_int64, _P, _P],
     "samtpu_census_cast": [_P, ctypes.c_int64, _INT, _INT, _P,
                            ctypes.c_int64, _P],
@@ -79,6 +81,18 @@ def reset_launches() -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_SMS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs (launch plans size their grids by it)."""
+    got = _SMS.get(device.index)
+    if got is None:
+        got = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return got
 
 
 def layout(entry: str, *args: int) -> tuple[int, ...]:

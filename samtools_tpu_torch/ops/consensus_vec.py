@@ -390,6 +390,31 @@ def consensus_segsum_plain(T: torch.Tensor, ent: torch.Tensor,
     return S, counts, counts.sum(1, dtype=torch.int32)
 
 
+# K10's launch geometry, as csrc/consensus_segsum.cu fixes it: a
+# quarter-warp a stream of consecutive columns, 8 to 32 streams a block,
+# at most 32 columns a stream; about three blocks an SM
+SEGSUM_STREAMS = (8, 32)
+SEGSUM_CMAX = 32
+
+
+def segsum_plan(ncols: int, sms: int) -> tuple[int, int, int]:
+    """K10's plan for ``ncols`` columns on a card of ``sms`` SMs:
+    (streams a block, columns a stream, blocks).  Block b takes columns
+    [b * streams * C, (b + 1) * streams * C), its stream s the C of them
+    from b * streams * C + s * C.  Streams shrink (down to 8 a block)
+    before blocks fall short of three an SM, so deep columns, one a stream,
+    still run side by side; columns a stream grow (up to 32) when there
+    are more columns than streams.  All zero for no columns."""
+    if ncols <= 0:
+        return 0, 0, 0
+    target = 3 * sms
+    lo, streams = SEGSUM_STREAMS
+    while streams > lo and -(-ncols // streams) < target:
+        streams //= 2
+    C = min(SEGSUM_CMAX, max(1, -(-ncols // (streams * target))))
+    return streams, C, -(-ncols // (streams * C))
+
+
 def consensus_segsum(T: torch.Tensor, ent: torch.Tensor,
                      col_off: torch.Tensor):
     """K10: for each column c, S[c] = the sum, in entry order and in f64,
@@ -398,7 +423,10 @@ def consensus_segsum(T: torch.Tensor, ent: torch.Tensor,
     counts and their number.  ``T`` f64[61206, 16] (``segsum_table``),
     ``ent`` uint8[n, 4] = (b6, q, q2, keep) per entry in column order,
     ``col_off`` int64[ncols + 1].  S equals gap5_scores' bit for bit.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel
+    (``csrc/consensus_segsum.cu``: blocks of ``segsum_plan``, a
+    quarter-warp a stream of columns, the table rows of 8 entries loaded
+    through L1 before their adds)."""
     ncols = col_off.numel() - 1
     kernels.check(T, "T", torch.float64, (6 * 101 * 101, ROW))
     kernels.check(ent, "ent", torch.uint8, (None, 4))
@@ -412,7 +440,8 @@ def consensus_segsum(T: torch.Tensor, ent: torch.Tensor,
         kernels.launch("consensus_segsum", "samtpu_consensus_segsum",
                        T.data_ptr(), ent.data_ptr(), col_off.data_ptr(),
                        S.data_ptr(), counts.data_ptr(), depth.data_ptr(),
-                       ncols, kernels.stream_of(T))
+                       ncols, *segsum_plan(ncols, kernels.sm_count(T.device)),
+                       kernels.stream_of(T))
     return S, counts, depth
 
 

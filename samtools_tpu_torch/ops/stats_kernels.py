@@ -44,11 +44,13 @@ ACGTNO_COL = np.array([5, 0, 1, 5, 2, 5, 5, 5, 3, 5, 5, 5, 5, 5, 5, 4],
 
 
 def hist_layout(no: int, nbases: int, qrows: int) -> list:
-    """(name, offset, shape) of each part of the flat output."""
+    """(name, offset, shape) of each part of the flat output: the
+    histograms and maxq first (the part K12 zeroes and adds into), then
+    the per-read gc and qsum (which it writes)."""
     parts = [("q1", (qrows, NQUALS)), ("q2", (qrows, NQUALS)),
              ("a1", (nbases, NCOLS)), ("a2", (nbases, NCOLS)),
-             ("ar", (nbases, NCOLS)), ("gc", (no,)), ("qsum", (no,)),
-             ("maxq", (1,))]
+             ("ar", (nbases, NCOLS)), ("maxq", (1,)), ("gc", (no,)),
+             ("qsum", (no,))]
     out, off = [], 0
     for name, shape in parts:
         out.append((name, off, shape))
@@ -59,6 +61,30 @@ def hist_layout(no: int, nbases: int, qrows: int) -> list:
 def hist_words(no: int, nbases: int, qrows: int) -> int:
     """int64 words of the flat output."""
     return 2 * qrows * NQUALS + 3 * nbases * NCOLS + 2 * no + 1
+
+
+# K12's launch geometry, as csrc/stats_hists.cu fixes it: one block of
+# 1,024 threads an SM, at most 104 cycle rows a tile (the int32 cells of
+# 104 rows fill a block's shared memory)
+RT_MAX = 104
+
+
+def hists_plan(no: int, max_len: int, sms: int) -> tuple[int, int, int,
+                                                         int]:
+    """K12's plan for ``no`` reads of at most ``max_len`` bases on a card
+    of ``sms`` SMs: (tiles, rt, groups, per_block).  Cycle rows are cut
+    into ``tiles`` tiles of ``rt`` rows (a multiple of 8, at most
+    RT_MAX); reads into ``groups`` runs of ``per_block`` (the last run
+    shorter); the grid is tiles x groups, about one block an SM.  All zero
+    when there is nothing to count."""
+    if no <= 0 or max_len <= 0:
+        return 0, 0, 0, 0
+    tiles = -(-max_len // RT_MAX)
+    rt = -(-max_len // tiles)
+    rt += -rt % 8
+    groups = min(max(1, sms // tiles), no)
+    per_block = -(-no // groups)
+    return tiles, rt, -(-no // per_block), per_block
 
 
 def split_hists(flat, no: int, nbases: int, qrows: int) -> dict:
@@ -133,7 +159,11 @@ def stats_hists(seq: torch.Tensor, qual: torch.Tensor,
     """K12: the flat int64 output of ``stats_hists_plain`` (same
     arguments).  ``max_len``: the longest selected read, at most nbases
     (the kernel's grid covers rows below it).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel (``csrc/stats_hists.cu``:
+    persistent blocks of ``hists_plan``, a warp a read, its bases loaded
+    while the read before it is counted, the histograms in shared int32
+    cells, flushed once a block), which zeroes the histograms and writes
+    every read's gc and qsum itself."""
     _check(seq, qual, seq_off, oidx, order, rev, nbases, qrows)
     if max_len > nbases:
         raise ValueError(f"max_len {max_len} exceeds nbases {nbases}")
@@ -141,17 +171,16 @@ def stats_hists(seq: torch.Tensor, qual: torch.Tensor,
         return stats_hists_plain(seq, qual, seq_off, oidx, order, rev,
                                  nbases, qrows)
     no = oidx.numel()
-    flat = torch.zeros(hist_words(no, nbases, qrows), dtype=torch.int64,
+    flat = torch.empty(hist_words(no, nbases, qrows), dtype=torch.int64,
                        device=seq.device)
-    if no and max_len > 0:
-        h = split_hists(flat, no, nbases, qrows)
-        kernels.launch(
-            "stats_hists", "samtpu_stats_hists", seq.data_ptr(),
-            qual.data_ptr(), seq_off.data_ptr(), oidx.data_ptr(),
-            order.data_ptr(), rev.data_ptr(), no, nbases, qrows, max_len,
-            *(h[k].data_ptr() for k in ("q1", "q2", "a1", "a2", "ar", "gc",
-                                        "qsum", "maxq")),
-            kernels.stream_of(seq))
+    if no == 0 or max_len <= 0:
+        return flat.zero_()
+    kernels.launch(
+        "stats_hists", "samtpu_stats_hists", seq.data_ptr(), qual.data_ptr(),
+        seq_off.data_ptr(), oidx.data_ptr(), order.data_ptr(),
+        rev.data_ptr(), no, nbases, qrows, max_len,
+        *hists_plan(no, max_len, kernels.sm_count(seq.device)),
+        flat.data_ptr(), kernels.stream_of(seq))
     return flat
 
 

@@ -560,9 +560,10 @@ def test_general_path_on_card_equals_cpu(cuda, tmp_path, monkeypatch, cmd,
     assert got[None] == got["cpu"]
 
 
-def _segsum_case(seed, depths, keep_share=0.95):
+def _segsum_case(seed, depths, keep_share=0.95, quals=(1, 101), b6s=6):
     """K10's inputs: columns of the given depths (ragged, some empty) of
-    random (b6, q, q2, keep) entries."""
+    random (b6, q, q2, keep) entries, q and q2 drawn from ``quals`` (a
+    range, or the values of a binned scale)."""
     from samtools_tpu_torch.ops import consensus_vec as cv
     from samtools_tpu_torch.tools.consensus_cmd import ConsProbs, Opts
     rng = np.random.default_rng(seed)
@@ -571,32 +572,57 @@ def _segsum_case(seed, depths, keep_share=0.95):
                    o.qcal, o.mode)
     col_off = np.concatenate([[0], np.cumsum(depths)]).astype(np.int64)
     n = int(col_off[-1])
-    ent = np.stack([rng.integers(0, 6, n), rng.integers(1, 101, n),
-                    rng.integers(1, 101, n),
+
+    def qs():
+        if isinstance(quals, tuple):
+            return rng.integers(*quals, n)
+        return rng.choice(np.asarray(quals), n)
+    ent = np.stack([rng.integers(0, b6s, n), qs(), qs(),
                     rng.random(n) < keep_share], 1).astype(np.uint8)
     T = cv.segsum_table(cp, torch.device("cpu"))
-    return T, torch.from_numpy(ent), torch.from_numpy(col_off)
+    return T, torch.from_numpy(ent), torch.from_numpy(col_off), cp
 
 
-@pytest.mark.parametrize("case", ["ragged", "deep", "none_kept"])
+@pytest.mark.parametrize("case", ["ragged", "deep", "none_kept", "amplicon",
+                                  "overflow", "binned"])
 def test_consensus_segsum_equals_plain(cuda, case):
     """K10 on the card equals its plain version on the CPU (f64 sums in
-    entry order) bit for bit, counts and depth too; on ragged columns
-    with empty ones, a column of 20,000 entries, and keep all false."""
+    entry order) and the host's f64 gap5_scores bit for bit, counts and
+    depth too; on ragged columns with empty ones, a column of 20,000
+    entries, keep all false, 2,000 amplicon columns 5,000 deep, q and q2
+    uniform on 1-100 (more distinct rows than an SM's L1 holds) and quals
+    binned to 4 values."""
     from samtools_tpu_torch.ops import consensus_vec as cv
     rng = np.random.default_rng(3)
     depths = rng.integers(0, 70, 3000)
     depths[::17] = 0
+    kw = {}
     if case == "deep":
         depths[1500] = 20000
-    T, ent, off = _segsum_case(4, depths,
-                               0.0 if case == "none_kept" else 0.95)
+    elif case == "none_kept":
+        kw["keep_share"] = 0.0
+    elif case == "amplicon":
+        depths = np.full(2000, 5000)
+        kw.update(quals=(2, 41), b6s=4)
+    elif case == "overflow":
+        depths = rng.integers(20, 40, 60_000)
+    elif case == "binned":
+        kw["quals"] = [2, 12, 23, 37]
+    T, ent, off, cp = _segsum_case(4, depths, **kw)
     want = cv.consensus_segsum_plain(T, ent, off)
     kernels.reset_launches()
     got = [t.cpu() for t in cv.consensus_segsum(T.to(cuda), ent.to(cuda),
                                                 off.to(cuda))]
     assert kernels.launches["consensus_segsum"] == 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    e = ent.numpy()
+    S, counts, depth = cv.gap5_scores(off.numpy(), e[:, 0].astype(np.int64),
+                                      e[:, 1].astype(np.int64),
+                                      e[:, 2].astype(np.int64),
+                                      e[:, 3] != 0, cp)
+    assert np.array_equal(got[0].numpy().view(np.uint64), S.view(np.uint64))
+    assert np.array_equal(got[1].numpy(), counts)
+    assert np.array_equal(got[2].numpy(), depth)
     if case == "none_kept":
         assert not got[0].any() and not got[2].any()
 
@@ -710,30 +736,53 @@ def test_mpileup_checkpoint_resume_on_card(cuda, tmp_path, monkeypatch):
         assert f.read() == truth
 
 
-def _stats_reads(nbases: int, seed: int, n: int):
+def _stats_reads(nbases: int, seed: int, n: int, shape: str = "uniform"):
     """Reads of 1..nbases bases with every nt16 code, quals up to 255,
-    orders 0/1/2 and both strands, as flat batch columns."""
+    orders 0/1/2 and both strands, as flat batch columns.  ``shape``:
+    ``binned`` quals on 4 values; ``gaps``, runs of selected reads with
+    long gaps between; ``empty``, a quarter of the reads with no bases;
+    ``single``, one selected read."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(1, nbases + 1, n)
     lens[0] = nbases
+    if shape == "empty":
+        lens[1:][rng.random(n - 1) < 0.25] = 0
     off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
     seq = rng.integers(0, 16, int(off[-1])).astype(np.uint8)
     qual = rng.integers(0, 256, int(off[-1])).astype(np.uint8)
+    if shape == "binned":
+        qual = np.array([2, 12, 23, 37], np.uint8)[qual % 4]
     oidx = np.flatnonzero(rng.random(n) < 0.9).astype(np.int64)
+    if shape == "gaps":
+        oidx = oidx[(oidx // 700) % 3 == 0]
+    elif shape == "single":
+        oidx = oidx[:1]
     order = rng.integers(0, 3, oidx.size).astype(np.uint8)
     rev = rng.integers(0, 2, oidx.size).astype(np.uint8)
     return seq, qual, off, oidx, order, rev
 
 
-@pytest.mark.parametrize("nbases,n", [(1, 500), (100, 20_000), (300, 7000),
-                                      (1000, 3000), (40, 0)])
-def test_stats_hists_equals_plain_and_host(cuda, nbases, n):
+@pytest.mark.parametrize("nbases,n,shape", [
+    pytest.param(1, 500, "uniform", id="1-500"),
+    pytest.param(100, 20_000, "uniform", id="100-20000"),
+    pytest.param(300, 7000, "uniform", id="300-7000"),
+    pytest.param(1000, 3000, "uniform", id="1000-3000"),
+    pytest.param(40, 0, "uniform", id="40-0"),
+    pytest.param(100, 70_000, "binned", id="binned"),
+    pytest.param(20_000, 60, "uniform", id="reads-of-20000"),
+    pytest.param(150, 20_000, "gaps", id="gaps"),
+    pytest.param(150, 20_000, "empty", id="empty-reads"),
+    pytest.param(300, 50, "single", id="single-read")])
+def test_stats_hists_equals_plain_and_host(cuda, nbases, n, shape):
     """K12 on the card equals its plain version and the host library's
-    pass exactly, one launch a chunk (none for no reads)."""
+    pass exactly, one launch a chunk (none for no reads); on uniform
+    reads, quals binned to 4 values (shared-atomic collisions), reads of
+    20,000 bases (a hundred row tiles), gaps in oidx, reads with no bases,
+    a single read."""
     from samtools_tpu_torch.io import native
     from samtools_tpu_torch.ops import stats_kernels as sk
     seq, qual, off, oidx, order, rev = _stats_reads(nbases, nbases + n,
-                                                    max(n, 1))
+                                                    max(n, 1), shape)
     if n == 0:
         oidx = oidx[:0]
         order, rev = order[:0], rev[:0]
