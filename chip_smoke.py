@@ -24,7 +24,10 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``b2b_ms`` is the median of 5 groups of 10 calls made back to back,
    where the host's time overlaps the card's work as on the main path.
    Beside the census form, the cost it replaces: the weight build alone
-   and the weight build followed by the generic form, back to back.  The
+   and the weight build followed by the generic form, back to back; its
+   library call is ``index_add_`` of the same packed int32 weights.  K1's,
+   K4's and K5's ``device_ms``: a CUDA graph of wrapper calls (each
+   wrapper only allocates its outputs and launches).  The
    generic form must launch here: the main path no longer calls it.
    Then K6, the chunk step (``_chunk_step``: K4, K5, K1's census form and
    the torch ops around them) on the clean chunk, in the census core's
@@ -37,8 +40,9 @@ from the sources in this checkout.  Phases, one JSON line each:
    (io.native.bench_baq_census) over the same records exactly, and the
    checksums must equal census_checksum of the oracle's arrays.  The
    census form, K4 and K5 must have launched during the run, the generic
-   K1 not, and finish() must have fetched through K7n census_narrow (its
-   two passes); its time is beside that of the int32 fetch it replaced.
+   K1 not, and finish() must have fetched through K7n census_narrow (one
+   cooperative launch); its time is beside that of the int32 fetch it
+   replaced.
 4. tool -- the user's entry point, ``python -m samtools_tpu_torch
    mpileup -f ref.fa in.bam``, run in-process (``cli.main``, ``-o`` to a
    file) on the same two BAMs: tool wall, aligned Mbases/s, output bytes
@@ -115,9 +119,11 @@ from the sources in this checkout.  Phases, one JSON line each:
    table rows of each block's columns (min, median, max; counted on the
    host) and the table bytes its entries request (128 B a kept entry,
    served by L1 or L2: the split is not measured); and
-   K11 (``flagstat``) on clean's 2,516,582 reads equal to its plain
-   version and ``flagstat_numpy`` exactly.  Beside each, the library
-   alternative on the card and the host branch's time.
+   K11 (``flagstat``) on clean's 2,516,582 reads and on one ``flagstat``
+   stream batch of them, equal to its plain version and
+   ``flagstat_numpy`` exactly in one launch, with ``device_ms`` (as
+   K10's) and its earlier ballot form timed on the same tensors.  Beside
+   each, the library alternative on the card and the host branch's time.
 10. stats -- ``stats`` in-process on clean (all 8 Mbp), on the pairs and
    ``stats -r ref.fa`` on messy's front, each card run against its
    ``SAMTPU_DEVICE=0`` run, byte for byte; the card runs must launch K12
@@ -134,9 +140,13 @@ from the sources in this checkout.  Phases, one JSON line each:
    fused keys and the host pass's time, with ``device_ms`` (as K10's),
    the launch plan and the global atomics the plan implies (each block's
    nonzero cells, counted on the host); K7n
-   on the census core's clean census (8,388,608 rows, u8 counts) and on
-   a census of 300x reads over 4 kbp (u16 counts), equal to its
-   plain version, beside ``amax`` with ``.to()``; K7's checksum
+   on the census core's clean census (8,388,608 rows, u8 counts), on its
+   first 1 Mi rows (the mpileup tool's window) and on a census of 300x
+   reads over 4 kbp (u16 counts), equal to its plain version in one
+   launch, beside ``amax`` with ``.to()``, with ``device_ms`` (the
+   cooperative kernel alone, without the host's read of the maxima), the
+   share of rows staged in shared memory and its earlier two-pass form
+   timed on the same census; K7's checksum
    (``census_checksum_dev``) on the clean census, equal to
    ``census_checksum``, beside ``torch.sum`` of the weighted lanes.
 12. regions -- ``index`` in-process on clean (BAI), ``index -c`` on a
@@ -164,7 +174,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -173,15 +182,19 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
+# the H100's peaks; the CUDA-event and CUDA-graph timers
+from kernel_timing import (F32_OPS_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                           bound, cuda_ms, graph_ms, require)
+
 REF_LEN = 8 << 20
 COVERAGE = 30.0
 READ_LEN = 100
 CHUNK = 1 << 16
 THREADS = max(1, min(8, os.cpu_count() or 1))
 
-# the H100 SXM's published peaks (NVIDIA data sheet, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # f64 outside the tensor cores (the same data sheet): K10's adds
 F64_OPS_PER_S = 34e12
 # K4 f32 operations per (read, query row, band slot), counted from
@@ -255,72 +268,29 @@ GENERAL_RUNS = (
 )
 
 
+# the mpileup tool's window (tools/mpileup_cmd.py WINDOW_COLS): K7n's rows
+# in the tool
+WINDOW_ROWS = 1 << 20
+_OLD_LIB = []
+
+
+def kn():
+    """scripts/torch_flagstat_narrow_kernels.py: the ballot K11 and the
+    two-pass K7n (their forms before the redesign), and the bare C-entry
+    calls of the current ones."""
+    import torch_flagstat_narrow_kernels
+    return torch_flagstat_narrow_kernels
+
+
+def old_kernels():
+    """The ballot K11 and the two-pass K7n, built once (in phase_build)."""
+    if not _OLD_LIB:
+        _OLD_LIB.append(kn().old_lib())
+    return _OLD_LIB[0]
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def require(cond: bool, what: str) -> None:
-    if not cond:
-        raise AssertionError(what)
-
-
-def cuda_ms(fn, reps: int = 5, per: int = 1) -> float:
-    """CUDA-event time of one call of ``fn``: the median over ``reps``
-    groups, each a pair of events around ``per`` calls made back to back,
-    after one warm-up call.  per = 1 times single calls, the wrapper's
-    host time included; with per > 1 the host's time overlaps the card's
-    work, as on the main path."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(per):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per)
-    return statistics.median(times)
-
-
-def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
-    """Device time of one call of ``fn``, without the host's: ``calls``
-    calls captured in one CUDA graph, replayed between CUDA events; the
-    median of ``reps`` replays, over ``calls``.  ``fn`` calls a kernel's
-    bare C entry point on preallocated outputs (no wrapper, no count)."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(calls):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    del g
-    return statistics.median(times)
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / F32_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def ref_codes(ref: np.ndarray) -> np.ndarray:
@@ -336,7 +306,12 @@ def phase_build() -> None:
     from samtools_tpu_torch.ops import baq_device as bd
     from samtools_tpu_torch.ops.mpileup_device import LREF_PAD
     t0 = time.perf_counter()
-    paths = build.build(("host", "cuda"))
+    # the ballot K11 and the two-pass K7n that the kernel phases time
+    # beside the current forms, compiled alongside
+    with ThreadPoolExecutor(1) as ex:
+        old = ex.submit(old_kernels)
+        paths = build.build(("host", "cuda"))
+        old.result()
     dt = time.perf_counter() - t0
     # ptxas's report; of the generic K1's 32 instantiations (one per K),
     # the one the census width uses
@@ -393,6 +368,7 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     hmm_stats = []
     fin_err = 0
     hmm_t = hmm_b2b = hmm_plain_t = fin_t = fin_b2b = fin_plain_t = None
+    hmm_dev = fin_dev = None
     k4_bytes = k4_ops = k5_bytes = 0
     for messy in (False, True):
         b = simulate_batch(ref_len=sub_len, coverage=COVERAGE,
@@ -467,6 +443,12 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
                                                       x["seg"]), per=10)
             fin_plain_t = cuda_ms(lambda: bd.baq_finalize_plain(
                 kq, kg, x["qq"], x["seg"]))
+            # the kernels alone: a CUDA graph of wrapper calls (a wrapper
+            # only allocates its outputs and launches; the graph replays
+            # the launch)
+            hmm_dev = graph_ms(lambda: bd.baq_hmm(*args), calls=10)
+            fin_dev = graph_ms(lambda: bd.baq_finalize(kq, kg, x["qq"],
+                                                       x["seg"]))
             k4_bytes = C * (LRM + LQ + LQ + 4 * LQ + 12) + C * (2 * LQ + 1)
             k4_ops = HMM_OPS_PER_CELL * 15 * LQ * C
             k5_bytes = C * LQ * (1 + 1 + 1 + 4 + 1)
@@ -483,12 +465,14 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
                     *step, collect=True), per=10), "reads": C}
     rows["baq_hmm"] = dict(max_abs_err=max(h["bq_max_abs_err"]
                                            for h in hmm_stats), ms=hmm_t,
-                           b2b_ms=hmm_b2b, plain_ms=hmm_plain_t,
-                           library_ms=None, detail=hmm_stats,
+                           b2b_ms=hmm_b2b, device_ms=hmm_dev,
+                           plain_ms=hmm_plain_t, library_ms=None,
+                           detail=hmm_stats,
                            **dict(zip(("bound_ms", "bound_by"),
                                       bound(k4_bytes, k4_ops))))
     rows["baq_finalize"] = dict(max_abs_err=fin_err, ms=fin_t,
-                                b2b_ms=fin_b2b, plain_ms=fin_plain_t,
+                                b2b_ms=fin_b2b, device_ms=fin_dev,
+                                plain_ms=fin_plain_t,
                                 library_ms=None,
                                 **dict(zip(("bound_ms", "bound_by"),
                                            bound(k5_bytes, 0))))
@@ -564,6 +548,7 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
         k1.append(dict(
             kernel="segment_contract", chunk=chunk, max_abs_err=gen_err,
             ms=cuda_ms(gen), b2b_ms=cuda_ms(gen, per=10),
+            device_ms=graph_ms(gen),
             plain_ms=cuda_ms(lambda: sk.segment_contract_plain(rp, W,
                                                                *plan)),
             library_ms=cuda_ms(lambda: scratch.index_add_(0, idx, W32)),
@@ -574,9 +559,12 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
         k1.append(dict(
             kernel="segment_census", chunk=chunk, max_abs_err=cen_err,
             ms=cuda_ms(cen), b2b_ms=cuda_ms(cen, per=10),
+            device_ms=graph_ms(cen),
             plain_ms=cuda_ms(lambda: sk.segment_census_plain(*cargs,
                                                              *plan)),
-            library_ms=None,
+            # the same census by one library call: index_add_ of the
+            # packed [items, 6] int32 census weights of the window's items
+            library_ms=cuda_ms(lambda: scratch.index_add_(0, idx, W32)),
             weights_b2b_ms=cuda_ms(lambda: sk.census_weights(*cargs),
                                    per=10),
             weights_then_generic_b2b_ms=cuda_ms(weights_then_gen, per=10),
@@ -705,9 +693,9 @@ def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str):
         require(all(runs[k] > 0 for k in MAIN_PATH) and
                 runs["segment_contract"] == 0,
                 f"{name}: the main path's kernels are {MAIN_PATH}: {runs}")
-        require(runs["census_narrow"] == 2,
+        require(runs["census_narrow"] == 1,
                 f"{name}: finish() launched K7n {runs['census_narrow']} "
-                "times, not its two passes")
+                "times, not once")
         launches[name] = runs
         oracles[name] = (path, o_census, o_qsum, nrec)
         emit({"phase": "main_path", "workload": name,
@@ -1287,8 +1275,8 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
     import torch
     from samtools_tpu_torch import kernels
     from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.io.stream import BamStream
     from samtools_tpu_torch.ops import consensus_vec as cv
-    from samtools_tpu_torch.ops import flagstat as fs
     rows, launches, whole_runs = {}, {}, {}
     # the entries of the first window K10 scores (clean's first 1 Mi
     # columns), kept from the first card run
@@ -1402,32 +1390,52 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
         k10[shape] = _k10_case(*case, cp, dev)
     rows["consensus_segsum"] = dict(k10["clean"], shapes=k10)
 
-    # --- K11 on clean's reads
-    b = read_alignments(bams["clean"], THREADS).batch
+    # --- K11 on clean's reads, and on one flagstat stream batch of them
+    rows["flagstat"] = _k11_case(read_alignments(bams["clean"],
+                                                 THREADS).batch, dev)
+    with BamStream(bams["clean"], threads=2) as st:
+        part = next(iter(st.batches(fields=0)))
+    rows["flagstat"]["shapes"] = {"clean": dict(rows["flagstat"]),
+                                  "stream_batch": _k11_case(part, dev)}
+    emit({"phase": "kernels_consensus", **rows})
+    return rows, launches, whole_runs
+
+
+def _k11_case(b, dev) -> dict:
+    """K11 on a batch's records: equal to its plain version and to
+    ``flagstat_numpy``, one launch a call; times beside the ballot form's
+    (scripts/torch_flagstat_narrow_kernels.py) on the same tensors."""
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.ops import flagstat as fs
     t0 = time.perf_counter()
     want = fs.flagstat_numpy(b)
     np_ms = (time.perf_counter() - t0) * 1e3
     args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
             for a, dt in ((b.flag, np.uint16), (b.mapq, np.uint8),
                           (b.tid, np.int32), (b.mtid, np.int32))]
+    before = kernels.launches["flagstat"]
     got = fs.flagstat_census(*args)
+    require(kernels.launches["flagstat"] == before + 1,
+            "K11 did not launch once")
     plain = fs.flagstat_plain(*args)
     require(torch.equal(got, plain), "K11 differs from its plain version")
     require({k: (int(got[i, 0]), int(got[i, 1]))
              for i, k in enumerate(fs.COUNTERS)} == want,
             "K11 differs from flagstat_numpy")
-    rows["flagstat"] = dict(
+    return dict(
         max_abs_err=0,
         ms=cuda_ms(lambda: fs.flagstat_census(*args)),
         b2b_ms=cuda_ms(lambda: fs.flagstat_census(*args), per=10),
+        device_ms=graph_ms(kn().k11_bare(args)),
         plain_ms=cuda_ms(lambda: fs.flagstat_plain(*args)),
         library_ms=cuda_ms(lambda: fs.flagstat_plain(*args)),
         host_flagstat_numpy_ms=np_ms,
-        detail={"reads": int(b.n)},
+        ballot_form=kn().k11_old(old_kernels(), args, got),
+        detail={"reads": int(b.n), "blocks": fs.flagstat_plan(
+            int(b.n), kernels.sm_count(dev))},
         **dict(zip(("bound_ms", "bound_by"),
                    bound(b.n * 11 + 16 * 2 * 8, b.n * 32))))
-    emit({"phase": "kernels_consensus", **rows})
-    return rows, launches, whole_runs
 
 
 def _k10_case(col_off, b6, q, q2, keep, cp, dev) -> dict:
@@ -1740,21 +1748,25 @@ def _k12_atomics(seq, qual, off, oidx, order, rev, plan) -> dict:
 
 
 def _census_narrow_case(census, wlen: int) -> dict:
-    """K7n on a resident census: equal to its plain version (types and
-    bytes); times beside its bound."""
+    """K7n on rows [0, wlen) of a resident census: equal to its plain
+    version (types and bytes) in one launch; times beside its bound and
+    the two-pass form's (scripts/torch_flagstat_narrow_kernels.py), the share
+    of the rows staged in shared memory."""
     import torch
     from samtools_tpu_torch import kernels
     from samtools_tpu_torch.ops import mpileup_device as md
     before = kernels.launches["census_narrow"]
     got = md.census_narrow(census, wlen)
     torch.cuda.synchronize()
-    require(kernels.launches["census_narrow"] == before + 2,
-            "K7n did not launch its two passes")
+    require(kernels.launches["census_narrow"] == before + 1,
+            "K7n did not launch once")
     want = md.census_narrow_plain(census, wlen)
     require(got[1:] == want[1:] and torch.equal(got[0], want[0]),
             "K7n differs from its plain version")
     cdt, qdt = got[1], got[2]
     c = census[:wlen]
+    blocks, rows, staged = md.narrow_plan(
+        wlen, *md._narrow_limits(census.device))
 
     def library():
         return (c[:, :5].amax(), c[:, 5].amax(), c[:, :5].to(cdt),
@@ -1762,11 +1774,15 @@ def _census_narrow_case(census, wlen: int) -> dict:
     return dict(max_abs_err=0, ms=cuda_ms(lambda: md.census_narrow(
         census, wlen)), b2b_ms=cuda_ms(lambda: md.census_narrow(
             census, wlen), per=10),
+        device_ms=graph_ms(kn().k7n_bare(census, wlen)),
         plain_ms=cuda_ms(lambda: md.census_narrow_plain(census, wlen)),
         library_ms=cuda_ms(library),
+        two_pass_form=kn().k7n_old(old_kernels(), census, wlen, got),
         detail={"rows": wlen, "counts": str(cdt), "qual_sums": str(qdt),
                 "fetched_bytes": int(got[0].numel()),
-                "int32_bytes": wlen * 24},
+                "int32_bytes": wlen * 24,
+                "plan": {"blocks": blocks, "rows": rows, "staged": staged},
+                "staged_share": min(wlen, blocks * staged) / wlen},
         **dict(zip(("bound_ms", "bound_by"),
                    bound(wlen * 24 + got[0].numel() + 8, 0))))
 
@@ -1860,6 +1876,8 @@ def phase_kernels_stats(bams: dict, ref: np.ndarray, ref_int: np.ndarray,
                                   err_rate=0.01, ref=ref[:L]))
     deep._flush()
     narrow = {"core_clean": _census_narrow_case(core_census, REF_LEN),
+              "tool_window_clean": _census_narrow_case(core_census,
+                                                       WINDOW_ROWS),
               "deep_300x": _census_narrow_case(deep.census_dev, L)}
     require(narrow["deep_300x"]["detail"]["counts"] == "torch.uint16",
             "the 300x census did not narrow to u16")
@@ -2174,6 +2192,9 @@ def main() -> int:
                "b2b_ms": r["b2b_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"]}
+        if r.get("device_ms") is not None:
+            # the kernel alone: a CUDA graph of its calls
+            row["device_ms"] = r["device_ms"]
         if name == "baq_apply":
             row.update(host_baq_batch_ms=r["host_baq_batch_ms"],
                        bound_sum_k4_ops_k5_bytes_ms=r[
@@ -2195,10 +2216,15 @@ def main() -> int:
                        host_ms=r.get("host_gap5_scores_ms",
                                      r.get("host_flagstat_numpy_ms")),
                        detail=r["detail"])
-        if name == "consensus_segsum":
-            # device_ms: the kernel alone (CUDA graph of bare calls)
-            row.update(device_ms=r["device_ms"],
+        if name == "flagstat":
+            row.update(ballot_form=r["ballot_form"],
                        shapes={k: {f: v[f] for f in (
+                           "ms", "b2b_ms", "device_ms", "plain_ms",
+                           "library_ms", "host_flagstat_numpy_ms",
+                           "bound_ms", "ballot_form", "detail")}
+                           for k, v in r["shapes"].items()})
+        if name == "consensus_segsum":
+            row.update(shapes={k: {f: v[f] for f in (
                            "ms", "b2b_ms", "device_ms", "plain_ms",
                            "library_ms", "host_gap5_scores_ms", "bound_ms",
                            "bound_by", "detail")}
@@ -2208,19 +2234,20 @@ def main() -> int:
             row.update(launches=stats[f"{STATS_RUNS[0][0]} clean"][name],
                        run_launches={k: v[name] for k, v in stats.items()},
                        host_ms=r["host_stats_orig_hists_ms"],
-                       device_ms=r["device_ms"],
                        chunks={k: {f: v[f] for f in (
                            "ms", "b2b_ms", "device_ms", "plain_ms",
                            "library_ms", "host_stats_orig_hists_ms",
                            "bound_ms", "detail")}
                            for k, v in r["chunks"].items()})
         if name == "census_narrow":
-            # launches: the census core's finish() on clean (two passes);
+            # launches: the census core's finish() on clean (one launch);
             # the mpileup command fetches per-window checksums instead
             row.update(launches=launches["clean"][name],
+                       two_pass_form=r["two_pass_form"],
                        censuses={k: {f: v[f] for f in (
-                           "ms", "b2b_ms", "plain_ms", "library_ms",
-                           "bound_ms", "detail")}
+                           "ms", "b2b_ms", "device_ms", "plain_ms",
+                           "library_ms", "bound_ms", "two_pass_form",
+                           "detail")}
                            for k, v in r["censuses"].items()})
         if name == "segment_contract":
             row.update(launches=sum(family.values()),

@@ -42,13 +42,14 @@ _SIGNATURES = {
     "samtpu_baq_finalize": [_P, _P, _P, _P, _INT, _INT, _P, _P],
     "samtpu_consensus_segsum": [_P, _P, _P, _P, _P, _P, _INT, _INT, _INT,
                                 _INT, _P],
-    "samtpu_flagstat": [_P, _P, _P, _P, ctypes.c_int64, _P, _P],
+    "samtpu_flagstat": [_P, _P, _P, _P, ctypes.c_int64, _INT, _P, _P, _P],
     "samtpu_stats_hists": [_P, _P, _P, _P, _P, _P, ctypes.c_int64, _INT,
                            _INT, _INT, _INT, _INT, ctypes.c_int64,
                            ctypes.c_int64, _P, _P],
-    "samtpu_census_max": [_P, ctypes.c_int64, _P, _P],
-    "samtpu_census_cast": [_P, ctypes.c_int64, _INT, _INT, _P,
-                           ctypes.c_int64, _P],
+    "samtpu_census_narrow": [_P, ctypes.c_int64, _INT, ctypes.c_int64,
+                             _INT, _P, _P, _P, _P],
+    # device queries: int64 values written, CUDA error returned
+    "samtpu_census_narrow_limits": [ctypes.POINTER(ctypes.c_int64)],
 }
 # launch-geometry queries: (int arguments, int64 values written)
 _LAYOUTS = {"samtpu_baq_hmm_layout": (3, 4)}
@@ -56,6 +57,8 @@ _LAYOUTS = {"samtpu_baq_hmm_layout": (3, 4)}
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build.build(("cuda",))["cuda"])
@@ -95,11 +98,43 @@ def sm_count(device: torch.device) -> int:
     return got
 
 
+_SCRATCH: dict = {}
+
+
+def scratch(kernel: str, device: torch.device, stream: int,
+            words: int) -> torch.Tensor:
+    """A kernel's int32 scratch for launches on ``stream`` (a CUDA stream
+    handle) of ``device``, zeroed once at its first use and kept: the
+    kernels that take one (K11's partials and ticket, K7n's maxima and
+    ticket) leave its counters at zero again, and launches on one stream
+    run one after another, so every later call on that stream reuses it
+    as it is.  Each stream has its own: kernels on two streams may
+    overlap."""
+    key = (kernel, device.index, stream)
+    got = _SCRATCH.get(key)
+    if got is None or got.numel() < words:
+        got = _SCRATCH[key] = torch.zeros(words, dtype=torch.int32,
+                                          device=device)
+    return got
+
+
 def layout(entry: str, *args: int) -> tuple[int, ...]:
     """The values a kernel's launch-geometry query writes for ``args``
     (compile-time constants of its source and the sizes they imply)."""
     out = (ctypes.c_int64 * _LAYOUTS[entry][1])()
     getattr(_load(), entry)(*args, out)
+    return tuple(out)
+
+
+def query(entry: str, n: int) -> tuple[int, ...]:
+    """The ``n`` int64 values a device query writes (raises on a CUDA
+    error)."""
+    lib = _load()
+    out = (ctypes.c_int64 * n)()
+    rc = getattr(lib, entry)(out)
+    if rc != 0:
+        msg = lib.samtpu_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
     return tuple(out)
 
 

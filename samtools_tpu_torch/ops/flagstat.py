@@ -63,11 +63,46 @@ def flagstat_plain(flag: torch.Tensor, mapq: torch.Tensor, tid: torch.Tensor,
                         (c * qcfail[:, None]).sum(0)], 1)
 
 
+# K11's launch plan (csrc/flagstat.cu): 256-thread blocks, 8 records a
+# thread a step, at most this many blocks an SM (one wave)
+TPB = 256
+VEC = 8
+BLOCKS_PER_SM = 2
+
+
+def flagstat_plan(n: int, sms: int) -> int:
+    """K11's grid for ``n`` records on a card of ``sms`` SMs: one wave of
+    at most BLOCKS_PER_SM blocks an SM, fewer when the records' groups of
+    8 do not give every thread one (0 for no records)."""
+    if n <= 0:
+        return 0
+    groups = -(-n // VEC)
+    return max(1, min(sms * BLOCKS_PER_SM, -(-groups // TPB)))
+
+
+_LAUNCH: dict = {}
+
+
+def _launch_state(device: torch.device, stream: int) -> tuple[int, int]:
+    """(SM count, scratch pointer) of K11's launches on ``stream`` of
+    ``device``, found once: a call at the command's batch size spends
+    little more on the host than the launch itself."""
+    key = (device.index, stream)
+    got = _LAUNCH.get(key)
+    if got is None:
+        sms = kernels.sm_count(device)
+        got = _LAUNCH[key] = (sms, kernels.scratch(
+            "flagstat", device, stream,
+            32 + 32 * sms * BLOCKS_PER_SM).data_ptr())
+    return got
+
+
 def flagstat_census(flag: torch.Tensor, mapq: torch.Tensor,
                     tid: torch.Tensor, mtid: torch.Tensor) -> torch.Tensor:
     """K11: int64[16, 2] counts from flag uint16[n], mapq uint8[n],
     tid/mtid int32[n].  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel, which writes every count (the last block to finish
+    sums the blocks' partials), so ``out`` is not zeroed first."""
     n = flag.numel()
     kernels.check(flag, "flag", torch.uint16, (n,))
     kernels.check(mapq, "mapq", torch.uint8, (n,))
@@ -75,11 +110,15 @@ def flagstat_census(flag: torch.Tensor, mapq: torch.Tensor,
     kernels.check(mtid, "mtid", torch.int32, (n,))
     if not kernels.on_card(flag, mapq, tid, mtid):
         return flagstat_plain(flag, mapq, tid, mtid)
-    out = torch.zeros(N_COUNTERS, 2, dtype=torch.int64, device=flag.device)
-    if n:
-        kernels.launch("flagstat", "samtpu_flagstat", flag.data_ptr(),
-                       mapq.data_ptr(), tid.data_ptr(), mtid.data_ptr(), n,
-                       out.data_ptr(), kernels.stream_of(flag))
+    if not n:
+        return torch.zeros(N_COUNTERS, 2, dtype=torch.int64,
+                           device=flag.device)
+    stream = kernels.stream_of(flag)
+    sms, scratch = _launch_state(flag.device, stream)
+    out = torch.empty(N_COUNTERS, 2, dtype=torch.int64, device=flag.device)
+    kernels.launch("flagstat", "samtpu_flagstat", flag.data_ptr(),
+                   mapq.data_ptr(), tid.data_ptr(), mtid.data_ptr(), n,
+                   flagstat_plan(n, sms), scratch, out.data_ptr(), stream)
     return out
 
 

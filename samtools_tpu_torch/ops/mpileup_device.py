@@ -30,7 +30,9 @@ Two consumers (as in the JAX package):
 
 from __future__ import annotations
 
+import functools
 import os
+import threading
 
 import numpy as np
 import torch
@@ -293,29 +295,98 @@ def census_narrow_plain(census: torch.Tensor, wlen: int):
     return buf, cdt, qdt
 
 
+# K7n's launch plan (csrc/census_narrow.cu): a block an SM, each a run of
+# rows that starts at a multiple of ROW_GRAIN
+ROW_GRAIN = 16
+ROW_BYTES = 24
+
+
+@functools.lru_cache(maxsize=64)
+def narrow_plan(wlen: int, sms: int, smem: int,
+                ring: int) -> tuple[int, int, int]:
+    """K7n's plan for rows [0, wlen) on a card of ``sms`` SMs whose
+    blocks may take ``smem`` bytes of dynamic shared memory: (blocks,
+    rows a block, rows a block stages in shared memory).  Block b takes
+    rows [b * rows, min((b + 1) * rows, wlen)); rows and staged rows are
+    multiples of ROW_GRAIN, every block has rows, at most one a SM.  A
+    block that cannot stage all its rows keeps a ring of ``ring`` bytes
+    of tiles behind the staged ones for the rest.  All zero for no
+    rows."""
+    if wlen <= 0:
+        return 0, 0, 0
+    grains = -(-wlen // ROW_GRAIN)
+    rows = -(-grains // min(sms, grains)) * ROW_GRAIN
+    if rows * ROW_BYTES > smem:
+        staged = max(0, smem - ring) // ROW_BYTES // ROW_GRAIN * ROW_GRAIN
+    else:
+        staged = rows
+    return -(-wlen // rows), rows, staged
+
+
+_NARROW: dict = {}
+_NARROW_HOST: dict = {}
+_NARROW_LOCK = threading.Lock()
+
+
+def _narrow_limits(device: torch.device) -> tuple[int, int, int]:
+    """(SM count, dynamic shared memory a block, bytes of the phase-2
+    ring) of ``device``, found once: ``narrow_plan``'s inputs."""
+    got = _NARROW.get(device.index)
+    if got is None:
+        got = _NARROW[device.index] = kernels.query(
+            "samtpu_census_narrow_limits", 3)
+    return got
+
+
+def _narrow_host(device: torch.device, stream: int):
+    """(a pinned int32[2] for the maxima, a lock) of K7n's launches on
+    ``stream`` of ``device``, made once: a call holds the lock from its
+    launch to its read of the maxima, so calls from two threads on one
+    stream each read their own."""
+    key = (device.index, stream)
+    got = _NARROW_HOST.get(key)
+    if got is None:
+        with _NARROW_LOCK:
+            got = _NARROW_HOST.setdefault(key, (
+                torch.empty(2, dtype=torch.int32, pin_memory=True),
+                threading.Lock()))
+    return got
+
+
 def census_narrow(census: torch.Tensor, wlen: int):
-    """K7n: ``census_narrow_plain``'s result, on the card by two kernel
-    launches (the maxima, then the cast; csrc/census_narrow.cu) around
-    one 8-byte read of the maxima.  A CPU tensor takes the plain
-    version."""
+    """K7n: ``census_narrow_plain``'s result, on the card by one
+    cooperative kernel launch (csrc/census_narrow.cu: the maxima and the
+    cast around a grid-wide barrier, the types chosen on the card) into a
+    buffer of the worst case's size; the kernel writes the maxima into a
+    pinned int32[2] kept for the stream, which the host reads after one
+    stream sync.  The buffer returned is the ``[:end]`` view of the
+    narrowed bytes.  A CPU tensor takes the plain version."""
     kernels.check(census, "census", torch.int32, (None, CENSUS_K))
     if wlen > census.shape[0]:
         raise ValueError(f"wlen {wlen} exceeds the census's "
                          f"{census.shape[0]} rows")
     if not kernels.on_card(census):
         return census_narrow_plain(census, wlen)
-    stream = kernels.stream_of(census)
-    mx = torch.zeros(2, dtype=torch.int32, device=census.device)
-    kernels.launch("census_narrow", "samtpu_census_max", census.data_ptr(),
-                   wlen, mx.data_ptr(), stream)
-    cmax, qmax = mx.tolist()
-    cdt, qdt = narrow_types(cmax, qmax)
-    q_off, end = _narrow_offsets(wlen, cdt, qdt)
-    buf = torch.empty(end, dtype=torch.uint8, device=census.device)
-    kernels.launch("census_narrow", "samtpu_census_cast", census.data_ptr(),
-                   wlen, cdt.itemsize, qdt.itemsize, buf.data_ptr(), q_off,
-                   stream)
-    return buf, cdt, qdt
+    if census.data_ptr() % 16:
+        raise ValueError("census: K7n needs a 16-byte aligned census")
+    if wlen <= 0:
+        return (torch.empty(0, dtype=torch.uint8, device=census.device),
+                *narrow_types(0, 0))
+    stream = torch.cuda.current_stream(census.device)
+    maxima, lock = _narrow_host(census.device, stream.cuda_stream)
+    buf = torch.empty(wlen * ROW_BYTES + 16, dtype=torch.uint8,
+                      device=census.device)
+    with lock:
+        kernels.launch("census_narrow", "samtpu_census_narrow",
+                       census.data_ptr(), wlen,
+                       *narrow_plan(wlen, *_narrow_limits(census.device)),
+                       buf.data_ptr(),
+                       kernels.scratch("census_narrow", census.device,
+                                       stream.cuda_stream, 3).data_ptr(),
+                       maxima.data_ptr(), stream.cuda_stream)
+        stream.synchronize()
+        cdt, qdt = narrow_types(*maxima.tolist())
+    return buf[:_narrow_offsets(wlen, cdt, qdt)[1]], cdt, qdt
 
 
 class DeviceCensusPipeline:

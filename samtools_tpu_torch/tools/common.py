@@ -15,6 +15,8 @@ import os
 import sys
 from dataclasses import dataclass, field
 
+import torch
+
 from ..core.regions import parse_region
 from ..device import resolve
 from ..io.files import AlignmentFile
@@ -180,12 +182,44 @@ def not_ported(cmd: str, what: str) -> int:
 
 
 def n_shards() -> int:
-    """SAMTPU_SHARDS, the JAX package's region shard count (1 by
-    default)."""
+    """SAMTPU_SHARDS as the JAX mpileup and consensus read it: the span
+    count of their span workers (1 by default or when malformed; no
+    cap)."""
     try:
         return max(int(os.environ.get("SAMTPU_SHARDS", "1")), 1)
     except ValueError:
         return 1
+
+
+def n_spans(header, shards: int) -> int:
+    """How many genome spans the JAX span workers (mpileup's
+    ``_run_sharded``, consensus's ``_run_sharded_consensus``) cut the
+    contigs into for ``shards``: spans of max(ceil(len / shards), 1 Mi)
+    per contig.  With fewer than two they run serially."""
+    total = 0
+    for ln in header.ref_lens:
+        ln = int(ln)
+        if ln > 0:
+            step = max((ln + shards - 1) // shards, 1 << 20)
+            total += (ln + step - 1) // step
+    return total
+
+
+def device_shards(dev) -> int:
+    """SAMTPU_SHARDS as the JAX depth and flagstat read it (``_n_shards``,
+    samtools_tpu/tools/depth_cmd.py:103-118): ``all`` is every device, a
+    malformed value 1, and the count is capped at the device count (the
+    CUDA cards for a CUDA ``dev``, 1 on the CPU), so one device runs
+    unsharded."""
+    ndev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    v = os.environ.get("SAMTPU_SHARDS", "1")
+    if v == "all":
+        return ndev
+    try:
+        n = int(v)
+    except ValueError:
+        return 1
+    return max(min(n, ndev), 1)
 
 
 def pick_device(device=None):

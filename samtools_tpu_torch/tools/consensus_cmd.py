@@ -51,8 +51,8 @@ from ..ops import consensus_vec as CV
 from ..ops.cigar import expand_ops
 from ..ops.pileup import _ENTRY_LUT, build_pileup
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, no_card, not_ported, open_stream, pick_device,
-                     print_error, print_error_errno)
+                     n_shards, n_spans, no_card, not_ported, open_stream,
+                     pick_device, print_error, print_error_errno)
 from .flags_cmd import str2flag
 
 MODE_SIMPLE = 0
@@ -1731,19 +1731,6 @@ LONG_OPTS = [
 ]
 
 
-def _n_spans(header, shards: int) -> int:
-    """How many genome spans the JAX tool's sharded run
-    (``_run_sharded_consensus``) cuts the contigs into: with one, it runs
-    serially."""
-    total = 0
-    for ln in header.ref_lens:
-        ln = int(ln)
-        if ln > 0:
-            step = max((ln + shards - 1) // shards, 1 << 20)
-            total += (ln + step - 1) // step
-    return total
-
-
 def main_consensus(argv: list[str], device=None) -> int:
     ga = GlobalArgs()
     opts = Opts()
@@ -1974,7 +1961,7 @@ def main_consensus(argv: list[str], device=None) -> int:
         rc = not_ported("consensus", "SAMTPU_CONSENSUS_SPAN (the span-worker "
                         "protocol)")
     elif (vec and stream is not None and not (opts.reg or opts.bed)
-          and n_shards() > 1 and _n_spans(opts.header, n_shards()) > 1):
+          and n_shards() > 1 and n_spans(opts.header, n_shards()) > 1):
         rc = not_ported("consensus", "SAMTPU_SHARDS (sharded runs)")
     else:
         rc = None

@@ -24,8 +24,8 @@ from ..io.files import FormatNotPorted, read_alignments
 from ..ops import depth as dops
 from ..ops.pileup_engine import depth_window_device
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, no_card, not_ported, pick_device, print_error,
-                     print_error_errno, try_region_read)
+                     device_shards, no_card, not_ported, pick_device,
+                     print_error, print_error_errno, try_region_read)
 from .flags_cmd import str2flag
 
 DEFAULT_EXCL = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -231,7 +231,7 @@ def main_depth(argv: list[str], device=None) -> int:
         dev = pick_device(device)
     except RuntimeError as e:
         return no_card("depth", e)
-    if dev is not None and n_shards() > 1:
+    if dev is not None and device_shards(dev) > 1:
         return not_ported("depth", "SAMTPU_SHARDS (sharded runs)")
 
     files = []

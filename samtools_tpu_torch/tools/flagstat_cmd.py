@@ -20,8 +20,8 @@ import numpy as np
 from ..io.files import FormatNotPorted, read_alignments
 from ..ops import flagstat as fsops
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, no_card, not_ported, open_stream, pick_device,
-                     print_error, print_error_errno)
+                     device_shards, no_card, not_ported, open_stream,
+                     pick_device, print_error, print_error_errno)
 
 
 def usage(fp):
@@ -188,7 +188,7 @@ def main_flagstat(argv: list[str], device=None) -> int:
         dev = pick_device(device)
     except RuntimeError as e:     # no CUDA card
         return no_card("flagstat", e)
-    if dev is not None and n_shards() > 1:
+    if dev is not None and device_shards(dev) > 1:
         return not_ported("flagstat", "SAMTPU_SHARDS (sharded runs)")
     count_fn = _count_fn(dev)
     s = None

@@ -65,8 +65,8 @@ from ..ops.mpileup_device import (HOST_THREADS, NT16_TO4,
 from ..ops.overlaps import tweak_overlaps
 from ..ops.pileup import build_pileup
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, no_card, not_ported, open_stream, pick_device,
-                     print_error_errno, try_region_read)
+                     n_shards, n_spans, no_card, not_ported, open_stream,
+                     pick_device, print_error_errno, try_region_read)
 from .flags_cmd import str2flag
 
 DEFAULT_FF = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -509,8 +509,6 @@ def main_mpileup(argv: list[str], device=None) -> int:
     if not args:
         sys.stderr.write("[mpileup] no input file/data given\n")
         return 1
-    if n_shards() > 1 and not conf["checkpoint"]:
-        return not_ported("mpileup", "SAMTPU_SHARDS (sharded runs)")
     try:
         dev = pick_device(device)
     except RuntimeError as e:     # no CUDA card
@@ -532,6 +530,8 @@ def main_mpileup(argv: list[str], device=None) -> int:
                 sys.stderr.write(f"[E::mpileup] fail to parse region "
                                  f"'{reg}'\n")
                 return 1
+        if _would_shard(reg, conf, args, header):
+            return not_ported("mpileup", "SAMTPU_SHARDS (sharded runs)")
         ck_state = None
         if conf["checkpoint"]:
             if not out_fname:
@@ -558,6 +558,19 @@ def main_mpileup(argv: list[str], device=None) -> int:
         for f in files:
             if f.stream is not None:
                 f.stream.close()
+
+
+def _would_shard(reg, conf, paths, header) -> bool:
+    """Whether the JAX tool runs this command as span workers
+    (samtools_tpu/tools/mpileup_cmd.py:520-526 and ``_run_sharded``'s
+    span list): SAMTPU_SHARDS > 1, no ``-r``, no ``--checkpoint``, one
+    input that is not standard input, not inside a worker, and at least
+    two spans.  Otherwise it runs serially, and so does the port."""
+    shards = n_shards()
+    return (shards > 1 and not reg and not conf["checkpoint"]
+            and len(paths) == 1 and paths[0] != "-"
+            and os.environ.get("SAMTPU_MPILEUP_SHARD_WORKER") != "1"
+            and n_spans(header, shards) > 1)
 
 
 def _open_inputs(paths, reg, nthreads, files) -> int:

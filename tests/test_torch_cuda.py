@@ -644,6 +644,130 @@ def test_flagstat_equals_plain(cuda, n):
     assert kernels.launches["flagstat"] == (1 if n else 0)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+def test_flagstat_offset_views_equal_plain(cuda, offset):
+    """K11 on views that start ``offset`` records into their tensors (a
+    base not 16-byte aligned takes the kernel's scalar path), n % 8 != 0:
+    the plain version's counts, one launch a call, the same counts on a
+    second call (the scratch's ticket is back at zero)."""
+    from samtools_tpu_torch.ops import flagstat as fs
+    rng = np.random.default_rng(offset)
+    n = 360_005
+    full = (rng.integers(0, 1 << 12, n + 8).astype(np.uint16),
+            rng.integers(0, 10, n + 8).astype(np.uint8),
+            rng.integers(-1, 3, n + 8).astype(np.int32),
+            rng.integers(-1, 3, n + 8).astype(np.int32))
+    want = fs.flagstat_plain(*(torch.from_numpy(a[offset:offset + n])
+                               for a in full))
+    views = [torch.from_numpy(a).to(cuda)[offset:offset + n] for a in full]
+    assert (views[0].data_ptr() % 16 == 0) == (offset % 8 == 0)
+    for _ in range(2):
+        kernels.reset_launches()
+        got = fs.flagstat_census(*views).cpu()
+        assert torch.equal(got, want)
+        assert kernels.launches["flagstat"] == 1
+
+
+def test_flagstat_on_card_never_takes_the_plain_version(cuda, monkeypatch):
+    from samtools_tpu_torch.ops import flagstat as fs
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+    monkeypatch.setattr(fs, "flagstat_plain", refuse)
+    n = 1000
+    got = fs.flagstat_census(
+        torch.full((n,), 3, dtype=torch.uint16, device=cuda),
+        torch.zeros(n, dtype=torch.uint8, device=cuda),
+        torch.zeros(n, dtype=torch.int32, device=cuda),
+        torch.zeros(n, dtype=torch.int32, device=cuda))
+    assert int(got[0, 0]) == n
+
+
+def test_flagstat_on_two_streams_equals_plain(cuda):
+    """K11 launched on two streams with both launches in flight at once,
+    then again on the first: each stream has its own scratch (partials
+    and ticket), so every call gives its own input's plain counts."""
+    from samtools_tpu_torch.ops import flagstat as fs
+    inputs = []
+    for seed, n in ((1, 2_000_003), (2, 1_500_001)):
+        rng = np.random.default_rng(seed)
+        inputs.append((
+            torch.from_numpy(rng.integers(0, 1 << 12, n).astype(np.uint16)),
+            torch.from_numpy(rng.integers(0, 10, n).astype(np.uint8)),
+            torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32)),
+            torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32))))
+    want = [fs.flagstat_plain(*a) for a in inputs]
+    on_card = [[t.to(cuda) for t in a] for a in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    kernels.reset_launches()
+    got = []
+    for _ in range(3):
+        for s, a in zip(streams, on_card):
+            with torch.cuda.stream(s):
+                got.append(fs.flagstat_census(*a))
+    torch.cuda.synchronize()
+    assert kernels.launches["flagstat"] == 6
+    for k, g in enumerate(got):
+        assert torch.equal(g.cpu(), want[k % 2])
+    assert len({k for k in kernels._SCRATCH if k[0] == "flagstat"}) >= 2
+
+
+def test_census_narrow_on_two_streams_equals_plain(cuda):
+    """K7n on two streams in turns, with types that differ from one call
+    to the next (u8/u16, then int32/int32): each stream has its own
+    scratch and each call its own maxima, so every call gives the plain
+    version's types and bytes in one launch."""
+    cens = []
+    for seed, hi in ((3, 200), (4, 1 << 20)):
+        rng = np.random.default_rng(seed)
+        c = rng.integers(0, hi, (2_000_003, 6)).astype(np.int32)
+        cens.append(c)
+    want = [md.census_narrow_plain(torch.from_numpy(c), len(c))
+            for c in cens]
+    on_card = [torch.from_numpy(c).to(cuda) for c in cens]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(2):
+        for s, c, w in zip(streams, on_card, want):
+            kernels.reset_launches()
+            with torch.cuda.stream(s):
+                got = md.census_narrow(c, c.shape[0])
+            assert kernels.launches["census_narrow"] == 1
+            assert got[1:] == w[1:]
+            assert torch.equal(got[0].cpu(), w[0])
+    assert len({k for k in kernels._SCRATCH
+                if k[0] == "census_narrow"}) >= 2
+
+
+def test_census_narrow_from_two_threads_equals_plain(cuda):
+    """K7n called from two threads at once on one stream, on censuses of
+    other types (u8/u16 and int32/int32): each call reads its own maxima,
+    so each gives the plain version's types and bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+    cens, want = [], []
+    for seed, hi in ((5, 200), (6, 1 << 20)):
+        rng = np.random.default_rng(seed)
+        c = rng.integers(0, hi, (1 << 20, 6)).astype(np.int32)
+        want.append(md.census_narrow_plain(torch.from_numpy(c), len(c)))
+        cens.append(torch.from_numpy(c).to(cuda))
+
+    def calls(k):
+        got = []
+        for _ in range(20):
+            buf, cdt, qdt = md.census_narrow(cens[k], cens[k].shape[0])
+            got.append((buf.cpu(), cdt, qdt))
+        return got
+    with ThreadPoolExecutor(2) as pool:
+        results = list(pool.map(calls, (0, 1)))
+    for got, w in zip(results, want):
+        for buf, cdt, qdt in got:
+            assert (cdt, qdt) == w[1:]
+            assert torch.equal(buf, w[0])
+
+
 def _consensus_inputs(tmp_path):
     from samtools_tpu_torch.io.bam import write_bam
     L = 1 << 16
@@ -821,8 +945,8 @@ def test_stats_hists_on_card_never_takes_the_plain_version(cuda,
 @pytest.mark.parametrize("cmax,qmax", [(200, 60_000), (300, 70_000),
                                        (70_000, 100)])
 def test_census_narrow_equals_plain(cuda, cmax, qmax):
-    """K7n on the card: the plain version's types and bytes, two
-    launches."""
+    """K7n on the card: the plain version's types and bytes, one
+    launch."""
     rng = np.random.default_rng(cmax)
     wlen = 200_003
     c = np.zeros((1 << 18, 6), np.int32)
@@ -834,9 +958,55 @@ def test_census_narrow_equals_plain(cuda, cmax, qmax):
     kernels.reset_launches()
     got = md.census_narrow(torch.from_numpy(c).to(cuda), wlen)
     torch.cuda.synchronize()
-    assert kernels.launches["census_narrow"] == 2
+    assert kernels.launches["census_narrow"] == 1
     assert got[1:] == want[1:]
     assert torch.equal(got[0].cpu(), want[0])
+
+
+# (largest count, largest qual sum) at the types' edges
+NARROW_EDGES = [(255, 65_535), (256, 65_536), (65_535, 255),
+                (65_536, 65_535), (0, 0)]
+
+
+@pytest.mark.parametrize("wlen", [1, 17, 1 << 20, 2_000_003])
+@pytest.mark.parametrize("edge", range(len(NARROW_EDGES)))
+def test_census_narrow_edges_equal_plain(cuda, wlen, edge):
+    """K7n with the maxima exactly at 255/256 and 65,535/65,536, larger
+    values in the rows at and past wlen (ignored); one row, a window of
+    1 Mi rows (all staged) and one past the shared memory's capacity
+    (unstaged rows, an odd count): the plain version's types and bytes,
+    one launch a call, the same on a second call."""
+    cmax, qmax = NARROW_EDGES[edge]
+    rng = np.random.default_rng(wlen + edge)
+    c = np.zeros((wlen + 64, 6), np.int32)
+    c[:wlen, :5] = rng.integers(0, cmax + 1, (wlen, 5))
+    c[:wlen, 5] = rng.integers(0, qmax + 1, wlen)
+    c[wlen - 1, 4], c[0, 5] = cmax, qmax
+    c[wlen:] = 1 << 30
+    want = md.census_narrow_plain(torch.from_numpy(c), wlen)
+    cd = torch.from_numpy(c).to(cuda)
+    blocks, rows, staged = md.narrow_plan(wlen,
+                                          *md._narrow_limits(cd.device))
+    if wlen == 2_000_003:
+        assert staged < rows
+    for _ in range(2):
+        kernels.reset_launches()
+        got = md.census_narrow(cd, wlen)
+        torch.cuda.synchronize()
+        assert kernels.launches["census_narrow"] == 1
+        assert got[1:] == want[1:]
+        assert torch.equal(got[0].cpu(), want[0])
+
+
+def test_census_narrow_on_card_never_takes_the_plain_version(cuda,
+                                                              monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+    monkeypatch.setattr(md, "census_narrow_plain", refuse)
+    c = torch.ones(4096, 6, dtype=torch.int32, device=cuda)
+    buf, cdt, qdt = md.census_narrow(c, 4000)
+    assert (cdt, qdt) == (torch.uint8, torch.uint16)
+    assert int(buf[:20000].sum()) == 20000
 
 
 def test_stats_on_card_equals_host_branch(cuda, tmp_path, monkeypatch):

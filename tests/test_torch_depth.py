@@ -6,8 +6,10 @@ JAX package, on the CPU (the plain versions of the port's kernels):
   JAX host ``ops.depth.depth_window``, exactly;
 * the command prints the JAX tool's bytes, whichever branch the JAX tool
   takes (``SAMTPU_DEVICE=1`` and ``=0``);
-* what it does not do yet exits 1 with one line; without CUDA it fails
-  before any row;
+* under SAMTPU_SHARDS (2, ``all``, malformed) it runs on one device and
+  prints the JAX tool's bytes, as the JAX tool does on one device; what
+  it does not do yet exits 1 with one line; without CUDA it fails before
+  any row;
 * its host modules (regions, whole-file reading, the clips, the row set,
   the row writer) equal their JAX counterparts."""
 
@@ -29,6 +31,7 @@ from samtools_tpu_torch.io.files import read_alignments
 from samtools_tpu_torch.ops import depth as dops
 from samtools_tpu_torch.ops import pileup_engine as pe
 from samtools_tpu_torch.tools import depth_cmd
+from samtools_tpu_torch.tools.common import device_shards
 
 torch.set_num_threads(1)
 
@@ -232,20 +235,46 @@ def test_depth_output_file_and_host_branch(inputs, tmp_path, monkeypatch):
                            device=None) == want
 
 
-@pytest.mark.parametrize("case", ["shards", "sam_input"])
+# SAMTPU_SHARDS values: capped at the device count (1 on the CPU), so
+# each runs the single-device path and prints the JAX tool's bytes
+SHARDS = {"shards": "2", "shards_all": "all", "shards_malformed": "two"}
+
+
+@pytest.mark.parametrize("case", [*SHARDS, "sam_input"])
 def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
     path = inputs["messy"]
-    if case == "shards":
-        monkeypatch.setenv("SAMTPU_SHARDS", "2")
-    else:
-        path = inputs["cram"]    # SAM is read now; CRAM is not
+    if case in SHARDS:
+        monkeypatch.setenv("SAMTPU_SHARDS", SHARDS[case])
+        # the JAX tool on one device, as the port runs on one card
+        monkeypatch.setenv("XLA_FLAGS",
+                           "--xla_force_host_platform_device_count=1")
+        port = run_port_stdout("depth", ["-a", path])
+        assert port.count(b"\n") > 500
+        for engine in ("1", "0"):
+            assert port == run_jax_tool("depth", ["-a", path], engine)
+        return
+    path = inputs["cram"]    # SAM is read now; CRAM is not
     capfd.readouterr()
     assert cli.main(["depth", path], device="cpu") == 1
     out, err = capfd.readouterr()
     assert out == ""
     said = [ln for ln in err.splitlines() if "not ported yet" in ln]
     assert len(said) == 1 and said[0].startswith("[depth]"), err
-    assert ("SAMTPU_SHARDS" if case == "shards" else "CRAM") in said[0]
+    assert "CRAM" in said[0]
+
+
+def test_shards_cap_at_the_device_count(monkeypatch):
+    """device_shards: 'all' is every device, a malformed value 1, a count
+    capped at the device count; 1 on the CPU whatever the value."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    for v, want in (("1", 1), ("2", 2), ("9", 4), ("all", 4), ("0", 1),
+                    ("-3", 1), ("two", 1), ("", 1)):
+        monkeypatch.setenv("SAMTPU_SHARDS", v)
+        assert device_shards(cuda) == want, v
+        assert device_shards(cpu) == 1, v
+    monkeypatch.delenv("SAMTPU_SHARDS")
+    assert device_shards(cuda) == 1
 
 
 def test_without_cuda_fails_before_any_row(inputs, capfd, monkeypatch):

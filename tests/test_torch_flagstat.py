@@ -10,8 +10,9 @@ package, on the CPU (K11's plain version):
   values;
 * K11's plain version equals ``flagstat_numpy`` and the JAX
   ``flagstat_numpy`` exactly, and counts nothing on no records;
-* what it does not do yet exits 1 with one line; without CUDA it fails
-  before any output."""
+* under SAMTPU_SHARDS (2, ``all``, malformed) it runs on one device and
+  prints the JAX tool's bytes; what it does not do yet exits 1 with one
+  line; without CUDA it fails before any output."""
 
 import os
 import subprocess
@@ -148,8 +149,13 @@ def test_k11_rejects_wrong_dtype_and_mixed_devices():
         fs.flagstat_census(t[0], t[1][:3], *t[2:])
 
 
+# (what the one line names, input).  The SAMTPU_SHARDS cases run now:
+# capped at the device count (1 on the CPU), each runs the single-device
+# path and prints the JAX tool's bytes.
 NOT_PORTED = {
-    "shards": ("SAMTPU_SHARDS", "flagged"),
+    "shards": ("2", "flagged"),
+    "shards_all": ("all", "flagged"),
+    "shards_malformed": ("two", "flagged"),
     # SAM is read now (tests/test_torch_sam_input.py); CRAM is not
     "sam_input": ("CRAM input", "cram"),
 }
@@ -158,8 +164,15 @@ NOT_PORTED = {
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
     what, which = NOT_PORTED[case]
-    if case == "shards":
-        monkeypatch.setenv("SAMTPU_SHARDS", "2")
+    if case.startswith("shards"):
+        monkeypatch.setenv("SAMTPU_SHARDS", what)
+        # the JAX tool on one device, as the port runs on one card
+        monkeypatch.setenv("XLA_FLAGS",
+                           "--xla_force_host_platform_device_count=1")
+        mine = run_port_stdout("flagstat", [inputs[which]])
+        for engine in ("1", "0"):
+            assert mine == run_jax_tool("flagstat", [inputs[which]], engine)
+        return
     capfd.readouterr()
     assert cli.main(["flagstat", inputs[which]], device="cpu") == 1
     out, err = capfd.readouterr()

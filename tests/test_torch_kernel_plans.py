@@ -1,5 +1,6 @@
-"""The launch plans of K12 (``stats_kernels.hists_plan``) and K10
-(``consensus_vec.segsum_plan``), on the CPU.
+"""The launch plans of K12 (``stats_kernels.hists_plan``), K10
+(``consensus_vec.segsum_plan``), K11 (``flagstat.flagstat_plan``) and
+K7n (``mpileup_device.narrow_plan``), on the CPU.
 
 Each plan cuts a call's work over the card's blocks; the kernels trust
 it.  Here: every read (K12) or column (K10) falls in exactly one block,
@@ -11,15 +12,26 @@ of a stream (``csrc/consensus_segsum.cu``: entries 8 at a time, a column
 written when the next entry is past its end, the empty ones too, and an
 entry that is not kept, or past the stream's end, adding +0.0) is
 emulated in numpy and must give the host's f64 ``gap5_scores`` bit for
-bit.
+bit.  K11's bit-sliced counters (``csrc/flagstat.cu``: a carry-save add
+of 8 masks a step, the ripple add of one, the drain by a 32 x 32 bit
+transposition across a warp every 31 or 255 steps, the blocks' partials
+summed by the last block) and K7n's tiling (``csrc/census_narrow.cu``:
+each block's rows, the staged and unstaged split, the maxima folded as
+16-byte vectors, ``q_off``/``end``, the 16-byte count stores and the
+4-byte qual-sum stores) are emulated in numpy and must give their plain
+versions' counts and bytes exactly.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
+from samtools_tpu_torch.core import flags as F
 from samtools_tpu_torch.ops import consensus_vec as cv
+from samtools_tpu_torch.ops import flagstat as fs
+from samtools_tpu_torch.ops import mpileup_device as md
 from samtools_tpu_torch.ops import stats_kernels as sk
 
 
@@ -132,3 +144,330 @@ def test_segsum_walk_equals_gap5_scores(case):
     S, depth = _walk(cv.gap5_table9(cp), b6, q, q2, keep, col_off, plan)
     assert np.array_equal(S.view(np.uint64), want.view(np.uint64))
     assert np.array_equal(depth, wdepth)
+
+
+# ------------------------------------------------------------------ K11
+U32 = np.uint32
+
+
+def _record_masks(flag, mapq, tid, mtid) -> np.ndarray:
+    """record_mask of csrc/flagstat.cu: counter c's condition at bit
+    2c + qcfail."""
+    f = flag.astype(np.int64)
+    conds = fs._conditions(f, mapq.astype(np.int64), tid, mtid,
+                           np.ones(f.size, bool))
+    qc = ((f & F.FQCFAIL) != 0).astype(np.int64)
+    m = np.zeros(f.size, np.int64)
+    for c, cond in enumerate(conds):
+        m |= cond.astype(np.int64) << (2 * c + qc)
+    return m.astype(U32)
+
+
+def _lut_masks(flag, mapq, tid, mtid) -> np.ndarray:
+    """The kernel's way to the same masks: a table of the 1,024 masks of
+    flag bits 0-3 and 6-11 (tid == mtid, mapq 0), read at the record's
+    10-bit index, with the n_diffchr and n_diffhigh bits set after."""
+    i = np.arange(1024)
+    lut_f = (i & 0xF) | ((i & 0x3F0) << 2)
+    z = np.zeros(1024, np.int32)
+    lut = _record_masks(lut_f.astype(np.uint16), z.astype(np.uint8), z, z)
+    f = flag.astype(np.int64)
+    m = lut[(f & 0xF) | ((f >> 2) & 0x3F0)].astype(np.int64)
+    pair_map = (f & (F.FSECONDARY | F.FSUPPLEMENTARY | F.FPAIRED | F.FUNMAP
+                     | F.FMUNMAP)) == F.FPAIRED
+    d = np.where(pair_map & (tid != mtid),
+                 np.where(mapq >= 5, 0x50000000, 0x10000000), 0)
+    return (m | (d << ((f >> 9) & 1))).astype(U32)
+
+
+def test_k11_table_masks_equal_record_masks():
+    """Every flag (12 bits), tid == mtid or not, mapq on both sides of
+    5: the table's masks are record_mask's."""
+    f = np.repeat(np.arange(1 << 12), 4).astype(np.uint16)
+    k = np.tile(np.arange(4), 1 << 12)
+    tid = np.zeros(f.size, np.int32)
+    mtid = (k & 1).astype(np.int32)
+    mapq = np.where(k & 2, 5, 4).astype(np.uint8)
+    assert np.array_equal(_lut_masks(f, mapq, tid, mtid),
+                          _record_masks(f, mapq, tid, mtid))
+
+
+def _full_add(a, b, c):
+    u = a ^ b
+    return u ^ c, (a & b) | (u & c)
+
+
+def _add1(p, m):
+    """One mask a thread into its 8 planes (p: [threads, 8]); the carry
+    out of the last plane must be 0 (counts stay below 256)."""
+    for j in range(8):
+        t = p[:, j] & m
+        p[:, j] ^= m
+        m = t
+    assert not m.any()
+
+
+def _add8(p, m):
+    """A step's 8 masks (m: [threads, 8]) by the kernel's carry-save tree,
+    then one ripple."""
+    sa, ca = _full_add(m[:, 0], m[:, 1], m[:, 2])
+    sb, cb = _full_add(m[:, 3], m[:, 4], m[:, 5])
+    s0, cc = _full_add(sa, sb, m[:, 6])
+    b0, cd = s0 ^ m[:, 7], s0 & m[:, 7]
+    s1, c4a = _full_add(ca, cb, cc)
+    b1, c4b = s1 ^ cd, s1 & cd
+    b2, b3 = c4a ^ c4b, c4a & c4b
+    carry = p[:, 0] & b0
+    p[:, 0] ^= b0
+    for j, b in ((1, b1), (2, b2), (3, b3)):
+        p[:, j], carry = _full_add(p[:, j], b, carry)
+    for j in range(4, 8):
+        t = p[:, j] & carry
+        p[:, j] ^= carry
+        carry = t
+    assert not carry.any()
+
+
+def _transpose32(v):
+    """transpose32 across each warp (v: [warps, 32] lanes), stage by
+    stage: shuffles by lane ^ s, the off-diagonal blocks swapped."""
+    lane = np.arange(32)
+    for s, m in ((16, 0x0000FFFF), (8, 0x00FF00FF), (4, 0x0F0F0F0F),
+                 (2, 0x33333333), (1, 0x55555555)):
+        m = U32(m)
+        y = v[:, lane ^ s]
+        hi = (lane & s) != 0
+        v = np.where(hi, (v & ~m) | ((y >> U32(s)) & m),
+                     (v & m) | ((y << U32(s)) & ~m))
+    return v
+
+
+def _popc(v):
+    return np.unpackbits(v.view(np.uint8).reshape(*v.shape, 4),
+                         axis=-1).sum(-1).astype(U32)
+
+
+def _drain(p, total):
+    """Each warp's planes into lane b's count of mask bit b."""
+    warps = p.reshape(-1, 32, 8)
+    for j in range(8):
+        t = _transpose32(warps[:, :, j])
+        total += (_popc(t) << U32(j)).reshape(-1)
+    p[:] = 0
+
+
+def _k11_emulated(flag, mapq, tid, mtid, sms, vec):
+    n = flag.size
+    blocks = fs.flagstat_plan(n, sms)
+    threads = blocks * fs.TPB
+    units = n // fs.VEC if vec else n
+    masks = _lut_masks(flag, mapq, tid, mtid)
+    p = np.zeros((threads, 8), U32)
+    total = np.zeros(threads, U32)
+    # csrc/flagstat.cu: a drain every 31 vector steps (248 records) or
+    # 255 scalar ones; a lane past the end re-reads the last group and
+    # counts nothing
+    steps, base = 0, 0
+    while base < units:
+        u = base + np.arange(threads)
+        ok = u < units
+        if vec:
+            idx = np.minimum(u, units - 1)[:, None] * 8 + np.arange(8)
+            _add8(p, np.where(ok[:, None], masks[idx], U32(0)))
+        else:
+            _add1(p, np.where(ok, masks[np.where(ok, u, 0)], U32(0)))
+        steps, base = steps + 1, base + threads
+        if steps == (31 if vec else 255):
+            _drain(p, total)
+            steps = 0
+    if vec:
+        for i in range(units * 8, n):
+            _add1(p[:1], masks[i:i + 1])
+    _drain(p, total)
+    # each block's 32 partials (uint32), summed by the last block in 64
+    # bits
+    partial = total.reshape(blocks, fs.TPB // 32, 32).sum(1, dtype=np.int64)
+    assert partial.max() < 2 ** 32
+    return partial.sum(0).reshape(fs.N_COUNTERS, 2), blocks
+
+
+# (records, SMs, 16-byte loads): clean's 2.5 M reads and a stream batch
+# on the H100; one or two SMs, so that the drains at 31 and 255 steps
+# run; n % 8 tails; the scalar path taken without alignment
+K11_CASES = [(2_516_582, 132, True), (360_000, 132, True),
+             (200_003, 1, True), (5_000, 2, True), (7, 132, True),
+             (8, 132, True), (200_003, 1, False), (360_001, 132, False),
+             (13, 132, False)]
+
+
+@pytest.mark.parametrize("n,sms,vec", K11_CASES)
+def test_k11_bit_sliced_counters_equal_plain(n, sms, vec):
+    rng = np.random.default_rng(n % 97)
+    flag = rng.integers(0, 1 << 12, n).astype(np.uint16)
+    mapq = rng.integers(0, 10, n).astype(np.uint8)
+    tid = rng.integers(-1, 3, n).astype(np.int32)
+    mtid = rng.integers(-1, 3, n).astype(np.int32)
+    got, blocks = _k11_emulated(flag, mapq, tid, mtid, sms, vec)
+    want = fs.flagstat_plain(*(torch.from_numpy(a)
+                               for a in (flag, mapq, tid, mtid)))
+    assert np.array_equal(got, want.numpy())
+    assert 1 <= blocks <= sms * fs.BLOCKS_PER_SM
+
+
+def test_k11_transposition_counts_each_bit_across_the_warp():
+    rng = np.random.default_rng(4)
+    v = rng.integers(0, 2 ** 32, (3, 32), dtype=np.uint64).astype(U32)
+    t = _transpose32(v)
+    bits = (v[:, :, None] >> np.arange(32, dtype=U32)) & U32(1)
+    # bit l of lane b is bit b of lane l
+    assert np.array_equal((t[:, :, None] >> np.arange(32, dtype=U32))
+                          & U32(1), bits.transpose(0, 2, 1))
+    assert np.array_equal(_popc(t), bits.sum(1))
+
+
+def test_k11_plan_is_one_wave():
+    assert fs.flagstat_plan(2_516_582, 132) == 264
+    # a stream batch of ~360 k reads: fewer blocks, a group each thread
+    assert fs.flagstat_plan(360_000, 132) == 176
+    assert fs.flagstat_plan(1, 132) == 1
+    assert fs.flagstat_plan(0, 132) == 0
+
+
+# ------------------------------------------------------------------ K7n
+def _census(wlen, cmax, qmax, pad, seed, peak):
+    """An int32 [wlen + pad, 6] census whose rows [0, wlen) reach cmax and
+    qmax only in one row, ``peak``: the first (lanes 0 and 5: a block's
+    staged rows where it stages any) or the last (lanes 4 and 5: the last
+    ring tile's, and the odd tail's where wlen is odd); larger values in
+    the pad rows, which must be ignored."""
+    rng = np.random.default_rng(seed)
+    c = np.zeros((wlen + pad, 6), np.int32)
+    c[:, :5] = rng.integers(0, cmax, (wlen + pad, 5))
+    c[:, 5] = rng.integers(0, qmax, wlen + pad)
+    if peak == "first_row":
+        c[0, 0], c[0, 5] = cmax, qmax
+    else:
+        c[wlen - 1, 4], c[wlen - 1, 5] = cmax, qmax
+    c[wlen:, :5] += 100_000
+    c[wlen:, 5] += 100_000
+    return c
+
+
+def _fold(words, cm, qm):
+    """The maxima over rows [0, cnt) held as int32 words (a row pair is
+    three 16-byte vectors; vector k's qual lane by k mod 3), and the
+    last row's lanes 4 and 5 of an odd count."""
+    cnt = words.size // 6
+    nv = cnt * 3 // 2
+    v = words[:4 * nv].reshape(nv, 4).astype(np.int64)
+    k3 = np.arange(nv) % 3
+    cm = max(cm, v[:, [0, 2]].max(initial=0), v[k3 != 1, 1].max(initial=0),
+             v[k3 != 2, 3].max(initial=0))
+    qm = max(qm, v[k3 == 1, 1].max(initial=0), v[k3 == 2, 3].max(initial=0))
+    if cnt & 1:
+        cm, qm = max(cm, int(words[-2])), max(qm, int(words[-1]))
+    return cm, qm
+
+
+def _cast(out, words, r, wlen, cdt, qdt):
+    """cast_span: rows [r, r + cnt) (r a multiple of 16) into out, counts
+    by whole 16-byte vectors and the tail, qual sums at q_off."""
+    cs, qs = cdt.itemsize, qdt.itemsize
+    cnp = torch.empty(0, dtype=cdt).numpy().dtype
+    qnp = torch.empty(0, dtype=qdt).numpy().dtype
+    cnt = words.size // 6
+    rows = words.reshape(cnt, 6).view(np.int32).astype(np.int64)
+    q_off = md._narrow_offsets(wlen, cdt, qdt)[0]
+    start = r * 5 * cs
+    assert r % 16 == 0 and start % 16 == 0 and (q_off + r * qs) % 4 == 0
+    V = 16 // cs
+    nvec = 5 * cnt // V
+    e = np.arange(5 * cnt)
+    # a vector never leaves its group of 16 rows
+    group = (e[:nvec * V] // 5 // 16).reshape(nvec, V)
+    assert (group == group[:, :1]).all()
+    out[start:start + 5 * cnt * cs] = rows[e // 5, e % 5].astype(
+        cnp).view(np.uint8)
+    out[q_off + r * qs:q_off + (r + cnt) * qs] = rows[:, 5].astype(
+        qnp).view(np.uint8)
+
+
+def _k7n_emulated(census, wlen, sms, smem, ring=3 * 2048 * 24, tile=2048):
+    """csrc/census_narrow.cu block by block: phase 1 stages each block's
+    first rows and folds the rest through the ring; phase 2 casts the
+    staged rows, then the rest again through the ring, last tile first.
+    Returns (the narrowed bytes up to end, counts type, qual-sum type,
+    staged rows)."""
+    blocks, rows, staged_rows = md.narrow_plan(wlen, sms, smem, ring)
+    assert staged_rows * 24 + (ring if staged_rows < rows else 0) \
+        <= max(smem, ring)
+    words = census.reshape(-1).view(np.uint32)
+    out = np.full(wlen * 24 + 16, 0xAB, np.uint8)
+    cm = qm = 0
+    spans = []       # (block's first row, staged rows, tiles)
+    for b in range(blocks):
+        r0, r1 = b * rows, min((b + 1) * rows, wlen)
+        n = r1 - r0
+        assert n > 0 and r0 % 16 == 0
+        staged = min(n, staged_rows)
+        tiles = [(a, min(tile, n - a)) for a in range(staged, n, tile)]
+        for a, cnt in tiles:
+            cm, qm = _fold(words[(r0 + a) * 6:(r0 + a + cnt) * 6], cm, qm)
+        cm, qm = _fold(words[r0 * 6:(r0 + staged) * 6], cm, qm)
+        spans.append((r0, staged, tiles))
+    cdt, qdt = md.narrow_types(cm, qm)
+    for r0, staged, tiles in spans:
+        _cast(out, words[r0 * 6:(r0 + staged) * 6], r0, wlen, cdt, qdt)
+        for a, cnt in reversed(tiles):
+            _cast(out, words[(r0 + a) * 6:(r0 + a + cnt) * 6], r0 + a,
+                  wlen, cdt, qdt)
+    q_off, end = md._narrow_offsets(wlen, cdt, qdt)
+    assert q_off == (wlen * 5 * cdt.itemsize + 3) & ~3
+    out[wlen * 5 * cdt.itemsize:q_off] = 0
+    return out[:end], cdt, qdt, sum(s[1] for s in spans)
+
+
+# counts u8, u16, int32 x qual sums u16, int32: (largest count, largest
+# qual sum)
+NARROW_TYPES = {"u8_u16": (255, 65535), "u8_i32": (200, 65536),
+                "u16_u16": (256, 1000), "u16_i32": (65535, 70000),
+                "i32_u16": (65536, 65535), "i32_i32": (100_000, 3_000_000)}
+
+
+@pytest.mark.parametrize("types", sorted(NARROW_TYPES))
+@pytest.mark.parametrize("wlen,sms,smem", [
+    (1, 132, 232_000), (17, 4, 232_000), (1000, 7, 24 * 64),
+    (4099, 5, 24 * 200), (4099, 132, 0), (65_536, 132, 232_000),
+    (65_536, 3, 3 * 2048 * 24 + 24 * 100)])
+@pytest.mark.parametrize("peak", ["first_row", "last_row"])
+def test_k7n_tiling_equals_plain(types, wlen, sms, smem, peak):
+    cmax, qmax = NARROW_TYPES[types]
+    census = _census(wlen, cmax, qmax, 9, wlen + cmax % 7, peak)
+    got, cdt, qdt, staged = _k7n_emulated(census, wlen, sms, smem)
+    want, wcdt, wqdt = md.census_narrow_plain(torch.from_numpy(census),
+                                              wlen)
+    assert (cdt, qdt) == (wcdt, wqdt)
+    assert str(cdt).endswith({"u8": "uint8", "u16": "uint16",
+                              "i32": "int32"}[types[:types.index("_")]])
+    assert np.array_equal(got, want.numpy())
+    assert 0 <= staged <= wlen
+
+
+def test_k7n_plan_stages_the_tool_window():
+    # the tool's 1 Mi window: every row staged in 132 blocks' shared
+    # memory (227 KB an SM less the kernel's own)
+    smem = 232_448 - 1024
+    ring = 3 * 2048 * 24
+    blocks, rows, staged = md.narrow_plan(1 << 20, 132, smem, ring)
+    assert (blocks, rows, staged) == (132, 7952, 7952)
+    assert rows * 24 <= smem
+    # the core's 8 Mi rows: about 5% staged, the ring of three 2,048-row
+    # tiles behind them
+    blocks, rows, staged = md.narrow_plan(8 << 20, 132, smem, ring)
+    assert (blocks, rows, staged) == (132, 63_552, 3488)
+    assert staged * 24 + ring <= smem
+    assert 0.05 < blocks * staged / (8 << 20) < 0.06
+    assert md.narrow_plan(1, 132, smem, ring) == (1, 16, 16)
+    assert md.narrow_plan(0, 132, smem, ring) == (0, 0, 0)
+    # no room for staged rows beside the ring: every row through it
+    assert md.narrow_plan(4099, 132, 0, ring)[2] == 0

@@ -4,9 +4,10 @@ the JAX tool's bytes, whichever engine the JAX tool runs, whatever the
 window size; its ``--census-out`` equals the single-core f64 oracle
 window by window; its chunk step's sparse qual deltas equal the JAX chunk
 step's; the overflow path gives the same bytes; without CUDA the command
-fails before it prints a row; what is not ported yet (SAMTPU_SHARDS, SAM
-input) says so and exits 1 (``--checkpoint``:
-tests/test_torch_mpileup_checkpoint.py)."""
+fails before it prints a row; under SAMTPU_SHARDS it runs serially where
+the JAX tool does, with its bytes; what is not ported yet (span workers
+where the JAX tool shards, CRAM input) says so and exits 1
+(``--checkpoint``: tests/test_torch_mpileup_checkpoint.py)."""
 
 import json
 import os
@@ -23,6 +24,9 @@ from torch_tool_fixtures import (REF_LEN, REPO, make_inputs, oracle_census,
 
 from samtools_tpu.ops import mpileup_device as jmd
 from samtools_tpu_torch import cli, kernels, sim
+from samtools_tpu_torch.io.bam import write_bam
+from samtools_tpu_torch.io.files import read_alignments
+from samtools_tpu_torch.io.header import SamHeader
 from samtools_tpu_torch.ops import mpileup_device as md
 from samtools_tpu_torch.tools import mpileup_cmd
 
@@ -193,20 +197,46 @@ def test_tool_without_cuda_fails_before_any_row(inputs):
     assert b"CUDA" in p.stderr
 
 
+# what the port does not run yet: (extra arguments, what the one line
+# names).  "shards" runs now: on one 128 kbp contig the JAX tool makes one
+# span under SAMTPU_SHARDS=2 and runs serially, and so does the port;
+# "shards_2mi" is a 2 Mi contig, two spans, where the JAX tool does shard.
 NOT_PORTED = {
-    "shards": ([], "SAMTPU_SHARDS"),
+    "shards": None,
+    "shards_2mi": ([], "SAMTPU_SHARDS"),
     # SAM is read now (tests/test_torch_sam_input.py); CRAM is not
     "sam_input": ([], "CRAM input"),
     "sam_input_region": (["-r", "sim1:1-50"], "CRAM input"),
 }
 
 
+def _on_2mi_contig(src: str, dst: str) -> None:
+    """The first 50 reads of ``src`` under a header whose contig is 2 Mi
+    long."""
+    got = read_alignments(src)
+    text = f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:sim1\tLN:{2 << 20}\n"
+    write_bam(dst, SamHeader.from_text(text),
+              got.batch.take(np.arange(50)))
+
+
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
-    extra, what = NOT_PORTED[case]
     bam = inputs["messy"]
-    if case == "shards":
+    if case.startswith("shards"):
         monkeypatch.setenv("SAMTPU_SHARDS", "2")
+        # the JAX tool on one device, as the port runs on one card
+        monkeypatch.setenv("XLA_FLAGS",
+                           "--xla_force_host_platform_device_count=1")
+    if case == "shards":
+        out = os.path.join(inputs["dir"], "shards.txt")
+        port = run_port(["-f", inputs["fa"], bam], out)
+        assert port.count(b"\n") > REF_LEN // 2
+        assert port == run_jax(["-f", inputs["fa"], bam], "1")
+        return
+    extra, what = NOT_PORTED[case]
+    if case == "shards_2mi":
+        bam = os.path.join(inputs["dir"], "contig_2mi.bam")
+        _on_2mi_contig(inputs["messy"], bam)
     elif case.startswith("sam_input"):
         bam = inputs["cram"]
     argv = ["mpileup", "-f", inputs["fa"], bam,
