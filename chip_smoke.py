@@ -164,6 +164,18 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``flagstat`` and ``stats`` on it print the bytes of the same commands
    on the BAM of those reads (less stats' command-line line) and launch
    the same kernels.
+13. cram -- clean's reads that start before ``CRAM_END`` (200 kbp, about
+   60,000 reads), written by the port's ``encode_cram`` as CRAM 3.0 under
+   clean's header with an ``M5:`` on its ``@SQ`` line, the sequence in a
+   ``REF_CACHE`` directory under its MD5, and as a BAM.  The CRAM decoded
+   whole (``read_alignments``) must equal the reads field by field.  Then
+   on the card ``mpileup -f ref.fa``, ``depth -a``, ``flagstat`` and
+   ``stats`` on both inputs: the same bytes (less stats' command-line
+   line) and the same kernels launched (K4, K5 and K1's census form in
+   mpileup, K1's generic form in depth, K11 in flagstat, K12 in stats);
+   ``idxstats`` on the CRAM equal to ``idxstats`` on the BAM, and
+   ``index`` on the CRAM writing a ``.crai``.  Per run: the encode and
+   decode seconds a read, and each run's wall beside its BAM twin's.
 
 Then the kernel table, the script's wall against its 1,200 s limit, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -1920,6 +1932,18 @@ SAM_RUNS = (
     ("stats", ["stats", "{bam}"]),
 )
 QUERY_FIELDS = ("pos", "flag", "cigar", "cigar_off", "seq", "seq_off", "qual")
+# the cram phase: clean's reads that start before this, as CRAM and BAM;
+# its card runs (label, argv, the kernels each must launch)
+CRAM_END = 200_000
+CRAM_RUNS = (
+    ("mpileup", ["mpileup", "-f", "{fa}", "{bam}"], MAIN_PATH),
+    ("depth -a", ["depth", "-a", "{bam}"], ("segment_contract",)),
+    ("flagstat", ["flagstat", "{bam}"], ("flagstat",)),
+    ("stats", ["stats", "{bam}"], ("stats_hists",)),
+)
+CRAM_FIELDS = ("tid", "pos", "mapq", "flag", "mtid", "mpos", "tlen",
+               "qname", "qname_off", "cigar", "cigar_off", "seq", "seq_off",
+               "qual", "aux", "aux_off")
 
 
 def write_sam(path: str, header, b) -> None:
@@ -1948,12 +1972,21 @@ def write_sam(path: str, header, b) -> None:
         f.write("".join(lines))
 
 
+def stdout_lines(path: str) -> list[bytes]:
+    """A run's output lines less stats' command-line line, which names
+    the input."""
+    with open(path, "rb") as f:
+        return [ln for ln in f.read().split(b"\n")
+                if not ln.startswith(b"# The command line")]
+
+
 def phase_regions(workdir: str, bams: dict, cons: dict,
-                  cons_whole: dict) -> None:
+                  cons_whole: dict) -> tuple:
     """``index`` (BAI, then CSI on a copy), ``BamStream.query`` and
     ``idxstats`` on clean against whole-file reads; ``-r`` through the
     index in mpileup, depth and consensus against the unindexed file;
-    SAM text against BAM."""
+    SAM text against BAM.  Returns clean's header and its reads that
+    start before ``CRAM_END`` (the cram phase's input)."""
     import filecmp
     import shutil
 
@@ -2092,6 +2125,7 @@ def phase_regions(workdir: str, bams: dict, cons: dict,
     t_sam = time.perf_counter() - t0
     write_bam(bam, header, front, threads=THREADS)
     n_front = int(front.n)
+    cram_reads = front.take(np.nonzero(front.pos < CRAM_END)[0])
     del front
     for label, argv in SAM_RUNS:
         outs, launched, w = {}, {}, {}
@@ -2101,13 +2135,7 @@ def phase_regions(workdir: str, bams: dict, cons: dict,
             w[which] = run_cli([a.format(fa=fa, bam=path) for a in argv],
                                outs[which], "stdout", False)
             launched[which] = dict(kernels.launches)
-        # stats names its input on one line
-        texts = {}
-        for which, o in outs.items():
-            with open(o, "rb") as f:
-                texts[which] = [ln for ln in f.read().split(b"\n")
-                                if not ln.startswith(b"# The command line")]
-        require(texts["sam"] == texts["bam"],
+        require(stdout_lines(outs["sam"]) == stdout_lines(outs["bam"]),
                 f"{label}: SAM input prints other bytes than BAM input")
         used = {k for k, v in launched["sam"].items() if v}
         require(used and used == {k for k, v in launched["bam"].items()
@@ -2124,6 +2152,108 @@ def phase_regions(workdir: str, bams: dict, cons: dict,
             os.remove(p)
     for p in (sam, bam, noidx, csi, csi + ".csi", clean + ".bai"):
         os.remove(p)
+    return header, cram_reads
+
+
+def phase_cram(workdir: str, ref: np.ndarray, header, reads) -> dict:
+    """``reads`` as CRAM 3.0 (the port's encoder, the reference found
+    through ``REF_CACHE`` by the ``@SQ`` M5) and as BAM: the decoded CRAM
+    equals the reads; mpileup, depth, flagstat and stats print the same
+    bytes on both and launch the same kernels; idxstats and index on the
+    CRAM.  Returns each run's launches on the CRAM."""
+    import filecmp
+    import hashlib
+
+    from samtools_tpu_torch import cli, kernels
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.io.files import read_alignments, write_alignments
+    from samtools_tpu_torch.io.header import SamHeader
+    fa = os.path.join(workdir, "ref.fa")
+    md5 = hashlib.md5(ref.tobytes().upper()).hexdigest()
+    cache = os.path.join(workdir, "ref_cache")
+    os.makedirs(cache, exist_ok=True)
+    with open(os.path.join(cache, md5), "wb") as f:
+        f.write(ref.tobytes().upper())
+    lines = header.text.split("\n")
+    require(sum(ln.startswith("@SQ") for ln in lines) == 1,
+            "clean's header has one @SQ line")
+    text = "\n".join(ln + f"\tM5:{md5}" if ln.startswith("@SQ") else ln
+                     for ln in lines)
+    hdr = SamHeader.from_text(text)
+    cram = os.path.join(workdir, "clean_cram.cram")
+    bam = os.path.join(workdir, "clean_cram.bam")
+    saved = os.environ.get("REF_CACHE")
+    os.environ["REF_CACHE"] = cache
+    try:
+        n = int(reads.n)
+        t0 = time.perf_counter()
+        write_alignments(cram, hdr, reads, fmt="cram")
+        t_enc = time.perf_counter() - t0
+        write_bam(bam, hdr, reads, threads=THREADS)
+        t0 = time.perf_counter()
+        got = read_alignments(cram)
+        t_dec = time.perf_counter() - t0
+        require(got.format == "cram" and got.header.text == hdr.text
+                and got.batch.n == n and all(
+                    np.array_equal(getattr(got.batch, k), getattr(reads, k))
+                    for k in CRAM_FIELDS),
+                "the decoded CRAM differs from the reads written")
+        del got
+        emit({"phase": "cram", "run": "encode, decode", "reads": n,
+              "cram_bytes": os.path.getsize(cram),
+              "bam_bytes": os.path.getsize(bam),
+              "encode_s": round(t_enc, 3), "decode_s": round(t_dec, 3),
+              "encode_s_per_read": t_enc / n, "decode_s_per_read": t_dec / n,
+              "equal_reads": True})
+        runs = {}
+        for label, argv, want in CRAM_RUNS:
+            outs, launched, w = {}, {}, {}
+            for which, path in (("cram", cram), ("bam", bam)):
+                outs[which] = os.path.join(workdir, f"cram.{which}.out")
+                kernels.reset_launches()
+                w[which] = run_cli([a.format(fa=fa, bam=path) for a in argv],
+                                   outs[which], "stdout", False)
+                launched[which] = dict(kernels.launches)
+            require(stdout_lines(outs["cram"]) == stdout_lines(outs["bam"]),
+                    f"{label}: CRAM input prints other bytes than BAM input")
+            used = {k for k, v in launched["cram"].items() if v}
+            require(used >= set(want) and used == {
+                k for k, v in launched["bam"].items() if v},
+                f"{label}: launches {launched}")
+            runs[label] = launched["cram"]
+            emit({"phase": "cram", "run": label, "reads": n,
+                  "cram_wall_s": round(w["cram"], 3),
+                  "bam_wall_s": round(w["bam"], 3),
+                  "output_bytes": os.path.getsize(outs["cram"]),
+                  "launches": launched["cram"],
+                  "bam_launches": launched["bam"], "byte_equal": True})
+            for p in outs.values():
+                os.remove(p)
+        outs, w = {}, {}
+        for which, path in (("cram", cram), ("bam", bam)):
+            outs[which] = os.path.join(workdir, f"idxstats.{which}.txt")
+            w[which] = run_cli(["idxstats", path], outs[which], "stdout",
+                               False)
+        require(filecmp.cmp(outs["cram"], outs["bam"], shallow=False),
+                "idxstats on the CRAM differs from idxstats on the BAM")
+        t0 = time.perf_counter()
+        require(cli.main(["index", cram]) == 0, "index on the CRAM failed")
+        t_idx = time.perf_counter() - t0
+        crai = os.path.getsize(cram + ".crai") \
+            if os.path.exists(cram + ".crai") else 0
+        require(crai > 0, "index wrote no .crai")
+        emit({"phase": "cram", "run": "idxstats, index",
+              "idxstats_cram_wall_s": round(w["cram"], 3),
+              "idxstats_bam_wall_s": round(w["bam"], 3),
+              "index_wall_s": round(t_idx, 3), "crai_bytes": crai,
+              "byte_equal": True})
+        for p in (*outs.values(), cram, cram + ".crai", bam):
+            os.remove(p)
+    finally:
+        os.environ.pop("REF_CACHE", None)
+        if saved is not None:
+            os.environ["REF_CACHE"] = saved
+    return runs
 
 
 def main() -> int:
@@ -2171,7 +2301,9 @@ def main() -> int:
                                          torch.device("cuda"), core_census,
                                          tool_checksums)
         del core_census
-        phase_regions(workdir, bams, cons, cons_whole)
+        header, cram_reads = phase_regions(workdir, bams, cons, cons_whole)
+        cram = phase_cram(workdir, ref, header, cram_reads)
+        del cram_reads
     rows.update(general_rows)
     rows.update(cons_rows)
     rows.update(stats_rows)
@@ -2255,6 +2387,10 @@ def main() -> int:
                        coverage_launches=family["coverage clean"],
                        at_pileup_shapes={k: pile_rows[k] for k in
                                          ("depth", "coverage")})
+        cram_launches = {k: v[name] for k, v in cram.items() if v[name]}
+        if cram_launches:
+            # the cram phase's runs on the CRAM input
+            row["cram_launches"] = cram_launches
         require(row["launches"] > 0, f"{name} never launched on its path")
         table.append(row)
     emit({"kernels": table})

@@ -1,7 +1,7 @@
 """SAM header model (counterpart of samtools_tpu/io/header.py, only what
 ``decode_header``, the simulated ``@HD``/``@SQ`` header, mpileup's sample
-count and RNAME/RNEXT columns, and the name lookups of ``-r`` and
-``bedcov`` need).
+count and RNAME/RNEXT columns, the name lookups of ``-r`` and
+``bedcov``, and CRAM's read-group list need).
 
 Keeps the raw header text verbatim plus the @SQ (name, length) list.
 """
@@ -76,6 +76,16 @@ class SamHeader:
 
     def ref_name(self, tid: int) -> str:
         return self.ref_names[tid] if 0 <= tid < len(self.ref_names) else "*"
+
+    def rg_ids(self) -> list[str]:
+        """The ID of each @RG line, in header order (a CRAM record's RG
+        series indexes this list)."""
+        out = []
+        for line in self.text.split("\n"):
+            if line.startswith("@RG"):
+                out += [f[3:] for f in line.split("\t")[1:]
+                        if f.startswith("ID:")]
+        return out
 
     def rg_to_sample(self) -> dict[str, str]:
         """RG ID -> SM map (samtools' sample.c bam_smpl_add); a read group

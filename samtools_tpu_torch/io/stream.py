@@ -24,7 +24,7 @@ import struct
 import numpy as np
 
 from ..core.batch import ReadBatch
-from . import bgzf, native
+from . import bgzf, hfile, native
 from .bam import BamError, decode_header, decode_records
 from .header import SamHeader
 from .index import BamIndex, find_index_file, load_index
@@ -32,11 +32,13 @@ from .index import BamIndex, find_index_file, load_index
 
 class BamStream:
     """Streaming BAM reader with index queries (use as a context
-    manager).  Raises BgzfError or BamError for a file that is not a
-    BGZF-compressed BAM."""
+    manager); a URL path is fetched once (``io/hfile.py``).  Raises
+    BgzfError or BamError for a file that is not a BGZF-compressed
+    BAM."""
 
     def __init__(self, path: str, threads: int = 2,
                  window_bytes: int = 32 << 20):
+        path = hfile.resolve(path)
         self.path = path
         self.threads = threads
         env_win = os.environ.get("SAMTPU_STREAM_WINDOW")

@@ -11,7 +11,7 @@ computes the M/=/X depth with ``depth_window_device`` (K1's generic form
 and the depth scan, on the card), or with ``SAMTPU_DEVICE=0|host`` with
 the numpy ``_mspan_depth``.  When any input is not a BGZF BAM (SAM
 text, gzip'd SAM) every file takes the in-memory branch, as in the JAX
-tool.  CRAM input exits 1 with one "not ported yet" line.
+tool; so does a CRAM, decoded whole on the host (``io/cram_decode.py``).
 """
 
 from __future__ import annotations
@@ -21,12 +21,12 @@ import sys
 import numpy as np
 
 from ..core import flags as F
-from ..io.files import FormatNotPorted, read_alignments
+from ..io.files import read_alignments
 from ..io.native import FIELD_CIGAR
 from ..ops.cigar import expand_ops
 from ..ops.pileup_engine import depth_window_device
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     no_card, not_ported, open_streams, pick_device,
+                     no_card, open_streams, pick_device,
                      print_error, print_error_errno)
 from .flags_cmd import str2flag
 
@@ -273,8 +273,6 @@ def main_bedcov(argv: list[str], device=None) -> int:
         sys.stderr.write(f"ERROR: fail to open index BAM file "
                          f"'{e.filename}'\n")
         return 2
-    except FormatNotPorted as e:
-        return not_ported("bedcov", str(e))
     use_stream = bool(streams)
     header = streams[0].header if use_stream else files[0].header
 

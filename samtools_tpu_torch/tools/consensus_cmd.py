@@ -25,9 +25,10 @@ a window (or, for the scalar engine, a region) at a time
 ``_NoIndex`` fallback in the port's form: it is read whole and the
 region's reads are selected in memory, for both engines (the JAX tool
 runs the scalar engine over a streamed scan; the bytes are the same).
-SAM is read whole.  Not ported yet, with one line on stderr and exit 1:
-CRAM input, ``SAMTPU_SHARDS`` above 1 where the JAX tool would split
-the genome, and the ``SAMTPU_CONSENSUS_SPAN`` worker protocol.
+SAM and CRAM (decoded on the host, ``io/cram_decode.py``) are read
+whole.  Not ported yet, with one line on stderr and exit 1:
+``SAMTPU_SHARDS`` above 1 where the JAX tool would split the genome, and
+the ``SAMTPU_CONSENSUS_SPAN`` worker protocol.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from ..core.batch import ragged_gather_indices
 from ..core.regions import RegionError, parse_region
 from ..io import fasta as fastamod
 from ..io import native as natmod
-from ..io.files import FormatNotPorted, read_alignments
+from ..io.files import read_alignments
 from ..io.stream import WindowedReader
 from ..ops import consensus_vec as CV
 from ..ops.cigar import expand_ops
@@ -1953,8 +1954,6 @@ def main_consensus(argv: list[str], device=None) -> int:
         print_error_errno("consensus", 'Cannot open input file "%s"',
                           args[0], exc=e)
         return 1
-    except FormatNotPorted as e:
-        return not_ported("consensus", str(e))
 
     vec = opts.fmt != PILEUP and opts.mode != MODE_SIMPLE
     if vec and os.environ.get("SAMTPU_CONSENSUS_SPAN"):

@@ -16,7 +16,8 @@ contig's pileup table (``ops.pileup.build_pileup``, ordered by K13 on the
 card, or by the host's numpy sort with ``SAMTPU_DEVICE=0|host``).  When
 any input is not a BGZF BAM (SAM text, gzip'd SAM, standard input) every
 file is read whole, as in the JAX tool; ``-r`` never reads an index
-there either.  CRAM input exits 1 with one "not ported yet" line.
+there either.  A CRAM is such an input: it is decoded whole on the host
+(``io/cram_decode.py``).
 """
 
 from __future__ import annotations
@@ -29,13 +30,13 @@ import numpy as np
 from ..core import flags as F
 from ..core.batch import ragged_gather_indices
 from ..core.regions import RegionError, parse_region
-from ..io.files import FormatNotPorted, read_alignments
+from ..io.files import read_alignments
 from ..io.stream import WindowedReader
 from ..ops.cigar import expand_ops
 from ..ops.pileup import build_pileup
 from ..ops.pileup_engine import coverage_window_device
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     no_card, not_ported, open_streams, pick_device,
+                     no_card, open_streams, pick_device,
                      print_error, print_error_errno)
 from .flags_cmd import str2flag
 
@@ -306,8 +307,6 @@ def main_coverage(argv: list[str], device=None) -> int:
     for path in args:
         try:
             files.append(read_alignments(path, threads=ga.nthreads))
-        except FormatNotPorted as e:
-            return not_ported("coverage", str(e))
         except OSError as e:
             print_error_errno("coverage", 'Could not open "%s"', path,
                               exc=e)

@@ -7,7 +7,9 @@ reads the index's chunks for the region (``try_region_read``); each
 contig's window of each file goes through ``depth_window_device`` (K1's
 generic form and the depth scan, on the card), or with
 ``SAMTPU_DEVICE=0|host`` through the numpy ``ops.depth.depth_window``.
-CRAM input and ``SAMTPU_SHARDS`` above 1 exit 1 with one "not ported
+A CRAM is decoded whole on the host (``io/cram_decode.py``; ``-r``
+filters it, with no index query, as in the JAX tool).
+``SAMTPU_SHARDS`` above 1 on several cards exits 1 with one "not ported
 yet" line.
 """
 
@@ -20,7 +22,7 @@ import numpy as np
 from ..core import flags as F
 from ..core.regions import RegionError, parse_region
 from ..io import bed as bedmod
-from ..io.files import FormatNotPorted, read_alignments
+from ..io.files import read_alignments
 from ..ops import depth as dops
 from ..ops.pileup_engine import depth_window_device
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
@@ -243,8 +245,6 @@ def main_depth(argv: list[str], device=None) -> int:
         except RegionError:
             print_error("depth", 'could not parse region "%s"', reg)
             return 1
-        except FormatNotPorted as e:
-            return not_ported("depth", str(e))
         except OSError as e:
             print_error_errno("depth", 'Could not open "%s"', path, exc=e)
             return 1

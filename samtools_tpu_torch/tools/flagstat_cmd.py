@@ -6,8 +6,10 @@ tool's, byte for byte.  A BGZF BAM streams in batches that decode only
 the fixed-width fields; standard input, other BAMs and SAM are read
 whole.  Each batch's counts come from K11
 (``ops.flagstat.flagstat_counts``, on the card), or with
-``SAMTPU_DEVICE=0|host`` from numpy.  CRAM input and ``SAMTPU_SHARDS``
-above 1 exit 1 with one "not ported yet" line.  Percentages reproduce
+``SAMTPU_DEVICE=0|host`` from numpy.  A CRAM is decoded whole on the
+host (``io/cram_decode.py``); a decode error is reported as the JAX tool
+reports it.  ``SAMTPU_SHARDS`` above 1 on several cards exits 1 with one
+"not ported yet" line.  Percentages reproduce
 the reference's single-precision ``(float)n / total * 100.0`` exactly.
 """
 
@@ -17,7 +19,7 @@ import sys
 
 import numpy as np
 
-from ..io.files import FormatNotPorted, read_alignments
+from ..io.files import read_alignments
 from ..ops import flagstat as fsops
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
                      device_shards, no_card, not_ported, open_stream,
@@ -205,8 +207,6 @@ def main_flagstat(argv: list[str], device=None) -> int:
                         for k in s}
         if s is None:
             s = count_fn(read_alignments(args[0], threads=ga.nthreads).batch)
-    except FormatNotPorted as e:
-        return not_ported("flagstat", str(e))
     except OSError as e:
         print_error_errno("flagstat",
                           'Cannot open input file "%s"', args[0], exc=e)

@@ -2,7 +2,7 @@
 
 Counterpart of samtools_tpu/tools/idxstats_cmd.py (samtools'
 bam_index.c:231-310): the index's pseudo-bin counts for a BAM with a
-.bai/.csi, a whole-file count without one; rows
+.bai/.csi, a whole-file count without one (and for SAM and CRAM); rows
 ``name\\tlen\\tmapped\\tunmapped`` and a ``*`` row.  A host command: it
 does no device work.
 """
@@ -15,10 +15,10 @@ import numpy as np
 
 from ..core.flags import FUNMAP
 from ..io import index as idxmod
-from ..io.files import FormatNotPorted, detect_format, read_alignments
+from ..io.files import detect_format, read_alignments
 from ..io.stream import BamStream
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     not_ported, print_error, print_error_errno)
+                     print_error, print_error_errno)
 
 
 def usage(fp):
@@ -70,8 +70,6 @@ def main_idxstats(argv: list[str]) -> int:
     except OSError as e:
         print_error_errno("idxstats", 'failed to open "%s"', path, exc=e)
         return 1
-    if fmt == "cram":
-        return not_ported("idxstats", "CRAM input")
 
     idx = None
     if fmt == "bam":
@@ -89,10 +87,7 @@ def main_idxstats(argv: list[str]) -> int:
         print(f"*\t0\t0\t{idx.n_no_coor}")
         return 0
 
-    try:
-        header, counts = slow_counts(path, ga.nthreads)
-    except FormatNotPorted as e:
-        return not_ported("idxstats", str(e))
+    header, counts = slow_counts(path, ga.nthreads)
     if header is None:
         print_error("idxstats", 'failed to process "%s"', path)
         return 1

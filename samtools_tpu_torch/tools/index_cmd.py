@@ -1,9 +1,11 @@
-"""samtools index: build a BAI or CSI for a BAM.
+"""samtools index: build a BAI or CSI for a BAM, a CRAI for a CRAM.
 
 Counterpart of samtools_tpu/tools/index_cmd.py (samtools' bam_index.c
-:36-160, options -b/-c/-m/-M/-o/-@).  The whole file is read with each
-record's virtual offsets and the index is built in one vectorised pass
-(``io/index.build_index``).  A host command: it does no device work.
+:36-160, options -b/-c/-m/-M/-o/-@).  For a BAM the whole file is read
+with each record's virtual offsets and the index is built in one
+vectorised pass (``io/index.build_index``); for a CRAM one ``.crai``
+line per slice comes from the container and slice headers, with no
+record decoded.  A host command: it does no device work.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ import numpy as np
 from ..core.flags import FUNMAP
 from ..io import index as idxmod
 from ..io.bam import read_bam_indexed, reg2bin_vec
+from ..io.cram import CramReader, parse_block, parse_slice_header
+from ..io.cram_encode import write_crai
 from ..io.files import detect_format
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     not_ported, print_error, print_error_errno)
+                     print_error, print_error_errno)
 
 
 def usage(fp):
@@ -51,10 +55,10 @@ def _reg2bin_csi(beg, end, min_shift: int, depth: int) -> np.ndarray:
 
 def build_index_for(path: str, out_path: str | None, csi: bool,
                     min_shift: int, threads: int) -> int:
-    """Write the index of one BAM; the command's exit code."""
+    """Write the index of one BAM or CRAM; the command's exit code."""
     fmt = detect_format(path)
     if fmt == "cram":
-        return not_ported("index", "CRAM input (.crai)")
+        return _build_crai(path, out_path)
     if fmt != "bam":
         print_error("index",
                     '"%s" is in a format that cannot be usefully indexed',
@@ -83,6 +87,33 @@ def build_index_for(path: str, out_path: str | None, csi: bool,
         idx = idxmod.build_index(b.tid, b.pos, end, vstart, vend, bins,
                                  mapped, header.n_refs)
         idxmod.write_bai(out_path or path + ".bai", idx)
+    return 0
+
+
+def _build_crai(path: str, out_path: str | None) -> int:
+    """A CRAI from the CRAM's container and slice headers (htslib's
+    cram_index_build): one line per slice, with its seq_id, start, span,
+    the container's offset, the slice header's offset within the
+    container and the slice's byte size."""
+    with open(path, "rb") as f:
+        data = f.read()
+    rd = CramReader(data)
+    lines = []
+    for cont, i in rd.containers():
+        cstart = rd.pos        # the container header's offset
+        if rd.is_eof_container(cont):
+            break
+        if cont.n_records == 0 and cont.n_bases == 0:
+            continue
+        for lm in cont.landmarks:
+            sl_start = i + lm
+            blk, j = parse_block(data, sl_start, rd.major)
+            sh = parse_slice_header(blk.data(), rd.major)
+            for _ in range(sh.n_blocks):
+                _, j = parse_block(data, j, rd.major)
+            lines.append((sh.ref_seq_id, sh.ref_start, sh.ref_span,
+                          cstart, lm, j - sl_start))
+    write_crai(out_path or path + ".crai", lines)
     return 0
 
 

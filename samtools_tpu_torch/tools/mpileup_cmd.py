@@ -35,8 +35,11 @@ held; a run that finds a FILE for the same inputs truncates the output
 there and resumes.
 
 ``SAMTPU_DEVICE=0|host`` runs the host branch: the host HMM, the numpy
-sort, no kernel.  Not ported yet, with one line on stderr and exit 1:
-SAMTPU_SHARDS above 1, CRAM input.
+sort, no kernel.  A CRAM is decoded whole on the host
+(``io/cram_decode.py``) and takes the same paths as a SAM; ``-r`` on it
+filters the whole file, as in the JAX tool.  Not ported yet, with one
+line on stderr and exit 1: SAMTPU_SHARDS above 1 where the JAX tool runs
+span workers.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from ..core.regions import RegionError, parse_region
 from ..io import bed as bedmod
 from ..io import fasta as fastamod
 from ..io import native
-from ..io.files import FormatNotPorted, read_alignments
+from ..io.files import read_alignments
 from ..ops import baq as baqmod
 from ..ops import basemods
 from ..ops.mpileup_device import (HOST_THREADS, NT16_TO4,
@@ -598,8 +601,6 @@ def _open_inputs(paths, reg, nthreads, files) -> int:
             sys.stderr.write(f"[mpileup] failed to open {path}: "
                              f"{e.strerror}\n")
             return 1
-        except FormatNotPorted as e:
-            return not_ported("mpileup", str(e))
     return 0
 
 

@@ -18,7 +18,8 @@ read groups (``-I``), ``-p``, ``-S`` splits and regions on the command
 line take the per-record oracle, as ``SAMTPU_STATS_SCALAR=1`` makes
 every run do.  A BGZF BAM streams; SAM and other inputs are read whole
 (regions select from the reads, with no index query, as in the JAX
-tool).  CRAM input exits 1 with one "not ported yet" line.
+tool).  A CRAM is read whole, decoded on the host
+(``io/cram_decode.py``).
 
 Sections: CHK SN FFQ LFQ MPC GCF GCL GCC GCT FBC FTC LBC LTC (barcodes:
 BCC/QTQ/CRC/CYQ/OXC/BZQ/RXC/QXQ) IS RL FRL LRL MAPQ ID IC COV GCD RFS.
@@ -37,9 +38,9 @@ from ..core import aux as auxmod
 from ..core import flags as F
 from ..core.regions import HTS_POS_MAX, parse_region
 from ..io import fasta as fastamod
-from ..io.files import FormatNotPorted, read_alignments
+from ..io.files import read_alignments
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     no_card, not_ported, open_stream, pick_device,
+                     no_card, open_stream, pick_device,
                      print_error, print_error_errno)
 from .flags_cmd import str2flag
 
@@ -1709,8 +1710,6 @@ def main_stats(argv: list[str], device=None) -> int:
         else:
             try:
                 f = read_alignments(bam_fname, threads=ga.nthreads)
-            except FormatNotPorted as e:
-                return not_ported("stats", str(e))
             except OSError as e:
                 print_error_errno("stats", "failed to open \"%s\"",
                                   bam_fname, exc=e)

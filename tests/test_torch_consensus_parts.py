@@ -290,13 +290,15 @@ def test_shards_over_one_span_run_serially(inputs, monkeypatch):
         run_jax_tool("consensus", args, "0")
 
 
+# SAM is read (tests/test_torch_sam_input.py), and CRAM now: the
+# "sam_input" cases run the CRAM fixture, whole and with -r (a whole-file
+# filter, as in the JAX tool), and print the JAX tool's bytes
 NOT_PORTED = {
     "shards": ("SAMTPU_SHARDS", "small2", {"SAMTPU_SHARDS": "2"}),
     "span_worker": ("SAMTPU_CONSENSUS_SPAN", "small",
                     {"SAMTPU_CONSENSUS_SPAN": "0:0:1000"}),
-    # SAM is read now (tests/test_torch_sam_input.py); CRAM is not
-    "sam_input": ("CRAM input", "cram", {}),
-    "sam_input_region": ("CRAM input", "cram", {}),
+    "sam_input": (None, "cram", {}),
+    "sam_input_region": (None, "cram", {}),
 }
 
 
@@ -305,7 +307,13 @@ def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
     what, which, env = NOT_PORTED[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    extra = ["-r", "sim1:1-50"] if case.endswith("region") else []
+    extra = ["-r", "sim1:1-3000"] if case.endswith("region") else []
+    if what is None:
+        args = [*extra, inputs[which]]
+        port = run_port_stdout("consensus", args)
+        assert port.count(b"\n") >= 2
+        assert port == run_jax_tool("consensus", args, "0")
+        return
     capfd.readouterr()
     assert cli.main(["consensus", *extra, inputs[which]], device="cpu") == 1
     out, err = capfd.readouterr()

@@ -7,16 +7,16 @@ JAX package, on the CPU (the plain versions of the port's kernels):
 * the command prints the JAX tool's bytes, whichever branch the JAX tool
   takes (``SAMTPU_DEVICE=1`` and ``=0``);
 * under SAMTPU_SHARDS (2, ``all``, malformed) it runs on one device and
-  prints the JAX tool's bytes, as the JAX tool does on one device; what
-  it does not do yet exits 1 with one line; without CUDA it fails before
-  any row;
+  prints the JAX tool's bytes, as the JAX tool does on one device; on a
+  CRAM it prints the JAX tool's bytes; without CUDA it fails before any
+  row;
 * its host modules (regions, whole-file reading, the clips, the row set,
   the row writer) equal their JAX counterparts."""
 
 import numpy as np
 import pytest
 import torch
-from torch_tool_fixtures import (make_pileup_inputs, run_jax_tool,
+from torch_tool_fixtures import (REF_LEN, make_pileup_inputs, run_jax_tool,
                                  run_port_stdout)
 
 from samtools_tpu.core.regions import RegionError as JRegionError
@@ -253,14 +253,12 @@ def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
         for engine in ("1", "0"):
             assert port == run_jax_tool("depth", ["-a", path], engine)
         return
-    path = inputs["cram"]    # SAM is read now; CRAM is not
-    capfd.readouterr()
-    assert cli.main(["depth", path], device="cpu") == 1
-    out, err = capfd.readouterr()
-    assert out == ""
-    said = [ln for ln in err.splitlines() if "not ported yet" in ln]
-    assert len(said) == 1 and said[0].startswith("[depth]"), err
-    assert "CRAM" in said[0]
+    # SAM is read (tests/test_torch_sam_input.py), and CRAM now: the
+    # port prints the JAX tool's bytes
+    args = ["-a", inputs["cram"]]
+    port = run_port_stdout("depth", args)
+    assert port.count(b"\n") == REF_LEN
+    assert port == run_jax_tool("depth", args, "1")
 
 
 def test_shards_cap_at_the_device_count(monkeypatch):

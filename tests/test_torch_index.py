@@ -271,11 +271,17 @@ def test_idxstats_equals_jax(bams, which, case):
 
 
 def test_cram_input_is_not_ported(tmp_path, capfd):
+    """CRAM is read now (tests/test_torch_cram_tools.py); this case, which
+    held the exit of a CRAM input, now holds a truncated CRAM: ``index``
+    and ``idxstats`` fail as the JAX tools do, with the same exception
+    and no output."""
     p = tmp_path / "x.cram"
     p.write_bytes(b"CRAM\3\0" + bytes(40))
-    for cmd in ("index", "idxstats"):
+    for cmd, jmain in (("index", jmain_index), ("idxstats", jmain_idxstats)):
+        with pytest.raises(Exception) as want:
+            jmain([str(p)])
         capfd.readouterr()
-        assert cli.main([cmd, str(p)]) == 1
-        out, err = capfd.readouterr()
-        assert out == "" and err.startswith(f"[{cmd}] CRAM input")
-        assert "not ported yet" in err
+        with pytest.raises(type(want.value)) as got:
+            cli.main([cmd, str(p)])
+        assert str(got.value) == str(want.value)
+        assert capfd.readouterr().out == ""

@@ -5,8 +5,9 @@ window size; its ``--census-out`` equals the single-core f64 oracle
 window by window; its chunk step's sparse qual deltas equal the JAX chunk
 step's; the overflow path gives the same bytes; without CUDA the command
 fails before it prints a row; under SAMTPU_SHARDS it runs serially where
-the JAX tool does, with its bytes; what is not ported yet (span workers
-where the JAX tool shards, CRAM input) says so and exits 1
+the JAX tool does, with its bytes; on a CRAM it prints the JAX tool's
+bytes; what is not ported yet (span workers where the JAX tool shards)
+says so and exits 1
 (``--checkpoint``: tests/test_torch_mpileup_checkpoint.py)."""
 
 import json
@@ -201,12 +202,14 @@ def test_tool_without_cuda_fails_before_any_row(inputs):
 # names).  "shards" runs now: on one 128 kbp contig the JAX tool makes one
 # span under SAMTPU_SHARDS=2 and runs serially, and so does the port;
 # "shards_2mi" is a 2 Mi contig, two spans, where the JAX tool does shard.
+# SAM is read (tests/test_torch_sam_input.py) and CRAM too now: the
+# "sam_input" cases run the CRAM fixture, whole and with -r (a whole-file
+# filter, as in the JAX tool), and print the JAX tool's bytes.
 NOT_PORTED = {
     "shards": None,
     "shards_2mi": ([], "SAMTPU_SHARDS"),
-    # SAM is read now (tests/test_torch_sam_input.py); CRAM is not
-    "sam_input": ([], "CRAM input"),
-    "sam_input_region": (["-r", "sim1:1-50"], "CRAM input"),
+    "sam_input": ([], None),
+    "sam_input_region": (["-r", "sim1:1-50"], None),
 }
 
 
@@ -234,11 +237,15 @@ def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
         assert port == run_jax(["-f", inputs["fa"], bam], "1")
         return
     extra, what = NOT_PORTED[case]
+    if case.startswith("sam_input"):
+        args = ["-f", inputs["fa"], inputs["cram"], *extra]
+        port = run_port(args, os.path.join(inputs["dir"], f"{case}.txt"))
+        assert port.count(b"\n") > (40 if extra else 2000)
+        assert port == run_jax(args, "1")
+        return
     if case == "shards_2mi":
         bam = os.path.join(inputs["dir"], "contig_2mi.bam")
         _on_2mi_contig(inputs["messy"], bam)
-    elif case.startswith("sam_input"):
-        bam = inputs["cram"]
     argv = ["mpileup", "-f", inputs["fa"], bam,
             *[a.format(**inputs) for a in extra]]
     capfd.readouterr()
