@@ -176,8 +176,22 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``idxstats`` on the CRAM equal to ``idxstats`` on the BAM, and
    ``index`` on the CRAM writing a ``.crai``.  Per run: the encode and
    decode seconds a read, and each run's wall beside its BAM twin's.
+14. pileup_tools -- ``targetcut``, ``phase`` and ``tview`` on a 200 kbp
+   contig (``diploid_islands``: a diploid sample with a het SNP about
+   every kbp, 100 bp reads at 30x over three 40 kbp islands, the fosmids
+   of a pool, about 36,000 reads): ``targetcut -f ref.fa``, ``phase``,
+   ``phase -b`` and ``tview -w 120`` at an island's start, an island's
+   middle and a gap (``-d T``) and once ``-d H``, each in-process on the
+   card and as a process on the host branch (``SAMTPU_DEVICE=0``, four
+   at a time beside the card's runs): the same bytes, and for ``-b`` the
+   same three BAMs decoded.  The card runs must launch K8 with K4 and K5
+   in ``targetcut -f``, K13 at least once a contig in ``targetcut`` and
+   ``phase``, and K13 once a ``tview`` draw on a window with reads (none
+   on the gap), and nothing else.  Per run: both walls (the host's with
+   the interpreter's start), output bytes and lines, launches.
 
-Then the kernel table, the script's wall against its 1,200 s limit, the
+Then the kernel table (``baq_apply`` and ``stable_order`` with their
+``pileup_tools_launches``), the script's wall against its 1,200 s limit, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is not 0 and that last line is not printed.
 """
@@ -2256,6 +2270,192 @@ def phase_cram(workdir: str, ref: np.ndarray, header, reads) -> dict:
     return runs
 
 
+# the pileup_tools phase: targetcut's documented use is a fosmid pool, so
+# a 200 kbp contig with reads at 30x over three 40 kbp islands (the
+# fosmids) of a diploid sample, a het SNP about every kbp
+TOOLS_LEN = 200_000
+TOOLS_ISLANDS = ((10_000, 50_000), (80_000, 120_000), (150_000, 190_000))
+TOOLS_SEED = 23
+# (label, argv, the kernels each card run launches); {fa}, {bam}: the
+# inputs, {pre}: phase -b's prefix.  tview's windows: an island's start, an
+# island's middle, a gap between islands (no reads: no launch)
+_TVIEW = ["tview", "-w", "120", "-p"]
+TOOLS_RUNS = (
+    ("phase -b", ["phase", "-b", "{pre}", "{bam}"], ("stable_order",)),
+    ("targetcut -f", ["targetcut", "-f", "{fa}", "{bam}"],
+     ("baq_apply", "baq_hmm", "baq_finalize", "stable_order")),
+    ("phase", ["phase", "{bam}"], ("stable_order",)),
+    ("tview -d T island start", [*_TVIEW, "sim1:10001", "-d", "T", "{bam}",
+                                 "{fa}"], ("stable_order",)),
+    ("tview -d T island middle", [*_TVIEW, "sim1:100001", "-d", "T",
+                                  "{bam}", "{fa}"], ("stable_order",)),
+    ("tview -d T gap", [*_TVIEW, "sim1:65001", "-d", "T", "{bam}", "{fa}"],
+     ()),
+    ("tview -d H", [*_TVIEW, "sim1:170001", "-d", "H", "{bam}", "{fa}"],
+     ("stable_order",)),
+)
+
+
+def diploid_islands():
+    """The pileup_tools cell: a reference of TOOLS_LEN bases (seeded), a
+    second haplotype that differs from it at a het SNP every 500-1,500
+    bases, and 100 bp single-end reads at 15x from each haplotype over
+    each of TOOLS_ISLANDS (30x in all), with distinct qnames
+    (``h<hap>i<island>_`` before the simulator's), merged by position.
+    Returns (reference, reads, het SNPs)."""
+    from samtools_tpu_torch.core.batch import ReadBatch
+    from samtools_tpu_torch.sim import simulate_batch, simulate_reference
+    ref = simulate_reference(TOOLS_LEN, seed=TOOLS_SEED)
+    rng = np.random.default_rng(TOOLS_SEED)
+    het = np.cumsum(rng.integers(500, 1500, TOOLS_LEN // 500))
+    het = het[het < TOOLS_LEN]
+    hap2 = ref.copy()
+    hap2[het] = np.frombuffer(b"ACGT", np.uint8)[
+        (ref_codes(ref[het]).astype(np.int64)
+         + rng.integers(1, 4, het.size)) % 4]
+    parts = []
+    for k, (beg, end) in enumerate(TOOLS_ISLANDS):
+        for h, hap in enumerate((ref, hap2)):
+            b = simulate_batch(ref_len=end - beg, coverage=COVERAGE / 2,
+                               read_len=READ_LEN, paired=False,
+                               seed=TOOLS_SEED * 100 + 2 * k + h,
+                               ref=np.ascontiguousarray(hap[beg:end]))
+            b.pos = b.pos + beg
+            names = [b"h%di%d_" % (h, k)
+                     + bytes(b.qname[b.qname_off[i]:b.qname_off[i + 1]])
+                     for i in range(b.n)]
+            b.qname = np.frombuffer(b"".join(names), np.uint8).copy()
+            b.qname_off = np.concatenate(
+                [[0], np.cumsum([len(x) for x in names])]).astype(np.int64)
+            parts.append(b)
+    b = ReadBatch.concat(parts)
+    return ref, b.take(np.argsort(b.pos, kind="stable")), int(het.size)
+
+
+def write_tools_inputs(workdir: str) -> dict:
+    """The pileup_tools cell as a BAM and its FASTA under ``workdir``."""
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.sim import make_header
+    ref, b, n_het = diploid_islands()
+    got = {"bam": os.path.join(workdir, "islands.bam"),
+           "fa": os.path.join(workdir, "islands.fa"),
+           "reads": int(b.n), "het_snps": n_het}
+    write_bam(got["bam"], make_header(TOOLS_LEN), b, threads=THREADS)
+    write_fasta(got["fa"], ref)
+    return got
+
+
+def _decoded_bams(prefix: str) -> dict:
+    """phase -b's three BAMs decoded (header text, @SQ list, every
+    column), removed after reading."""
+    import glob
+
+    from samtools_tpu_torch.io.files import read_alignments
+    got = {}
+    for path in sorted(glob.glob(prefix + ".*")):
+        f = read_alignments(path)
+        got[os.path.basename(path)] = (
+            f.header.text, f.header.ref_names, f.header.ref_lens, f.batch.n,
+            {k: getattr(f.batch, k).tobytes() for k in vars(f.batch)
+             if k != "n"})
+        os.remove(path)
+    return got
+
+
+def _host_process(argv: list[str], out: str) -> float:
+    """The port's command as a fresh process on its host branch
+    (``SAMTPU_DEVICE=0``), standard output to ``out``; its wall, the
+    interpreter's start included."""
+    env = dict(os.environ, SAMTPU_DEVICE="0")
+    t0 = time.perf_counter()
+    with open(out, "wb") as f:
+        p = subprocess.run([sys.executable, "-m", "samtools_tpu_torch",
+                            *argv], stdout=f, stderr=subprocess.PIPE,
+                           env=env, cwd=ROOT, timeout=900)
+    require(p.returncode == 0, f"{' '.join(argv[:2])} (host branch): rc "
+            f"{p.returncode}: {p.stderr.decode()[-500:]}")
+    return time.perf_counter() - t0
+
+
+def phase_pileup_tools(workdir: str) -> dict:
+    """targetcut -f, phase, phase -b and tview (three text windows, one
+    HTML) in-process on the card, each against the same command as a
+    process on the host branch (four at a time beside the card's runs):
+    the same bytes (for -b, the same decoded BAMs), and the card runs
+    launch K8 with K4 and K5 (targetcut -f) and K13 (at least once a
+    contig; once a tview draw on a window with reads, none on the gap).
+    Returns each card run's launches."""
+    from samtools_tpu_torch import kernels
+    t_phase = time.perf_counter()
+    cell = write_tools_inputs(workdir)
+    emit({"phase": "pileup_tools", "run": "inputs", "contig_len": TOOLS_LEN,
+          "islands": TOOLS_ISLANDS, "reads": cell["reads"],
+          "het_snps": cell["het_snps"], "coverage": COVERAGE})
+    pre = os.path.join(workdir, "phased")
+    argvs = {label: [a.format(pre=pre, **cell) for a in argv]
+             for label, argv, _ in TOOLS_RUNS}
+    host_out = {label: os.path.join(workdir, f"tools{i}.host")
+                for i, (label, _, _) in enumerate(TOOLS_RUNS)}
+    runs, card, bams = {}, {}, None
+    ex = ThreadPoolExecutor(4)
+    try:
+        # the host runs, the longest first; phase -b's once the card's has
+        # written its BAMs and they are read (the same prefix, so the @PG
+        # command lines match)
+        host = {label: ex.submit(_host_process, argvs[label],
+                                 host_out[label])
+                for label, _, _ in TOOLS_RUNS if label != "phase -b"}
+        for i, (label, _, want) in enumerate(TOOLS_RUNS):
+            out = os.path.join(workdir, f"tools{i}.card")
+            kernels.reset_launches()
+            wall = run_cli(argvs[label], out, "stdout", False)
+            launched = dict(kernels.launches)
+            used = {k for k, v in launched.items() if v}
+            require(used == set(want), f"{label}: launches {launched}")
+            if label.startswith("tview"):
+                # one draw: one K13 launch on a window with reads
+                require(launched["stable_order"] == (1 if want else 0),
+                        f"{label}: K13 {launched['stable_order']} a draw")
+            if label == "phase -b":
+                bams = _decoded_bams(pre)
+                # a het every kbp makes one-marker phase sets: no read
+                # is flipped, so the chimera file may be empty
+                require(len(bams) == 3 and all(
+                    bams[f"phased.{c}.bam"][3] for c in (0, 1)),
+                    f"phase -b wrote {sorted(bams)}")
+                host[label] = ex.submit(_host_process, argvs[label],
+                                        host_out[label])
+            card[label] = (wall, out)
+            runs[label] = launched
+        for label, _, _ in TOOLS_RUNS:
+            host_wall = host[label].result()
+            wall, out = card[label]
+            with open(out, "rb") as f:
+                card_bytes = f.read()
+            with open(host_out[label], "rb") as f:
+                require(f.read() == card_bytes,
+                        f"{label}: the card prints other bytes than the "
+                        "host branch")
+            if label == "phase -b":
+                require(_decoded_bams(pre) == bams,
+                        "phase -b: the host branch's BAMs differ")
+            os.remove(out)
+            os.remove(host_out[label])
+            emit({"phase": "pileup_tools", "run": label,
+                  "reads": cell["reads"], "card_wall_s": round(wall, 3),
+                  "host_process_wall_s": round(host_wall, 3),
+                  "output_bytes": len(card_bytes),
+                  "output_lines": card_bytes.count(b"\n"),
+                  "launches": runs[label], "byte_equal": True,
+                  **({"bam_records": {k: v[3] for k, v in bams.items()}}
+                     if label == "phase -b" else {})})
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+    emit({"phase": "pileup_tools", "run": "all",
+          "wall_s": round(time.perf_counter() - t_phase, 3)})
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2304,6 +2504,7 @@ def main() -> int:
         header, cram_reads = phase_regions(workdir, bams, cons, cons_whole)
         cram = phase_cram(workdir, ref, header, cram_reads)
         del cram_reads
+        tools = phase_pileup_tools(workdir)
     rows.update(general_rows)
     rows.update(cons_rows)
     rows.update(stats_rows)
@@ -2333,6 +2534,10 @@ def main() -> int:
                            "bound_sum_k4_ops_k5_bytes_ms"],
                        general_launches={k: v[name]
                                          for k, v in general.items()})
+        if name in ("baq_apply", "stable_order"):
+            # the pileup_tools phase's card runs
+            row["pileup_tools_launches"] = {k: v[name]
+                                            for k, v in tools.items()}
         if name == "stable_order":
             row.update(host_argsort_ms=r["host_argsort_ms"],
                        general_launches={k: v[name]

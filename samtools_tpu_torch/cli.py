@@ -24,6 +24,9 @@ Commands:
   -- Indexing
      index          index alignment
 
+  -- Editing
+     targetcut      cut fosmid regions (for fosmid pool only)
+
   -- File operations
      consensus      produce a consensus Pileup/FASTA/FASTQ
      mpileup        multi-way pileup
@@ -34,7 +37,11 @@ Commands:
      depth          compute the depth
      flagstat       simple stats
      idxstats       BAM index stats
+     phase          phase heterozygotes
      stats          generate stats (former bamcheck)
+
+  -- Viewing
+     tview          text alignment viewer
 
   -- Misc
      help [cmd]     display this help message or help for [cmd]

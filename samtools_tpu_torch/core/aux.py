@@ -1,5 +1,6 @@
 """The BAM aux-field walk the long-CIGAR fixup, mpileup's read-group
-filter, its extra tag columns and the stored BAQ tags need, and the SAM
+filter, its extra tag columns, the stored BAQ tags and tview's ``-s``
+filter need, and the SAM
 text field's conversion to BAM bytes (SAM spec 4.2.4; counterpart of
 part of samtools_tpu/core/aux.py)."""
 
@@ -117,6 +118,27 @@ def batch_tag_values(batch, tag: str) -> np.ndarray:
     for i in range(batch.n):
         got = get_value(batch.aux_of(i), tag)
         out[i] = None if got is None else got[1]
+    return out
+
+
+def batch_tag_str_values(batch, tag: str) -> np.ndarray:
+    """Object array: ``tag``'s value per record as a string, the way
+    samtools compares tag values (sam_view.c:189-208): integers by %d, A
+    as its character, Z and H as the string; None where the tag is absent
+    or is a float or an array (tview's ``-s`` filter)."""
+    out = np.empty(batch.n, object)
+    for i in range(batch.n):
+        got = get_value(batch.aux_of(i), tag)
+        if got is None:
+            out[i] = None
+            continue
+        t, v = got
+        if t in "cCsSiI":
+            out[i] = str(v)
+        elif t in "AZH":
+            out[i] = v
+        else:
+            out[i] = None
     return out
 
 

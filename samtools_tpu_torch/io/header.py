@@ -1,7 +1,7 @@
 """SAM header model (counterpart of samtools_tpu/io/header.py, only what
 ``decode_header``, the simulated ``@HD``/``@SQ`` header, mpileup's sample
 count and RNAME/RNEXT columns, the name lookups of ``-r`` and
-``bedcov``, and CRAM's read-group list need).
+``bedcov``, CRAM's read-group list and ``phase -b``'s @PG line need).
 
 Keeps the raw header text verbatim plus the @SQ (name, length) list.
 """
@@ -76,6 +76,40 @@ class SamHeader:
 
     def ref_name(self, tid: int) -> str:
         return self.ref_names[tid] if 0 <= tid < len(self.ref_names) else "*"
+
+    def lines(self) -> list[str]:
+        return [ln for ln in self.text.split("\n") if ln]
+
+    def find_tag_values(self, rec_type: str, tag: str) -> list[str]:
+        """Every value of ``tag`` on the header's @``rec_type`` lines, in
+        header order."""
+        out = []
+        for line in self.lines():
+            if line.startswith("@" + rec_type):
+                for f in line.split("\t")[1:]:
+                    if f.startswith(tag + ":"):
+                        out.append(f[len(tag) + 1:])
+        return out
+
+    def add_pg_line(self, id_: str, pn: str, cl: str, vn: str) -> "SamHeader":
+        """A copy with a @PG line appended: its ID made unique (``id_``,
+        then ``id_.1``, ...) and its PP the last existing @PG's ID."""
+        existing = self.find_tag_values("PG", "ID")
+        uid = id_
+        k = 1
+        while uid in existing:
+            uid = f"{id_}.{k}"
+            k += 1
+        pp = existing[-1] if existing else None
+        line = f"@PG\tID:{uid}\tPN:{pn}"
+        if pp:
+            line += f"\tPP:{pp}"
+        line += f"\tVN:{vn}\tCL:{cl}"
+        text = self.text
+        if text and not text.endswith("\n"):
+            text += "\n"
+        return SamHeader.from_text(text + line + "\n", self.ref_names or None,
+                                   self.ref_lens or None)
 
     def rg_ids(self) -> list[str]:
         """The ID of each @RG line, in header order (a CRAM record's RG

@@ -18,6 +18,10 @@ COMMANDS = {
     "bedcov": ("samtools_tpu_torch.tools.bedcov_cmd", "main_bedcov"),
     "consensus": ("samtools_tpu_torch.tools.consensus_cmd",
                   "main_consensus"),
+    "phase": ("samtools_tpu_torch.tools.phase_cmd", "main_phase"),
+    "targetcut": ("samtools_tpu_torch.tools.targetcut_cmd",
+                  "main_targetcut"),
+    "tview": ("samtools_tpu_torch.tools.tview_cmd", "main_tview"),
 }
 
 # commands that do no device work and take no ``device``

@@ -1,9 +1,9 @@
 """Where the time of the port's census core, or of its mpileup, depth,
-coverage, bedcov, consensus, flagstat or stats command, goes on one CUDA
-card.
+coverage, bedcov, consensus, flagstat, stats, targetcut, phase or tview
+command, goes on one CUDA card.
 
     python3 scripts/torch_core_profile.py [--ref-len N] [--coverage X]
-        [--messy | --pairs] [--tool [--mpileup-args "OPTS"] |
+        [--messy | --pairs | --islands] [--tool [--mpileup-args "OPTS"] |
         --pileup "CMD [OPTS]" ... [--host]] [--out PATH.json]
 
 Simulates the bench workload (8 Mbp x 30x x 100 bp by default), writes it
@@ -54,6 +54,19 @@ time and idle share).  ``--pileup`` may be given several times: each
 command runs on the same BAM, its result under ``runs``.  ``--host``
 runs each on the numpy host branch (``SAMTPU_DEVICE=0``) as well.
 
+``--islands`` profiles ``chip_smoke.py``'s pileup_tools cell instead of
+the bench workload (a 200 kbp contig, reads at 30x over three 40 kbp
+islands of a diploid sample; ``--ref-len``, ``--coverage`` and ``--seed``
+do not apply), with its FASTA beside the BAM: ``--pileup "targetcut -f
+{fa}"``, ``--pileup phase`` and ``--pileup "tview -d T -w 120 -p
+sim1:100001"`` (tview gets the BAM and the FASTA after its options; the
+others write to standard output, captured).  Their stages: the error
+model (``ErrMod.cal``), ``gencns``, ``process_cns``, ``phase_block``
+(with ``count_all`` and ``fragphase`` inside it), ``assign_levels``,
+``bcf_call_glfgen``, ``build_pileup`` with K13 (``entry_order``) and
+``apply_baq_batch`` with K8 (``_apply_baq_device``) and the host HMM
+(``baq_batch``).
+
 Prints one JSON object, and writes it to --out when that is given.
 """
 
@@ -89,10 +102,12 @@ from samtools_tpu_torch.sim import (make_header, simulate_batch,  # noqa: E402
                                     simulate_messy,
                                     simulate_overlapping_pairs,
                                     simulate_reference)
+from samtools_tpu_torch.ops import errmod  # noqa: E402
 from samtools_tpu_torch.tools import (bedcov_cmd,  # noqa: E402
                                       consensus_cmd, coverage_cmd,
                                       depth_cmd, flagstat_cmd, mpileup_cmd,
-                                      stats_batch, stats_cmd)
+                                      phase_cmd, stats_batch, stats_cmd,
+                                      targetcut_cmd, tview_cmd)
 
 STAGES = ("_gather_rows", "_make_buf", "_plan", "_h2d", "_expand",
           "_weights", "_chunk_step", "_drain", "_host_reads", "finish")
@@ -176,6 +191,26 @@ PILEUP_STAGES = (("depth_cmd", "read_alignments"),
                  ("stats_batch.native", "stats_cov_gcd"),
                  ("stats_batch", "_mismatches_batch"),
                  ("stats_cmd.Stats", "output"),
+                 # targetcut, phase, tview: the reads, BAQ (K8 and the
+                 # host HMM), the table with K13, the per-column loops
+                 ("targetcut_cmd", "read_alignments"),
+                 ("phase_cmd", "read_alignments"),
+                 ("tview_cmd", "read_alignments"),
+                 ("targetcut_cmd", "apply_baq_batch"),
+                 ("baqmod", "_apply_baq_device"),
+                 ("baqmod.native", "baq_batch"),
+                 ("targetcut_cmd", "build_pileup"),
+                 ("phase_cmd", "build_pileup"),
+                 ("tview_cmd", "build_pileup"),
+                 ("errmod.ErrMod", "cal"),
+                 ("targetcut_cmd", "gencns"),
+                 ("targetcut_cmd", "process_cns"),
+                 ("phase_cmd", "phase_block"),
+                 ("phase_cmd", "count_all"),
+                 ("phase_cmd", "fragphase"),
+                 ("phase_cmd", "write_alignments"),
+                 ("tview_cmd", "assign_levels"),
+                 ("tview_cmd", "bcf_call_glfgen"),
                  ("ReadBatch", "take"),
                  ("ReadBatch", "concat"))
 
@@ -234,7 +269,9 @@ def _owner(path: str):
              "bedcov_cmd": bedcov_cmd, "stream": stream, "pe": pe,
              "dops": dops, "plmod": plmod, "baqmod": baqmod,
              "consensus_cmd": consensus_cmd, "flagstat_cmd": flagstat_cmd,
-             "stats_batch": stats_batch, "stats_cmd": stats_cmd}
+             "stats_batch": stats_batch, "stats_cmd": stats_cmd,
+             "targetcut_cmd": targetcut_cmd, "phase_cmd": phase_cmd,
+             "tview_cmd": tview_cmd, "errmod": errmod}
     head, *rest = path.split(".")
     obj = names[head]
     for r in rest:
@@ -349,12 +386,17 @@ def run_pileup(argv, stdin=None):
     return time.perf_counter() - t0
 
 
-def profile_pileup(spec, path, d, n_reads, host, ref_len):
-    """The pileup command's warm-up, timed and profiled runs."""
+def profile_pileup(spec, path, d, n_reads, host, ref_len, fa=None):
+    """The pileup command's warm-up, timed and profiled runs (``fa``: the
+    FASTA that ``{fa}`` in ``spec`` names, and tview's reference)."""
     import shlex
-    words = shlex.split(spec)
+    words = [w.format(fa=fa) for w in shlex.split(spec)]
     out = os.path.join(d, "pileup.out")
-    if words[0] == "bedcov":
+    if words[0] == "tview":
+        argv, stdin = [*words, path, fa], None
+    elif words[0] in ("targetcut", "phase"):
+        argv, stdin = [*words, path], None
+    elif words[0] == "bedcov":
         bed = os.path.join(d, "regions.bed")
         rng = np.random.default_rng(21)
         with open(bed, "w") as f:
@@ -410,6 +452,35 @@ def profile_pileup(spec, path, d, n_reads, host, ref_len):
     }
 
 
+def write_result(res: dict, out: str | None) -> None:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(res, f, indent=1)
+    print(json.dumps(res))
+
+
+def profile_islands(args) -> int:
+    """The --pileup commands on chip_smoke.py's pileup_tools cell."""
+    import chip_smoke
+    with tempfile.TemporaryDirectory() as d:
+        cell = chip_smoke.write_tools_inputs(d)
+        res = {"device": torch.cuda.get_device_name(0), "mode": "pileup",
+               "workload": {"cell": "pileup_tools",
+                            "contig_len": chip_smoke.TOOLS_LEN,
+                            "islands": chip_smoke.TOOLS_ISLANDS,
+                            "coverage": chip_smoke.COVERAGE,
+                            "reads": cell["reads"],
+                            "het_snps": cell["het_snps"]},
+               "runs": [profile_pileup(spec, cell["bam"], d, cell["reads"],
+                                       h, chip_smoke.TOOLS_LEN, cell["fa"])
+                        for spec in args.pileup
+                        for h in ((False, True) if args.host
+                                  else (False,))]}
+    write_result(res, args.out)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ref-len", type=int, default=8 << 20)
@@ -418,14 +489,17 @@ def main() -> int:
     kind.add_argument("--messy", action="store_true")
     kind.add_argument("--pairs", action="store_true",
                       help="overlapping messy pairs")
+    kind.add_argument("--islands", action="store_true",
+                      help="chip_smoke.py's pileup_tools cell (for "
+                      "targetcut, phase and tview)")
     ap.add_argument("--seed", type=int, default=42)
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--tool", action="store_true",
                       help="profile the mpileup command, not the core")
     mode.add_argument("--pileup", metavar="CMD", action="append",
                       help='profile a depth, coverage, bedcov, consensus, '
-                      'flagstat or stats command, e.g. "depth -a" '
-                      '(repeatable)')
+                      'flagstat, stats, targetcut, phase or tview '
+                      'command, e.g. "depth -a" (repeatable)')
     ap.add_argument("--mpileup-args", default="",
                     help='with --tool: options for every mpileup run, '
                     'e.g. "-s -O"')
@@ -433,9 +507,13 @@ def main() -> int:
                     help="with --pileup: the numpy host branch too")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
+    if args.islands and not args.pileup:
+        ap.error("--islands profiles --pileup commands")
     if not torch.cuda.is_available():
         print("torch_core_profile: CUDA is not available", file=sys.stderr)
         return 1
+    if args.islands:
+        return profile_islands(args)
     threads = max(1, min(8, os.cpu_count() or 1))
     ref = simulate_reference(args.ref_len, seed=7)
     lut = np.full(256, 4, np.uint8)
@@ -471,12 +549,7 @@ def main() -> int:
                       if args.pileup else
                       profile_tool(path, ref, d, n_reads,
                                    args.mpileup_args.split()))}
-            if args.out:
-                os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                            exist_ok=True)
-                with open(args.out, "w") as f:
-                    json.dump(res, f, indent=1)
-            print(json.dumps(res))
+            write_result(res, args.out)
             return 0
         run(path, ref_int, args.ref_len, threads)       # warm-up
         timer = StageTimer()
@@ -536,11 +609,7 @@ def main() -> int:
         "stage_device_s": dict(stage_dev) if dev else "not measured",
         "launches": dict(kernels.launches),
     }
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(res, f, indent=1)
-    print(json.dumps(res))
+    write_result(res, args.out)
     return 0
 
 

@@ -1089,3 +1089,34 @@ def test_mpileup_region_through_index_on_card(cuda, tmp_path):
         assert len(queried) == 1      # the indexed run's one query
     assert got["in"].count("\n") > 19_000
     assert got["in"] == got["whole"]
+
+
+@pytest.mark.parametrize("cmd,argv,kernels_used", [
+    ("targetcut", ["-f", "{dip_fa}", "{dip}"],
+     ("baq_apply", "baq_hmm", "baq_finalize", "stable_order")),
+    ("phase", ["{dip}"], ("stable_order",)),
+    ("tview", ["-d", "T", "-w", "150", "-p", "sim1:3001", "{dip}",
+               "{dip_fa}"], ("stable_order",))])
+def test_pileup_tools_on_card_equal_host_branch(cuda, tmp_path, monkeypatch,
+                                                cmd, argv, kernels_used):
+    """targetcut -f, phase and tview on the diploid fixture launch their
+    kernels on the card (K8, with its K4 and K5, and K13 for targetcut -f;
+    K13 for phase and tview) and print the host branch's bytes."""
+    from torch_tool_fixtures import make_diploid_inputs, run_port_full
+    inputs = make_diploid_inputs(str(tmp_path))
+    args = [a.format(**inputs) for a in argv]
+    monkeypatch.delenv("SAMTPU_DEVICE", raising=False)
+    kernels.reset_launches()
+    card = run_port_full(cmd, args, device=None)
+    torch.cuda.synchronize()
+    launched = dict(kernels.launches)
+    monkeypatch.setenv("SAMTPU_DEVICE", "0")
+    kernels.reset_launches()
+    host = run_port_full(cmd, args, device=None)
+    assert not any(kernels.launches.values())
+    assert card[0] == 0 and card[1].count(b"\n") > 1
+    assert card == host
+    assert all(launched[k] >= 1 for k in kernels_used), launched
+    assert {k for k, v in launched.items() if v} == set(kernels_used)
+    if cmd == "tview":
+        assert launched["stable_order"] == 1        # one draw

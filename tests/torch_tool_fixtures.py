@@ -426,3 +426,185 @@ def check_stats_case(inputs, extra: list[str], which: str, monkeypatch,
         if split:
             assert bamstats() == want_files, var
     return mine
+
+
+def _prefix_qnames(b, prefix: bytes) -> None:
+    """Put ``prefix`` before every qname of ``b``."""
+    names = [prefix + bytes(b.qname[b.qname_off[i]:b.qname_off[i + 1]])
+             for i in range(b.n)]
+    b.qname = np.frombuffer(b"".join(names), np.uint8).copy()
+    b.qname_off = np.concatenate([[0], np.cumsum([len(x) for x in names])]
+                                 ).astype(np.int64)
+
+
+def _edit_reads(b, hap: np.ndarray, rng) -> None:
+    """Give about 17% of the reads of ``b`` (100 bp, one M op, drawn from
+    ``hap``) an alignment event their bases agree with: a 3 bp insertion,
+    a 2 bp deletion, an 8 bp leading soft clip, or a 200 bp ref skip."""
+    lut = np.zeros(256, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.array([1, 2, 4, 8], np.uint8)
+    kind = rng.random(b.n)
+    cigars = []
+    for i in range(b.n):
+        p, s0, k = int(b.pos[i]), int(b.seq_off[i]), kind[i]
+        a = 20 + int(rng.integers(0, 60))
+        new = None
+        if k < 0.05:
+            ops = [(0, a), (1, 3), (0, 97 - a)]
+            new = np.concatenate([hap[p:p + a], np.frombuffer(b"TAG", np.uint8),
+                                  hap[p + a:p + 97]])
+        elif k < 0.09 and p + 102 <= hap.size:
+            ops = [(0, a), (2, 2), (0, 100 - a)]
+            new = np.concatenate([hap[p:p + a], hap[p + a + 2:p + 102]])
+        elif k < 0.15:
+            ops = [(4, 8), (0, 92)]
+            new = np.concatenate([np.frombuffer(b"GATTACAG", np.uint8),
+                                  hap[p:p + 92]])
+        elif k < 0.17 and p + 300 <= hap.size:
+            ops = [(0, 50), (3, 200), (0, 50)]
+            new = np.concatenate([hap[p:p + 50], hap[p + 250:p + 300]])
+        else:
+            ops = [(0, 100)]
+        if new is not None:
+            b.seq[s0:s0 + 100] = lut[new]
+        cigars.append(ops)
+    _cigar_batch(b, cigars)
+
+
+def diploid_batch(ref: np.ndarray, islands, seed: int, het_gap: int = 1000,
+                  dense=(), coverage: float = 30.0, edits: bool = False):
+    """Reads of a diploid sample over ``islands`` ((beg, end) spans of
+    ``ref``) at ``coverage``, 100 bp single-end, half from ``ref`` and
+    half from a second haplotype that differs from it at seeded het SNPs:
+    one every ``het_gap`` bases on average, and one every ``gap`` in each
+    (beg, end, gap) of ``dense``.  With ``edits``, ``_edit_reads``' indels,
+    clips and skips.  Qnames are distinct (``h<hap>i<island>_`` before the
+    simulator's name); the reads are merged by position.  Returns (batch,
+    the second haplotype)."""
+    rng = np.random.default_rng(seed)
+    L = ref.size
+    het = [np.cumsum(rng.integers(het_gap // 2, 3 * het_gap // 2,
+                                  L // (het_gap // 2) + 1))]
+    for beg, end, gap in dense:
+        d = beg + np.cumsum(rng.integers(gap // 2, 3 * gap // 2,
+                                         (end - beg) // (gap // 2)))
+        het.append(d[d < end])
+    het = np.unique(np.concatenate(het))
+    het = het[het < L]
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    code = ref_codes(ref[het]).astype(np.int64)
+    hap2 = ref.copy()
+    hap2[het] = acgt[(code + rng.integers(1, 4, het.size)) % 4]
+    parts = []
+    for k, (beg, end) in enumerate(islands):
+        for h, hap in enumerate((ref, hap2)):
+            b = sim.simulate_batch(ref_len=end - beg, coverage=coverage / 2,
+                                   paired=False, seed=seed * 100 + 2 * k + h,
+                                   ref=np.ascontiguousarray(hap[beg:end]))
+            b.pos = b.pos + beg
+            if edits:
+                _edit_reads(b, hap, rng)
+            _prefix_qnames(b, b"h%di%d_" % (h, k))
+            parts.append(b)
+    b = ReadBatch.concat(parts)
+    return b.take(np.argsort(b.pos, kind="stable")), hap2
+
+
+DIP_LEN = 24000
+DIP2_LEN = 8000
+
+
+def make_diploid_inputs(d: str) -> dict:
+    """The inputs of targetcut, phase and tview: ``dip``, a 24 kbp contig
+    (sim1) with reads at 30x over two islands, [1000, 7000) and [12000,
+    18000), of a diploid sample (``diploid_batch``): het SNPs every ~1
+    kbp, every ~50 bp in [2000, 3000) and every ~8 bp in [3000, 3600);
+    indels, soft clips and ref skips on about 17% of the reads; chimeric
+    reads (hap 1 up to base 50, hap 2 after it: every third all-M read
+    that starts in [3000, 3400), so phase masks and flips); mapq 0 on every
+    40th read; read groups grpA (sample s1) and grpB (sample s2).  With
+    it ``dip_fa`` (sim1), ``other_fa`` (a FASTA that lacks sim1),
+    ``dip2`` (a second contig, sim2 of 8 kbp, whose reads come first in
+    the file, then sim1's; header SO:unsorted) and ``dip2_fa`` (both
+    contigs)."""
+    ref = sim.simulate_reference(DIP_LEN, seed=41)
+    b, hap2 = diploid_batch(ref, ((1000, 7000), (12000, 18000)), 42,
+                            dense=((2000, 3000, 50), (3000, 3600, 8)),
+                            edits=True)
+    lut = np.zeros(256, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.array([1, 2, 4, 8], np.uint8)
+    chim = np.nonzero((b.pos >= 3000) & (b.pos < 3400)
+                      & (b.n_cigar == 1))[0][::3]
+    for i in chim:
+        p, s0 = int(b.pos[i]), int(b.seq_off[i])
+        b.seq[s0 + 50:s0 + 100] = lut[hap2[p + 50:p + 100]]
+    b.mapq[::40] = 0
+    _set_aux(b, [(b"RGZgrpA\0", b"RGZgrpB\0")[i % 3 == 0]
+                 for i in range(b.n)])
+    rg = "@RG\tID:grpA\tSM:s1\n@RG\tID:grpB\tSM:s2\n"
+    got = {"dir": d, "dip": os.path.join(d, "dip.bam"),
+           "dip_fa": os.path.join(d, "dip.fa"),
+           "other_fa": os.path.join(d, "other.fa"),
+           "dip2": os.path.join(d, "dip2.bam"),
+           "dip2_fa": os.path.join(d, "dip2.fa")}
+    write_bam(got["dip"], SamHeader.from_text(
+        f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:sim1\tLN:{DIP_LEN}\n" + rg), b)
+    write_fasta(got["dip_fa"], ref)
+    with open(got["other_fa"], "w") as f:
+        f.write(">other\n" + ref[:5000].tobytes().decode() + "\n")
+    ref2 = sim.simulate_reference(DIP2_LEN, seed=44)
+    b2, _ = diploid_batch(ref2, ((500, 6500),), 45, het_gap=300)
+    b2.tid[:] = 1
+    _set_aux(b2, [b""] * b2.n)
+    write_bam(got["dip2"], SamHeader.from_text(
+        f"@HD\tVN:1.6\tSO:unsorted\n@SQ\tSN:sim1\tLN:{DIP_LEN}\n"
+        f"@SQ\tSN:sim2\tLN:{DIP2_LEN}\n" + rg),
+        ReadBatch.concat([b2, b]))
+    with open(got["dip2_fa"], "w") as f:
+        f.write(">sim1\n" + ref.tobytes().decode() + "\n>sim2\n"
+                + ref2.tobytes().decode() + "\n")
+    return got
+
+
+def run_port_full(cmd: str, args: list[str], device="cpu"):
+    """(exit code, standard output bytes, standard error text) of the
+    port's command, run in-process."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([cmd, *args], device=device)
+    return rc, out.getvalue().encode(), err.getvalue()
+
+
+def run_jax_full(cmd: str, args: list[str], env: dict | None = None):
+    """(exit code, standard output bytes, standard error text) of ``python
+    -m samtools_tpu <cmd>`` on its host branch, with ``env`` added to the
+    environment."""
+    full = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+                SAMTPU_DEVICE="0", **(env or {}))
+    p = subprocess.run([sys.executable, "-m", "samtools_tpu", cmd] + args,
+                       capture_output=True, env=full, cwd=REPO,
+                       stdin=subprocess.DEVNULL, timeout=600)
+    return p.returncode, p.stdout, p.stderr.decode()
+
+
+def run_jax_cases(cmd: str, cases: dict, workers: int = 2) -> dict:
+    """run_jax_full of ``cmd`` for each case of ``cases`` (name ->
+    (arguments, env)), ``workers`` subprocesses at a time."""
+    with ThreadPoolExecutor(workers) as ex:
+        futs = {k: ex.submit(run_jax_full, cmd, a, e)
+                for k, (a, e) in cases.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
+def check_no_card(cmd: str, args: list[str], monkeypatch) -> None:
+    """The port's command with no card (``device=None`` on a host without
+    CUDA, ``SAMTPU_DEVICE`` unset): exit 1, one ``no_card`` line, nothing
+    on standard output."""
+    import torch
+    assert not torch.cuda.is_available()
+    monkeypatch.delenv("SAMTPU_DEVICE", raising=False)
+    rc, out, err = run_port_full(cmd, args, device=None)
+    assert (rc, out) == (1, b"")
+    assert err == (f"[{cmd}] CUDA is not available; pass device='cpu' to "
+                   "run the plain PyTorch versions on the CPU "
+                   "(SAMTPU_DEVICE=0 runs the host branch)\n")
