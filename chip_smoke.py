@@ -51,7 +51,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    equal the oracle census of phase 3 over the window's columns, the
    windows' starting reads must add up to the oracle's reads, and the run
    must launch the census form, K4 and K5 and never the generic K1.
-   Then the command itself, as a subprocess, on a 1 Mbp x 30x BAM of
+   Then the command itself, as a subprocess, on a 512 kbp x 30x BAM of
    overlapping messy pairs (so the overlap tweak runs), once with the
    card's engine and once with ``SAMTPU_DEVICE=0`` (the host's f64 HMM,
    no torch kernel): the two outputs must be byte-equal.
@@ -64,15 +64,15 @@ from the sources in this checkout.  Phases, one JSON line each:
    depth scan with its narrowed copy; the coverage gate and reduction).
 6. pileup_family -- ``depth``, ``coverage`` and ``bedcov``, the commands
    a user runs: depth (default) on clean and messy, ``depth -a -q 13 -J``
-   on clean's front (the reads that start in its first 3 Mbp, written as
+   on clean's front (the reads that start in its first 2 Mbp, written as
    a BAM of their own), ``depth -s`` on the pairs, ``coverage`` (streamed)
-   on clean (8 windows) and on messy's front (3 windows) and ``coverage
+   on clean (8 windows) and on messy's front (2 windows) and ``coverage
    -r sim1:1-2000000`` on clean, each in-process (``cli.main``) once on
    the card and once with ``SAMTPU_DEVICE=0`` (numpy): byte-equal
    outputs, the card runs launch K1's generic form and never the census
    form, K4 or K5, the host runs launch nothing.  Then ``bedcov`` as a
    subprocess, clean's front on standard input and a BED of 1,000
-   intervals of 1-10 kbp in its first 3 Mbp, card against
+   intervals of 1-10 kbp in its first 2 Mbp, card against
    ``SAMTPU_DEVICE=0``, byte-equal.  Per run: wall, aligned Mbases/s,
    output bytes and rows, launches.
 7. kernels_general -- K8 (``baq_apply``: K4 and K5 around torch ops) on a
@@ -86,10 +86,10 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``np.argsort(kind="stable")`` exactly.  Beside each, the host
    alternative's time (``io.native.baq_batch``, ``np.argsort``).
 8. general -- mpileup's general path and ``coverage -m`` in-process:
-   ``mpileup -f ref.fa -s -O`` streamed over clean's front (three stream
+   ``mpileup -f ref.fa -s -O`` streamed over clean's front (two stream
    windows of 1 Mi columns, each launching K13 and K8), whose rows less
    their two extra columns must equal the tool phase's fast-branch rows up
-   to position 3,000,000 byte for byte; ``mpileup -r sim1:1-500000
+   to position 2,000,000 byte for byte; ``mpileup -r sim1:1-250000
    --output-extra FLAG,POS`` on messy and pairs, and ``coverage -m -r
    sim1:1-2000000`` on clean, card
    against ``SAMTPU_DEVICE=0``, byte-equal.  The card runs must launch K13
@@ -98,7 +98,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    in-process, each card run against its ``SAMTPU_DEVICE=0`` run, byte
    for byte: ``consensus -r sim1:1-1000000 -o out.fa`` on clean (it must
    launch K10 and K13), ``consensus -a --show-ins yes --show-del yes -f
-   fastq -r sim1:1-1000000`` on messy, ``flagstat`` on clean and
+   fastq -r sim1:1-500000`` on messy, ``flagstat`` on clean and
    ``flagstat -O json`` on the pairs (K11 must launch); ``mpileup -f ref.fa
    --checkpoint`` on clean, which must print the tool phase's bytes, then
    resumed from its middle window's state with the output cut there and a
@@ -160,7 +160,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    copy, and ``consensus -r sim1:1-1000000`` against the consensus
    phase's run on the then unindexed file: the same bytes and the same
    kernels launched, the walls side by side.  Last, a SAM of clean's
-   reads that start in its first 1 Mbp: ``mpileup -f ref.fa``,
+   reads that start in its first 500 kbp: ``mpileup -f ref.fa``,
    ``flagstat`` and ``stats`` on it print the bytes of the same commands
    on the BAM of those reads (less stats' command-line line) and launch
    the same kernels.
@@ -189,9 +189,33 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``phase``, and K13 once a ``tview`` draw on a window with reads (none
    on the gap), and nothing else.  Per run: both walls (the host's with
    the interpreter's start), output bytes and lines, launches.
+15. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
+   ``graft_entry.entry()``'s shape (65,536 items, a 16,384-row window)
+   and on clean's first 1 Mbp window (its reads' M bases): the scatter
+   entry (counts and qual sums) and the tiled entry (the items bucketed
+   in tiles of 512), each equal to its plain version exactly and to each
+   other, beside ``index_put_(accumulate=True)`` on the same cells, with
+   ``device_ms`` (a CUDA graph of the bare C entry) and the bound from
+   bytes (the tiled entry's cells by ``index_put_`` too; it lies on no
+   path, its launches there are 0).  Then the mesh (K15) on the one
+   card: ``make_sharded_pileup`` on a (2, 2) mesh (one K14 launch a shard), ``depth_window_sharded``
+   on 4 shards over clean's front (one K1 launch a shard) and
+   ``flagstat_counts_sharded`` on 4 shards over clean's stream batches
+   (one K11 launch a shard that holds records), each equal to the
+   unsharded run, with the sum and gather times.  Last, the span
+   workers: a 2.5 Mi contig at 10x (262,144 reads), indexed; ``mpileup
+   -f`` and ``consensus`` in-process under SAMTPU_SHARDS=1 and 3 (three
+   worker processes on the card), the same bytes, both walls; and one
+   worker's command in-process under the worker environment, which must
+   launch K1's census form, K4 and K5 (mpileup) or K10 and K13
+   (consensus) and print the first rows (bases) of the whole run.  Then
+   a span worker's start, stage by stage (interpreter, ``import torch``,
+   the port's modules, CUDA context, kernel library, first launch), one
+   alone and three at once.
 
 Then the kernel table (``baq_apply`` and ``stable_order`` with their
-``pileup_tools_launches``), the script's wall against its 1,200 s limit, the
+``pileup_tools_launches``; ``pileup_scatter``, K14, with the launches of
+the sharded pileup run and its tiled entry), the script's wall against its 1,200 s limit, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is not 0 and that last line is not printed.
 """
@@ -254,6 +278,10 @@ KERNEL_META = {
                     "samtools_tpu/ops/stats_kernels.py:77"),
     "census_narrow": ("samtools_tpu_torch/csrc/census_narrow.cu",
                       "samtools_tpu/ops/mpileup_device.py:401"),
+    # K14: its scatter entry (pileup_counts, pileup_qual_sums); the tiled
+    # entry (pileup_counts_tiled, :55) is in the row's "tiled"
+    "pileup_scatter": ("samtools_tpu_torch/csrc/pileup_counts.cu",
+                       "samtools_tpu/ops/pileup_device.py:29"),
 }
 # what DeviceCensusPipeline launches; the generic K1 runs only in the
 # kernels phase
@@ -274,10 +302,12 @@ PILEUP_RUNS = (
 REGION_END = 2_000_000
 # the shallower clean and messy ({clean_front}, {messy_front}): their
 # reads that start before this, so rows up to it are the whole BAM's
-FRONT_END = 3_000_000
-# consensus -r's region, and the two-file general run's
+FRONT_END = 2_000_000
+# consensus -r's region on clean; the fastq run's on messy; the two-file
+# general run's
 REGION2_END = 1_000_000
-GENERAL2_END = 500_000
+FASTQ_END = 500_000
+GENERAL2_END = 250_000
 # mpileup's general path and coverage -m: (label, argv, reads counted,
 # engines).  The first streams its windows and holds its rows, less the
 # two extra columns, to the tool phase's fast-branch output; the others,
@@ -816,7 +846,7 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
 
     # the command as a user runs it: card engine against host engine
     t0 = time.perf_counter()
-    pair_len = 1 << 20
+    pair_len = 1 << 19
     b = simulate_overlapping_pairs(pair_len, coverage=COVERAGE,
                                    read_len=READ_LEN, seed=17,
                                    ref=ref[:pair_len])
@@ -1099,7 +1129,7 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
     counts = {}
     for name in ("messy", "pairs"):
         m = read_alignments(bams[name], THREADS).batch
-        counts[f"{name}_region2"] = int((m.pos < REGION2_END).sum())
+        counts[f"{name}_region2"] = int((m.pos < FASTQ_END).sum())
         counts["region2"] = counts.get("region2", 0) + int(
             (m.pos < GENERAL2_END).sum())
         del m
@@ -1258,7 +1288,8 @@ CONSENSUS_RUNS = (
      "clean_region2", "-o"),
     ("consensus -a --show-ins --show-del -f fastq -r",
      ["consensus", "-a", "--show-ins", "yes", "--show-del", "yes", "-f",
-      "fastq", "-r", "sim1:1-1000000", "{messy}"], "messy_region2", "-o"),
+      "fastq", "-r", f"sim1:1-{FASTQ_END}", "{messy}"], "messy_region2",
+     "-o"),
     ("flagstat", ["flagstat", "{clean}"], "clean", "stdout"),
     ("flagstat -O json", ["flagstat", "-O", "json", "{pairs}"], "pairs",
      "stdout"),
@@ -1939,7 +1970,7 @@ REGION_RUNS = (
      "stdout"),
     ("depth -a -r", ["depth", "-a", "-r", REGION, "{bam}"], "stdout"),
 )
-SAM_END = 1_000_000
+SAM_END = 500_000
 SAM_RUNS = (
     ("mpileup", ["mpileup", "-f", "{fa}", "{bam}"]),
     ("flagstat", ["flagstat", "{bam}"]),
@@ -2456,6 +2487,371 @@ def phase_pileup_tools(workdir: str) -> dict:
     return runs
 
 
+# the sharded cell: a 2.5 Mi contig (three spans under SAMTPU_SHARDS=3)
+# at 10x of 100 bp reads, indexed
+SHARD_LEN = 5 << 19
+SHARD_COVERAGE = 10.0
+SHARD_SEED = 41
+SHARD_SPANS = 3
+# span worker runs: (label, argv); {fa}, {bam} from the cell
+SHARD_RUNS = (("mpileup -f", ["mpileup", "-f", "{fa}", "{bam}"]),
+              ("consensus", ["consensus", "{bam}"]))
+
+
+def _k14_case(dev, refpos, lane, valid, qual, window: int,
+              tile: int = 512) -> dict:
+    """K14's two entries on one set of items, on the card: the scatter
+    (counts and qual sums) and the tiled form over the items bucketed by
+    ``bucket_bases``, each equal to its plain version exactly, with ms,
+    b2b ms, device ms (a CUDA graph of the bare C entry), the plain
+    version's and ``index_put_(accumulate=True)``'s time on the same
+    tensors (the valid items' cells found before the timing) and the
+    bound from bytes (each input read once, the output written once)."""
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.ops import pileup_device as pd
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in (refpos, lane, valid, qual)]
+    rp, ln, ok, q = t
+    n = rp.numel()
+    before = kernels.launches["pileup_scatter"]
+    counts = pd.pileup_counts(rp, ln, ok, window)
+    sums = pd.pileup_qual_sums(rp, ln, q, ok, window)
+    require(kernels.launches["pileup_scatter"] == before + 2,
+            "K14's scatter did not launch once a call")
+    err = max(int((counts - pd.pileup_scatter_plain(rp, ln, ok, window))
+                  .abs().max()),
+              int((sums - pd.pileup_scatter_plain(rp, ln, ok, window, q))
+                  .abs().max()))
+    require(err == 0, f"K14's scatter differs from its plain version ({err})")
+    require(int(counts.sum()) == int(((refpos >= 0) & (refpos < window)
+                                      & valid).sum()), "K14 lost items")
+    ln_j = torch.where(ln < 0, ln + 32, ln)
+    keep = ok & (rp >= 0) & (rp < window) & (ln_j >= 0) & (ln_j < 32)
+    cells = (rp[keep].long(), ln_j[keep].long())
+    ones = torch.ones(cells[0].numel(), dtype=torch.int32, device=dev)
+    lib = torch.zeros_like(counts)
+    lib.index_put_(cells, ones, accumulate=True)
+    require(torch.equal(lib, counts), "index_put_ differs from K14")
+    out = torch.zeros_like(counts)
+    lib_fn = kernels._load().samtpu_pileup_scatter
+
+    def bare():
+        # on the stream current at the call (graph_ms captures on its own)
+        lib_fn(rp.data_ptr(), ln.data_ptr(), None, ok.data_ptr(), n,
+               window, out.data_ptr(), kernels.stream_of(out))
+    out_bytes = window * 32 * 4
+    row = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: pd.pileup_counts(rp, ln, ok, window)),
+        b2b_ms=cuda_ms(lambda: pd.pileup_counts(rp, ln, ok, window),
+                       per=10),
+        device_ms=graph_ms(bare),
+        plain_ms=cuda_ms(lambda: pd.pileup_scatter_plain(rp, ln, ok,
+                                                         window), reps=3),
+        library_ms=cuda_ms(lambda: lib.index_put_(cells, ones,
+                                                  accumulate=True)),
+        qual_sums_ms=cuda_ms(lambda: pd.pileup_qual_sums(rp, ln, q, ok,
+                                                         window)),
+        detail={"items": n, "window": window,
+                "path": ("shared" if out_bytes <= 232448 else "global")},
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n * 9 + out_bytes, n))))
+    # the tiled entry over the valid in-window items bucketed by tile
+    inwin = (refpos >= 0) & (refpos < window) & valid
+    tt = [torch.from_numpy(a).to(dev) for a in pd.bucket_bases(
+        refpos[inwin], lane[inwin], window, tile)]
+    posrel = tt[0]
+    n_tiles = posrel.shape[0]
+    before = kernels.launches["pileup_tiled"]
+    tiled = pd.pileup_counts_tiled(*tt, tile, n_tiles)
+    require(kernels.launches["pileup_tiled"] == before + 1,
+            "K14's tiled entry did not launch once")
+    terr = int((tiled - pd.pileup_tiled_plain(*tt, tile, n_tiles))
+               .abs().max())
+    require(terr == 0, f"K14's tiled entry differs from its plain version "
+            f"({terr})")
+    # lanes in [0, 32) here: the two entries count alike
+    require(torch.equal(tiled[:window], counts),
+            "K14's tiled entry differs from its scatter entry")
+    # the library call on the bucketed items' cells (row t * tile + posrel)
+    tok = tt[2] & (posrel >= 0) & (posrel < tile) & (tt[1] >= 0) \
+        & (tt[1] < 32)
+    tcells = ((torch.arange(n_tiles, device=dev)[:, None] * tile
+               + posrel)[tok].long(), tt[1][tok].long())
+    tones = torch.ones(tcells[0].numel(), dtype=torch.int32, device=dev)
+    tlibout = torch.zeros_like(tiled)
+    tlibout.index_put_(tcells, tones, accumulate=True)
+    require(torch.equal(tlibout, tiled), "index_put_ differs from K14 tiled")
+    tout = torch.zeros_like(tiled)
+    tlib = kernels._load().samtpu_pileup_tiled
+    B = posrel.shape[1]
+
+    def tbare():
+        tlib(tt[0].data_ptr(), tt[1].data_ptr(), tt[2].data_ptr(), n_tiles,
+             B, tile, tout.data_ptr(), kernels.stream_of(tout))
+    row["tiled"] = dict(
+        max_abs_err=terr,
+        ms=cuda_ms(lambda: pd.pileup_counts_tiled(*tt, tile, n_tiles)),
+        b2b_ms=cuda_ms(lambda: pd.pileup_counts_tiled(*tt, tile, n_tiles),
+                       per=10),
+        device_ms=graph_ms(tbare),
+        plain_ms=cuda_ms(lambda: pd.pileup_tiled_plain(*tt, tile, n_tiles),
+                         reps=3),
+        library_ms=cuda_ms(lambda: tlibout.index_put_(tcells, tones,
+                                                      accumulate=True)),
+        detail={"tiles": n_tiles, "B": B, "tile": tile},
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(posrel.numel() * 9 + n_tiles * tile * 32 * 4,
+                         posrel.numel()))))
+    return row
+
+
+def write_shard_inputs(workdir: str) -> dict:
+    """The sharded cell as an indexed BAM and its FASTA under
+    ``workdir``."""
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.sim import (make_header, simulate_batch,
+                                        simulate_reference)
+    from samtools_tpu_torch.tools.index_cmd import main_index
+    ref = simulate_reference(SHARD_LEN, seed=SHARD_SEED)
+    b = simulate_batch(ref_len=SHARD_LEN, coverage=SHARD_COVERAGE,
+                       read_len=READ_LEN, seed=SHARD_SEED + 1, paired=False,
+                       ref=ref)
+    got = {"bam": os.path.join(workdir, "spans.bam"),
+           "fa": os.path.join(workdir, "spans.fa"), "reads": int(b.n)}
+    write_bam(got["bam"], make_header(SHARD_LEN), b, threads=THREADS)
+    require(main_index([got["bam"]]) == 0, "index of the sharded cell")
+    write_fasta(got["fa"], ref)
+    return got
+
+
+def _env_run(argv: list[str], out: str, env: dict) -> float:
+    """run_cli on the card with ``env`` set for the run."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return run_cli(argv, out, "-o", False)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# a span worker's start, stage by stage: the wall clock (seconds since
+# the epoch) after the interpreter's start, ``import torch``, the port's
+# command modules, the CUDA context on the worker's device, the kernel
+# library's load and a first K14 launch (with its synchronize)
+WORKER_STAGES = r"""
+import json, sys, time
+t = [time.time()]
+import torch
+t.append(time.time())
+from samtools_tpu_torch import cli, kernels
+from samtools_tpu_torch.ops.pileup_device import pileup_counts
+from samtools_tpu_torch.tools import consensus_cmd, mpileup_cmd
+t.append(time.time())
+dev = torch.device(sys.argv[1])
+x = torch.zeros(1024, dtype=torch.int32, device=dev)
+torch.cuda.synchronize(dev)
+t.append(time.time())
+kernels._load()
+t.append(time.time())
+pileup_counts(x, x, x >= 0, 64)
+torch.cuda.synchronize(dev)
+t.append(time.time())
+print(json.dumps(t))
+"""
+STAGES = ("interpreter", "import_torch", "import_port", "cuda_context",
+          "kernel_load", "first_launch")
+
+
+def worker_stages(dev, n: int) -> list[dict]:
+    """``n`` span-worker starts at once (processes with a span worker's
+    environment, ``tools/common.worker_env``): each one's seconds a stage
+    of WORKER_STAGES, the interpreter's counted from the parent's spawn,
+    and their total."""
+    from samtools_tpu_torch.tools.common import worker_env
+    env = worker_env(dev)
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", WORKER_STAGES,
+                               str(dev)], env=env, stdin=subprocess.DEVNULL,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(n)]
+    out = []
+    for p in procs:
+        got, _ = p.communicate(timeout=120)
+        require(p.returncode == 0, "a span worker's start failed")
+        t = [t0] + json.loads(got.strip().splitlines()[-1])
+        out.append({**{k: round(b - a, 4)
+                       for k, a, b in zip(STAGES, t, t[1:])},
+                    "total": round(t[-1] - t0, 4)})
+    return out
+
+
+def phase_sharded(workdir: str, bams: dict, dev) -> tuple:
+    """K14 against its plain version at entry()'s shape and on clean's
+    first 1 Mbp window; the mesh on the one card (make_sharded_pileup on
+    (2, 2), depth_window_sharded on 4 shards over clean's front,
+    flagstat_counts_sharded on 4 shards over clean), each equal to its
+    unsharded run with the launches it must make; then the span workers
+    of mpileup -f and consensus on the sharded cell under SAMTPU_SHARDS=1
+    and 3, bytes equal, and one worker's command in-process under the
+    worker environment, with its launches.  Returns (K14's row, the
+    launches of the sharded pileup run)."""
+    import torch
+    from samtools_tpu_torch import graft_entry, kernels
+    from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.io.stream import BamStream
+    from samtools_tpu_torch.ops import flagstat as fs
+    from samtools_tpu_torch.ops import pileup_device as pd
+    from samtools_tpu_torch.ops import pileup_engine as pe
+    from samtools_tpu_torch.parallel import mesh as M
+    t_phase = time.perf_counter()
+
+    # K14 at entry()'s shape and at a depth-like shape
+    fn, (rp, ln, ok) = graft_entry.entry()
+    rng = np.random.default_rng(SHARD_SEED)
+    qual = rng.integers(2, 41, rp.numel()).astype(np.int32)
+    shapes = {"entry": (rp.cpu().numpy(), ln.cpu().numpy(),
+                        ok.cpu().numpy(), qual, 1 << 14)}
+    # clean's reads that start in its first 1 Mbp (all in its front)
+    front = read_alignments(bams["clean_front"], THREADS).batch
+    c_rp, c_ln, c_q, c_ok = pd.expand_to_device_arrays(
+        front, np.nonzero(front.pos < 1 << 20)[0], 0, 1 << 20)
+    shapes["clean_1mbp"] = (c_rp, c_ln, c_ok, c_q, 1 << 20)
+    rows = {k: _k14_case(dev, *v) for k, v in shapes.items()}
+    del shapes, c_rp, c_ln, c_q, c_ok
+    emit({"phase": "sharded", "run": "k14", **rows})
+
+    # the mesh on the one card
+    mesh22 = M.make_mesh(2, 2, [dev] * 4)
+    sp, total = pd.make_sharded_pileup(mesh22, (1 << 14) // 2)
+    kernels.reset_launches()
+    got = sp(rp, ln, ok)
+    torch.cuda.synchronize()
+    pile_launches = dict(kernels.launches)
+    require(pile_launches["pileup_scatter"] == 4,
+            f"sharded pileup: K14 {pile_launches['pileup_scatter']} "
+            "launches, not one a shard")
+    require(torch.equal(got, fn(rp, ln, ok)),
+            "sharded pileup differs from the unsharded counts")
+    k15 = {"pileup_ms": cuda_ms(lambda: sp(rp, ln, ok)),
+           "pileup_unsharded_ms": cuda_ms(lambda: fn(rp, ln, ok))}
+    parts = [pd.pileup_counts(rp, ln, ok, 1 << 13) for _ in range(2)]
+    k15["pileup_sum_ms"] = cuda_ms(lambda: M.local_sum(mesh22, parts))
+
+    mesh4 = M.make_mesh(1, 4, [dev] * 4)
+    fsel = np.arange(front.n)
+    wbeg, wend = int(front.pos.min()), int(front.end_pos().max())
+    want = pe.depth_window_device(front, fsel, wbeg, wend, 0, False,
+                                  device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = M.depth_window_sharded(mesh4, front, fsel, wbeg, wend, 0, False)
+    k15["depth_sharded_s"] = time.perf_counter() - t0
+    require(kernels.launches["segment_contract"] == 4,
+            f"sharded depth: K1 {kernels.launches['segment_contract']} "
+            "launches, not one a shard")
+    require(np.array_equal(got, want), "sharded depth differs")
+    # the gather: the 4 shards' rows of the window's events joined
+    diff, _ = pe.depth_items(front, fsel, wbeg, wend, 0, False)
+    shard_rows = list(torch.chunk(M.segment_matmul_sharded(mesh4, *diff), 4))
+    k15["depth_gather_ms"] = cuda_ms(lambda: torch.cat(shard_rows))
+    k15["depth_rows"] = sum(int(r.shape[0]) for r in shard_rows)
+    del front, diff, shard_rows
+
+    n_batches = k11_want = 0
+    t_sharded = t_single = 0.0
+    kernels.reset_launches()
+    with BamStream(bams["clean"], threads=THREADS) as st:
+        for part in st.batches(fields=0):
+            # one launch unsharded, one a shard that holds records
+            per = -(-part.n // 4)
+            k11_want += 1 + sum(part.n > s * per for s in range(4))
+            t0 = time.perf_counter()
+            one = fs.flagstat_counts(part, dev)
+            t1 = time.perf_counter()
+            many = M.flagstat_counts_sharded(mesh4, part)
+            t_sharded += time.perf_counter() - t1
+            t_single += t1 - t0
+            require(one == many, "sharded flag census differs")
+            n_batches += 1
+    require(kernels.launches["flagstat"] == k11_want,
+            f"flagstat: K11 {kernels.launches['flagstat']} launches over "
+            f"{n_batches} batches, not {k11_want}")
+    partials = [torch.zeros(16, 2, dtype=torch.int64, device=dev)] * 4
+    k15.update(flagstat_batches=n_batches, flagstat_sharded_s=t_sharded,
+               flagstat_unsharded_s=t_single,
+               flagstat_sum_ms=cuda_ms(lambda: M.local_sum(mesh4,
+                                                           partials)))
+    emit({"phase": "sharded", "run": "mesh", "shards": 4,
+          "pileup_launches": pile_launches, "k15": k15})
+
+    # the span workers on the sharded cell
+    cell = write_shard_inputs(workdir)
+    emit({"phase": "sharded", "run": "inputs", "contig_len": SHARD_LEN,
+          "reads": cell["reads"], "coverage": SHARD_COVERAGE})
+    for label, argv in SHARD_RUNS:
+        argv = [a.format(**cell) for a in argv]
+        walls, outs = {}, {}
+        for shards in ("1", str(SHARD_SPANS)):
+            out = os.path.join(workdir, f"spans.{shards}.out")
+            walls[shards] = _env_run(argv, out, {"SAMTPU_SHARDS": shards})
+            with open(out, "rb") as f:
+                outs[shards] = f.read()
+            os.remove(out)
+        require(outs["1"] == outs[str(SHARD_SPANS)] and outs["1"],
+                f"{label}: span workers print other bytes than the serial "
+                "run")
+        # one worker's command in-process, under the worker environment
+        span0 = os.path.join(workdir, "span0.out")
+        if label.startswith("mpileup"):
+            wargv = ["mpileup", "-r", "sim1:1-1048576", *argv[1:]]
+            wenv = {"SAMTPU_MPILEUP_SHARD_WORKER": "1"}
+            want_k = ("segment_census", "baq_hmm", "baq_finalize")
+        else:
+            wargv = argv
+            wenv = {"SAMTPU_CONSENSUS_SPAN": "0:0:1048576"}
+            want_k = ("consensus_segsum", "stable_order")
+        kernels.reset_launches()
+        wwall = _env_run(wargv, span0, wenv)
+        wl = dict(kernels.launches)
+        require(all(wl[k] > 0 for k in want_k),
+                f"{label} worker: launches {wl}")
+        with open(span0, "rb") as f:
+            worker = f.read()
+        os.remove(span0)
+        if label.startswith("mpileup"):
+            # the first span's rows open the whole run's
+            require(worker and outs["1"].startswith(worker)
+                    and int(outs["1"][len(worker):].split(b"\t")[1])
+                    > 1 << 20, "mpileup worker: not the run's first rows")
+        else:
+            head, seq = worker.split(b"\n")[:2]
+            body = b"".join(outs["1"].split(b"\n")[1:])
+            require(head.startswith(b"#SPANMETA ") and seq
+                    and body.startswith(seq),
+                    "consensus worker: not the run's first bases")
+        emit({"phase": "sharded", "run": label, "reads": cell["reads"],
+              "serial_wall_s": round(walls["1"], 3),
+              "sharded_wall_s": round(walls[str(SHARD_SPANS)], 3),
+              "workers": SHARD_SPANS, "output_bytes": len(outs["1"]),
+              "byte_equal": True, "worker_wall_s": round(wwall, 3),
+              "worker_launches": wl})
+    # where a sharded run's time beyond its workers' work goes: one
+    # worker's start alone, then three at once as SAMTPU_SHARDS=3 starts
+    emit({"phase": "sharded", "run": "worker_start",
+          "alone": worker_stages(dev, 1)[0],
+          "three_at_once": worker_stages(dev, SHARD_SPANS)})
+    emit({"phase": "sharded", "run": "all",
+          "wall_s": round(time.perf_counter() - t_phase, 3)})
+    row = dict(rows["entry"], shapes=rows)
+    return row, pile_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2505,6 +2901,8 @@ def main() -> int:
         cram = phase_cram(workdir, ref, header, cram_reads)
         del cram_reads
         tools = phase_pileup_tools(workdir)
+        rows["pileup_scatter"], sharded_launches = phase_sharded(
+            workdir, bams, torch.device("cuda"))
     rows.update(general_rows)
     rows.update(cons_rows)
     rows.update(stats_rows)
@@ -2592,6 +2990,18 @@ def main() -> int:
                        coverage_launches=family["coverage clean"],
                        at_pileup_shapes={k: pile_rows[k] for k in
                                          ("depth", "coverage")})
+        if name == "pileup_scatter":
+            # launches: make_sharded_pileup on the (2, 2) mesh of the card
+            # its tiled entry (pileup_counts_tiled) lies on no path: the
+            # JAX package calls it nowhere, so its launches there are 0
+            tiled = {"name": "pileup_tiled", "route": "cuda", "source": src,
+                     "replaces": "samtools_tpu/ops/pileup_device.py:55",
+                     "launches": sharded_launches["pileup_tiled"],
+                     **r["tiled"]}
+            row.update(launches=sharded_launches[name],
+                       qual_sums_ms=r["qual_sums_ms"], tiled=tiled,
+                       device_ms=r["device_ms"], detail=r["detail"],
+                       shapes=r["shapes"])
         cram_launches = {k: v[name] for k, v in cram.items() if v[name]}
         if cram_launches:
             # the cram phase's runs on the CRAM input

@@ -7,6 +7,7 @@ the commands ported so far; ``version`` names torch and CUDA.
 
 from __future__ import annotations
 
+import os
 import sys
 
 from . import SAMTOOLS_PARITY_VERSION, __version__
@@ -71,6 +72,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if not argv:
         usage(sys.stderr)
         return 1
+    if os.environ.get("SAMTPU_DIST_COORD"):
+        from .parallel.dist import maybe_init_distributed
+        maybe_init_distributed(device)
     cmd = argv[0]
     if cmd in ("help", "--help"):
         if len(argv) > 1 and argv[1] in COMMANDS:

@@ -25,7 +25,7 @@ from . import build
 launches = {"segment_contract": 0, "segment_census": 0, "baq_hmm": 0,
             "baq_finalize": 0, "baq_apply": 0, "stable_order": 0,
             "consensus_segsum": 0, "flagstat": 0, "stats_hists": 0,
-            "census_narrow": 0}
+            "census_narrow": 0, "pileup_scatter": 0, "pileup_tiled": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -48,6 +48,8 @@ _SIGNATURES = {
                            ctypes.c_int64, _P, _P],
     "samtpu_census_narrow": [_P, ctypes.c_int64, _INT, ctypes.c_int64,
                              _INT, _P, _P, _P, _P],
+    "samtpu_pileup_scatter": [_P, _P, _P, _P, ctypes.c_int64, _INT, _P, _P],
+    "samtpu_pileup_tiled": [_P, _P, _P, _INT, _INT, _INT, _P, _P],
     # device queries: int64 values written, CUDA error returned
     "samtpu_census_narrow_limits": [ctypes.POINTER(ctypes.c_int64)],
 }
@@ -126,22 +128,28 @@ def layout(entry: str, *args: int) -> tuple[int, ...]:
     return tuple(out)
 
 
-def query(entry: str, n: int) -> tuple[int, ...]:
-    """The ``n`` int64 values a device query writes (raises on a CUDA
-    error)."""
+def query(entry: str, n: int, device: torch.device) -> tuple[int, ...]:
+    """The ``n`` int64 values a device query writes for ``device``
+    (raises on a CUDA error)."""
     lib = _load()
     out = (ctypes.c_int64 * n)()
-    rc = getattr(lib, entry)(out)
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(out)
     if rc != 0:
         msg = lib.samtpu_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
     return tuple(out)
 
 
-def launch(kernel: str, entry: str, *args) -> None:
-    """Call one C entry point, raise on a CUDA error, count the launch."""
+def launch(kernel: str, entry: str, *args, device: torch.device) -> None:
+    """Call one C entry point with ``device``, the card of its tensors,
+    as the current card, raise on a CUDA error, count the launch.  The
+    entries read their limits from the current card (``cudaGetDevice``)
+    and launch into a stream of ``device``: a mesh shard on another card
+    than the current one needs the guard."""
     lib = _load()
-    rc = getattr(lib, entry)(*args)
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args)
     if rc != 0:
         msg = lib.samtpu_cuda_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")

@@ -258,7 +258,7 @@ def baq_hmm(ref_win, query, qual, cdeltaT, lref, bMv, bIv,
                    lref.data_ptr(), bMv.data_ptr(), bIv.data_ptr(), B,
                    l_query, l_ref_max, bw, m, ck.data_ptr(), bq.data_ptr(),
                    good.data_ptr(), risky.data_ptr(),
-                   kernels.stream_of(ref_win))
+                   kernels.stream_of(ref_win), device=ref_win.device)
     return bq, good.view(torch.bool), risky.view(torch.bool)
 
 
@@ -305,7 +305,8 @@ def baq_finalize(bq, good, qual, seg):
     out = torch.empty_like(qual)
     kernels.launch("baq_finalize", "samtpu_baq_finalize", bq.data_ptr(),
                    good.data_ptr(), qual.data_ptr(), seg.data_ptr(), B, L,
-                   out.data_ptr(), kernels.stream_of(qual))
+                   out.data_ptr(), kernels.stream_of(qual),
+                   device=qual.device)
     return out
 
 

@@ -441,7 +441,7 @@ def consensus_segsum(T: torch.Tensor, ent: torch.Tensor,
                        T.data_ptr(), ent.data_ptr(), col_off.data_ptr(),
                        S.data_ptr(), counts.data_ptr(), depth.data_ptr(),
                        ncols, *segsum_plan(ncols, kernels.sm_count(T.device)),
-                       kernels.stream_of(T))
+                       kernels.stream_of(T), device=T.device)
     return S, counts, depth
 
 

@@ -118,7 +118,8 @@ def flagstat_census(flag: torch.Tensor, mapq: torch.Tensor,
     out = torch.empty(N_COUNTERS, 2, dtype=torch.int64, device=flag.device)
     kernels.launch("flagstat", "samtpu_flagstat", flag.data_ptr(),
                    mapq.data_ptr(), tid.data_ptr(), mtid.data_ptr(), n,
-                   flagstat_plan(n, sms), scratch, out.data_ptr(), stream)
+                   flagstat_plan(n, sms), scratch, out.data_ptr(), stream,
+                   device=flag.device)
     return out
 
 

@@ -334,7 +334,7 @@ def _narrow_limits(device: torch.device) -> tuple[int, int, int]:
     got = _NARROW.get(device.index)
     if got is None:
         got = _NARROW[device.index] = kernels.query(
-            "samtpu_census_narrow_limits", 3)
+            "samtpu_census_narrow_limits", 3, device)
     return got
 
 
@@ -383,7 +383,8 @@ def census_narrow(census: torch.Tensor, wlen: int):
                        buf.data_ptr(),
                        kernels.scratch("census_narrow", census.device,
                                        stream.cuda_stream, 3).data_ptr(),
-                       maxima.data_ptr(), stream.cuda_stream)
+                       maxima.data_ptr(), stream.cuda_stream,
+                       device=census.device)
         stream.synchronize()
         cdt, qdt = narrow_types(*maxima.tolist())
     return buf[:_narrow_offsets(wlen, cdt, qdt)[1]], cdt, qdt

@@ -294,15 +294,21 @@ def item_cuts(files, wbeg: int, wend: int, tile: int) -> list:
 def depth_window_device(batch, sel: np.ndarray, wbeg: int, wend: int,
                         min_qual: int, count_del: bool,
                         clips: np.ndarray | None = None,
-                        device=None) -> np.ndarray:
+                        device=None, segmm_fn=None) -> np.ndarray:
     """ops.depth.depth_window's integers with the contraction and the
     scan on ``device`` (a torch device; a CPU device takes the plain
     versions): the spans become +-1 difference events and, with a
     quality gate, each M base a 0/1 weight, K1 adds both per position
     and ``depth_scan`` gives int32[wend - wbeg].  ``device`` None means
-    the CUDA card.  A window of MAX_ITEMS items or more runs as
-    ``item_cuts``' sub-windows, their columns concatenated."""
+    the CUDA card.  ``segmm_fn(refpos, W, plan)``, when given, makes the
+    contraction in K1's place and returns its int32 [n_tiles * tile, K]
+    rows on ``device`` (parallel/mesh.py's sharded form).  A window of
+    MAX_ITEMS items or more runs as ``item_cuts``' sub-windows, their
+    columns concatenated."""
     device = resolve(device)
+    if segmm_fn is None:
+        def segmm_fn(pos, w, plan):
+            return segment_matmul(pos, w, plan, device)
     if sel.size == 0:
         return np.zeros(wend - wbeg, np.int32)
     # items per read, bounded from above: 2 events per M span (or one per
@@ -312,17 +318,17 @@ def depth_window_device(batch, sel: np.ndarray, wbeg: int, wend: int,
                                                   else 0)
     if int(items.sum()) < MAX_ITEMS:
         return _depth_window(batch, sel, wbeg, wend, min_qual, count_del,
-                             clips, device)
+                             clips, device, segmm_fn)
     pos, end = batch.pos[sel], batch.end_pos()[sel]
     return np.concatenate([
         _depth_window(batch, sel[(pos < b) & (end > a)], a, b, min_qual,
-                      count_del, clips, device)
+                      count_del, clips, device, segmm_fn)
         for a, b in item_cuts([(pos, end, items)], wbeg, wend,
                               pick_tile(wend - wbeg))])
 
 
 def _depth_window(batch, sel, wbeg, wend, min_qual, count_del, clips,
-                  device) -> np.ndarray:
+                  device, segmm_fn) -> np.ndarray:
     L = wend - wbeg
     if sel.size == 0:
         return np.zeros(L, np.int32)
@@ -330,7 +336,7 @@ def _depth_window(batch, sel, wbeg, wend, min_qual, count_del, clips,
                                clips)
     rows = max(1, (L + pick_tile(L) - 1) // pick_tile(L)) * pick_tile(L)
     zero = torch.zeros(rows, 1, dtype=torch.int32, device=device)
-    cols = [segment_matmul(*it, device) if it is not None else zero
+    cols = [segmm_fn(*it) if it is not None else zero
             for it in (diff, direct)]
     return depth_scan(cols[0], cols[1], L)
 

@@ -111,7 +111,7 @@ def segment_contract(rp: torch.Tensor, W: torch.Tensor, lo: torch.Tensor,
     kernels.launch("segment_contract", "samtpu_segment_contract",
                    rp.data_ptr(), W.data_ptr(), K, rp.numel(), lo.data_ptr(),
                    hi.data_ptr(), n_tiles, int(wbeg), tile, P, win,
-                   out.data_ptr(), kernels.stream_of(out))
+                   out.data_ptr(), kernels.stream_of(out), device=out.device)
     return out
 
 
@@ -180,5 +180,6 @@ def segment_census(refpos: torch.Tensor, seg: torch.Tensor,
                    appq.data_ptr(), risky.data_ptr(), C * LQ, LQ, int(base),
                    int(gate_lo), int(gate_hi), int(min_baseq),
                    lo.data_ptr(), hi.data_ptr(), n_tiles, int(wbeg), tile, P,
-                   win, out.data_ptr(), kernels.stream_of(out))
+                   win, out.data_ptr(), kernels.stream_of(out),
+                   device=out.device)
     return out

@@ -180,7 +180,7 @@ def stats_hists(seq: torch.Tensor, qual: torch.Tensor,
         seq_off.data_ptr(), oidx.data_ptr(), order.data_ptr(),
         rev.data_ptr(), no, nbases, qrows, max_len,
         *hists_plan(no, max_len, kernels.sm_count(seq.device)),
-        flat.data_ptr(), kernels.stream_of(seq))
+        flat.data_ptr(), kernels.stream_of(seq), device=seq.device)
     return flat
 
 

@@ -3,16 +3,20 @@
 Counterpart of samtools_tpu/tools/common.py (:17-150); samtools' analogs
 are sam_opts.c (the global long options every tool accepts),
 sam_utils.c (print_error / print_error_errno) and the region iterator
-the tools open (``try_region_read``).  Also the port's own rules
-for where a command's device work runs (``pick_device``) and for what it
-does not do yet (``not_ported``).
+the tools open (``try_region_read``).  Also the port's own rules for
+where a command's device work runs (``pick_device``), the devices a
+command's mesh spans (``mesh_devices``, ``device_shards``) and how a
+command runs its span workers (``worker_env``, ``worker_device``,
+``run_span_workers``).
 """
 
 from __future__ import annotations
 
 import getopt
 import os
+import subprocess
 import sys
+import tempfile
 from dataclasses import dataclass, field
 
 import torch
@@ -174,13 +178,6 @@ def try_region_read(path: str, threads: int, reg: str):
                 region)
 
 
-def not_ported(cmd: str, what: str) -> int:
-    """One stderr line for an input or option the port does not take
-    yet; the command's exit code."""
-    sys.stderr.write(f"[{cmd}] {what} is not ported yet\n")
-    return 1
-
-
 def n_shards() -> int:
     """SAMTPU_SHARDS as the JAX mpileup and consensus read it: the span
     count of their span workers (1 by default or when malformed; no
@@ -191,35 +188,135 @@ def n_shards() -> int:
         return 1
 
 
-def n_spans(header, shards: int) -> int:
-    """How many genome spans the JAX span workers (mpileup's
-    ``_run_sharded``, consensus's ``_run_sharded_consensus``) cut the
-    contigs into for ``shards``: spans of max(ceil(len / shards), 1 Mi)
-    per contig.  With fewer than two they run serially."""
-    total = 0
-    for ln in header.ref_lens:
+def spans(header, shards: int) -> list[tuple[int, int, int]]:
+    """The genome spans (tid, beg, end) of the JAX span workers (mpileup's
+    ``_run_sharded``, consensus's ``_run_sharded_consensus``) for
+    ``shards``: each contig cut into spans of max(ceil(len / shards),
+    1 Mi) positions, in contig order.  With fewer than two the port runs
+    serially."""
+    out = []
+    for tid, ln in enumerate(header.ref_lens):
         ln = int(ln)
         if ln > 0:
             step = max((ln + shards - 1) // shards, 1 << 20)
-            total += (ln + step - 1) // step
-    return total
+            out += [(tid, beg, min(beg + step, ln))
+                    for beg in range(0, ln, step)]
+    return out
+
+
+def strip_args(argv: list, opts: tuple) -> list:
+    """``argv`` without the options ``opts`` and their values (each takes
+    one): the arguments a parent forwards to its span workers."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in opts:
+            skip = True
+        else:
+            out.append(a)
+    return out
+
+
+def mesh_devices(dev, n: int) -> list:
+    """The devices a tool's mesh spans when ``n`` shards are asked for:
+    the first min(n, count) CUDA cards for a CUDA ``dev``, the one
+    ``dev`` otherwise (the CPU)."""
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(min(n, torch.cuda.device_count()))]
+    return [dev]
 
 
 def device_shards(dev) -> int:
     """SAMTPU_SHARDS as the JAX depth and flagstat read it (``_n_shards``,
     samtools_tpu/tools/depth_cmd.py:103-118): ``all`` is every device, a
-    malformed value 1, and the count is capped at the device count (the
-    CUDA cards for a CUDA ``dev``, 1 on the CPU), so one device runs
-    unsharded."""
-    ndev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    malformed value 1, and the count is capped at the device count
+    (``mesh_devices``: the CUDA cards for a CUDA ``dev``, 1 on the CPU),
+    so one device runs unsharded."""
     v = os.environ.get("SAMTPU_SHARDS", "1")
     if v == "all":
-        return ndev
+        n = sys.maxsize
+    else:
+        try:
+            n = int(v)
+        except ValueError:
+            return 1
+    return max(len(mesh_devices(dev, n)), 1) if n > 1 else 1
+
+
+# the parent's resolved device, handed to its span workers
+WORKER_DEVICE = "SAMTPU_TORCH_WORKER_DEVICE"
+
+
+def worker_env(dev, **extra) -> dict:
+    """The environment of a span worker (``python -m
+    samtools_tpu_torch``): the parent's with ``extra``, this checkout
+    first on PYTHONPATH, and the parent's device under WORKER_DEVICE
+    (absent on the host branch, ``dev`` None, where SAMTPU_DEVICE passes
+    through)."""
+    env = dict(os.environ, **extra)
+    env.pop(WORKER_DEVICE, None)
+    if dev is not None:
+        env[WORKER_DEVICE] = str(dev)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def worker_device(device):
+    """A span worker's device: the caller's, else the one its parent
+    handed it (WORKER_DEVICE), else None (the CUDA card).  Only the
+    worker branches read it: a worker never picks the CPU by itself."""
+    return device if device is not None else os.environ.get(WORKER_DEVICE)
+
+
+def run_span_workers(argvs: list, envs: list, shards: int,
+                     dev) -> list[tuple[int, bytes]]:
+    """Run ``python -m samtools_tpu_torch <argv>`` for each argv with its
+    environment, at most ``shards`` at a time (the JAX tools' cap), each
+    worker's standard error into a temporary file (a worker writes its
+    output to a file, nothing to our standard output); wait for every
+    one.
+    On the card the kernels are built first, so the workers only load
+    them.  Returns (exit code, standard error) of each, in order."""
+    if dev is not None and dev.type == "cuda":
+        from .. import build
+        build.build()
+    procs, errs = [], []
     try:
-        n = int(v)
-    except ValueError:
-        return 1
-    return max(min(n, ndev), 1)
+        for argv, env in zip(argvs, envs):
+            errs.append(tempfile.TemporaryFile())
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "samtools_tpu_torch", *argv],
+                env=env, stdin=subprocess.DEVNULL,
+                stdout=subprocess.DEVNULL, stderr=errs[-1]))
+            while sum(p.poll() is None for p in procs) >= shards:
+                procs[-shards].wait()
+        got = []
+        for p, err in zip(procs, errs):
+            rc = p.wait()
+            err.seek(0)
+            got.append((rc, err.read()))
+        return got
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for err in errs:
+            err.close()
+
+
+def report_failed(workers: list[tuple[int, bytes]]) -> None:
+    """Copy each failed worker's standard error to ours."""
+    sys.stdout.flush()
+    for rc, err in workers:
+        if rc != 0:
+            sys.stderr.write(err.decode(errors="replace"))
+    sys.stderr.flush()
 
 
 def pick_device(device=None):

@@ -26,9 +26,18 @@ a window (or, for the scalar engine, a region) at a time
 region's reads are selected in memory, for both engines (the JAX tool
 runs the scalar engine over a streamed scan; the bytes are the same).
 SAM and CRAM (decoded on the host, ``io/cram_decode.py``) are read
-whole.  Not ported yet, with one line on stderr and exit 1:
-``SAMTPU_SHARDS`` above 1 where the JAX tool would split the genome, and
-the ``SAMTPU_CONSENSUS_SPAN`` worker protocol.
+whole.
+
+``SAMTPU_SHARDS=N`` above 1 on a BGZF BAM, with no region, runs the JAX
+tool's span workers where the genome makes two or more spans of at least
+1 Mi (``_run_sharded_consensus``): one ``python -m samtools_tpu_torch
+consensus`` worker a span, N at a time on the parent's device, each under
+``SAMTPU_CONSENSUS_SPAN=tid:beg:end`` (``_span_worker``: the vectorised
+engine over the span, read through the index, and the raw ``#SPANMETA
+first last`` / sequence / quality records); the parent stitches the spans
+with the serial emitter's gap rules.  A worker on an unindexed BAM exits
+3, and when every failed worker did so the run is serial, as in the JAX
+tool; any other failure exits 1 with the worker's standard error.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import math
 import os
 import struct
 import sys
+import tempfile
 
 import numpy as np
 
@@ -52,8 +62,10 @@ from ..ops import consensus_vec as CV
 from ..ops.cigar import expand_ops
 from ..ops.pileup import _ENTRY_LUT, build_pileup
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, n_spans, no_card, not_ported, open_stream,
-                     pick_device, print_error, print_error_errno)
+                     n_shards, no_card, open_stream, pick_device,
+                     print_error, print_error_errno, report_failed,
+                     run_span_workers, spans, strip_args, worker_device,
+                     worker_env)
 from .flags_cmd import str2flag
 
 MODE_SIMPLE = 0
@@ -1714,6 +1726,126 @@ def _endpos_arr(b):
     return b.pos + np.maximum(rlen, 1)
 
 
+# a span worker's exit code on a BAM without an index (the JAX worker's
+# ``_NoIndex``): the parent then runs serially
+NO_INDEX = 3
+
+
+def _span_worker(opts, b, stream, span: str) -> int:
+    """The worker side of the span protocol (samtools_tpu/tools/
+    consensus_cmd.py:2147-2169): SAMTPU_CONSENSUS_SPAN=tid:beg:end runs
+    the vectorised engine over [beg, end) of contig tid, its reads
+    through the index, and writes ``#SPANMETA first last`` (the first
+    position called, -1 for none; the last position reached), then the
+    sequence and the quality line.  Exits NO_INDEX on a BAM without an
+    index."""
+    if stream is not None and stream.index() is None:
+        return NO_INDEX
+    c = Ctx(opts)
+    c.iter = tuple(int(x) for x in span.split(":"))
+    c.last_pos = c.iter[1]
+    if _pileup_vec(opts, b, c) < 0:
+        return 1
+    first = getattr(c, "span_first", None)
+    w = opts.fp_out
+    w.write("#SPANMETA %d %d\n" % (-1 if first is None else first,
+                                   c.last_pos))
+    w.write("".join(c.seq) + "\n")
+    w.write("".join(c.qual) + "\n")
+    return 0
+
+
+def _run_sharded_consensus(opts, argv, shards: int, dev) -> int | None:
+    """Span-block parallel consensus (samtools_tpu/tools/consensus_cmd.py:
+    1774-1892; the reference's pileup_loop_parallel, bam_consensus.c:
+    2626-2891): contiguous spans of max(ceil(len / shards), 1 Mi) per
+    contig, one worker process a span (``_span_worker``), ``shards`` at a
+    time on ``dev``, and the results stitched in order, the gaps between
+    spans filled by the serial emitter's rules (``_span_fill``).  Returns
+    None, to run serially, when every failed worker exited NO_INDEX; 1,
+    with the failed workers' standard error, for any other failure."""
+    header = opts.header
+    jobs = spans(header, shards)
+    # output and region options stripped: workers write temporary files
+    fwd = strip_args(argv, ("-o", "--output", "-r", "--region"))
+    base = worker_env(dev)
+    base.pop("SAMTPU_SHARDS", None)
+    tmps = []
+    try:
+        for _ in jobs:
+            fd, name = tempfile.mkstemp(prefix="cons.span.", suffix=".raw")
+            os.close(fd)
+            tmps.append(name)
+        workers = run_span_workers(
+            [["consensus", *fwd, "-o", tmp] for tmp in tmps],
+            [dict(base, SAMTPU_CONSENSUS_SPAN=f"{tid}:{beg}:{end}")
+             for tid, beg, end in jobs], shards, dev)
+        failed = [rc for rc, _ in workers if rc]
+        if failed:
+            if all(rc == NO_INDEX for rc in failed):
+                return None
+            report_failed(workers)
+            return 1
+        results: dict[int, list] = {tid: [] for tid, _, _ in jobs}
+        for (tid, beg, end), name in zip(jobs, tmps):
+            with open(name, "rb") as fh:
+                meta = fh.readline().split()
+                seq = fh.readline().rstrip(b"\n").decode("latin-1")
+                qual = fh.readline().rstrip(b"\n").decode("latin-1")
+            results[tid].append((beg, end, int(meta[1]), int(meta[2]),
+                                 seq, qual))
+    finally:
+        for name in tmps:
+            os.remove(name)
+
+    c = Ctx(opts)
+    for tid in results:
+        name = header.ref_name(tid)
+        ln = int(header.ref_lens[tid])
+        if not any(r[2] >= 0 for r in results[tid]):
+            if opts.all_bases > 1:
+                fseq, fqual = _span_fill(opts, c, tid, 1, ln)
+                dump_fastq(opts, name, [fseq], [fqual])
+            continue
+        seqs: list[str] = []
+        quals: list[str] = []
+        global_last = None
+        for beg, end, first, last, seq, qual in results[tid]:
+            if first < 0:
+                continue
+            first_eff = beg + 1 if opts.all_bases else first
+            if global_last is None:
+                if opts.all_bases and first_eff > 1:
+                    fs, fq = _span_fill(opts, c, tid, 1, first_eff - 1)
+                    seqs.append(fs)
+                    quals.append(fq)
+            elif first_eff > global_last + 1:
+                fs, fq = _span_fill(opts, c, tid, global_last + 1,
+                                    first_eff - 1)
+                seqs.append(fs)
+                quals.append(fq)
+            seqs.append(seq)
+            quals.append(qual)
+            global_last = last
+        if opts.all_bases and global_last < ln:
+            fs, fq = _span_fill(opts, c, tid, global_last + 1, ln)
+            seqs.append(fs)
+            quals.append(fq)
+        dump_fastq(opts, name, seqs, quals)
+    return 0
+
+
+def _span_fill(opts, c: Ctx, tid, lo1, hi1):
+    """Gap fill for 1-based positions [lo1, hi1]: the lazy-fill rule of
+    ``_fasta_emit`` (reference bases at ref_qual, else N and !)."""
+    n = hi1 - lo1 + 1
+    if n <= 0:
+        return "", ""
+    if opts.ref_fn and update_ref(c, tid) > 0 and c.ref is not None:
+        return c.ref[lo1 - 1:hi1], chr(opts.ref_qual + 33) * n
+    return "N" * n, "!" * n
+
+
 def usage(fp):
     fp.write("Usage: samtools consensus [options] <in.bam>\n")
 
@@ -1927,6 +2059,10 @@ def main_consensus(argv: list[str], device=None) -> int:
         usage(sys.stdout if not args else sys.stderr)
         return 0 if not args else 1
 
+    vec = opts.fmt != PILEUP and opts.mode != MODE_SIMPLE
+    span = os.environ.get("SAMTPU_CONSENSUS_SPAN") if vec else None
+    if span:
+        device = worker_device(device)
     try:
         opts.dev = pick_device(device)
     except RuntimeError as e:     # no CUDA card
@@ -1955,20 +2091,6 @@ def main_consensus(argv: list[str], device=None) -> int:
                           args[0], exc=e)
         return 1
 
-    vec = opts.fmt != PILEUP and opts.mode != MODE_SIMPLE
-    if vec and os.environ.get("SAMTPU_CONSENSUS_SPAN"):
-        rc = not_ported("consensus", "SAMTPU_CONSENSUS_SPAN (the span-worker "
-                        "protocol)")
-    elif (vec and stream is not None and not (opts.reg or opts.bed)
-          and n_shards() > 1 and n_spans(opts.header, n_shards()) > 1):
-        rc = not_ported("consensus", "SAMTPU_SHARDS (sharded runs)")
-    else:
-        rc = None
-    if rc is not None:
-        if stream is not None:
-            stream.close()
-        return rc
-
     if opts.ref_fn:
         try:
             opts.fai = fastamod.load_fasta(opts.ref_fn)
@@ -1982,6 +2104,19 @@ def main_consensus(argv: list[str], device=None) -> int:
         except OSError as e:
             sys.stderr.write("%s: %s\n" % (out_path, e.strerror))
             return 1
+
+    rc = None
+    if span:
+        rc = _span_worker(opts, b, stream, span)
+    elif (vec and stream is not None and not (opts.reg or opts.bed)
+          and n_shards() > 1 and len(spans(opts.header, n_shards())) > 1):
+        rc = _run_sharded_consensus(opts, argv, n_shards(), opts.dev)
+    if rc is not None:
+        if stream is not None:
+            stream.close()
+        if opts.fp_out is not sys.stdout:
+            opts.fp_out.close()
+        return rc
 
     ret = 0
     if opts.bed:

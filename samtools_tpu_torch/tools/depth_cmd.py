@@ -9,8 +9,9 @@ generic form and the depth scan, on the card), or with
 ``SAMTPU_DEVICE=0|host`` through the numpy ``ops.depth.depth_window``.
 A CRAM is decoded whole on the host (``io/cram_decode.py``; ``-r``
 filters it, with no index query, as in the JAX tool).
-``SAMTPU_SHARDS`` above 1 on several cards exits 1 with one "not ported
-yet" line.
+``SAMTPU_SHARDS`` above 1 on several cards (capped at their count, as the
+JAX tool caps it) spreads each window's tiles over a (1, n) mesh of them
+(``parallel/mesh.depth_window_sharded``), with the same bytes.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from ..io import bed as bedmod
 from ..io.files import read_alignments
 from ..ops import depth as dops
 from ..ops.pileup_engine import depth_window_device
+from ..parallel.mesh import depth_window_sharded, make_mesh
+from . import common
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     device_shards, no_card, not_ported, pick_device,
+                     device_shards, no_card, pick_device,
                      print_error, print_error_errno, try_region_read)
 from .flags_cmd import str2flag
 
@@ -233,8 +236,6 @@ def main_depth(argv: list[str], device=None) -> int:
         dev = pick_device(device)
     except RuntimeError as e:
         return no_card("depth", e)
-    if dev is not None and device_shards(dev) > 1:
-        return not_ported("depth", "SAMTPU_SHARDS (sharded runs)")
 
     files = []
     for path in args:
@@ -267,9 +268,25 @@ def main_depth(argv: list[str], device=None) -> int:
             out.close()
 
 
+def _depth_fn(dev):
+    """The depth of one file's window (the JAX branch,
+    samtools_tpu/tools/depth_cmd.py:334-346): numpy for the host branch
+    (``dev`` None); a (1, n) mesh when SAMTPU_SHARDS asks for more than
+    one of ``dev``'s devices; else K1 on ``dev``."""
+    if dev is None:
+        return dops.depth_window
+    n = device_shards(dev)
+    if n > 1:
+        mesh = make_mesh(n_data=1, n_region=n,
+                         devices=common.mesh_devices(dev, n))
+        return lambda *a: depth_window_sharded(mesh, *a)
+    return lambda *a: depth_window_device(*a, device=dev)
+
+
 def _run(out, files, args, header, region, bedidx, dev, excl, incl_flag,
          require_flag, min_mqual, min_len, min_qual, count_del, all_pos,
          remove_overlaps, header_line) -> int:
+    depth_fn = _depth_fn(dev)
     if header_line:
         out.write("#CHROM\tPOS")
         for path in args:
@@ -345,13 +362,8 @@ def _run(out, files, args, header, region, bedidx, dev, excl, incl_flag,
 
         cols, env_pos, env_end = [], [], []
         for f, s, cl, end in zip(files, subsels, clips, ends):
-            if dev is None:
-                cols.append(dops.depth_window(f.batch, s, wbeg, wend,
-                                              min_qual, count_del, cl))
-            else:
-                cols.append(depth_window_device(f.batch, s, wbeg, wend,
-                                                min_qual, count_del, cl,
-                                                device=dev))
+            cols.append(depth_fn(f.batch, s, wbeg, wend, min_qual,
+                                 count_del, cl))
             if s.size:
                 env_pos.append(f.batch.pos[s])
                 env_end.append(end[s])

@@ -8,8 +8,10 @@ whole.  Each batch's counts come from K11
 (``ops.flagstat.flagstat_counts``, on the card), or with
 ``SAMTPU_DEVICE=0|host`` from numpy.  A CRAM is decoded whole on the
 host (``io/cram_decode.py``); a decode error is reported as the JAX tool
-reports it.  ``SAMTPU_SHARDS`` above 1 on several cards exits 1 with one
-"not ported yet" line.  Percentages reproduce
+reports it.  ``SAMTPU_SHARDS`` above 1 on several cards (capped at their
+count, as the JAX tool caps it) runs each batch on the mesh
+(``parallel/mesh.flagstat_counts_sharded``: K11 on every shard, the
+partials summed), with the same counts.  Percentages reproduce
 the reference's single-precision ``(float)n / total * 100.0`` exactly.
 """
 
@@ -21,8 +23,10 @@ import numpy as np
 
 from ..io.files import read_alignments
 from ..ops import flagstat as fsops
+from ..parallel.mesh import flagstat_counts_sharded, make_mesh
+from . import common
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     device_shards, no_card, not_ported, open_stream,
+                     device_shards, no_card, open_stream,
                      pick_device, print_error, print_error_errno)
 
 
@@ -162,10 +166,17 @@ def out_tsv(s, w=None):
 
 
 def _count_fn(dev):
-    """Counts of one batch: K11 on ``dev``, or numpy for the host
-    branch (``dev`` None)."""
+    """Counts of one batch (the JAX ``_pick_count_fn``,
+    samtools_tpu/tools/flagstat_cmd.py:151-172): numpy for the host
+    branch (``dev`` None); the mesh census when SAMTPU_SHARDS asks for
+    more than one of ``dev``'s devices; else K11 on ``dev``.  All three
+    give the same counts."""
     if dev is None:
         return fsops.flagstat_numpy
+    n = device_shards(dev)
+    if n > 1:
+        mesh = make_mesh(n_data=n, devices=common.mesh_devices(dev, n))
+        return lambda part: flagstat_counts_sharded(mesh, part)
     return lambda part: fsops.flagstat_counts(part, dev)
 
 
@@ -190,8 +201,6 @@ def main_flagstat(argv: list[str], device=None) -> int:
         dev = pick_device(device)
     except RuntimeError as e:     # no CUDA card
         return no_card("flagstat", e)
-    if dev is not None and device_shards(dev) > 1:
-        return not_ported("flagstat", "SAMTPU_SHARDS (sharded runs)")
     count_fn = _count_fn(dev)
     s = None
     try:

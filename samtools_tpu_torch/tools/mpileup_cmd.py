@@ -37,9 +37,15 @@ there and resumes.
 ``SAMTPU_DEVICE=0|host`` runs the host branch: the host HMM, the numpy
 sort, no kernel.  A CRAM is decoded whole on the host
 (``io/cram_decode.py``) and takes the same paths as a SAM; ``-r`` on it
-filters the whole file, as in the JAX tool.  Not ported yet, with one
-line on stderr and exit 1: SAMTPU_SHARDS above 1 where the JAX tool runs
-span workers.
+filters the whole file, as in the JAX tool.
+
+``SAMTPU_SHARDS=N`` above 1, with one input that is not standard input,
+no ``-r`` and no ``--checkpoint``, runs the JAX tool's span workers
+(``_run_sharded``): the contigs are cut into spans of at least 1 Mi, one
+``python -m samtools_tpu_torch mpileup -r <span>`` worker a span, N at a
+time, on the parent's device (all on one card when there is one), and
+their outputs are joined in span order.  With fewer than two spans the
+run is serial.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import tempfile
 import types
 
 import numpy as np
@@ -68,8 +75,10 @@ from ..ops.mpileup_device import (HOST_THREADS, NT16_TO4,
 from ..ops.overlaps import tweak_overlaps
 from ..ops.pileup import build_pileup
 from .common import (GlobalArgs, UsageError, gnu_getopt, handle_global_opt,
-                     n_shards, n_spans, no_card, not_ported, open_stream,
-                     pick_device, print_error_errno, try_region_read)
+                     n_shards, no_card, open_stream, pick_device,
+                     print_error_errno, report_failed, run_span_workers,
+                     spans, strip_args, try_region_read, worker_device,
+                     worker_env)
 from .flags_cmd import str2flag
 
 DEFAULT_FF = F.FUNMAP | F.FSECONDARY | F.FQCFAIL | F.FDUP
@@ -512,6 +521,8 @@ def main_mpileup(argv: list[str], device=None) -> int:
     if not args:
         sys.stderr.write("[mpileup] no input file/data given\n")
         return 1
+    if os.environ.get("SAMTPU_MPILEUP_SHARD_WORKER") == "1":
+        device = worker_device(device)
     try:
         dev = pick_device(device)
     except RuntimeError as e:     # no CUDA card
@@ -534,7 +545,7 @@ def main_mpileup(argv: list[str], device=None) -> int:
                                  f"'{reg}'\n")
                 return 1
         if _would_shard(reg, conf, args, header):
-            return not_ported("mpileup", "SAMTPU_SHARDS (sharded runs)")
+            return _run_sharded(argv, header, n_shards(), out_fname, dev)
         ck_state = None
         if conf["checkpoint"]:
             if not out_fname:
@@ -573,7 +584,58 @@ def _would_shard(reg, conf, paths, header) -> bool:
     return (shards > 1 and not reg and not conf["checkpoint"]
             and len(paths) == 1 and paths[0] != "-"
             and os.environ.get("SAMTPU_MPILEUP_SHARD_WORKER") != "1"
-            and n_spans(header, shards) > 1)
+            and len(spans(header, shards)) > 1)
+
+
+def _run_sharded(argv, header, shards: int, out_fname, dev) -> int:
+    """Span-block parallel mpileup (samtools_tpu/tools/mpileup_cmd.py:
+    558-632): the contigs cut into spans of max(ceil(len / shards), 1 Mi)
+    positions, one worker process a span running this command over it
+    (``-r``: a worker prints exactly its span's columns), ``shards`` at a
+    time, on ``dev``; their outputs joined in span order.  Where the JAX
+    tool sends the workers' standard error nowhere and stops at the first
+    failed one, each worker's goes to a temporary file, and a failed
+    worker's is copied to ours before the exit code 1."""
+    span_list = spans(header, shards)
+    # -o/--output stripped: workers write temporary files
+    fwd = strip_args(argv, ("-o", "--output"))
+    env = worker_env(dev, SAMTPU_MPILEUP_SHARD_WORKER="1")
+    tmps = []
+    try:
+        for k in range(len(span_list)):
+            fd, name = tempfile.mkstemp(prefix=f"mpileup.shard{k:03d}.",
+                                        suffix=".txt")
+            os.close(fd)
+            tmps.append(name)
+        workers = run_span_workers(
+            [["mpileup", "-r", "%s:%d-%d" % (header.ref_names[tid],
+                                             beg + 1, end), *fwd, "-o", tmp]
+             for (tid, beg, end), tmp in zip(span_list, tmps)],
+            [env] * len(span_list), shards, dev)
+        if any(rc for rc, _ in workers):
+            report_failed(workers)
+            return 1
+        out = open(out_fname, "wb") if out_fname else sys.stdout
+        try:
+            for name in tmps:
+                with open(name, "rb") as fh:
+                    while True:
+                        chunk = fh.read(1 << 22)
+                        if not chunk:
+                            break
+                        if out_fname:
+                            out.write(chunk)
+                        else:
+                            _write_bytes(out, chunk)
+        finally:
+            if out_fname:
+                out.close()
+            else:
+                out.flush()
+        return 0
+    finally:
+        for name in tmps:
+            os.remove(name)
 
 
 def _open_inputs(paths, reg, nthreads, files) -> int:

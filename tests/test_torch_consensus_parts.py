@@ -14,10 +14,14 @@ CPU:
   engine's bytes on long insertions;
 * the vectorised engine's insertion sites, all scored at once, equal the
   JAX package's per-site engine site by site;
-* what is not ported yet exits 1 with one line; without CUDA the command
-  fails before any output."""
+* SAMTPU_SHARDS on an unindexed BAM (span workers that exit 3, then the
+  serial run), the SAMTPU_CONSENSUS_SPAN worker protocol and CRAM input
+  print the JAX tool's bytes; with SAMTPU_SHARDS unset or 1, an indexed
+  BAM of two contigs (two spans) runs serially and starts no worker;
+  without CUDA the command fails before any output."""
 
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -36,6 +40,7 @@ from samtools_tpu_torch.io import native
 from samtools_tpu_torch.io.files import read_alignments
 from samtools_tpu_torch.ops import consensus_vec as V
 from samtools_tpu_torch.tools import consensus_cmd as C
+from samtools_tpu_torch.tools.index_cmd import main_index
 
 torch.set_num_threads(1)
 
@@ -290,37 +295,69 @@ def test_shards_over_one_span_run_serially(inputs, monkeypatch):
         run_jax_tool("consensus", args, "0")
 
 
+# What ran "not ported yet" runs now, each case against the JAX tool.
 # SAM is read (tests/test_torch_sam_input.py), and CRAM now: the
 # "sam_input" cases run the CRAM fixture, whole and with -r (a whole-file
-# filter, as in the JAX tool), and print the JAX tool's bytes
+# filter, as in the JAX tool).  "shards": SAMTPU_SHARDS=2 on two contigs
+# (two spans) of an unindexed BAM: the span workers exit 3 (no index) and
+# the run is serial, as the JAX tool's.  "span_worker": the
+# SAMTPU_CONSENSUS_SPAN worker protocol on an indexed BAM (the JAX index
+# query reads its two BGZF blocks): the raw #SPANMETA records.
 NOT_PORTED = {
-    "shards": ("SAMTPU_SHARDS", "small2", {"SAMTPU_SHARDS": "2"}),
-    "span_worker": ("SAMTPU_CONSENSUS_SPAN", "small",
-                    {"SAMTPU_CONSENSUS_SPAN": "0:0:1000"}),
-    "sam_input": (None, "cram", {}),
-    "sam_input_region": (None, "cram", {}),
+    "shards": ("small2", {"SAMTPU_SHARDS": "2"}),
+    "span_worker": ("indexed", {"SAMTPU_CONSENSUS_SPAN": "0:16000:21000"}),
+    "sam_input": ("cram", {}),
+    "sam_input_region": ("cram", {}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
-    what, which, env = NOT_PORTED[case]
+def test_not_ported_exits_1_with_one_line(inputs, monkeypatch, case):
+    which, env = NOT_PORTED[case]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     extra = ["-r", "sim1:1-3000"] if case.endswith("region") else []
-    if what is None:
-        args = [*extra, inputs[which]]
-        port = run_port_stdout("consensus", args)
-        assert port.count(b"\n") >= 2
-        assert port == run_jax_tool("consensus", args, "0")
+    if case == "span_worker":
+        outs = [os.path.join(inputs["dir"], f"span_{k}.raw")
+                for k in ("port", "jax")]
+        assert cli.main(["consensus", "-o", outs[0], inputs[which]],
+                        device="cpu") == 0
+        run_jax_tool("consensus", ["-o", outs[1], inputs[which]], "0")
+        mine, theirs = (open(o, "rb").read() for o in outs)
+        assert mine == theirs
+        assert mine.startswith(b"#SPANMETA 160") and mine.count(b"\n") == 3
         return
-    capfd.readouterr()
-    assert cli.main(["consensus", *extra, inputs[which]], device="cpu") == 1
-    out, err = capfd.readouterr()
-    assert out == ""
-    said = [ln for ln in err.splitlines() if "not ported yet" in ln]
-    assert len(said) == 1 and what in said[0], err
-    assert all(ln.startswith("[consensus]") for ln in err.splitlines())
+    args = [*extra, inputs[which]]
+    port = run_port_stdout("consensus", args)
+    assert port.count(b"\n") >= 2
+    assert port == run_jax_tool("consensus", args, "0")
+    if case == "shards":
+        monkeypatch.delenv("SAMTPU_SHARDS")
+        assert port == run_port_stdout("consensus", args)
+
+
+@pytest.mark.parametrize("shards", [None, "1"])
+def test_one_shard_starts_no_span_worker(inputs, tmp_path, monkeypatch,
+                                         shards):
+    """SAMTPU_SHARDS unset or 1 on an indexed BAM of two contigs: one
+    span a contig, but the JAX tool runs span workers only for more than
+    one shard, so the run is serial there and here, and starts no
+    worker."""
+    if shards is None:
+        monkeypatch.delenv("SAMTPU_SHARDS", raising=False)
+    else:
+        monkeypatch.setenv("SAMTPU_SHARDS", shards)
+    bam = str(tmp_path / "small2.bam")
+    shutil.copy(inputs["small2"], bam)
+    assert main_index([bam]) == 0
+
+    def no_workers(*a, **k):
+        raise AssertionError("span workers started")
+    monkeypatch.setattr(C, "run_span_workers", no_workers)
+    port = run_port_stdout("consensus", [bam])
+    assert port.count(b"\n") >= 2
+    assert port == run_jax_tool("consensus", [bam], "0")
 
 
 def test_consensus_without_cuda_fails_before_any_output(inputs):

@@ -1120,3 +1120,85 @@ def test_pileup_tools_on_card_equal_host_branch(cuda, tmp_path, monkeypatch,
     assert {k for k, v in launched.items() if v} == set(kernels_used)
     if cmd == "tview":
         assert launched["stable_order"] == 1        # one draw
+
+
+def _k14_items(seed, n, window):
+    """Items over [-window/8, window * 9/8) with the edge lanes -1, 32,
+    40, -33 spliced in and a tenth invalid."""
+    rng = np.random.default_rng(seed)
+    refpos = rng.integers(-window // 8, window + window // 8, n)
+    lane = rng.integers(0, 32, n)
+    if n >= 40:
+        lane[rng.choice(n, 40, replace=False)] = np.repeat([-1, 32, 40, -33],
+                                                           10)
+    valid = rng.random(n) > 0.1
+    qual = rng.integers(0, 61, n)
+    return [torch.from_numpy(a) for a in (
+        refpos.astype(np.int32), lane.astype(np.int32), valid,
+        qual.astype(np.int32))]
+
+
+@pytest.mark.parametrize("n,window", [(0, 64), (1000, 8), (65536, 1700),
+                                      (65536, 1 << 14), (300_000, 1 << 20)])
+def test_pileup_scatter_equals_plain(cuda, n, window):
+    """K14's scatter entry on both of its paths (the window privatised in
+    shared memory up to ~1,800 rows; global atomics above), counts and
+    qual sums, equal to the plain version exactly."""
+    from samtools_tpu_torch.ops import pileup_device as pd
+    rp, ln, ok, q = _k14_items(n + window, n, window)
+    for weight in (None, q):
+        want = pd.pileup_scatter_plain(rp, ln, ok, window, weight)
+        before = kernels.launches["pileup_scatter"]
+        got = pd.pileup_scatter(rp.to(cuda), ln.to(cuda), ok.to(cuda),
+                                window, None if weight is None
+                                else weight.to(cuda))
+        torch.cuda.synchronize()
+        assert kernels.launches["pileup_scatter"] == before + (n > 0)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n_tiles,B,tile", [(1, 1, 8), (40, 300, 512),
+                                            (3, 5000, 128), (2, 100, 4096)])
+def test_pileup_tiled_equals_plain(cuda, n_tiles, B, tile):
+    """K14's tiled entry (a block a tile; a tile of 4,096 rows takes the
+    global-atomic path) equal to the plain version exactly."""
+    from samtools_tpu_torch.ops import pileup_device as pd
+    rng = np.random.default_rng(n_tiles * B)
+    posrel = torch.from_numpy(rng.integers(-3, tile + 3, (n_tiles, B))
+                              .astype(np.int32))
+    lane = torch.from_numpy(rng.integers(-2, 34, (n_tiles, B))
+                            .astype(np.int32))
+    ok = torch.from_numpy(rng.random((n_tiles, B)) > 0.1)
+    want = pd.pileup_tiled_plain(posrel, lane, ok, tile, n_tiles)
+    before = kernels.launches["pileup_tiled"]
+    got = pd.pileup_counts_tiled(posrel.to(cuda), lane.to(cuda),
+                                 ok.to(cuda), tile, n_tiles)
+    torch.cuda.synchronize()
+    assert kernels.launches["pileup_tiled"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_mesh_of_the_card_equals_unsharded(cuda):
+    """A 4-shard mesh of the one card: the flag census and a depth window
+    equal the unsharded card runs; K11 launches once a shard, K1 once a
+    shard with items."""
+    from samtools_tpu_torch.ops import flagstat as fs
+    from samtools_tpu_torch.ops import pileup_engine as pe
+    from samtools_tpu_torch.parallel import mesh as M
+    L = 1 << 18
+    b = sim.simulate_messy(sim.simulate_batch(
+        ref_len=L, coverage=10.0, read_len=100, seed=9, paired=False), 9)
+    mesh = M.make_mesh(1, 4, [cuda] * 4)
+    before = kernels.launches["flagstat"]
+    assert M.flagstat_counts_sharded(mesh, b) == fs.flagstat_counts(b, cuda)
+    assert kernels.launches["flagstat"] == before + 4 + 1
+    sel = np.arange(b.n)
+    for min_qual, count_del in ((0, False), (13, True)):
+        want = pe.depth_window_device(b, sel, 0, L, min_qual, count_del,
+                                      device=cuda)
+        before = kernels.launches["segment_contract"]
+        got = M.depth_window_sharded(mesh, b, sel, 0, L, min_qual,
+                                     count_del)
+        assert kernels.launches["segment_contract"] - before == \
+            4 * (2 if min_qual else 1)
+        assert np.array_equal(got, want)

@@ -6,10 +6,11 @@ JAX package, on the CPU (the plain versions of the port's kernels):
   JAX host ``ops.depth.depth_window``, exactly;
 * the command prints the JAX tool's bytes, whichever branch the JAX tool
   takes (``SAMTPU_DEVICE=1`` and ``=0``);
-* under SAMTPU_SHARDS (2, ``all``, malformed) it runs on one device and
-  prints the JAX tool's bytes, as the JAX tool does on one device; on a
-  CRAM it prints the JAX tool's bytes; without CUDA it fails before any
-  row;
+* under SAMTPU_SHARDS (``all``, malformed) it runs on one device and
+  prints the JAX tool's bytes, as the JAX tool does on one device; under
+  SAMTPU_SHARDS=2 with two devices it runs its mesh branch and prints them
+  too; on a CRAM it prints the JAX tool's bytes; without CUDA it fails
+  before any row;
 * its host modules (regions, whole-file reading, the clips, the row set,
   the row writer) equal their JAX counterparts."""
 
@@ -30,7 +31,7 @@ from samtools_tpu_torch.core.regions import RegionError, parse_region
 from samtools_tpu_torch.io.files import read_alignments
 from samtools_tpu_torch.ops import depth as dops
 from samtools_tpu_torch.ops import pileup_engine as pe
-from samtools_tpu_torch.tools import depth_cmd
+from samtools_tpu_torch.tools import common, depth_cmd
 from samtools_tpu_torch.tools.common import device_shards
 
 torch.set_num_threads(1)
@@ -236,19 +237,28 @@ def test_depth_output_file_and_host_branch(inputs, tmp_path, monkeypatch):
 
 
 # SAMTPU_SHARDS values: capped at the device count (1 on the CPU), so
-# each runs the single-device path and prints the JAX tool's bytes
+# "all" and a malformed value run the single-device path; "shards" runs
+# the mesh branch, over 2 CPU shards (``mesh_devices`` patched), where
+# the JAX tool meshes over its 2 virtual devices.  Each prints the JAX
+# tool's bytes.
 SHARDS = {"shards": "2", "shards_all": "all", "shards_malformed": "two"}
 
 
 @pytest.mark.parametrize("case", [*SHARDS, "sam_input"])
-def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
+def test_not_ported_exits_1_with_one_line(inputs, monkeypatch, case):
     path = inputs["messy"]
     if case in SHARDS:
         monkeypatch.setenv("SAMTPU_SHARDS", SHARDS[case])
-        # the JAX tool on one device, as the port runs on one card
+        meshes = []
+        if case == "shards":
+            monkeypatch.setattr(common, "mesh_devices", lambda dev, n: (
+                meshes.append(n) or [torch.device("cpu")] * n))
+        # the JAX tool on as many devices as the port's mesh has shards
         monkeypatch.setenv("XLA_FLAGS",
-                           "--xla_force_host_platform_device_count=1")
+                           "--xla_force_host_platform_device_count=%d"
+                           % (2 if case == "shards" else 1))
         port = run_port_stdout("depth", ["-a", path])
+        assert set(meshes) == ({2} if case == "shards" else set())
         assert port.count(b"\n") > 500
         for engine in ("1", "0"):
             assert port == run_jax_tool("depth", ["-a", path], engine)

@@ -10,9 +10,10 @@ package, on the CPU (K11's plain version):
   values;
 * K11's plain version equals ``flagstat_numpy`` and the JAX
   ``flagstat_numpy`` exactly, and counts nothing on no records;
-* under SAMTPU_SHARDS (2, ``all``, malformed) it runs on one device and
-  prints the JAX tool's bytes; what it does not do yet exits 1 with one
-  line; without CUDA it fails before any output."""
+* under SAMTPU_SHARDS (``all``, malformed) it runs on one device and
+  prints the JAX tool's bytes; under SAMTPU_SHARDS=2 with two devices it
+  runs its mesh branch and prints them too; without CUDA it fails before
+  any output."""
 
 import os
 import subprocess
@@ -25,11 +26,12 @@ from torch_tool_fixtures import (REF_LEN, REPO, make_inputs, run_jax_tool,
                                  run_port_stdout)
 
 from samtools_tpu.ops import flagstat as jfs
-from samtools_tpu_torch import cli, kernels
+from samtools_tpu_torch import kernels
 from samtools_tpu_torch.io.bam import write_bam
 from samtools_tpu_torch.io.files import read_alignments
 from samtools_tpu_torch.io.header import SamHeader
 from samtools_tpu_torch.ops import flagstat as fs
+from samtools_tpu_torch.tools import common
 
 torch.set_num_threads(1)
 
@@ -149,9 +151,11 @@ def test_k11_rejects_wrong_dtype_and_mixed_devices():
         fs.flagstat_census(t[0], t[1][:3], *t[2:])
 
 
-# (what the one line names, input).  The SAMTPU_SHARDS cases run now:
-# capped at the device count (1 on the CPU), each runs the single-device
-# path and prints the JAX tool's bytes.
+# (SAMTPU_SHARDS, input).  The SAMTPU_SHARDS cases run now: capped at the
+# device count (1 on the CPU), "all" and a malformed value run the
+# single-device path; "shards" runs the mesh branch, over 2 CPU shards
+# (``mesh_devices`` patched), where the JAX tool meshes over its 2 virtual
+# devices.  Each prints the JAX tool's bytes.
 NOT_PORTED = {
     "shards": ("2", "flagged"),
     "shards_all": ("all", "flagged"),
@@ -163,29 +167,26 @@ NOT_PORTED = {
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
+def test_not_ported_exits_1_with_one_line(inputs, monkeypatch, case):
     what, which = NOT_PORTED[case]
     if case.startswith("shards"):
         monkeypatch.setenv("SAMTPU_SHARDS", what)
-        # the JAX tool on one device, as the port runs on one card
+        meshes = []
+        if case == "shards":
+            monkeypatch.setattr(common, "mesh_devices", lambda dev, n: (
+                meshes.append(n) or [torch.device("cpu")] * n))
+        # the JAX tool on as many devices as the port's mesh has shards
         monkeypatch.setenv("XLA_FLAGS",
-                           "--xla_force_host_platform_device_count=1")
+                           "--xla_force_host_platform_device_count=%d"
+                           % (2 if case == "shards" else 1))
         mine = run_port_stdout("flagstat", [inputs[which]])
+        assert set(meshes) == ({2} if case == "shards" else set())
         for engine in ("1", "0"):
             assert mine == run_jax_tool("flagstat", [inputs[which]], engine)
         return
-    if what is None:
-        mine = run_port_stdout("flagstat", [inputs[which]])
-        assert mine.startswith(b"200 + 0 in total")
-        assert mine == run_jax_tool("flagstat", [inputs[which]], "1")
-        return
-    capfd.readouterr()
-    assert cli.main(["flagstat", inputs[which]], device="cpu") == 1
-    out, err = capfd.readouterr()
-    assert out == ""
-    said = [ln for ln in err.splitlines() if "not ported yet" in ln]
-    assert len(said) == 1 and what in said[0], err
-    assert all(ln.startswith("[flagstat]") for ln in err.splitlines())
+    mine = run_port_stdout("flagstat", [inputs[which]])
+    assert mine.startswith(b"200 + 0 in total")
+    assert mine == run_jax_tool("flagstat", [inputs[which]], "1")
 
 
 def test_flagstat_without_cuda_fails_before_any_output(inputs):

@@ -20,6 +20,8 @@ from samtools_tpu_torch.ops import mpileup_device as md
 from samtools_tpu_torch.ops.consensus_vec import consensus_segsum
 from samtools_tpu_torch.ops.flagstat import flagstat_census
 from samtools_tpu_torch.ops.pileup import stable_order
+from samtools_tpu_torch.ops.pileup_device import (pileup_counts,
+                                                  pileup_counts_tiled)
 from samtools_tpu_torch.ops.segment_kernel import (segment_census,
                                                    segment_contract)
 from samtools_tpu_torch.ops.stats_kernels import split_hists, stats_hists
@@ -41,6 +43,7 @@ def _sources():
     # and what runs on the card's machine, which has no JAX
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_core_profile.py",
+        ROOT / "scripts" / "torch_dryrun_dist.py",
         ROOT / "tests" / "test_torch_cuda.py"]
 
 
@@ -165,11 +168,17 @@ def test_cpu_tensors_never_count_a_launch():
     assert int(split_hists(hists, 1, 3, 4)["gc"][0]) == 2
     buf, cdt, _ = md.census_narrow(torch.ones(8, 6, dtype=torch.int32), 4)
     assert cdt == torch.uint8 and buf.numel() == 28
+    ok = torch.ones(3, dtype=torch.bool)
+    i3 = torch.tensor([0, 1, 1], dtype=torch.int32)
+    assert int(pileup_counts(i3, i3, ok, 4).sum()) == 3
+    assert int(pileup_counts_tiled(i3[None], i3[None], ok[None], 4, 1)
+               .sum()) == 3
     assert kernels.launches == {"segment_contract": 0, "segment_census": 0,
                                 "baq_hmm": 0, "baq_finalize": 0,
                                 "baq_apply": 0, "stable_order": 0,
                                 "consensus_segsum": 0, "flagstat": 0,
-                                "stats_hists": 0, "census_narrow": 0}
+                                "stats_hists": 0, "census_narrow": 0,
+                                "pileup_scatter": 0, "pileup_tiled": 0}
 
 
 def test_mixed_devices_raise():

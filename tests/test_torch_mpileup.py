@@ -5,10 +5,10 @@ window size; its ``--census-out`` equals the single-core f64 oracle
 window by window; its chunk step's sparse qual deltas equal the JAX chunk
 step's; the overflow path gives the same bytes; without CUDA the command
 fails before it prints a row; under SAMTPU_SHARDS it runs serially where
-the JAX tool does, with its bytes; on a CRAM it prints the JAX tool's
-bytes; what is not ported yet (span workers where the JAX tool shards)
-says so and exits 1
-(``--checkpoint``: tests/test_torch_mpileup_checkpoint.py)."""
+the JAX tool does, and span workers where the JAX tool does, with its
+bytes either way; on a CRAM it prints the JAX tool's bytes
+(``--checkpoint``: tests/test_torch_mpileup_checkpoint.py; larger span
+runs: tests/test_torch_sharded_tools.py)."""
 
 import json
 import os
@@ -24,7 +24,7 @@ from torch_tool_fixtures import (REF_LEN, REPO, make_inputs, oracle_census,
                                  ref_codes, run_jax, run_port)
 
 from samtools_tpu.ops import mpileup_device as jmd
-from samtools_tpu_torch import cli, kernels, sim
+from samtools_tpu_torch import kernels, sim
 from samtools_tpu_torch.io.bam import write_bam
 from samtools_tpu_torch.io.files import read_alignments
 from samtools_tpu_torch.io.header import SamHeader
@@ -198,18 +198,19 @@ def test_tool_without_cuda_fails_before_any_row(inputs):
     assert b"CUDA" in p.stderr
 
 
-# what the port does not run yet: (extra arguments, what the one line
-# names).  "shards" runs now: on one 128 kbp contig the JAX tool makes one
+# what ran "not ported yet" runs now: (extra arguments), each case against
+# the JAX tool.  "shards": on one 128 kbp contig the JAX tool makes one
 # span under SAMTPU_SHARDS=2 and runs serially, and so does the port;
-# "shards_2mi" is a 2 Mi contig, two spans, where the JAX tool does shard.
+# "shards_2mi": a 2 Mi contig, two spans, two span workers in both
+# packages (the port's on the CPU), equal to the port's serial run too.
 # SAM is read (tests/test_torch_sam_input.py) and CRAM too now: the
 # "sam_input" cases run the CRAM fixture, whole and with -r (a whole-file
 # filter, as in the JAX tool), and print the JAX tool's bytes.
 NOT_PORTED = {
-    "shards": None,
-    "shards_2mi": ([], "SAMTPU_SHARDS"),
-    "sam_input": ([], None),
-    "sam_input_region": (["-r", "sim1:1-50"], None),
+    "shards": [],
+    "shards_2mi": [],
+    "sam_input": [],
+    "sam_input_region": ["-r", "sim1:1-50"],
 }
 
 
@@ -223,10 +224,11 @@ def _on_2mi_contig(src: str, dst: str) -> None:
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
+def test_not_ported_exits_1_with_one_line(inputs, monkeypatch, case):
     bam = inputs["messy"]
     if case.startswith("shards"):
         monkeypatch.setenv("SAMTPU_SHARDS", "2")
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
         # the JAX tool on one device, as the port runs on one card
         monkeypatch.setenv("XLA_FLAGS",
                            "--xla_force_host_platform_device_count=1")
@@ -236,25 +238,21 @@ def test_not_ported_exits_1_with_one_line(inputs, capfd, monkeypatch, case):
         assert port.count(b"\n") > REF_LEN // 2
         assert port == run_jax(["-f", inputs["fa"], bam], "1")
         return
-    extra, what = NOT_PORTED[case]
-    if case.startswith("sam_input"):
-        args = ["-f", inputs["fa"], inputs["cram"], *extra]
-        port = run_port(args, os.path.join(inputs["dir"], f"{case}.txt"))
-        assert port.count(b"\n") > (40 if extra else 2000)
-        assert port == run_jax(args, "1")
-        return
     if case == "shards_2mi":
         bam = os.path.join(inputs["dir"], "contig_2mi.bam")
         _on_2mi_contig(inputs["messy"], bam)
-    argv = ["mpileup", "-f", inputs["fa"], bam,
-            *[a.format(**inputs) for a in extra]]
-    capfd.readouterr()
-    assert cli.main(argv, device="cpu") == 1
-    out, err = capfd.readouterr()
-    assert out == ""
-    said = [ln for ln in err.splitlines() if "not ported yet" in ln]
-    assert len(said) == 1 and what in said[0], err
-    assert all(ln.startswith("[mpileup]") for ln in err.splitlines())
+        args = ["-f", inputs["fa"], bam]
+        port = run_port(args, os.path.join(inputs["dir"], "shards_2mi.txt"))
+        assert port.count(b"\n") > 1000
+        assert port == run_jax(args, "0")
+        monkeypatch.delenv("SAMTPU_SHARDS")
+        assert port == run_port(args, os.path.join(inputs["dir"],
+                                                   "serial_2mi.txt"))
+        return
+    args = ["-f", inputs["fa"], inputs["cram"], *NOT_PORTED[case]]
+    port = run_port(args, os.path.join(inputs["dir"], f"{case}.txt"))
+    assert port.count(b"\n") > (40 if NOT_PORTED[case] else 2000)
+    assert port == run_jax(args, "1")
 
 
 def test_window_routes_quals_above_127_to_host():
