@@ -189,7 +189,31 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``phase``, and K13 once a ``tview`` draw on a window with reads (none
    on the gap), and nothing else.  Per run: both walls (the host's with
    the interpreter's start), output bytes and lines, launches.
-15. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
+15. view_tools -- the host commands ``view``, ``head``, ``flags``,
+   ``quickcheck`` and ``cat`` (no device work: the phase must launch no
+   kernel) on clean's front (2 Mbp, 600,280 reads) and on the cram
+   phase's reads (its BAM twin; the CRAM runs take its first 80 kbp,
+   about 24,000 reads, so that each half ``cat`` joins holds two of the
+   encoder's 10,000-record containers; they run as four processes beside
+   the in-process BAM runs, as the Python CRAM encoder costs about
+   0.4-1 ms a read, and each reports its launches and that it made no
+   CUDA context): ``view -b``
+   streamed and with ``-U`` (the whole-file path) byte-equal; ``view -h``
+   to SAM parsed back by ``parse_sam`` equal to the BAM's records; the
+   host library's SAM formatter byte-equal to ``format_record`` on 10,000
+   reads; ``view -c -q 30 -F 0x10 -e ...`` and ``view -s 7.25 -c`` equal
+   to the counts numpy takes from the batch's columns (and the
+   subsample's share within 0.25 +- 0.01); ``-u``, ``-1``, ``-C -T`` and
+   ``-O cram,version=3.1`` read back equal, ``-O sam.gz`` inflated to
+   ``view -h``'s records; ``view -b
+   sim1:1-1000000`` through the index ``index`` writes in the phase,
+   byte-equal to the same region read from the unindexed file; ``head -n
+   1000``; ``flags 0x63``; ``quickcheck -v`` on every output (rc 0) and
+   on a copy cut by 100 bytes (rc not 0); ``cat`` of two
+   halves that ``view`` wrote, as BAM and as CRAM: the same records as
+   the whole (for CRAM, every container of both halves spliced).
+   Per run: wall, the reads it read and a second, output bytes, launches.
+16. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
    ``graft_entry.entry()``'s shape (65,536 items, a 16,384-row window)
    and on clean's first 1 Mbp window (its reads' M bases): the scatter
    entry (counts and qual sums) and the tiled entry (the items bucketed
@@ -2205,7 +2229,8 @@ def phase_cram(workdir: str, ref: np.ndarray, header, reads) -> dict:
     through ``REF_CACHE`` by the ``@SQ`` M5) and as BAM: the decoded CRAM
     equals the reads; mpileup, depth, flagstat and stats print the same
     bytes on both and launch the same kernels; idxstats and index on the
-    CRAM.  Returns each run's launches on the CRAM."""
+    CRAM.  Returns each run's launches on the CRAM, and the path of the
+    BAM twin (kept for the view_tools phase)."""
     import filecmp
     import hashlib
 
@@ -2292,13 +2317,13 @@ def phase_cram(workdir: str, ref: np.ndarray, header, reads) -> dict:
               "idxstats_bam_wall_s": round(w["bam"], 3),
               "index_wall_s": round(t_idx, 3), "crai_bytes": crai,
               "byte_equal": True})
-        for p in (*outs.values(), cram, cram + ".crai", bam):
+        for p in (*outs.values(), cram, cram + ".crai"):
             os.remove(p)
     finally:
         os.environ.pop("REF_CACHE", None)
         if saved is not None:
             os.environ["REF_CACHE"] = saved
-    return runs
+    return runs, bam
 
 
 # the pileup_tools phase: targetcut's documented use is a fosmid pool, so
@@ -2485,6 +2510,318 @@ def phase_pileup_tools(workdir: str) -> dict:
     emit({"phase": "pileup_tools", "run": "all",
           "wall_s": round(time.perf_counter() - t_phase, 3)})
     return runs
+
+
+# the view_tools phase: the CRAM runs' region of the cram phase's reads,
+# wide enough (about 24,000 reads) that each half that cat joins holds
+# two containers of the encoder's 10,000 records; those runs go as
+# processes beside the in-process BAM runs, as the Python CRAM encoder
+# costs about 0.4-1 ms a read (the phase's CRAM lines)
+VIEW_CRAM_REGION = "sim1:1-80000"
+VIEW_REGION = "sim1:1-1000000"
+VIEW_EXPR = "pos > 1000000 && length(seq) >= 100"
+CRAM_SLICE_RECORDS = 10_000
+
+# one CRAM run of the view_tools phase as a process: the command through
+# cli.main, then its output read back against the BAM twin's reads with
+# lo <= pos < hi, and its data containers counted; a JSON report (its
+# process wall from the parent's spawn)
+VIEW_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from samtools_tpu_torch import cli, kernels
+from samtools_tpu_torch.io.cram import CramReader
+from samtools_tpu_torch.io.files import read_alignments
+report, spec = sys.argv[1], json.loads(sys.argv[2])
+t0 = time.perf_counter()
+rc = cli.main(spec["argv"])
+res = {"rc": rc, "wall_s": time.perf_counter() - t0,
+       "launches": {k: v for k, v in kernels.launches.items() if v}}
+if rc == 0:
+    twin = read_alignments(spec["twin"]).batch
+    lo, hi = spec["pos"]
+    want = twin.take(np.nonzero((twin.pos >= lo) & (twin.pos < hi))[0])
+    t0 = time.perf_counter()
+    got = read_alignments(spec["out"], reference=spec["fa"]).batch
+    res["read_back_s"] = time.perf_counter() - t0
+    res.update(reads=int(twin.n), reads_out=int(got.n), equal_records=bool(
+        got.n == want.n and all(np.array_equal(getattr(got, k),
+                                               getattr(want, k))
+                                for k in spec["fields"])))
+    with open(spec["out"], "rb") as f:
+        res["containers"] = sum(
+            1 for c, _ in CramReader(f.read()).containers() if c.n_records)
+res["cuda_initialized"] = torch.cuda.is_initialized()
+res["process_wall_s"] = time.time() - spec["t_spawn"]
+with open(report, "w") as f:
+    json.dump(res, f)
+"""
+
+
+def _same_records(a, b) -> bool:
+    return a.n == b.n and all(np.array_equal(getattr(a, k), getattr(b, k))
+                              for k in CRAM_FIELDS)
+
+
+def _sam_records(text: bytes) -> bytes:
+    """SAM text less its header lines."""
+    i = 0
+    while text.startswith(b"@", i):
+        i = text.index(b"\n", i) + 1
+    return text[i:]
+
+
+def phase_view_tools(workdir: str, front: str, cram_bam: str) -> None:
+    """view, head, flags, quickcheck and cat on clean's front and on the
+    cram phase's reads (module doc, phase 15).  The phase launches no
+    kernel."""
+    import contextlib
+    import io
+
+    from samtools_tpu_torch import cli, kernels
+    from samtools_tpu_torch.io import bgzf, native
+    from samtools_tpu_torch.io.cram import CramReader
+    from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.io.sam_text import format_record, parse_sam
+    from samtools_tpu_torch.ops import filters
+    t_phase = time.perf_counter()
+    before = dict(kernels.launches)
+    fa = os.path.join(workdir, "ref.fa")
+    d = os.path.join(workdir, "view_tools")
+    os.makedirs(d, exist_ok=True)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    # the CRAM runs, as processes beside the BAM runs below: -C -T and
+    # -O cram,version=3.1 on the region, and the two halves cat joins
+    cend = int(VIEW_CRAM_REGION.split("-")[1])
+    mid = cend // 2
+    procs = {}
+    for label, fmt, cond, pos in (
+            ("view -C -T", ["-C"], None, (0, cend)),
+            ("view -O cram,version=3.1", ["-O", "cram,version=3.1"], None,
+             (0, cend)),
+            ("view cram half 0", ["-C"], "pos <= %d" % mid, (0, mid)),
+            ("view cram half 1", ["-C"], "pos > %d" % mid, (mid, cend))):
+        k = len(procs)
+        out = p(f"half{k - 2}.cram" if cond else f"c{k}.cram")
+        spec = {"argv": ["view", *fmt, "-T", fa,
+                         *(["-e", cond] if cond else []), "-o", out,
+                         cram_bam, VIEW_CRAM_REGION],
+                "out": out, "fa": fa, "twin": cram_bam, "pos": pos,
+                "fields": list(CRAM_FIELDS), "t_spawn": time.time()}
+        with open(p(f"child{k}.err"), "wb") as err:
+            procs[label] = (subprocess.Popen(
+                [sys.executable, "-c", VIEW_CHILD, p(f"child{k}.json"),
+                 json.dumps(spec)], cwd=ROOT, stdin=subprocess.DEVNULL,
+                stdout=subprocess.DEVNULL, stderr=err), k, out)
+    whole = read_alignments(front, THREADS)
+    n = whole.batch.n
+    threads = str(THREADS)
+
+    def run(label, argv, outs=(), reads=n, rc_ok=(0,)):
+        """One in-process run; its stdout bytes, and a line: wall, reads a
+        second, output bytes, launches (none allowed)."""
+        raw = io.BytesIO()
+        out = io.TextIOWrapper(raw, encoding="latin-1", write_through=True)
+        b0 = dict(kernels.launches)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        launched = {k: v - b0[k] for k, v in kernels.launches.items()
+                    if v != b0[k]}
+        require(rc in rc_ok, f"{label}: rc {rc}")
+        require(not launched, f"{label}: launched {launched}")
+        size = len(raw.getvalue()) + sum(os.path.getsize(o) for o in outs)
+        emit({"phase": "view_tools", "run": label, "reads": reads,
+              "wall_s": round(wall, 3),
+              "reads_per_s": round(reads / wall) if reads else None,
+              "output_bytes": size, "launches": launched, "rc": rc})
+        return raw.getvalue()
+
+    # view -b: streamed, and through the whole-file path (-U)
+    run("view -b (streamed)", ["view", "--no-PG", "-@", threads, "-b",
+                               "-o", p("a.bam"), front], [p("a.bam")])
+    run("view -b -U (whole file)", ["view", "--no-PG", "-@", threads, "-b",
+                                    "-o", p("b.bam"), "-U", p("u.bam"),
+                                    front], [p("b.bam"), p("u.bam")])
+    with open(p("a.bam"), "rb") as f, open(p("b.bam"), "rb") as g:
+        require(f.read() == g.read(),
+                "view -b: the streamed and whole-file BAMs differ")
+    require(read_alignments(p("u.bam")).batch.n == 0,
+            "view -U wrote unselected reads")
+    require(_same_records(read_alignments(p("a.bam"), THREADS).batch,
+                          whole.batch), "view -b changed the records")
+    # view -h to SAM, parsed back
+    run("view -h (SAM)", ["view", "-h", "-o", p("a.sam"), front],
+        [p("a.sam")])
+    with open(p("a.sam"), "rb") as f:
+        text = f.read()
+    t0 = time.perf_counter()
+    _, parsed = parse_sam(text)
+    t_parse = time.perf_counter() - t0
+    require(_same_records(parsed, whole.batch),
+            "view -h: the SAM parses to other records than the BAM's")
+    del parsed
+    sam_recs = _sam_records(text)
+    # the host library's formatter against format_record
+    idx = np.arange(10_000, dtype=np.int64) * max(1, n // 10_000)
+    hdr = whole.header
+    names = np.frombuffer("".join(hdr.ref_names).encode(), np.uint8)
+    noff = np.concatenate([[0], np.cumsum([len(x) for x in hdr.ref_names])
+                           ]).astype(np.int64)
+    t0 = time.perf_counter()
+    fast = native.sam_format(whole.batch, idx, names, noff)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = "".join(format_record(hdr, whole.batch, int(i)) + "\n"
+                   for i in idx)
+    t_python = time.perf_counter() - t0
+    require(fast == slow, "the native SAM formatter differs from "
+            "format_record")
+    emit({"phase": "view_tools", "run": "parse_sam, sam_format",
+          "reads": n, "parse_sam_s": round(t_parse, 3),
+          "sam_bytes": len(text), "formatted_reads": int(idx.size),
+          "native_s": round(t_native, 4), "python_s": round(t_python, 3),
+          "byte_equal": True, "equal_records": True})
+    del text
+    # counts against numpy on the batch's columns
+    b = whole.batch
+    got = run("view -c -q 30 -F 0x10 -e", [
+        "view", "-c", "-q", "30", "-F", "0x10", "-e", VIEW_EXPR, front])
+    want = int(((b.mapq >= 30) & ((b.flag & 0x10) == 0) & (b.pos + 1 > 1e6)
+                & (b.l_qseq >= 100)).sum())
+    require(int(got) == want, f"view -c -e: {int(got)} != {want}")
+    got = run("view -s 7.25 -c", ["view", "-s", "7.25", "-c", front])
+    want = int(filters.subsample_keep(
+        b, 0.25, filters.glibc_rand_first(7)).sum())
+    require(int(got) == want and abs(want / n - 0.25) <= 0.01,
+            f"view -s 7.25 -c: {int(got)}, {want} of {n}")
+    # the other BAM and SAM forms, read back (the gzip'd SAM as text:
+    # its records are view -h's lines)
+    run("view -O sam.gz", ["view", "-@", threads, "-O", "sam.gz", "-h",
+                           "-o", p("a.sam.gz"), front], [p("a.sam.gz")])
+    with open(p("a.sam.gz"), "rb") as f:
+        got = bgzf.decompress(f.read(), THREADS).tobytes()
+    require(got.startswith(hdr.text.encode())
+            and _sam_records(got) == sam_recs,
+            "view -O sam.gz: other text than view -h")
+    del got
+    for label, argv, out in (("view -u", ["-u"], "u0.bam"),
+                             ("view -1", ["-1"], "f1.bam")):
+        run(label, ["view", "-@", threads, *argv, "-o", p(out), front],
+            [p(out)])
+        require(_same_records(read_alignments(p(out), THREADS).batch, b),
+                f"{label}: the output reads back other records")
+    # a region through the index the phase writes, against the
+    # unindexed file's whole-file filter
+    region = ["view", "-@", threads, "-b", "-o", p("r.bam"), front,
+              VIEW_REGION]
+    run("view -b region (no index)", region, [p("r.bam")])
+    os.replace(p("r.bam"), p("r0.bam"))
+    t0 = time.perf_counter()
+    require(cli.main(["index", front]) == 0, "index failed")
+    t_index = time.perf_counter() - t0
+    # through the index the run reads only the region's records
+    n_region = read_alignments(p("r0.bam"), THREADS).batch.n
+    run("view -b region (index)", region, [p("r.bam")], reads=n_region)
+    with open(p("r.bam"), "rb") as f, open(p("r0.bam"), "rb") as g:
+        require(f.read() == g.read(),
+                "view -r through the index differs from the whole file")
+    emit({"phase": "view_tools", "run": "index", "reads": n,
+          "wall_s": round(t_index, 3)})
+    os.remove(front + ".bai")
+    # head, flags
+    got = run("head -n 1000", ["head", "-n", "1000", front])
+    recs = b"".join(ln + b"\n" for ln in sam_recs.split(b"\n", 1000)[:1000])
+    require(got == hdr.text.encode() + recs,
+            "head -n 1000 differs from view's first records")
+    del sam_recs
+    got = run("flags 0x63", ["flags", "0x63"], reads=0)
+    require(got == b"0x63\t99\tPAIRED,PROPER_PAIR,MREVERSE,READ1\n",
+            f"flags 0x63: {got!r}")
+    # cat of halves that view wrote: BAM here; CRAM from the processes
+    halves = []
+    for k, cond in enumerate(("pos <= %d", "pos > %d")):
+        out = p(f"half{k}.bam")
+        run(f"view bam half {k}", ["view", "-b", "-@", threads, "-e",
+                                   cond % 1_000_000, "-o", out, front],
+            [out])
+        halves.append(out)
+    run("cat (BAM)", ["cat", "-o", p("cat.bam"), *halves], [p("cat.bam")])
+    require(_same_records(read_alignments(p("cat.bam"), THREADS).batch, b),
+            "cat (BAM): the halves are not the whole")
+    # the CRAM processes: each read back equal, no kernel, no CUDA
+    # context; each half of at least two containers
+    res = {}
+    for label, (proc, k, out) in procs.items():
+        rc = proc.wait(timeout=600)
+        with open(p(f"child{k}.err"), "rb") as f:
+            err = f.read().decode("latin-1")[-500:]
+        require(rc == 0 and os.path.exists(p(f"child{k}.json")),
+                f"{label}: process rc {rc}: {err}")
+        with open(p(f"child{k}.json")) as f:
+            r = json.load(f)
+        require(r["rc"] == 0, f"{label}: rc {r['rc']}: {err}")
+        require(r["equal_records"],
+                f"{label}: the CRAM reads back other records")
+        require(not r["launches"] and not r["cuda_initialized"],
+                f"{label}: launched {r['launches']}, CUDA context "
+                f"{r['cuda_initialized']}")
+        res[label] = r
+        emit({"phase": "view_tools", "run": label, "reads": r["reads"],
+              "reads_out": r["reads_out"], "wall_s": round(r["wall_s"], 3),
+              "reads_per_s": round(r["reads"] / r["wall_s"]),
+              "process_wall_s": round(r["process_wall_s"], 3),
+              "read_back_s": round(r["read_back_s"], 3),
+              "containers": r["containers"],
+              "output_bytes": os.path.getsize(out), "launches": {},
+              "rc": 0})
+    nc = res["view -C -T"]["reads_out"]
+    for label in ("view cram half 0", "view cram half 1"):
+        require(res[label]["containers"] >= 2
+                and res[label]["reads_out"] > CRAM_SLICE_RECORDS,
+                f"{label}: {res[label]['containers']} containers, "
+                f"{res[label]['reads_out']} reads; cat would splice no "
+                "container boundary")
+    halves = [p("half0.cram"), p("half1.cram")]
+    run("cat (CRAM)", ["cat", "-o", p("cat.cram"), *halves],
+        [p("cat.cram")], reads=nc)
+    t0 = time.perf_counter()
+    tw = read_alignments(cram_bam, THREADS).batch
+    creads = tw.take(np.nonzero(tw.pos < cend)[0])
+    got = read_alignments(p("cat.cram"), THREADS, reference=fa).batch
+    require(_same_records(got, creads),
+            "cat (CRAM): the halves are not the whole")
+    with open(p("cat.cram"), "rb") as f:
+        n_cont = sum(1 for c, _ in CramReader(f.read()).containers()
+                     if c.n_records)
+    require(n_cont == res["view cram half 0"]["containers"]
+            + res["view cram half 1"]["containers"],
+            f"cat (CRAM): {n_cont} containers, not the halves' sum")
+    emit({"phase": "view_tools", "run": "cat (CRAM) read back",
+          "reads": nc, "containers": n_cont,
+          "wall_s": round(time.perf_counter() - t0, 3)})
+    # quickcheck: every output, then a copy cut by 100 bytes
+    outs = sorted(os.path.join(d, x) for x in os.listdir(d)
+                  if x.endswith((".bam", ".cram", ".sam", ".sam.gz")))
+    run("quickcheck -v (outputs)", ["quickcheck", "-v", *outs], reads=0)
+    with open(p("a.bam"), "rb") as f:
+        body = f.read()
+    with open(p("cut.bam"), "wb") as f:
+        f.write(body[:-100])
+    got = run("quickcheck -v (cut)", ["quickcheck", "-v", p("cut.bam")],
+              reads=0, rc_ok=tuple(range(1, 256)))
+    require(got == (p("cut.bam") + "\n").encode(),
+            f"quickcheck on the cut copy printed {got!r}")
+    require(kernels.launches == before,
+            "the view_tools phase launched a kernel")
+    for x in os.listdir(d):
+        os.remove(os.path.join(d, x))
+    os.rmdir(d)
+    emit({"phase": "view_tools", "run": "all", "reads": n,
+          "cram_reads": nc, "wall_s": round(time.perf_counter() - t_phase,
+                                            3)})
 
 
 # the sharded cell: a 2.5 Mi contig (three spans under SAMTPU_SHARDS=3)
@@ -2742,6 +3079,9 @@ def phase_sharded(workdir: str, bams: dict, dev) -> tuple:
            "pileup_unsharded_ms": cuda_ms(lambda: fn(rp, ln, ok))}
     parts = [pd.pileup_counts(rp, ln, ok, 1 << 13) for _ in range(2)]
     k15["pileup_sum_ms"] = cuda_ms(lambda: M.local_sum(mesh22, parts))
+    # bounds: each partial read once, the sum written once
+    k15["pileup_sum_bound_ms"] = bound(
+        (len(parts) + 1) * parts[0].numel() * parts[0].element_size(), 0)[0]
 
     mesh4 = M.make_mesh(1, 4, [dev] * 4)
     fsel = np.arange(front.n)
@@ -2761,6 +3101,9 @@ def phase_sharded(workdir: str, bams: dict, dev) -> tuple:
     shard_rows = list(torch.chunk(M.segment_matmul_sharded(mesh4, *diff), 4))
     k15["depth_gather_ms"] = cuda_ms(lambda: torch.cat(shard_rows))
     k15["depth_rows"] = sum(int(r.shape[0]) for r in shard_rows)
+    # the shards' rows read once, the joined rows written once
+    k15["depth_gather_bound_ms"] = bound(2 * sum(
+        r.numel() * r.element_size() for r in shard_rows), 0)[0]
     del front, diff, shard_rows
 
     n_batches = k11_want = 0
@@ -2786,7 +3129,10 @@ def phase_sharded(workdir: str, bams: dict, dev) -> tuple:
     k15.update(flagstat_batches=n_batches, flagstat_sharded_s=t_sharded,
                flagstat_unsharded_s=t_single,
                flagstat_sum_ms=cuda_ms(lambda: M.local_sum(mesh4,
-                                                           partials)))
+                                                           partials)),
+               flagstat_sum_bound_ms=bound(
+                   (len(partials) + 1) * partials[0].numel()
+                   * partials[0].element_size(), 0)[0])
     emit({"phase": "sharded", "run": "mesh", "shards": 4,
           "pileup_launches": pile_launches, "k15": k15})
 
@@ -2898,9 +3244,10 @@ def main() -> int:
                                          tool_checksums)
         del core_census
         header, cram_reads = phase_regions(workdir, bams, cons, cons_whole)
-        cram = phase_cram(workdir, ref, header, cram_reads)
+        cram, cram_bam = phase_cram(workdir, ref, header, cram_reads)
         del cram_reads
         tools = phase_pileup_tools(workdir)
+        phase_view_tools(workdir, bams["clean_front"], cram_bam)
         rows["pileup_scatter"], sharded_launches = phase_sharded(
             workdir, bams, torch.device("cuda"))
     rows.update(general_rows)

@@ -29,8 +29,10 @@ Commands:
      targetcut      cut fosmid regions (for fosmid pool only)
 
   -- File operations
+     cat            concatenate BAMs
      consensus      produce a consensus Pileup/FASTA/FASTQ
      mpileup        multi-way pileup
+     quickcheck     quickly check if SAM/BAM/CRAM file appears intact
 
   -- Statistics
      bedcov         read depth per BED region
@@ -42,7 +44,10 @@ Commands:
      stats          generate stats (former bamcheck)
 
   -- Viewing
+     flags          explain BAM flags
+     head           header viewer
      tview          text alignment viewer
+     view           SAM<->BAM<->CRAM conversion
 
   -- Misc
      help [cmd]     display this help message or help for [cmd]

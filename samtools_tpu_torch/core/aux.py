@@ -1,8 +1,8 @@
-"""The BAM aux-field walk the long-CIGAR fixup, mpileup's read-group
-filter, its extra tag columns, the stored BAQ tags and tview's ``-s``
-filter need, and the SAM
-text field's conversion to BAM bytes (SAM spec 4.2.4; counterpart of
-part of samtools_tpu/core/aux.py)."""
+"""BAM aux fields (SAM spec 4.2.4; counterpart of
+samtools_tpu/core/aux.py): the walk the long-CIGAR fixup, mpileup's
+read-group filter, its extra tag columns, the stored BAQ tags and tview's
+``-s`` filter need; the SAM text of a field (htslib's ``%g`` floats) and a
+SAM text field's BAM bytes; and view's tag edits (``-x``, ``--keep-tag``)."""
 
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ class AuxError(ValueError):
     pass
 
 
-def _skip_one(buf: np.ndarray, i: int) -> int:
+def skip_one(buf: np.ndarray, i: int) -> int:
     """Offset just past the aux field starting at i (at its tag)."""
     t = int(buf[i + 2])
     j = i + 3
@@ -36,14 +36,28 @@ def _skip_one(buf: np.ndarray, i: int) -> int:
         return j + 1
     if t == ord("B"):
         n = int.from_bytes(bytes(buf[j + 1:j + 5]), "little")
-        return j + 5 + n * _B_SIZES[int(buf[j])]
+        return j + 5 + n * _B_SIZES[buf[j]]
     raise AuxError(f"unknown aux type {chr(t)!r}")
+
+
+def iter_tags(buf):
+    """(tag, type char, start, end) of each aux field."""
+    i = 0
+    while i + 3 <= len(buf):
+        end = skip_one(buf, i)
+        yield chr(buf[i]) + chr(buf[i + 1]), chr(buf[i + 2]), i, end
+        i = end
+
+
+def find_tag(buf, tag: str):
+    """(start, end) of ``tag``'s field, or None."""
+    return _find(buf, tag.encode())
 
 
 def _find(buf: np.ndarray, tag: bytes):
     i = 0
     while i + 3 <= len(buf):
-        end = _skip_one(buf, i)
+        end = skip_one(buf, i)
         if bytes(buf[i:i + 2]) == tag:
             return i, end
         i = end
@@ -68,23 +82,45 @@ def delete_tag(buf: np.ndarray, tag: bytes) -> np.ndarray:
     return np.concatenate([buf[:got[0]], buf[got[1]:]])
 
 
+def _select_tags(buf: np.ndarray, tags: set[str], keep: bool) -> np.ndarray:
+    parts = [buf[s:e] for tag, _t, s, e in iter_tags(buf)
+             if (tag in tags) == keep]
+    return np.concatenate(parts) if parts else np.empty(0, np.uint8)
+
+
 def delete_tags(buf: np.ndarray, tags: set[str]) -> np.ndarray:
     """The aux bytes without the fields whose tag is in ``tags``."""
-    keep = []
-    i = 0
-    while i + 3 <= len(buf):
-        end = _skip_one(buf, i)
-        if bytes(buf[i:i + 2]).decode("latin-1") not in tags:
-            keep.append(buf[i:end])
-        i = end
-    if not keep:
-        return np.empty(0, np.uint8)
-    return np.concatenate(keep)
+    return _select_tags(buf, tags, False)
+
+
+def keep_tags(buf: np.ndarray, tags: set[str]) -> np.ndarray:
+    """The aux bytes with only the fields whose tag is in ``tags``."""
+    return _select_tags(buf, tags, True)
+
+
+def batch_adjust_tags(batch, keep: set[str] | None = None,
+                      remove: set[str] | None = None):
+    """Rewrite the batch's aux columns in place, keeping only the tags in
+    ``keep`` or else dropping those in ``remove`` (view's ``-x`` and
+    ``--keep-tag``, sam_view.c adjust_tags)."""
+    parts = []
+    new_off = np.zeros(batch.n + 1, np.int64)
+    for i in range(batch.n):
+        sub = batch.aux_of(i)
+        if keep is not None:
+            sub = keep_tags(sub, keep)
+        elif remove:
+            sub = delete_tags(sub, remove)
+        parts.append(sub)
+        new_off[i + 1] = new_off[i] + len(sub)
+    batch.aux = (np.concatenate(parts).astype(np.uint8)
+                 if parts else np.empty(0, np.uint8))
+    batch.aux_off = new_off
 
 
 def decode_value(buf: np.ndarray, i: int):
     """The value of the aux field starting at i (at its tag)."""
-    b = bytes(buf[i:_skip_one(buf, i)])
+    b = bytes(buf[i:skip_one(buf, i)])
     t, body = b[2], b[3:]
     if t == ord("A"):
         return chr(body[0])
@@ -139,6 +175,37 @@ def batch_tag_str_values(batch, tag: str) -> np.ndarray:
             out[i] = v
         else:
             out[i] = None
+    return out
+
+
+def _fmt_float(x: float) -> str:
+    """htslib renders floats with %g."""
+    return "%g" % x
+
+
+def field_to_sam(buf, i: int) -> str:
+    """The aux field at i as SAM text ``TG:T:value`` (every integer type
+    as ``i``)."""
+    tag = chr(buf[i]) + chr(buf[i + 1])
+    t = int(buf[i + 2])
+    v = decode_value(buf, i)
+    if t in _INT_FMTS:
+        return f"{tag}:i:{v}"
+    if t in (ord("f"), ord("d")):
+        return f"{tag}:{chr(t)}:{_fmt_float(v)}"
+    if t == ord("B"):
+        sub, vals = v
+        fmt = _fmt_float if sub == "f" else str
+        return f"{tag}:B:{sub}" + "".join("," + fmt(x) for x in vals)
+    return f"{tag}:{chr(t)}:{v}"
+
+
+def aux_to_sam_fields(buf) -> list[str]:
+    out = []
+    i = 0
+    while i + 3 <= len(buf):
+        out.append(field_to_sam(buf, i))
+        i = skip_one(buf, i)
     return out
 
 

@@ -1,14 +1,17 @@
 """BGZF blocked-gzip codec on Python's zlib (SAM spec 4.1).
 
-Counterpart of samtools_tpu/io/bgzf.py (:56-157, :199-222, :236-275).
+Counterpart of samtools_tpu/io/bgzf.py (:35-157, :199-336).
 The port's host library carries no compression code: blocks are
 inflated and deflated by ``zlib`` on a thread pool (zlib releases the
 GIL), giving one contiguous uncompressed buffer per call — the shape the
-columnar BAM decoder wants.
+columnar BAM decoder wants.  ``BgzfWriter`` cuts a stream into the same
+``0xFF00``-byte blocks as ``compress`` cuts one buffer, so a file written
+either way has the same bytes.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -124,6 +127,10 @@ def is_bgzf(data: bytes) -> bool:
     return False
 
 
+def is_gzip(data: bytes) -> bool:
+    return len(data) >= 2 and data[0] == 0x1F and data[1] == 0x8B
+
+
 def read_file(path: str, threads: int = 2) -> bytes:
     """The uncompressed content of a BGZF, plain gzip or uncompressed
     file."""
@@ -131,7 +138,7 @@ def read_file(path: str, threads: int = 2) -> bytes:
         data = f.read()
     if is_bgzf(data):
         return decompress(data, threads).tobytes()
-    if data[:2] == b"\x1f\x8b":
+    if is_gzip(data):
         return zlib.decompress(data, 47)
     return data
 
@@ -148,10 +155,12 @@ def _deflate_block(chunk: bytes, level: int) -> bytes:
     return hdr + extra + cdata + struct.pack("<II", crc, len(chunk))
 
 
-def compress(data: bytes, level: int = 6, threads: int = 2) -> bytes:
-    """Compress a buffer into BGZF blocks plus the EOF marker."""
+def compress(data: bytes, level: int = 6, threads: int = 2,
+             append_eof: bool = True) -> bytes:
+    """Compress a buffer into BGZF blocks of ``0xFF00`` bytes, plus the
+    EOF marker; empty input gives the marker alone (htslib)."""
     if not data:
-        return BGZF_EOF
+        return BGZF_EOF if append_eof else b""
     view = memoryview(data)
     chunks = [view[i:i + MAX_BLOCK] for i in range(0, len(data), MAX_BLOCK)]
     if threads > 1 and len(chunks) > 4:
@@ -159,5 +168,72 @@ def compress(data: bytes, level: int = 6, threads: int = 2) -> bytes:
             parts = list(ex.map(lambda c: _deflate_block(c, level), chunks))
     else:
         parts = [_deflate_block(c, level) for c in chunks]
-    parts.append(BGZF_EOF)
+    if append_eof:
+        parts.append(BGZF_EOF)
     return b"".join(parts)
+
+
+class BgzfWriter:
+    """Streaming BGZF writer: buffers up to ``0xFF00`` bytes, then
+    deflates the block, on a pool of ``threads`` workers drained every 64
+    blocks when ``threads`` > 1."""
+
+    def __init__(self, fileobj: io.RawIOBase, level: int = 6,
+                 threads: int = 0):
+        self._f = fileobj
+        self._level = level
+        self._buf = bytearray()
+        self._pool = (ThreadPoolExecutor(max_workers=threads)
+                      if threads > 1 else None)
+        self._pending = []
+
+    def write(self, data: bytes):
+        self._buf += data
+        if len(self._buf) < MAX_BLOCK:
+            return
+        n = len(self._buf) // MAX_BLOCK * MAX_BLOCK
+        view = memoryview(self._buf)
+        for i in range(0, n, MAX_BLOCK):
+            self._emit(bytes(view[i:i + MAX_BLOCK]))
+        view.release()
+        del self._buf[:n]
+
+    def _emit(self, chunk: bytes):
+        if self._pool is None:
+            self._f.write(_deflate_block(chunk, self._level))
+            return
+        self._pending.append(self._pool.submit(_deflate_block, chunk,
+                                               self._level))
+        if len(self._pending) >= 64:
+            self._drain()
+
+    def _drain(self):
+        for fut in self._pending:
+            self._f.write(fut.result())
+        self._pending = []
+
+    def close(self, write_eof: bool = True):
+        if self._buf:
+            self._emit(bytes(self._buf))
+            self._buf = bytearray()
+        if self._pool is not None:
+            self._drain()
+            self._pool.shutdown()
+            self._pool = None
+        if write_eof:
+            self._f.write(BGZF_EOF)
+
+
+def has_eof_block(path: str) -> bool:
+    """True if the file ends with the 28-byte BGZF EOF marker (what
+    samtools quickcheck checks)."""
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, 2)
+            size = f.tell()
+            if size < 28:
+                return False
+            f.seek(size - 28)
+            return f.read(28) == BGZF_EOF
+    except OSError:
+        return False

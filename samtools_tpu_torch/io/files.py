@@ -6,7 +6,9 @@ BGZF-compressed and raw BAM decode in the host library; SAM text, gzip'd
 SAM and BGZF'd SAM parse through ``io/sam_text.py``; CRAM 2.1/3.0/3.1
 decodes on the host through ``io/cram_decode.py``, its reference taken
 from an explicit FASTA or the ``@SQ`` M5 store (``REF_PATH`` /
-``REF_CACHE``).  ``write_alignments`` writes BAM or CRAM.
+``REF_CACHE``).  ``write_alignments`` writes SAM, gzip'd SAM, BAM or
+CRAM to a path or to standard output; ``StreamingWriter`` writes SAM,
+gzip'd SAM or BAM a batch at a time, in the same bytes.
 """
 
 from __future__ import annotations
@@ -20,9 +22,13 @@ import numpy as np
 from ..core.batch import ReadBatch
 from . import bgzf, hfile, native
 from . import fasta as fastamod
-from .bam import decode_header, decode_records, write_bam
+from .bam import decode_header, decode_records, encode_header, encode_records
 from .header import SamHeader
-from .sam_text import parse_sam
+from .sam_text import format_records, parse_sam
+
+
+class FormatError(RuntimeError):
+    pass
 
 
 @dataclass
@@ -116,20 +122,116 @@ def cram_ref_lookup(header: SamHeader, reference: str | None):
     return lookup
 
 
-def write_alignments(path: str, header: SamHeader, batch: ReadBatch,
-                     fmt: str = "bam", write_index: bool = False) -> None:
-    """Write a batch as BAM or as CRAM 3.0 (its reference from the
-    REF_PATH/REF_CACHE M5 store; a ``.crai`` beside it with
-    ``write_index``), as the JAX package's write_alignments does for
-    those formats."""
-    if fmt == "bam":
-        write_bam(path, header, batch)
-        return
-    if fmt != "cram":
-        raise ValueError(f"the port writes bam or cram, not {fmt}")
-    from .cram_encode import encode_cram, write_crai
-    payload, crai = encode_cram(header, batch, cram_ref_lookup(header, None))
-    if write_index:
-        write_crai(path + ".crai", crai)
-    with open(path, "wb") as f:
-        f.write(payload)
+def infer_output_format(path: str | None, explicit: str | None = None,
+                        default: str = "sam") -> str:
+    """The output format: ``explicit`` if given, else the path's
+    extension (.bam, .cram, .sam.gz, .sam), else ``default``."""
+    if explicit:
+        return explicit.lower()
+    if path:
+        p = path.lower()
+        for ext, fmt in ((".bam", "bam"), (".cram", "cram"),
+                         (".sam.gz", "sam.gz"), (".sam", "sam")):
+            if p.endswith(ext):
+                return fmt
+    return default
+
+
+def _open_out(path: str | None):
+    """(file, whether the caller closes it): ``None`` or ``-`` is
+    standard output."""
+    if path is None or path == "-":
+        return sys.stdout.buffer, False
+    return open(path, "wb"), True
+
+
+class StreamingWriter:
+    """Incremental alignment writer (bam / sam / sam.gz): the header once,
+    then record batches as they come (the external sort's and view's
+    streamed output path)."""
+
+    def __init__(self, path: str | None, header: SamHeader, fmt: str,
+                 threads: int = 0, level: int = 6,
+                 include_header: bool = True):
+        if fmt not in ("bam", "sam", "sam.gz"):
+            raise FormatError(f"streaming output not supported for {fmt}")
+        self.fmt = fmt
+        self.header = header
+        self._f, self._own = _open_out(path)
+        self._w = (bgzf.BgzfWriter(self._f, level=level, threads=threads)
+                   if fmt in ("bam", "sam.gz") else self._f)
+        self._w.write(encode_header(header) if fmt == "bam"
+                      else header.text.encode("latin-1") if include_header
+                      else b"")
+
+    def write_batch(self, batch: ReadBatch) -> None:
+        if batch.n == 0:
+            return
+        self._w.write(encode_records(batch) if self.fmt == "bam"
+                      else format_records(self.header, batch)
+                      .encode("latin-1"))
+
+    def close(self) -> None:
+        if self._w is not self._f:
+            self._w.close(write_eof=True)
+        if self._own:
+            self._f.close()
+        else:
+            self._f.flush()
+
+
+def _cram_version(fmt_opts: dict | None) -> tuple[int, int]:
+    """The CRAM version of ``version=`` among the format options (3.0 by
+    default; 2.1 is written as 3.0, the writer's floor)."""
+    version = (3, 0)
+    v = (fmt_opts or {}).get("version")
+    if v:
+        try:
+            major, minor = str(v).split(".")
+            version = (int(major), int(minor))
+        except ValueError:
+            pass
+        if version not in ((2, 1), (3, 0), (3, 1)):
+            raise FormatError("unsupported CRAM version %s" % (v,))
+        if version == (2, 1):
+            version = (3, 0)
+    return version
+
+
+def write_alignments(path: str | None, header: SamHeader, batch: ReadBatch,
+                     fmt: str = "sam", threads: int = 0, level: int = 6,
+                     include_header: bool = True,
+                     header_only: bool = False,
+                     reference: str | None = None,
+                     write_index: bool = False,
+                     fmt_opts: dict | None = None) -> None:
+    """Write records as SAM, gzip'd SAM, BAM or CRAM; ``path`` None or
+    ``-`` writes to standard output.  CRAM takes its reference from the
+    FASTA ``reference`` or the REF_PATH/REF_CACHE M5 store, its version
+    from ``fmt_opts``, and writes a ``.crai`` beside a path with
+    ``write_index``."""
+    if fmt == "cram":
+        from .cram_encode import encode_cram, write_crai
+        payload, crai = encode_cram(header, batch,
+                                    cram_ref_lookup(header, reference),
+                                    version=_cram_version(fmt_opts))
+        if path and path != "-" and write_index:
+            write_crai(path + ".crai", crai)
+    elif fmt == "bam":
+        raw = encode_header(header)
+        if not header_only:
+            raw += encode_records(batch)
+        payload = bgzf.compress(raw, level=level, threads=threads)
+    else:
+        text = header.text if include_header else ""
+        if not header_only:
+            text += format_records(header, batch)
+        payload = text.encode("latin-1")
+        if fmt == "sam.gz":
+            payload = bgzf.compress(payload, level=level, threads=threads)
+    f, own = _open_out(path)
+    f.write(payload)
+    if own:
+        f.close()
+    else:
+        f.flush()

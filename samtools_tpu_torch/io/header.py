@@ -1,7 +1,8 @@
 """SAM header model (counterpart of samtools_tpu/io/header.py, only what
 ``decode_header``, the simulated ``@HD``/``@SQ`` header, mpileup's sample
 count and RNAME/RNEXT columns, the name lookups of ``-r`` and
-``bedcov``, CRAM's read-group list and ``phase -b``'s @PG line need).
+``bedcov``, CRAM's read-group list, the @PG line of ``phase -b``, ``view``
+and ``cat``, and view's ``@CO`` line need).
 
 Keeps the raw header text verbatim plus the @SQ (name, length) list.
 """
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
+
 
 @dataclass
 class SamHeader:
@@ -17,6 +20,8 @@ class SamHeader:
     ref_names: list[str] = field(default_factory=list)
     ref_lens: list[int] = field(default_factory=list)
     _name2tid: dict | None = field(default=None, repr=False, compare=False)
+    _names_blob: tuple | None = field(default=None, repr=False,
+                                      compare=False)
 
     @classmethod
     def from_text(cls, text: str, ref_names: list[str] | None = None,
@@ -74,6 +79,17 @@ class SamHeader:
             self._name2tid = m
         return self._name2tid
 
+    def names_blob(self) -> tuple[np.ndarray, np.ndarray]:
+        """The contig names as one uint8 array and its int64 offsets (the
+        host SAM formatter's RNAME/RNEXT table)."""
+        if self._names_blob is None:
+            raw = "".join(self.ref_names).encode("latin-1")
+            self._names_blob = (
+                np.frombuffer(raw, np.uint8),
+                np.concatenate([[0], np.cumsum(
+                    [len(n) for n in self.ref_names])]).astype(np.int64))
+        return self._names_blob
+
     def ref_name(self, tid: int) -> str:
         return self.ref_names[tid] if 0 <= tid < len(self.ref_names) else "*"
 
@@ -90,6 +106,10 @@ class SamHeader:
                     if f.startswith(tag + ":"):
                         out.append(f[len(tag) + 1:])
         return out
+
+    def with_text(self, text: str) -> "SamHeader":
+        return SamHeader.from_text(text, self.ref_names or None,
+                                   self.ref_lens or None)
 
     def add_pg_line(self, id_: str, pn: str, cl: str, vn: str) -> "SamHeader":
         """A copy with a @PG line appended: its ID made unique (``id_``,

@@ -1,7 +1,7 @@
 """ctypes bindings for the port's host library (native/samtpu_host.cc).
 
 Counterpart of samtools_tpu/io/native.py (:247-292, :411-520, :545-610,
-:644-728).  The
+:644-760).  The
 library is built with ``g++`` into the port's build directory at first
 use (see ``samtools_tpu_torch.build``); a failed build raises.
 """
@@ -54,6 +54,7 @@ _SIGNATURES = {
     "samtpu_stats_orig_hists": (_I64, [_P, _P, _P, _P, _I64, _P, _P, _I64,
                                        _I64, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _INT]),
+    "samtpu_sam_format": (_I64, [_I64] + [_P] * 19 + [_I64, _P, _P]),
 }
 
 
@@ -435,3 +436,33 @@ def stats_orig_hists(seq, qual, seq_off, oidx, order, rev, nbases, q1, q2,
         gc_out.ctypes.data, qsum_out.ctypes.data, maxq.ctypes.data,
         threads)
     return gc_out, qsum_out, int(maxq[0])
+
+
+def sam_format(b, idx: np.ndarray, names_blob: np.ndarray,
+               names_off: np.ndarray) -> str | None:
+    """Records b[idx] as SAM text (each line ending in a newline); None
+    when a record's aux is malformed (the caller takes the Python path,
+    which raises its error)."""
+    lib = _load()
+    idx = np.ascontiguousarray(idx, np.int64)
+    cols = [np.ascontiguousarray(getattr(b, name), dt) for name, dt in (
+        ("tid", np.int32), ("pos", np.int64), ("mapq", np.uint8),
+        ("flag", np.uint16), ("mtid", np.int32), ("mpos", np.int64),
+        ("tlen", np.int64), ("qname", np.uint8), ("qname_off", np.int64),
+        ("cigar", np.uint32), ("cigar_off", np.int64), ("seq", np.uint8),
+        ("seq_off", np.int64), ("qual", np.uint8), ("aux", np.uint8),
+        ("aux_off", np.int64))]
+    names_blob = np.ascontiguousarray(names_blob, np.uint8)
+    names_off = np.ascontiguousarray(names_off, np.int64)
+    out = ctypes.c_void_p()
+    out_len = ctypes.c_int64()
+    rc = lib.samtpu_sam_format(
+        idx.size, idx.ctypes.data, *[c.ctypes.data for c in cols],
+        names_blob.ctypes.data, names_off.ctypes.data, names_off.size - 1,
+        ctypes.byref(out), ctypes.byref(out_len))
+    if rc < 0:
+        return None
+    try:
+        return ctypes.string_at(out.value, out_len.value).decode("latin-1")
+    finally:
+        lib.samtpu_buf_free(out)

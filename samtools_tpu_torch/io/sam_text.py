@@ -1,9 +1,14 @@
-"""SAM text input: parse SAM into (SamHeader, ReadBatch).
+"""SAM text codec: parse SAM into (SamHeader, ReadBatch), format back.
 
-Counterpart of the input half of samtools_tpu/io/sam_text.py (:37-167).
-A SAM without @SQ lines takes its reference names from the records, in
-order of first appearance, with length 0 (the permissive analog of
-``samtools view -t``).
+Counterpart of samtools_tpu/io/sam_text.py.  A SAM without @SQ lines
+takes its reference names from the records, in order of first appearance,
+with length 0 (the permissive analog of ``samtools view -t``).
+Formatting prints htslib's sam_format1 bytes: ``=`` for a mate on the
+same contig, ``*`` placeholders, ``%g`` floats in aux fields, the nt16
+sequence letters.  ``format_records`` runs the host library's batch
+formatter and takes the per-record Python path, which prints the same
+bytes, when the library refuses a record (malformed aux), so that the
+Python path raises its errors.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ for _i, _c in enumerate(SEQ_NT16_STR):
 NT16_LUT[ord("u")] = 8
 NT16_LUT[ord("U")] = 8
 
+NT16_CHARS = np.frombuffer(SEQ_NT16_STR.encode(), np.uint8)
+
 _CIGAR_RE = re.compile(r"(\d+)([MIDNSHP=XB])")
 _CIGAR_OP_NUM = {c: i for i, c in enumerate(CIGAR_CHARS)}
 
@@ -49,6 +56,12 @@ def parse_cigar(s: str) -> np.ndarray:
     if pos != len(s):
         raise SamParseError(f"bad CIGAR: {s!r}")
     return np.array(out, np.uint32)
+
+
+def cigar_to_str(cig: np.ndarray) -> str:
+    if cig.size == 0:
+        return "*"
+    return "".join(f"{int(c) >> 4}{CIGAR_CHARS[int(c) & 0xF]}" for c in cig)
 
 
 def _offsets(parts) -> np.ndarray:
@@ -141,3 +154,46 @@ def parse_sam(text: bytes | str,
         names = list(tid_map)
         header = SamHeader.from_text(header.text, names, [0] * len(names))
     return header, b
+
+
+def format_record(header: SamHeader, b: ReadBatch, i: int) -> str:
+    """One record as a SAM text line (no trailing newline)."""
+    rname = header.ref_name(int(b.tid[i])) if b.tid[i] >= 0 else "*"
+    if b.mtid[i] < 0:
+        rnext = "*"
+    elif b.mtid[i] == b.tid[i]:
+        rnext = "="
+    else:
+        rnext = header.ref_name(int(b.mtid[i]))
+    seq = b.seq_of(i)
+    seq_s = bytes(NT16_CHARS[seq]).decode("latin-1") if seq.size else "*"
+    qual = b.qual_of(i)
+    if qual.size == 0 or (qual == 0xFF).all():
+        qual_s = "*"
+    else:
+        qual_s = bytes((qual + 33).astype(np.uint8)).decode("latin-1")
+    fields = [b.qname_str(i), str(int(b.flag[i])), rname,
+              str(int(b.pos[i]) + 1), str(int(b.mapq[i])),
+              cigar_to_str(b.cigar_of(i)), rnext, str(int(b.mpos[i]) + 1),
+              str(int(b.tlen[i])), seq_s, qual_s]
+    ab = b.aux_of(i)
+    if ab.size:
+        fields.extend(auxmod.aux_to_sam_fields(ab))
+    return "\t".join(fields)
+
+
+def format_records(header: SamHeader, b: ReadBatch,
+                   idx: np.ndarray | None = None) -> str:
+    """Records b[idx] (all by default) as SAM text, each line ending in a
+    newline: the host library's formatter, or ``format_record`` when it
+    finds a malformed aux field (which then raises the error)."""
+    from . import native
+    if b.n:
+        names, names_off = header.names_blob()
+        ind = (np.arange(b.n, dtype=np.int64) if idx is None
+               else np.asarray(idx, np.int64))
+        got = native.sam_format(b, ind, names, names_off)
+        if got is not None:
+            return got
+    rng = range(b.n) if idx is None else [int(x) for x in idx]
+    return "".join(format_record(header, b, i) + "\n" for i in rng)

@@ -15,6 +15,7 @@
 //     of its own, zlib's polynomial), aux tag lookup, the sorted-block
 //     residue (coverage round buffer, GC-depth bins) and the per-base
 //     histogram pass that is K12's host branch
+//   * the batch SAM text formatter (samtpu_sam_format)
 //
 // All entry points are plain C ABI for ctypes.  Every function returns a
 // negative code on error, >=0 on success.
@@ -22,6 +23,8 @@
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <string>
 #include <thread>
@@ -1756,3 +1759,205 @@ int64_t samtpu_stats_orig_hists(
 }
 
 }  // extern "C"
+
+
+// ---------------------------------------------------------------------------
+// SAM text formatting: columnar batch -> one text buffer.
+//
+// The same bytes as io/sam_text.py's format_record (htslib's sam_format1,
+// %g floats included), for a batch of records at once.  Returns the record
+// count and a malloc'd buffer in *out (freed by samtpu_buf_free); a
+// negative return is a malformed record, which the caller formats through
+// the Python path so that its errors are raised.
+extern "C" int64_t samtpu_sam_format(
+    int64_t nidx, const int64_t* idx, const int32_t* tid,
+    const int64_t* pos, const uint8_t* mapq, const uint16_t* flag,
+    const int32_t* mtid, const int64_t* mpos, const int64_t* tlen,
+    const uint8_t* qname, const int64_t* qname_off, const uint32_t* cigar,
+    const int64_t* cigar_off, const uint8_t* seq, const int64_t* seq_off,
+    const uint8_t* qual, const uint8_t* aux, const int64_t* aux_off,
+    const uint8_t* names, const int64_t* names_off, int64_t n_refs,
+    uint8_t** out, int64_t* out_len) {
+  static const char kSeq[] = "=ACMGRSVTWYHKDBN";
+  static const char kCig[] = "MIDNSHP=XB??????";
+  std::string s;
+  s.reserve((size_t)(nidx * 192));
+  char tmp[64];
+
+  auto put_name = [&](int32_t t) {
+    if (t < 0 || t >= n_refs) {
+      s += '*';
+    } else {
+      s.append((const char*)names + names_off[t],
+               (size_t)(names_off[t + 1] - names_off[t]));
+    }
+  };
+
+  for (int64_t k = 0; k < nidx; ++k) {
+    int64_t i = idx[k];
+    s.append((const char*)qname + qname_off[i],
+             (size_t)(qname_off[i + 1] - qname_off[i]));
+    s += '\t';
+    s += std::to_string((unsigned)flag[i]);
+    s += '\t';
+    put_name(tid[i]);
+    s += '\t';
+    s += std::to_string(pos[i] + 1);
+    s += '\t';
+    s += std::to_string((unsigned)mapq[i]);
+    s += '\t';
+    int64_t c0 = cigar_off[i], c1 = cigar_off[i + 1];
+    if (c0 == c1) {
+      s += '*';
+    } else {
+      for (int64_t c = c0; c < c1; ++c) {
+        s += std::to_string(cigar[c] >> 4);
+        s += kCig[cigar[c] & 0xF];
+      }
+    }
+    s += '\t';
+    if (mtid[i] < 0) {
+      s += '*';
+    } else if (mtid[i] == tid[i]) {
+      s += '=';
+    } else {
+      put_name(mtid[i]);
+    }
+    s += '\t';
+    s += std::to_string(mpos[i] + 1);
+    s += '\t';
+    s += std::to_string(tlen[i]);
+    s += '\t';
+    int64_t s0 = seq_off[i], s1 = seq_off[i + 1];
+    if (s0 == s1) {
+      s += '*';
+    } else {
+      for (int64_t j = s0; j < s1; ++j) s += kSeq[seq[j] & 0xF];
+    }
+    s += '\t';
+    bool allff = true;
+    for (int64_t j = s0; j < s1; ++j) {
+      if (qual[j] != 0xFF) {
+        allff = false;
+        break;
+      }
+    }
+    if (s0 == s1 || allff) {
+      s += '*';
+    } else {
+      for (int64_t j = s0; j < s1; ++j) s += (char)(qual[j] + 33);
+    }
+    // aux fields
+    int64_t p = aux_off[i], end = aux_off[i + 1];
+    while (p + 3 <= end) {
+      char t0 = (char)aux[p], t1 = (char)aux[p + 1];
+      uint8_t tc = aux[p + 2];
+      int64_t v = p + 3;
+      s += '\t';
+      s += t0;
+      s += t1;
+      s += ':';
+      switch (tc) {
+        case 'A':
+          if (v >= end) return -(k + 1);
+          s += "A:";
+          s += (char)aux[v];
+          p = v + 1;
+          break;
+        case 'c': case 'C': case 's': case 'S': case 'i': case 'I': {
+          int64_t w = (tc == 'c' || tc == 'C') ? 1
+                      : (tc == 's' || tc == 'S') ? 2 : 4;
+          if (v + w > end) return -(k + 1);
+          int64_t val = 0;
+          uint32_t uv = 0;
+          for (int64_t bbi = 0; bbi < w; ++bbi)
+            uv |= (uint32_t)aux[v + bbi] << (8 * bbi);
+          if (tc == 'c') val = (int8_t)uv;
+          else if (tc == 's') val = (int16_t)uv;
+          else if (tc == 'i') val = (int32_t)uv;
+          else val = uv;
+          s += "i:";
+          s += std::to_string(val);
+          p = v + w;
+          break;
+        }
+        case 'f': case 'd': {
+          int64_t w = tc == 'f' ? 4 : 8;
+          if (v + w > end) return -(k + 1);
+          double dv;
+          if (tc == 'f') {
+            float fv;
+            std::memcpy(&fv, aux + v, 4);
+            dv = fv;
+          } else {
+            std::memcpy(&dv, aux + v, 8);
+          }
+          snprintf(tmp, sizeof tmp, "%g", dv);
+          s += tc;
+          s += ':';
+          s += tmp;
+          p = v + w;
+          break;
+        }
+        case 'Z': case 'H': {
+          int64_t q = v;
+          while (q < end && aux[q]) ++q;
+          s += (char)tc;
+          s += ':';
+          s.append((const char*)aux + v, (size_t)(q - v));
+          p = q + 1;
+          break;
+        }
+        case 'B': {
+          if (v + 5 > end) return -(k + 1);
+          uint8_t sub = aux[v];
+          uint32_t cnt;
+          std::memcpy(&cnt, aux + v + 1, 4);
+          int64_t es;
+          switch (sub) {
+            case 'c': case 'C': es = 1; break;
+            case 's': case 'S': es = 2; break;
+            case 'i': case 'I': case 'f': es = 4; break;
+            default: return -(k + 1);
+          }
+          int64_t body = v + 5;
+          if (body + (int64_t)cnt * es > end) return -(k + 1);
+          s += "B:";
+          s += (char)sub;
+          for (uint32_t e = 0; e < cnt; ++e) {
+            s += ',';
+            const uint8_t* bp = aux + body + (int64_t)e * es;
+            if (sub == 'f') {
+              float fv;
+              std::memcpy(&fv, bp, 4);
+              snprintf(tmp, sizeof tmp, "%g", (double)fv);
+              s += tmp;
+            } else {
+              uint32_t uv = 0;
+              for (int64_t bbi = 0; bbi < es; ++bbi)
+                uv |= (uint32_t)bp[bbi] << (8 * bbi);
+              int64_t val;
+              if (sub == 'c') val = (int8_t)uv;
+              else if (sub == 's') val = (int16_t)uv;
+              else if (sub == 'i') val = (int32_t)uv;
+              else val = uv;
+              s += std::to_string(val);
+            }
+          }
+          p = body + (int64_t)cnt * es;
+          break;
+        }
+        default:
+          return -(k + 1);
+      }
+    }
+    if (p != end) return -(k + 1);
+    s += '\n';
+  }
+  uint8_t* buf = (uint8_t*)malloc(s.size() ? s.size() : 1);
+  if (!buf) return -1000000000;
+  std::memcpy(buf, s.data(), s.size());
+  *out = buf;
+  *out_len = (int64_t)s.size();
+  return nidx;
+}

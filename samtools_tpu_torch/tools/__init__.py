@@ -8,6 +8,12 @@ import importlib
 # subcommand -> (module, function), imported when the command runs, in
 # the JAX package's order
 COMMANDS = {
+    "view": ("samtools_tpu_torch.tools.view_cmd", "main_view"),
+    "head": ("samtools_tpu_torch.tools.head_cmd", "main_head"),
+    "flags": ("samtools_tpu_torch.tools.flags_cmd", "main_flags"),
+    "quickcheck": ("samtools_tpu_torch.tools.quickcheck_cmd",
+                   "main_quickcheck"),
+    "cat": ("samtools_tpu_torch.tools.cat_cmd", "main_cat"),
     "flagstat": ("samtools_tpu_torch.tools.flagstat_cmd", "main_flagstat"),
     "idxstats": ("samtools_tpu_torch.tools.idxstats_cmd", "main_idxstats"),
     "index": ("samtools_tpu_torch.tools.index_cmd", "main_index"),
@@ -25,7 +31,8 @@ COMMANDS = {
 }
 
 # commands that do no device work and take no ``device``
-HOST_COMMANDS = ("idxstats", "index")
+HOST_COMMANDS = ("view", "head", "flags", "quickcheck", "cat", "idxstats",
+                 "index")
 
 
 def run_command(name: str, argv: list[str], device=None) -> int:

@@ -412,7 +412,7 @@ def test_write_alignments_cram_through_ref_cache(crams, monkeypatch,
     with gzip.open(mine + ".crai") as f, gzip.open(theirs + ".crai") as g:
         assert f.read() == g.read()
     bam = str(tmp_path / "a.bam")
-    write_alignments(bam, SamHeader.from_text(text), pb)
+    write_alignments(bam, SamHeader.from_text(text), pb, fmt="bam")
     _same_batch(read_alignments(bam).batch, pb)
 
 

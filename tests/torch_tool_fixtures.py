@@ -50,6 +50,7 @@ import shutil
 import struct
 import subprocess
 import sys
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -608,3 +609,286 @@ def check_no_card(cmd: str, args: list[str], monkeypatch) -> None:
     assert err == (f"[{cmd}] CUDA is not available; pass device='cpu' to "
                    "run the plain PyTorch versions on the CPU "
                    "(SAMTPU_DEVICE=0 runs the host branch)\n")
+
+
+VIEW_LEN2 = 5000
+VIEW_TEXT = (f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:sim1\tLN:{REF_LEN}\n"
+             f"@SQ\tSN:sim2\tLN:{VIEW_LEN2}\n"
+             "@RG\tID:grpA\tSM:s1\tLB:libA\n@RG\tID:grpB\tSM:s2\tLB:libB\n"
+             "@RG\tID:grpC\tSM:s3\n@CO\tview inputs\n")
+# f and d values whose %g text is tricky (no negative NaN: htslib's
+# printf and Python's % print it differently, tests/test_torch_sam_text.py)
+AUX_FLOATS = [0.0, -0.0, 1.5, 3.14159274, 1e-5, 2.5e-8, 123456789.0, 1e20,
+              -7.25, float("nan"), float("inf"), float("-inf")]
+
+
+def aux_blob(rng) -> bytes:
+    """A random pick of aux fields of every BAM type, B arrays of every
+    subtype (empty ones too)."""
+    out = []
+    if rng.random() < 0.5:
+        out.append(b"XAA" + bytes([int(rng.integers(33, 127))]))
+    for t, fmt, lo, hi in (("c", "<b", -128, 128), ("C", "<B", 0, 256),
+                           ("s", "<h", -32768, 32768), ("S", "<H", 0, 65536),
+                           ("i", "<i", -2 ** 31, 2 ** 31),
+                           ("I", "<I", 0, 2 ** 32)):
+        if rng.random() < 0.4:
+            out.append(b"X" + t.encode() + t.encode()
+                       + struct.pack(fmt, int(rng.integers(lo, hi))))
+    if rng.random() < 0.4:
+        out.append(b"XFf" + struct.pack("<f", AUX_FLOATS[
+            int(rng.integers(len(AUX_FLOATS)))]))
+    if rng.random() < 0.3:
+        out.append(b"XDd" + struct.pack("<d", AUX_FLOATS[
+            int(rng.integers(len(AUX_FLOATS)))] * 1.1))
+    if rng.random() < 0.5:
+        out.append(b"XZZ" + b"a b;c=%d" % int(rng.integers(100)) + b"\0")
+    if rng.random() < 0.3:
+        out.append(b"XHH" + b"1AE3%02X" % int(rng.integers(256)) + b"\0")
+    for sub, fmt, lo, hi in (("c", "b", -128, 128), ("C", "B", 0, 256),
+                             ("s", "h", -32768, 32768),
+                             ("S", "H", 0, 65536),
+                             ("i", "i", -2 ** 31, 2 ** 31),
+                             ("I", "I", 0, 2 ** 32), ("f", "f", 0, 1)):
+        if rng.random() < 0.25:
+            k = int(rng.integers(0, 5))
+            vals = ([AUX_FLOATS[int(x)] for x in
+                     rng.integers(len(AUX_FLOATS), size=k)] if sub == "f"
+                    else [int(x) for x in rng.integers(lo, hi, k)])
+            out.append(b"B" + sub.encode() + b"B" + sub.encode()
+                       + struct.pack("<I", k)
+                       + struct.pack("<%d%s" % (k, fmt), *vals))
+    if rng.random() < 0.5:
+        out.append(b"NMC" + bytes([int(rng.integers(0, 6))]))
+    return b"".join(out)
+
+
+def _view_batch(ref: np.ndarray) -> ReadBatch:
+    """The view inputs' reads (make_view_inputs)."""
+    b = sim.simulate_overlapping_pairs(REF_LEN, coverage=6.0, ref=ref,
+                                       seed=41)
+    b = b.take(np.nonzero(b.pos < 40000)[0])
+    rng = np.random.default_rng(43)
+    n = b.n
+    rgs = [b"grpA", b"grpB", b"grpC", None]
+    blobs = []
+    for i in range(n):
+        rg = rgs[int(rng.choice(4, p=[0.45, 0.45, 0.05, 0.05]))]
+        blobs.append((b"RGZ" + rg + b"\0" if rg else b"") + aux_blob(rng))
+    _set_aux(b, blobs)
+    b.mapq = rng.integers(0, 61, n).astype(np.uint8)
+    # records without qualities, one without a sequence
+    for i in rng.choice(n, 20, replace=False):
+        b.qual[b.seq_off[i]:b.seq_off[i + 1]] = 0xFF
+    # mates on the second contig
+    far = rng.choice(n, 12, replace=False)
+    b.mtid[far] = 1
+    b.mpos[far] = rng.integers(0, VIEW_LEN2 - 200, far.size)
+    b.tlen[far] = 0
+    cig = [[(int(c) & 0xF, int(c) >> 4) for c in b.cigar_of(i)]
+           for i in range(n)]
+    for i in rng.choice(n, 15, replace=False):
+        ln = int(b.l_qseq[i])
+        cig[i] = [(5, 7), (0, ln)] if i % 2 else [(0, ln - 40), (9, 10),
+                                                  (0, 40)]
+    _cigar_batch(b, cig)
+    # unmapped reads at the end, and one read with no sequence
+    um = b.take(np.arange(10))
+    um.tid[:] = -1
+    um.pos[:] = -1
+    um.mtid[:] = -1
+    um.mpos[:] = -1
+    um.tlen[:] = 0
+    um.mapq[:] = 0
+    um.flag = (um.flag & 0xC1) | 0x4 | 0x8
+    _cigar_batch(um, [[] for _ in range(um.n)])
+    out = ReadBatch.concat([b, um])
+    k = 3
+    keep = np.ones(out.seq.size, bool)
+    keep[out.seq_off[k]:out.seq_off[k + 1]] = False
+    ln = out.l_qseq.copy()
+    ln[k] = 0
+    out.seq, out.qual = out.seq[keep], out.qual[keep]
+    out.seq_off = np.concatenate([[0], np.cumsum(ln)]).astype(np.int64)
+    return out
+
+
+def jbatch(b: ReadBatch):
+    """A copy of a port batch as the JAX package's ReadBatch."""
+    from samtools_tpu.core.batch import ReadBatch as JReadBatch
+    return JReadBatch(**{k: (v.copy() if isinstance(v, np.ndarray) else v)
+                         for k, v in vars(b).items()})
+
+
+def make_view_inputs(d: str) -> dict:
+    """make_inputs plus the view/head/cat/quickcheck inputs: ``general``
+    (the pairs reads starting before 40,000, a 2-contig header with three
+    read groups, two with a library, and a @CO line; each read with a
+    random pick of aux fields of every type, random MAPQs, some without
+    qualities, one without a sequence, mates on the second contig, hard
+    clips, B ops, reads without a read group or in grpC, ten unmapped
+    reads at the end; ``general_sam``, ``general_samgz`` (BGZF'd SAM) and
+    ``general_cram``: its reads on sim1 without their ``d`` tags, as CRAM
+3.0 with ``fa``), ``indexed`` (its
+    reads starting in [16000, 21000), with a ``.bai``: a few BGZF blocks,
+    as the JAX tool's index query needs), ``bigidx`` (``general`` indexed,
+    many blocks) and ``unidx`` (an unindexed copy), a qname file, a
+    read-group file, a tag-value file, BED files and a header SAM."""
+    from samtools_tpu.io.files import write_alignments as jwrite
+    from samtools_tpu.io.header import SamHeader as JSamHeader
+    got = make_inputs(d)
+    b = _view_batch(got["ref"])
+    header = SamHeader.from_text(VIEW_TEXT)
+    p = os.path.join
+    got["general"] = p(d, "general.bam")
+    write_bam(got["general"], header, b)
+    jb = read_alignments(got["general"]).batch
+    got["general_sam"] = p(d, "general.sam")
+    jwrite(got["general_sam"], JSamHeader.from_text(VIEW_TEXT), jb)
+    got["general_samgz"] = p(d, "general.sam.gz")
+    jwrite(got["general_samgz"], JSamHeader.from_text(VIEW_TEXT), jb,
+           fmt="sam.gz")
+    # the CRAM writer has no ``d`` aux type (view -C of general fails)
+    from samtools_tpu_torch.core.aux import batch_adjust_tags
+    mapped = b.take(np.nonzero(b.tid == 0)[0])
+    batch_adjust_tags(mapped, remove={"XD"})
+    mapped = ReadBatch.from_columns(vars(mapped))
+    got["general_cram"] = p(d, "general.cram")
+    jwrite(got["general_cram"], JSamHeader.from_text(VIEW_TEXT), mapped,
+           fmt="cram", reference=got["fa"])
+    got["indexed"] = p(d, "indexed.bam")
+    write_bam(got["indexed"], header,
+              b.take(np.nonzero((b.pos >= 16000) & (b.pos < 21000))[0]))
+    got["bigidx"] = p(d, "bigidx.bam")
+    shutil.copy(got["general"], got["bigidx"])
+    got["unidx"] = p(d, "unidx.bam")
+    shutil.copy(got["general"], got["unidx"])
+    for k in ("indexed", "bigidx"):
+        assert cli.main(["index", got[k]]) == 0
+    names = [b.qname_str(i) for i in range(0, b.n, 37)]
+    for key, lines in (("qnames", names), ("rgfile", ["grpB", "grpC"]),
+                       ("tagvals", ["0", "2", "5"])):
+        got[key] = p(d, key + ".txt")
+        with open(got[key], "w") as f:
+            f.write("".join(x + "\n" for x in lines))
+    got["bed"] = p(d, "view.bed")
+    with open(got["bed"], "w") as f:
+        f.write("sim1\t1000\t3000\nsim1\t17500\t18200\nsim2\t0\t100\n")
+    got["bed2"] = p(d, "view2.bed")
+    with open(got["bed2"], "w") as f:
+        f.write("sim1\t16500\t17000\nsim1\t20000\t20400\n")
+    got["hdr"] = p(d, "hdr.sam")
+    with open(got["hdr"], "w") as f:
+        f.write(VIEW_TEXT.replace("view inputs", "another header"))
+    return got
+
+
+# ------------------------------------------------ byte-for-byte tool runs
+def take_files(odir: str) -> dict:
+    """The files a run wrote into its directory (which is emptied)."""
+    got = {}
+    for name in sorted(os.listdir(odir)):
+        with open(os.path.join(odir, name), "rb") as f:
+            got[name] = f.read()
+        os.remove(os.path.join(odir, name))
+    return got
+
+
+def case_dir(inputs: dict, cmd: str, name: str) -> str:
+    odir = os.path.join(inputs["dir"], f"out_{cmd}_{name}")
+    os.makedirs(odir, exist_ok=True)
+    return odir
+
+
+def _jax_bytes(cmd: str, args: list[str], stdin: str | None, env: dict):
+    full = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **env)
+    with open(stdin or os.devnull, "rb") as fin:
+        p = subprocess.run([sys.executable, "-m", "samtools_tpu", cmd]
+                           + args, capture_output=True, env=full, cwd=REPO,
+                           stdin=fin, timeout=600)
+    return p.returncode, p.stdout, p.stderr.decode()
+
+
+def jax_case_runs(cmd: str, inputs: dict, cases: dict) -> dict:
+    """Per case (name -> (argument template, standard input key)): the
+    JAX tool's default run and its zlib run (``SAMTPU_NO_NATIVE=1``),
+    each (exit code, stdout, stderr, {file: bytes}); {x} in a template
+    names an input, {o} the case's output directory."""
+    def phase(env):
+        def one(name):
+            odir = case_dir(inputs, cmd, name)
+            spec, stdin = cases[name]
+            args = [a.format(o=odir, **inputs) for a in spec]
+            rc, out, err = _jax_bytes(cmd, args, stdin and inputs[stdin],
+                                      env)
+            return rc, out, err, take_files(odir)
+        with ThreadPoolExecutor(4) as ex:
+            return dict(zip(cases, ex.map(one, cases)))
+    default = phase({})
+    plain = phase({"SAMTPU_NO_NATIVE": "1"})
+    return {k: (default[k], plain[k]) for k in cases}
+
+
+def run_port_case(cmd: str, inputs: dict, cases: dict, name: str):
+    """(exit code, stdout bytes, stderr text, {file: bytes}) of the port's
+    command in-process, run as jax_case_runs runs the JAX tool."""
+    odir = case_dir(inputs, cmd, name)
+    spec, stdin = cases[name]
+    args = [a.format(o=odir, **inputs) for a in spec]
+    raw = io.BytesIO()
+    out = io.TextIOWrapper(raw, encoding="latin-1", write_through=True)
+    err = io.StringIO()
+    old_in = sys.stdin
+    try:
+        if stdin:
+            sys.stdin = io.TextIOWrapper(open(inputs[stdin], "rb"))
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main([cmd, *args])
+    finally:
+        if sys.stdin is not old_in:
+            sys.stdin.close()
+            sys.stdin = old_in
+    return rc, raw.getvalue(), err.getvalue(), take_files(odir)
+
+
+def _blocks(data: bytes):
+    """(uncompressed size of each BGZF block, the uncompressed bytes)."""
+    from samtools_tpu_torch.io import bgzf
+    coffs, bsizes = bgzf.scan_blocks(data)
+    sizes = [int.from_bytes(data[o + b - 4:o + b], "little")
+             for o, b in zip(coffs.tolist(), bsizes.tolist())]
+    return sizes, bgzf.decompress(data).tobytes()
+
+
+def check_output(mine: bytes, default: bytes, plain: bytes, what: str):
+    """The port's output against the JAX tool's default (libdeflate) and
+    zlib outputs: BGZF must be the zlib run's bytes and the default run's
+    blocks (uncompressed sizes and bytes); a gzip'd .crai the same
+    content (gzip stamps the time); a BAI the zlib run's bytes (its
+    virtual offsets are the zlib blocks'); anything else both runs'
+    bytes."""
+    from samtools_tpu_torch.io import bgzf
+    if mine[:2] == b"\x1f\x8b" and bgzf.is_bgzf(mine):
+        assert mine == plain, what
+        assert _blocks(mine) == _blocks(default), what
+    elif mine[:2] == b"\x1f\x8b":
+        assert zlib.decompress(mine, 47) == zlib.decompress(default, 47), \
+            what
+    elif mine[:4] == b"BAI\1":
+        assert mine == plain and len(mine) == len(default), what
+    else:
+        assert mine == plain == default, what
+
+
+def check_case(got, want_pair, name: str) -> None:
+    """A port run (run_port_case) against the JAX runs (jax_case_runs):
+    the exit code and stderr, stdout and every file written."""
+    (rc, out, err, files), (prc, pout, perr, pfiles) = want_pair
+    assert (rc, err) == (prc, perr), name
+    assert got[0] == rc, (name, got[2], err)
+    assert got[2] == err, name
+    check_output(got[1], out, pout, name)
+    assert sorted(got[3]) == sorted(files) == sorted(pfiles), name
+    for fname, data in got[3].items():
+        check_output(data, files[fname], pfiles[fname], f"{name}/{fname}")
