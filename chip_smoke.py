@@ -164,8 +164,8 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``flagstat`` and ``stats`` on it print the bytes of the same commands
    on the BAM of those reads (less stats' command-line line) and launch
    the same kernels.
-13. cram -- clean's reads that start before ``CRAM_END`` (200 kbp, about
-   60,000 reads), written by the port's ``encode_cram`` as CRAM 3.0 under
+13. cram -- clean's reads that start before ``CRAM_END`` (100 kbp, about
+   30,000 reads), written by the port's ``encode_cram`` as CRAM 3.0 under
    clean's header with an ``M5:`` on its ``@SQ`` line, the sequence in a
    ``REF_CACHE`` directory under its MD5, and as a BAM.  The CRAM decoded
    whole (``read_alignments``) must equal the reads field by field.  Then
@@ -219,9 +219,13 @@ from the sources in this checkout.  Phases, one JSON line each:
    entry (counts and qual sums) and the tiled entry (the items bucketed
    in tiles of 512), each equal to its plain version exactly and to each
    other, beside ``index_put_(accumulate=True)`` on the same cells, with
-   ``device_ms`` (a CUDA graph of the bare C entry) and the bound from
-   bytes (the tiled entry's cells by ``index_put_`` too; it lies on no
-   path, its launches there are 0).  Then the mesh (K15) on the one
+   ``device_ms`` (a CUDA graph of the bare C entry), the scatter's chunks
+   by path (private, global, empty) and the bound from bytes (the tiled
+   entry lies on no path, its launches there are 0; its first form is
+   timed in ``scripts/torch_pileup_kernels.py``).  The same checks, with
+   ``device_ms``, on K14's hard shapes: 2 Mi position-sorted items two a
+   row (every chunk over the private budget), 100,000 items on one cell
+   and clean's 1 Mbp items back to front.  Then the mesh (K15) on the one
    card: ``make_sharded_pileup`` on a (2, 2) mesh (one K14 launch a shard), ``depth_window_sharded``
    on 4 shards over clean's front (one K1 launch a shard) and
    ``flagstat_counts_sharded`` on 4 shards over clean's stream batches
@@ -367,6 +371,13 @@ def old_kernels():
     if not _OLD_LIB:
         _OLD_LIB.append(kn().old_lib())
     return _OLD_LIB[0]
+
+
+def pk():
+    """scripts/torch_pileup_kernels.py: K14's bare C-entry calls, its
+    chunk paths and the bytes it must read."""
+    import torch_pileup_kernels
+    return torch_pileup_kernels
 
 
 def emit(obj: dict) -> None:
@@ -2003,7 +2014,7 @@ SAM_RUNS = (
 QUERY_FIELDS = ("pos", "flag", "cigar", "cigar_off", "seq", "seq_off", "qual")
 # the cram phase: clean's reads that start before this, as CRAM and BAM;
 # its card runs (label, argv, the kernels each must launch)
-CRAM_END = 200_000
+CRAM_END = 100_000
 CRAM_RUNS = (
     ("mpileup", ["mpileup", "-f", "{fa}", "{bam}"], MAIN_PATH),
     ("depth -a", ["depth", "-a", "{bam}"], ("segment_contract",)),
@@ -2836,14 +2847,17 @@ SHARD_RUNS = (("mpileup -f", ["mpileup", "-f", "{fa}", "{bam}"]),
 
 
 def _k14_case(dev, refpos, lane, valid, qual, window: int,
-              tile: int = 512) -> dict:
+              tile: int = 512, full: bool = True) -> dict:
     """K14's two entries on one set of items, on the card: the scatter
     (counts and qual sums) and the tiled form over the items bucketed by
-    ``bucket_bases``, each equal to its plain version exactly, with ms,
-    b2b ms, device ms (a CUDA graph of the bare C entry), the plain
-    version's and ``index_put_(accumulate=True)``'s time on the same
-    tensors (the valid items' cells found before the timing) and the
-    bound from bytes (each input read once, the output written once)."""
+    ``bucket_bases``, each equal to its plain version and to
+    ``index_put_(accumulate=True)`` on the same cells exactly, with the
+    scatter's chunks by path (private, global, empty), device ms (a CUDA
+    graph of the bare C entry) and the bound from bytes (each item's
+    valid flag read once, the other fields of the valid items once, the
+    output written once: ``item_bytes``); ``full``: also ms, b2b ms, the
+    plain version's and ``index_put_``'s time on the same tensors (the
+    valid items' cells found before the timing)."""
     import torch
     from samtools_tpu_torch import kernels
     from samtools_tpu_torch.ops import pileup_device as pd
@@ -2861,45 +2875,50 @@ def _k14_case(dev, refpos, lane, valid, qual, window: int,
               int((sums - pd.pileup_scatter_plain(rp, ln, ok, window, q))
                   .abs().max()))
     require(err == 0, f"K14's scatter differs from its plain version ({err})")
-    require(int(counts.sum()) == int(((refpos >= 0) & (refpos < window)
-                                      & valid).sum()), "K14 lost items")
     ln_j = torch.where(ln < 0, ln + 32, ln)
     keep = ok & (rp >= 0) & (rp < window) & (ln_j >= 0) & (ln_j < 32)
+    require(int(counts.sum()) == int(keep.sum()), "K14 lost items")
     cells = (rp[keep].long(), ln_j[keep].long())
     ones = torch.ones(cells[0].numel(), dtype=torch.int32, device=dev)
     lib = torch.zeros_like(counts)
     lib.index_put_(cells, ones, accumulate=True)
     require(torch.equal(lib, counts), "index_put_ differs from K14")
-    out = torch.zeros_like(counts)
-    lib_fn = kernels._load().samtpu_pileup_scatter
-
-    def bare():
-        # on the stream current at the call (graph_ms captures on its own)
-        lib_fn(rp.data_ptr(), ln.data_ptr(), None, ok.data_ptr(), n,
-               window, out.data_ptr(), kernels.stream_of(out))
+    lib_q = torch.zeros_like(sums)
+    lib_q.index_put_(cells, q[keep], accumulate=True)
+    require(torch.equal(lib_q, sums), "index_put_ differs from K14's sums")
     out_bytes = window * 32 * 4
+    chunk = pd.scatter_chunk(n, kernels.sm_count(dev))
+    nv = int(ok.sum())
     row = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: pd.pileup_counts(rp, ln, ok, window)),
-        b2b_ms=cuda_ms(lambda: pd.pileup_counts(rp, ln, ok, window),
-                       per=10),
-        device_ms=graph_ms(bare),
-        plain_ms=cuda_ms(lambda: pd.pileup_scatter_plain(rp, ln, ok,
-                                                         window), reps=3),
-        library_ms=cuda_ms(lambda: lib.index_put_(cells, ones,
-                                                  accumulate=True)),
-        qual_sums_ms=cuda_ms(lambda: pd.pileup_qual_sums(rp, ln, q, ok,
-                                                         window)),
-        detail={"items": n, "window": window,
-                "path": ("shared" if out_bytes <= 232448 else "global")},
+        device_ms=graph_ms(pk().scatter_bare(rp, ln, ok, window)),
+        qual_sums_device_ms=graph_ms(pk().scatter_bare(rp, ln, ok, window,
+                                                       q)),
+        detail={"items": n, "valid": nv, "window": window,
+                "paths": pk().scatter_paths(rp, ln, ok, window, chunk)},
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(n * 9 + out_bytes, n))))
+                   bound(pk().item_bytes(n, nv, 9) + out_bytes, nv))),
+        qual_sums_bound_ms=bound(pk().item_bytes(n, nv, 13) + out_bytes,
+                                 0)[0])
+    if full:
+        row.update(
+            ms=cuda_ms(lambda: pd.pileup_counts(rp, ln, ok, window)),
+            b2b_ms=cuda_ms(lambda: pd.pileup_counts(rp, ln, ok, window),
+                           per=10),
+            plain_ms=cuda_ms(lambda: pd.pileup_scatter_plain(rp, ln, ok,
+                                                             window),
+                             reps=3),
+            library_ms=cuda_ms(lambda: lib.index_put_(cells, ones,
+                                                      accumulate=True)),
+            qual_sums_ms=cuda_ms(lambda: pd.pileup_qual_sums(rp, ln, q, ok,
+                                                             window)))
     # the tiled entry over the valid in-window items bucketed by tile
     inwin = (refpos >= 0) & (refpos < window) & valid
     tt = [torch.from_numpy(a).to(dev) for a in pd.bucket_bases(
         refpos[inwin], lane[inwin], window, tile)]
     posrel = tt[0]
-    n_tiles = posrel.shape[0]
+    n_tiles, B = posrel.shape
+    tnv = int(tt[2].sum())
     before = kernels.launches["pileup_tiled"]
     tiled = pd.pileup_counts_tiled(*tt, tile, n_tiles)
     require(kernels.launches["pileup_tiled"] == before + 1,
@@ -2908,9 +2927,12 @@ def _k14_case(dev, refpos, lane, valid, qual, window: int,
                .abs().max())
     require(terr == 0, f"K14's tiled entry differs from its plain version "
             f"({terr})")
-    # lanes in [0, 32) here: the two entries count alike
-    require(torch.equal(tiled[:window], counts),
-            "K14's tiled entry differs from its scatter entry")
+    # the in-window items with lanes in [0, 32) count alike in both
+    # entries
+    lanes_in = (lane[inwin] >= 0) & (lane[inwin] < 32)
+    if lanes_in.all():
+        require(torch.equal(tiled[:window], counts),
+                "K14's tiled entry differs from its scatter entry")
     # the library call on the bucketed items' cells (row t * tile + posrel)
     tok = tt[2] & (posrel >= 0) & (posrel < tile) & (tt[1] >= 0) \
         & (tt[1] < 32)
@@ -2920,28 +2942,43 @@ def _k14_case(dev, refpos, lane, valid, qual, window: int,
     tlibout = torch.zeros_like(tiled)
     tlibout.index_put_(tcells, tones, accumulate=True)
     require(torch.equal(tlibout, tiled), "index_put_ differs from K14 tiled")
-    tout = torch.zeros_like(tiled)
-    tlib = kernels._load().samtpu_pileup_tiled
-    B = posrel.shape[1]
-
-    def tbare():
-        tlib(tt[0].data_ptr(), tt[1].data_ptr(), tt[2].data_ptr(), n_tiles,
-             B, tile, tout.data_ptr(), kernels.stream_of(tout))
     row["tiled"] = dict(
         max_abs_err=terr,
-        ms=cuda_ms(lambda: pd.pileup_counts_tiled(*tt, tile, n_tiles)),
-        b2b_ms=cuda_ms(lambda: pd.pileup_counts_tiled(*tt, tile, n_tiles),
-                       per=10),
-        device_ms=graph_ms(tbare),
-        plain_ms=cuda_ms(lambda: pd.pileup_tiled_plain(*tt, tile, n_tiles),
-                         reps=3),
-        library_ms=cuda_ms(lambda: tlibout.index_put_(tcells, tones,
-                                                      accumulate=True)),
-        detail={"tiles": n_tiles, "B": B, "tile": tile},
+        device_ms=graph_ms(pk().tiled_bare(tt, tile)),
+        detail={"tiles": n_tiles, "B": B, "tile": tile, "valid": tnv},
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(posrel.numel() * 9 + n_tiles * tile * 32 * 4,
-                         posrel.numel()))))
+                   bound(pk().item_bytes(posrel.numel(), tnv, 9)
+                         + n_tiles * tile * 32 * 4, tnv))))
+    if full:
+        row["tiled"].update(
+            ms=cuda_ms(lambda: pd.pileup_counts_tiled(*tt, tile, n_tiles)),
+            b2b_ms=cuda_ms(lambda: pd.pileup_counts_tiled(*tt, tile,
+                                                          n_tiles), per=10),
+            plain_ms=cuda_ms(lambda: pd.pileup_tiled_plain(*tt, tile,
+                                                           n_tiles),
+                             reps=3),
+            library_ms=cuda_ms(lambda: tlibout.index_put_(
+                tcells, tones, accumulate=True)))
     return row
+
+
+def k14_hard_shapes(c_rp, c_ln, c_ok, c_q) -> dict:
+    """K14's hard shapes beside the main ones: 2 Mi position-sorted items
+    over a 1 Mi-row window (two a row: every chunk spans about 1,000 rows,
+    over the private budget, and adds through global atomics), 100,000
+    items on one cell, and clean's 1 Mbp items back to front."""
+    rng = np.random.default_rng(SHARD_SEED + 1)
+    n = 1 << 21
+    shapes = {"sorted_over_budget": (
+        np.sort(rng.integers(0, 1 << 20, n)).astype(np.int32),
+        rng.integers(0, 32, n).astype(np.int32), np.ones(n, bool),
+        rng.integers(2, 41, n).astype(np.int32), 1 << 20)}
+    m = 100_000
+    shapes["one_cell"] = (np.full(m, 5, np.int32), np.full(m, 3, np.int32),
+                          np.ones(m, bool), np.full(m, 37, np.int32), 16)
+    shapes["reversed"] = (c_rp[::-1].copy(), c_ln[::-1].copy(),
+                          c_ok[::-1].copy(), c_q[::-1].copy(), 1 << 20)
+    return shapes
 
 
 def write_shard_inputs(workdir: str) -> dict:
@@ -3060,6 +3097,8 @@ def phase_sharded(workdir: str, bams: dict, dev) -> tuple:
         front, np.nonzero(front.pos < 1 << 20)[0], 0, 1 << 20)
     shapes["clean_1mbp"] = (c_rp, c_ln, c_ok, c_q, 1 << 20)
     rows = {k: _k14_case(dev, *v) for k, v in shapes.items()}
+    rows.update({k: _k14_case(dev, *v, full=False) for k, v in
+                 k14_hard_shapes(c_rp, c_ln, c_ok, c_q).items()})
     del shapes, c_rp, c_ln, c_q, c_ok
     emit({"phase": "sharded", "run": "k14", **rows})
 
@@ -3079,6 +3118,9 @@ def phase_sharded(workdir: str, bams: dict, dev) -> tuple:
            "pileup_unsharded_ms": cuda_ms(lambda: fn(rp, ln, ok))}
     parts = [pd.pileup_counts(rp, ln, ok, 1 << 13) for _ in range(2)]
     k15["pileup_sum_ms"] = cuda_ms(lambda: M.local_sum(mesh22, parts))
+    # one library call on the same partials
+    k15["pileup_sum_library_ms"] = cuda_ms(
+        lambda: torch.stack(parts).sum(0))
     # bounds: each partial read once, the sum written once
     k15["pileup_sum_bound_ms"] = bound(
         (len(parts) + 1) * parts[0].numel() * parts[0].element_size(), 0)[0]
@@ -3130,6 +3172,8 @@ def phase_sharded(workdir: str, bams: dict, dev) -> tuple:
                flagstat_unsharded_s=t_single,
                flagstat_sum_ms=cuda_ms(lambda: M.local_sum(mesh4,
                                                            partials)),
+               flagstat_sum_library_ms=cuda_ms(
+                   lambda: torch.stack(partials).sum(0)),
                flagstat_sum_bound_ms=bound(
                    (len(partials) + 1) * partials[0].numel()
                    * partials[0].element_size(), 0)[0])

@@ -48,7 +48,8 @@ _SIGNATURES = {
                            ctypes.c_int64, _P, _P],
     "samtpu_census_narrow": [_P, ctypes.c_int64, _INT, ctypes.c_int64,
                              _INT, _P, _P, _P, _P],
-    "samtpu_pileup_scatter": [_P, _P, _P, _P, ctypes.c_int64, _INT, _P, _P],
+    "samtpu_pileup_scatter": [_P, _P, _P, _P, ctypes.c_int64, _INT, _INT,
+                              _INT, _P, _P],
     "samtpu_pileup_tiled": [_P, _P, _P, _INT, _INT, _INT, _P, _P],
     # device queries: int64 values written, CUDA error returned
     "samtpu_census_narrow_limits": [ctypes.POINTER(ctypes.c_int64)],

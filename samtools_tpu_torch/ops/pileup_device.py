@@ -34,6 +34,16 @@ from .cigar import expand_ops
 
 N_LANES = 32  # 16 base codes x 2 strands
 
+# K14's scatter walks chunks of consecutive items, a block a chunk: the
+# largest and smallest chunk (items, multiples of 16; the kernel takes
+# at most 2,048), and the rows of a block's private shared-memory
+# accumulator (32 KiB: with a chunk's two stages, three blocks an SM for
+# counts, two for qual sums).  A chunk whose adding items span more rows
+# adds through global atomics.
+SCATTER_CHUNK = 2048
+SCATTER_CHUNK_MIN = 256
+SCATTER_BUDGET_ROWS = 256
+
 
 def _check_items(refpos, lane, valid, extra=()):
     n = refpos.numel()
@@ -62,6 +72,16 @@ def pileup_scatter_plain(refpos: torch.Tensor, lane: torch.Tensor,
     return out
 
 
+def scatter_chunk(n: int, sms: int) -> int:
+    """Items a chunk of K14's scatter for ``n`` items on a card of ``sms``
+    SMs: SCATTER_CHUNK, halved down to SCATTER_CHUNK_MIN while there are
+    fewer than two chunks an SM (a small call still fills the card)."""
+    c = SCATTER_CHUNK
+    while c > SCATTER_CHUNK_MIN and -(-n // c) < 2 * sms:
+        c //= 2
+    return c
+
+
 def pileup_scatter(refpos: torch.Tensor, lane: torch.Tensor,
                    valid: torch.Tensor, window: int,
                    weight: torch.Tensor | None = None) -> torch.Tensor:
@@ -81,7 +101,9 @@ def pileup_scatter(refpos: torch.Tensor, lane: torch.Tensor,
         kernels.launch("pileup_scatter", "samtpu_pileup_scatter",
                        refpos.data_ptr(), lane.data_ptr(),
                        None if weight is None else weight.data_ptr(),
-                       valid.data_ptr(), n, window, out.data_ptr(),
+                       valid.data_ptr(), n, window,
+                       scatter_chunk(n, kernels.sm_count(out.device)),
+                       SCATTER_BUDGET_ROWS, out.data_ptr(),
                        kernels.stream_of(out), device=out.device)
     return out
 
@@ -132,20 +154,23 @@ def pileup_counts_tiled(posrel: torch.Tensor, lane: torch.Tensor,
     lane:   int32[n_tiles, B]
     valid:  bool[n_tiles, B]
     CPU tensors take the plain version; CUDA tensors launch K14's
-    ``pileup_tiled`` (a block a tile)."""
+    ``pileup_tiled`` (a block a tile, which writes every row of its
+    tile: the output needs no zero fill)."""
     B = posrel.shape[1] if posrel.dim() == 2 else -1
     kernels.check(posrel, "posrel", torch.int32, (n_tiles, B))
     kernels.check(lane, "lane", torch.int32, (n_tiles, B))
     kernels.check(valid, "valid", torch.bool, (n_tiles, B))
     if not kernels.on_card(posrel, lane, valid):
         return pileup_tiled_plain(posrel, lane, valid, tile, n_tiles)
-    out = torch.zeros(n_tiles * tile, N_LANES, dtype=torch.int32,
+    if not (n_tiles and B and tile > 0):
+        return torch.zeros(n_tiles * tile, N_LANES,
+                           dtype=torch.int32, device=posrel.device)
+    out = torch.empty(n_tiles * tile, N_LANES, dtype=torch.int32,
                       device=posrel.device)
-    if n_tiles and B and tile > 0:
-        kernels.launch("pileup_tiled", "samtpu_pileup_tiled",
-                       posrel.data_ptr(), lane.data_ptr(), valid.data_ptr(),
-                       n_tiles, B, tile, out.data_ptr(),
-                       kernels.stream_of(out), device=out.device)
+    kernels.launch("pileup_tiled", "samtpu_pileup_tiled",
+                   posrel.data_ptr(), lane.data_ptr(), valid.data_ptr(),
+                   n_tiles, B, tile, out.data_ptr(), kernels.stream_of(out),
+                   device=out.device)
     return out
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_k14_shapes as k14
 from samtools_tpu_torch import kernels, sim
 from samtools_tpu_torch.ops import baq_device as bd
 from samtools_tpu_torch.ops import mpileup_device as md
@@ -1141,9 +1142,9 @@ def _k14_items(seed, n, window):
 @pytest.mark.parametrize("n,window", [(0, 64), (1000, 8), (65536, 1700),
                                       (65536, 1 << 14), (300_000, 1 << 20)])
 def test_pileup_scatter_equals_plain(cuda, n, window):
-    """K14's scatter entry on both of its paths (the window privatised in
-    shared memory up to ~1,800 rows; global atomics above), counts and
-    qual sums, equal to the plain version exactly."""
+    """K14's scatter entry on random items over small and large windows
+    (chunks private below 256 rows, global above), counts and qual sums,
+    equal to the plain version exactly."""
     from samtools_tpu_torch.ops import pileup_device as pd
     rp, ln, ok, q = _k14_items(n + window, n, window)
     for weight in (None, q):
@@ -1160,8 +1161,9 @@ def test_pileup_scatter_equals_plain(cuda, n, window):
 @pytest.mark.parametrize("n_tiles,B,tile", [(1, 1, 8), (40, 300, 512),
                                             (3, 5000, 128), (2, 100, 4096)])
 def test_pileup_tiled_equals_plain(cuda, n_tiles, B, tile):
-    """K14's tiled entry (a block a tile; a tile of 4,096 rows takes the
-    global-atomic path) equal to the plain version exactly."""
+    """K14's tiled entry (a block a tile; a tile of 4,096 rows zeroes its
+    rows in global memory and adds there) equal to the plain version
+    exactly."""
     from samtools_tpu_torch.ops import pileup_device as pd
     rng = np.random.default_rng(n_tiles * B)
     posrel = torch.from_numpy(rng.integers(-3, tile + 3, (n_tiles, B))
@@ -1173,6 +1175,97 @@ def test_pileup_tiled_equals_plain(cuda, n_tiles, B, tile):
     before = kernels.launches["pileup_tiled"]
     got = pd.pileup_counts_tiled(posrel.to(cuda), lane.to(cuda),
                                  ok.to(cuda), tile, n_tiles)
+    torch.cuda.synchronize()
+    assert kernels.launches["pileup_tiled"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def _scatter_on_card(cuda, rp, ln, ok, q, window):
+    """K14's scatter, counts and qual sums, on the card against the plain
+    version on the CPU: one launch a call."""
+    from samtools_tpu_torch.ops import pileup_device as pd
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (rp, ln, ok, q)]
+    for weight in (None, t[3]):
+        want = pd.pileup_scatter_plain(*t[:3], window, weight)
+        before = kernels.launches["pileup_scatter"]
+        got = pd.pileup_scatter(*(a.to(cuda) for a in t[:3]), window,
+                                None if weight is None else weight.to(cuda))
+        torch.cuda.synchronize()
+        assert kernels.launches["pileup_scatter"] == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", k14.SCATTER_CASES)
+def test_pileup_scatter_hard_shapes_equal_plain(cuda, case):
+    """The redesigned scatter on its hard shapes (read order, reversed,
+    random, 100,000 items on one cell, chunks at the private budget and
+    one row over it, ragged and one-item calls, a one-row window, the edge
+    lanes), counts and qual sums equal to the plain version."""
+    _scatter_on_card(cuda, *k14.scatter_case(case,
+                                             kernels.sm_count(cuda)))
+
+
+@pytest.mark.parametrize("chunk,budget", [(16, 0), (16, 1), (256, 1700),
+                                          (2048, 96), (1024, 64)])
+def test_pileup_scatter_any_chunk_and_budget_equals_plain(cuda, chunk,
+                                                          budget):
+    """The C entry with other chunks and budgets than the wrapper's (every
+    chunk global; tiny chunks; chunks larger than the items' window) on
+    read-order items, and on offset views (staging from unaligned
+    addresses), equal to the plain version."""
+    from samtools_tpu_torch.ops import pileup_device as pd
+    rp, ln, ok, q, window = k14.read_order()
+    for off in (0, 1, 3):
+        # on the card first, then cut: the views keep the offset
+        t = [torch.from_numpy(np.concatenate([a[:off], a])).to(cuda)[off:]
+             for a in (rp, ln, ok, q)]
+        for weight in (None, t[3]):
+            out = torch.zeros(window, 32, dtype=torch.int32, device=cuda)
+            rc = kernels._load().samtpu_pileup_scatter(
+                t[0].data_ptr(), t[1].data_ptr(),
+                None if weight is None else weight.data_ptr(),
+                t[2].data_ptr(), t[0].numel(), window, chunk, budget,
+                out.data_ptr(), kernels.stream_of(out))
+            torch.cuda.synchronize()
+            assert rc == 0
+            want = pd.pileup_scatter_plain(*(a.cpu() for a in t[:3]),
+                                           window, None if weight is None
+                                           else weight.cpu())
+            assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.parametrize("chunk,budget", [(4096, 64), (100, 64),
+                                          (2048, 5000), (0, 64), (256, -1)])
+def test_pileup_scatter_rejects_a_chunk_or_budget_it_does_not_take(
+        cuda, chunk, budget):
+    """A chunk above 2,048 items or not a multiple of 16, or a budget
+    beyond shared memory or negative: cudaErrorInvalidValue, nothing
+    launched."""
+    t = torch.zeros(64, dtype=torch.int32, device=cuda)
+    out = torch.zeros(8, 32, dtype=torch.int32, device=cuda)
+    rc = kernels._load().samtpu_pileup_scatter(
+        t.data_ptr(), t.data_ptr(), None, t.data_ptr(), 64, 8, chunk,
+        budget, out.data_ptr(), kernels.stream_of(out))
+    torch.cuda.synchronize()
+    assert rc == 1 and int(out.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("case", k14.TILED_CASES)
+@pytest.mark.parametrize("offset", [0, 5])
+def test_pileup_tiled_hard_shapes_equal_plain(cuda, case, offset):
+    """The redesigned tiled entry on bucketed read-order items (B a
+    multiple of 16 and not), 100,000 items on one cell, one-row tiles and
+    rows and lanes past both ends, from aligned tensors (16-item groups)
+    and from views 5 items in (item by item), equal to the plain
+    version."""
+    from samtools_tpu_torch.ops import pileup_device as pd
+    posrel, lane, ok, tile, n_tiles = k14.tiled_case(case)
+    # on the card first, then cut: the views keep the offset
+    t = [torch.from_numpy(np.concatenate([a.ravel()[:offset], a.ravel()]))
+         .to(cuda)[offset:].view(a.shape) for a in (posrel, lane, ok)]
+    want = pd.pileup_tiled_plain(*(a.cpu() for a in t), tile, n_tiles)
+    before = kernels.launches["pileup_tiled"]
+    got = pd.pileup_counts_tiled(*t, tile, n_tiles)
     torch.cuda.synchronize()
     assert kernels.launches["pileup_tiled"] == before + 1
     assert torch.equal(got.cpu(), want)

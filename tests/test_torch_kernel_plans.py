@@ -1,6 +1,7 @@
 """The launch plans of K12 (``stats_kernels.hists_plan``), K10
-(``consensus_vec.segsum_plan``), K11 (``flagstat.flagstat_plan``) and
-K7n (``mpileup_device.narrow_plan``), on the CPU.
+(``consensus_vec.segsum_plan``), K11 (``flagstat.flagstat_plan``), K7n
+(``mpileup_device.narrow_plan``) and K14 (``pileup_device.scatter_chunk``),
+on the CPU.
 
 Each plan cuts a call's work over the card's blocks; the kernels trust
 it.  Here: every read (K12) or column (K10) falls in exactly one block,
@@ -19,7 +20,18 @@ summed by the last block) and K7n's tiling (``csrc/census_narrow.cu``:
 each block's rows, the staged and unstaged split, the maxima folded as
 16-byte vectors, ``q_off``/``end``, the 16-byte count stores and the
 4-byte qual-sum stores) are emulated in numpy and must give their plain
-versions' counts and bytes exactly.
+versions' counts and bytes exactly.  K14's two entries
+(``csrc/pileup_counts.cu``) are emulated too: the scatter's chunk walk
+(chunk bounds from ``scatter_chunk``, each chunk's lowest and highest
+adding row, the private or global path at ``SCATTER_BUDGET_ROWS``, the
+two-slot run merge of each thread's items, the flush of the nonzero
+cells) and the tiled walk (the per-thread runs of 16-item groups, the
+skip of a group with no valid item, the warp fold, the swizzled row
+stores); both must equal the plain versions and the JAX functions on
+the hard shapes of ``tests/torch_k14_shapes.py``, with the threads a
+block, stages and items a thread read from the kernel's source
+(``torch_k14_shapes.CU``) and the chunk and budget from the constants
+the wrapper passes.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_k14_shapes as k14
 from samtools_tpu_torch.core import flags as F
 from samtools_tpu_torch.ops import consensus_vec as cv
 from samtools_tpu_torch.ops import flagstat as fs
@@ -471,3 +484,247 @@ def test_k7n_plan_stages_the_tool_window():
     assert md.narrow_plan(0, 132, smem, ring) == (0, 0, 0)
     # no room for staged rows beside the ring: every row through it
     assert md.narrow_plan(4099, 132, 0, ring)[2] == 0
+
+
+# K14 (csrc/pileup_counts.cu), emulated in numpy: the scatter's chunk walk
+# and the tiled entry's per-thread runs, with the chunk size, the private
+# budget and the thread counts the wrapper passes or the source fixes.
+
+def _swz(row, lane):
+    """The shared accumulator's word of cell (row, lane)."""
+    return row * 32 + (lane ^ (row & 31))
+
+
+def _run_merge(keys, weights, sink):
+    """The kernel's two-slot run merge, every thread at once: keys and
+    weights [steps, threads] (key -1: the item adds nothing); ``sink``
+    takes (keys, sums) of evicted and final slots.  Returns the final
+    slots (c0, n0, c1, n1)."""
+    T = keys.shape[1]
+    c0, c1 = np.full(T, -1, np.int64), np.full(T, -1, np.int64)
+    n0, n1 = np.zeros(T, np.int64), np.zeros(T, np.int64)
+    for k, w in zip(keys, weights):
+        act = k >= 0
+        h0 = act & (k == c0)
+        h1 = act & ~h0 & (k == c1)
+        miss = act & ~h0 & ~h1
+        n0[h0] += w[h0]
+        n1[h1] += w[h1]
+        ev = miss & (n1 != 0)
+        sink(c1[ev], n1[ev])
+        c1[miss], n1[miss] = c0[miss], n0[miss]
+        c0[miss], n0[miss] = k[miss], w[miss]
+    return c0, n0, c1, n1
+
+
+def _scatter_emulated(refpos, lane, valid, window, weight, sms):
+    """K14's scatter chunk by chunk: chunk bounds (``scatter_chunk``),
+    the lowest and highest row of the items that add, the private or
+    global path at ``SCATTER_BUDGET_ROWS``, thread t's items t + j * NT
+    merged in its two slots, the private accumulator flushed 4 words at a
+    time (nonzero cells only) and zeroed.  Returns (out, stats)."""
+    from samtools_tpu_torch.ops import pileup_device as pd
+    n = refpos.size
+    C = pd.scatter_chunk(n, sms)
+    budget, NT = pd.SCATTER_BUDGET_ROWS, k14.CU["NT"]
+    assert C % 16 == 0 and C <= k14.CU["MAX_IPT"] * NT
+    ipt = -(-C // NT)
+    out = np.zeros(window * 32, np.int64)
+    acc = np.zeros(budget * 32, np.int64)
+    ln = np.where(lane < 0, lane + 32, lane).astype(np.int64)
+    adds = valid & (refpos >= 0) & (refpos < window) & (ln >= 0) & (ln < 32)
+    w_all = np.ones(n, np.int64) if weight is None else weight.astype(
+        np.int64)
+    st = {"private": 0, "global": 0, "empty": 0, "global_adds": 0,
+          "shared_adds": 0}
+    for i0 in range(0, n, C):
+        cn = min(C, n - i0)
+        local = np.arange(ipt * NT).reshape(ipt, NT)
+        idx = i0 + np.minimum(local, cn - 1)
+        a = adds[idx] & (local < cn)
+        if not a.any():
+            st["empty"] += 1
+            continue
+        rows = refpos[idx].astype(np.int64)
+        lo, hi = rows[a].min(), rows[a].max()
+        if hi - lo < budget:
+            st["private"] += 1
+            span = hi - lo + 1
+            assert not acc.any()
+
+            def to_acc(k, v):
+                np.add.at(acc, k, v)
+                st["shared_adds"] += k.size
+            slots = _run_merge(np.where(a, _swz(rows - lo, ln[idx]), -1),
+                               w_all[idx], to_acc)
+            to_acc(slots[0][slots[1] != 0], slots[1][slots[1] != 0])
+            to_acc(slots[2][slots[3] != 0], slots[3][slots[3] != 0])
+            quads = acc[:span * 32].reshape(span * 8, 4)
+            q = np.arange(span * 8)
+            row = q >> 3
+            p = ((q & 7) * 4) ^ (row & 31)
+            for j in range(4):
+                nz = quads[:, j] != 0
+                np.add.at(out, (lo + row[nz]) * 32 + (p[nz] ^ j),
+                          quads[nz, j])
+                st["global_adds"] += int(nz.sum())
+            quads[quads.any(1)] = 0
+        else:
+            st["global"] += 1
+
+            def to_out(k, v):
+                np.add.at(out, k, v)
+                st["global_adds"] += k.size
+            slots = _run_merge(np.where(a, rows * 32 + ln[idx], -1),
+                               w_all[idx], to_out)
+            to_out(slots[0][slots[1] != 0], slots[1][slots[1] != 0])
+            to_out(slots[2][slots[3] != 0], slots[3][slots[3] != 0])
+    return out.reshape(window, 32), st
+
+
+def _tiled_emulated(posrel, lane, valid, tile, n_tiles, aligned=True):
+    """K14's tiled entry tile by tile: the tile's items before and after
+    its whole 16-item groups (all of them when a pointer is not 16-byte
+    aligned) strided over the threads, each thread's contiguous run of
+    groups (a group with no valid item skipped whole), the two-slot run
+    merge, the warp fold of the final slots, then the rows written 4
+    lanes at a time from the swizzled accumulator.  Returns (out,
+    stats)."""
+    from samtools_tpu_torch.ops import pileup_device as pd
+    B = posrel.shape[1]
+    T = k14.CU["TNT"]
+    P, L, V = posrel.ravel(), lane.ravel(), valid.ravel()
+    out = np.full((n_tiles * tile, 32), -7, np.int64)
+    st = {"groups": 0, "skipped": 0, "adds": 0, "folded": 0}
+    for b in range(n_tiles):
+        s, e = b * B, (b + 1) * B
+        a0 = b0 = e
+        if aligned:
+            a0 = min(e, -(-s // 16) * 16)
+            b0 = max(a0, e // 16 * 16)
+        acc = np.zeros(tile * 32, np.int64)
+        ga, G = a0 // 16, b0 // 16 - a0 // 16
+        per = -(-G // T)
+        keys = []
+        for t in range(T):
+            items = list(range(s + t, a0, T))
+            for g in range(ga + t * per, min(ga + G, ga + (t + 1) * per)):
+                st["groups"] += 1
+                if not V[16 * g:16 * g + 16].any():
+                    st["skipped"] += 1
+                    continue
+                items.extend(range(16 * g, 16 * g + 16))
+            items.extend(range(b0 + t, e, T))
+            keys.append([_swz(int(P[i]), int(L[i])) for i in items
+                         if V[i] and 0 <= P[i] < tile and 0 <= L[i] < 32])
+        steps = max(1, max(len(k) for k in keys))
+        K = np.full((steps, T), -1, np.int64)
+        for t, k in enumerate(keys):
+            K[:len(k), t] = k
+
+        def to_acc(k, v):
+            np.add.at(acc, k, v)
+            st["adds"] += k.size
+        c0, n0, c1, n1 = _run_merge(K, np.ones_like(K), to_acc)
+        for c, n in ((c0, n0), (c1, n1)):
+            for w in range(T // 32):
+                cw, nw = c[32 * w:32 * w + 32], n[32 * w:32 * w + 32]
+                for cell in np.unique(cw[cw >= 0]):
+                    total = nw[cw == cell].sum()
+                    if total:
+                        to_acc(np.array([cell]), np.array([total]))
+                    st["folded"] += int((cw == cell).sum()) - 1
+        q = np.arange(tile * 8)
+        row, x = q >> 3, (q >> 3) & 31
+        base = row * 32 + (((q & 7) * 4) ^ (x & 28))
+        v = acc[base[:, None] + np.arange(4)]
+        v = np.where((x & 1)[:, None] == 1, v[:, [1, 0, 3, 2]], v)
+        v = np.where((x & 2)[:, None] == 2, v[:, [2, 3, 0, 1]], v)
+        out[b * tile:(b + 1) * tile] = v.reshape(tile, 32)
+    return out, st
+
+
+def _jax_pileup():
+    from samtools_tpu.ops import pileup_device as jpd
+    return jpd
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("case", k14.SCATTER_CASES)
+def test_k14_scatter_walk_equals_plain_and_jax(case, sms):
+    from samtools_tpu_torch.ops import pileup_device as pd
+    jpd = _jax_pileup()
+    rp, ln, ok, q, window = k14.scatter_case(case, sms)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (rp, ln, ok, q)]
+    for weight in (None, q):
+        got, st = _scatter_emulated(rp, ln, ok, window, weight, sms)
+        plain = pd.pileup_scatter_plain(*t[:3], window,
+                                        None if weight is None else t[3])
+        jax = np.asarray(jpd.pileup_counts(rp, ln, ok, window)
+                         if weight is None else
+                         jpd.pileup_qual_sums(rp, ln, q, ok, window))
+        assert np.array_equal(got, plain.numpy())
+        assert np.array_equal(got, jax)
+        paths = k14.pileup_kernels_script().scatter_paths(
+            *t[:3], window, pd.scatter_chunk(rp.size, sms))
+        assert {k: st[k] for k in ("private", "global", "empty")} == {
+            k: paths[k] for k in ("private", "global", "empty")}
+    if case == "read_order":
+        # every chunk private; the flushes a fifth of the items or fewer
+        assert st["global"] == 0 and st["private"] > 100
+        assert st["global_adds"] * 5 < rp.size
+    if case == "budget_edge":
+        # at the budget, one row over, at it with non-adding items beyond
+        # both ends, nothing that adds, the ragged random chunk
+        assert (st["private"], st["global"], st["empty"]) == (2, 2, 1)
+    if case == "one_cell":
+        # one add a thread a chunk at most, then one flushed cell a chunk
+        chunks = -(-rp.size // pd.scatter_chunk(rp.size, sms))
+        assert st["shared_adds"] <= chunks * k14.CU["NT"]
+        assert st["global_adds"] == chunks
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", k14.TILED_CASES)
+def test_k14_tiled_walk_equals_plain_and_jax(case, aligned):
+    from samtools_tpu_torch.ops import pileup_device as pd
+    jpd = _jax_pileup()
+    posrel, lane, ok, tile, n_tiles = k14.tiled_case(case)
+    got, st = _tiled_emulated(posrel, lane, ok, tile, n_tiles, aligned)
+    plain = pd.pileup_tiled_plain(*(torch.from_numpy(a) for a in (
+        posrel, lane, ok)), tile, n_tiles)
+    jax = np.asarray(jpd.pileup_counts_tiled(posrel, lane, ok, tile,
+                                             n_tiles))
+    assert np.array_equal(got, plain.numpy())
+    assert np.array_equal(got, jax)
+    if aligned and case.startswith("read_order"):
+        # the padded slots at each tile's end skipped 16 at a time; runs
+        # of equal cells added once (sorted items: fewer adds than a
+        # third of the items)
+        assert st["skipped"] > 0
+        assert st["adds"] * 3 < int(ok.sum())
+    if not aligned:
+        assert st["groups"] == 0
+
+
+def test_k14_scatter_chunk_plan():
+    from samtools_tpu_torch.ops import pileup_device as pd
+    # clean's 1 Mbp: the largest chunk; entry()'s 65,536 items: the
+    # smallest, 256 blocks' worth
+    assert pd.scatter_chunk(31_515_500, 132) == pd.SCATTER_CHUNK == 2048
+    assert pd.scatter_chunk(1 << 16, 132) == pd.SCATTER_CHUNK_MIN == 256
+    assert pd.scatter_chunk(1, 132) == 256
+    assert pd.scatter_chunk(1 << 16, 1) == 2048
+    for n in (1, 1000, 70_000, 135_168, 540_672, 1 << 20, 1 << 25):
+        c = pd.scatter_chunk(n, 132)
+        assert c % 16 == 0 and 256 <= c <= k14.CU["MAX_IPT"] * k14.CU["NT"]
+        # two chunks an SM, unless the chunk is already the smallest
+        assert c == 256 or -(-n // c) >= 2 * 132
+    # a chunk's two stages and the private rows fit the card's opt-in
+    # shared memory with room for three (counts) or two (qual sums)
+    # blocks an SM (228 KiB an SM, 1 KiB a block reserved)
+    for weight, blocks in ((False, 3), (True, 2)):
+        C = pd.SCATTER_CHUNK
+        stage = 2 * (4 * C + 16) + C + 16 + (4 * C + 16 if weight else 0)
+        smem = k14.CU["RING"] * stage + pd.SCATTER_BUDGET_ROWS * 128
+        assert blocks * (smem + 1024 + 64) <= 233_472

@@ -217,6 +217,8 @@ def test_k14_wrappers_launch_on_their_tensors_card(fake_card, monkeypatch):
     (here CPU tensors taken for a card's)."""
     monkeypatch.setattr(kernels, "on_card", lambda *ts: True)
     monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    # the scatter's chunk follows the card's SM count
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
     cpu = torch.device("cpu")
     items = [torch.zeros(4, dtype=torch.int32)] * 2 \
         + [torch.ones(4, dtype=torch.bool)]
