@@ -34,7 +34,8 @@ from the sources in this checkout.  Phases, one JSON line each:
    form and in the tool's (with the sparse qual deltas).
 3. main path — 8 Mbp x 30x x 100 bp simulated reads (the JAX package's
    bench workload) and its messy indel/soft-clip variant, written as BAMs
-   by the port's writer, streamed through BamStream ->
+   by the port's writer (the two simulated in two processes at once),
+   streamed through BamStream ->
    DeviceCensusPipeline -> finish() / finish_checksum(); the census and
    the qual sums must equal the single-core f64 oracle
    (io.native.bench_baq_census) over the same records exactly, and the
@@ -67,11 +68,11 @@ from the sources in this checkout.  Phases, one JSON line each:
    on clean's front (the reads that start in its first 2 Mbp, written as
    a BAM of their own), ``depth -s`` on the pairs, ``coverage`` (streamed)
    on clean (8 windows) and on messy's front (2 windows) and ``coverage
-   -r sim1:1-2000000`` on clean, each in-process (``cli.main``) once on
-   the card and once with ``SAMTPU_DEVICE=0`` (numpy): byte-equal
-   outputs, the card runs launch K1's generic form and never the census
-   form, K4 or K5, the host runs launch nothing.  Then ``bedcov`` as a
-   subprocess, clean's front on standard input and a BED of 1,000
+   -r sim1:1-2000000`` on clean, each in-process (``cli.main``) on the
+   card and, as its host twin (below), with ``SAMTPU_DEVICE=0`` (numpy):
+   byte-equal outputs, the card runs launch K1's generic form and never
+   the census form, K4 or K5.  Then ``bedcov`` as two subprocesses at
+   once, clean's front on standard input and a BED of 1,000
    intervals of 1-10 kbp in its first 2 Mbp, card against
    ``SAMTPU_DEVICE=0``, byte-equal.  Per run: wall, aligned Mbases/s,
    output bytes and rows, launches.
@@ -213,7 +214,24 @@ from the sources in this checkout.  Phases, one JSON line each:
    halves that ``view`` wrote, as BAM and as CRAM: the same records as
    the whole (for CRAM, every container of both halves spliced).
    Per run: wall, the reads it read and a second, output bytes, launches.
-16. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
+16. prep_tools -- the pre-processing commands (no device work: the phase
+   must launch no kernel).  On the tool phase's 512 kbp pairs (157,286
+   reads), as one process beside the in-process runs (it reports its
+   runs' launches and that it made no CUDA context): ``collate``, then
+   ``fixmate -m``, then ``sort`` and ``sort -n``; collate keeps each
+   template together, fixmate gives every read MQ, MC and ms, and the
+   sorts are in coordinate and in name order (READ1 first).  On clean's
+   first 1 Mbp (its reads that start there, a cut of clean's 2 Mbp
+   front): ``sort`` in memory, ``sort -m`` with an arena that spills
+   four runs or more (the bytes of the in-memory run, no run left
+   behind), ``sort --write-index`` read by ``idxstats``, ``sort -M`` and
+   ``sort -I`` (the first 1 Mbp as FASTA) on a copy with one read in ten
+   unmapped (the mapped ones in coordinate order, the unmapped ones
+   last), ``--template-coordinate`` (in its order), and ``merge`` of the
+   halves that ``view -e`` splits off (the whole sort's records); every
+   run passes ``-@`` and every output ``quickcheck``.  Per run: wall,
+   reads a second, output bytes, launches.
+17. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
    ``graft_entry.entry()``'s shape (65,536 items, a 16,384-row window)
    and on clean's first 1 Mbp window (its reads' M bases): the scatter
    entry (counts and qual sums) and the tiled entry (the items bucketed
@@ -240,6 +258,13 @@ from the sources in this checkout.  Phases, one JSON line each:
    a span worker's start, stage by stage (interpreter, ``import torch``,
    the port's modules, CUDA context, kernel library, first launch), one
    alone and three at once.
+
+Host twins: where a phase holds a card run to the host branch
+(``SAMTPU_DEVICE=0``; pileup_family, general, consensus, stats), the
+host run is a process (``host_twin``, two at a time, all started with
+the phase, beside the card's in-process runs) that must exit 0, launch no
+kernel and make no CUDA context; ``host_wall_s`` is its ``cli.main``
+wall, ``host_process_wall_s`` the process's from spawn.
 
 Then the kernel table (``baq_apply`` and ``stable_order`` with their
 ``pileup_tools_launches``; ``pileup_scatter``, K14, with the launches of
@@ -723,28 +748,57 @@ def write_fasta(path: str, ref: np.ndarray) -> None:
         f.write(f"sim1\t{ref.size}\t6\t60\t61\n")
 
 
+# clean's and messy's reads simulated and written as a BAM, each in a
+# process of its own, the two at once (no card work runs meanwhile); the
+# reference is simulate_reference(REF_LEN, seed=7), as main()'s
+SIM_CHILD = r"""
+import sys
+from samtools_tpu_torch.io.bam import write_bam
+from samtools_tpu_torch.sim import (make_header, simulate_batch,
+                                    simulate_messy, simulate_reference)
+path, seed, messy, ref_len, coverage, read_len, threads = sys.argv[1:]
+ref_len, seed, threads = int(ref_len), int(seed), int(threads)
+b = simulate_batch(ref_len=ref_len, coverage=float(coverage),
+                   read_len=int(read_len), seed=seed, paired=False,
+                   err_rate=0.01, ref=simulate_reference(ref_len, seed=7))
+if messy == "1":
+    simulate_messy(b, seed)
+write_bam(path, make_header(ref_len), b, threads=threads)
+"""
+
+
+def simulate_main_bams(workdir: str) -> dict:
+    """clean.bam (seed 42) and messy.bam (seed 9, ``simulate_messy``) in
+    ``workdir``, SIM_CHILD processes at once; name -> (path, wall)."""
+    procs = {}
+    t0 = time.perf_counter()
+    for name, seed in (("clean", 42), ("messy", 9)):
+        path = os.path.join(workdir, f"{name}.bam")
+        procs[name] = (path, subprocess.Popen(
+            [sys.executable, "-c", SIM_CHILD, path, str(seed),
+             "1" if name == "messy" else "0", str(REF_LEN), str(COVERAGE),
+             str(READ_LEN), str(max(1, THREADS // 2))], cwd=ROOT,
+            stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE))
+    out = {}
+    for name, (path, p) in procs.items():
+        _, err = p.communicate(timeout=600)
+        require(p.returncode == 0, f"simulating {name}: rc {p.returncode}: "
+                f"{err.decode()[-500:]}")
+        out[name] = (path, time.perf_counter() - t0)
+    return out
+
+
 def phase_main(ref: np.ndarray, ref_int: np.ndarray, workdir: str):
     from samtools_tpu_torch import kernels
-    from samtools_tpu_torch.io.bam import write_bam
     from samtools_tpu_torch.io.stream import BamStream
     from samtools_tpu_torch.ops.mpileup_device import (DeviceCensusPipeline,
                                                        census_checksum)
-    from samtools_tpu_torch.sim import (make_header, simulate_batch,
-                                        simulate_messy)
     import torch
     launches, oracles = {}, {}
-    for name, seed in (("clean", 42), ("messy", 9)):
-        t0 = time.perf_counter()
-        b = simulate_batch(ref_len=REF_LEN, coverage=COVERAGE,
-                           read_len=READ_LEN, seed=seed, paired=False,
-                           err_rate=0.01, ref=ref)
-        if name == "messy":
-            simulate_messy(b, seed)
-        path = os.path.join(workdir, f"{name}.bam")
-        write_bam(path, make_header(REF_LEN), b, threads=THREADS)
-        del b
-        t_sim = time.perf_counter() - t0
-
+    sims = simulate_main_bams(workdir)
+    for name in ("clean", "messy"):
+        path, t_sim = sims[name]
         kernels.reset_launches()
         t0 = time.perf_counter()
         pipe = DeviceCensusPipeline(ref_int, REF_LEN)
@@ -1045,56 +1099,37 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
     the generic K1's launches per in-process card run."""
     import filecmp
 
-    import torch
-    from samtools_tpu_torch import cli, kernels
     launches = {}
-    for label, argv, wl in PILEUP_RUNS:
-        args = [a.format(**bams) for a in argv]
-        outs, walls, runs = {}, {}, {}
-        for engine in ("card", "host"):
-            outs[engine] = os.path.join(workdir, f"pileup.{engine}.txt")
-            saved = os.environ.pop("SAMTPU_DEVICE", None)
-            if engine == "host":
-                os.environ["SAMTPU_DEVICE"] = "0"
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            try:
-                rc = cli.main([*args, "-o", outs[engine]])
-                torch.cuda.synchronize()
-            finally:
-                os.environ.pop("SAMTPU_DEVICE", None)
-                if saved is not None:
-                    os.environ["SAMTPU_DEVICE"] = saved
-            walls[engine] = time.perf_counter() - t0
-            runs[engine] = dict(kernels.launches)
-            require(rc == 0, f"{label} on {wl} ({engine}): rc {rc}")
-        require(filecmp.cmp(outs["card"], outs["host"], shallow=False),
+    runs = [(f"{label} {wl}", [a.format(**bams) for a in argv], "-o", True)
+            for label, argv, wl in PILEUP_RUNS]
+    for (label, argv, wl), (_, (wall, card, out), (host, host_out)) in zip(
+            PILEUP_RUNS, card_and_host(runs, workdir, "pileup")):
+        require(filecmp.cmp(out, host_out, shallow=False),
                 f"{label} on {wl}: the card's output differs from the "
                 "host branch's")
-        require(runs["card"]["segment_contract"] > 0 and all(
-            runs["card"][k] == 0 for k in MAIN_PATH),
-            f"{label} on {wl}: the card run launched {runs['card']}")
-        require(not any(runs["host"].values()),
-                f"{label} on {wl}: the host run launched {runs['host']}")
-        rows = count_rows(outs["card"])
+        require(card["segment_contract"] > 0 and all(
+            card[k] == 0 for k in MAIN_PATH),
+            f"{label} on {wl}: the card run launched {card}")
+        rows = count_rows(out)
         require(rows > 1, f"{label} on {wl}: no rows")
         n = reads["region" if "-r" in argv else wl]
         emit({"phase": "pileup_family", "run": label, "workload": wl,
-              "reads": int(n), "card_wall_s": round(walls["card"], 3),
-              "host_wall_s": round(walls["host"], 3),
-              "Mbases_per_s": round(n * READ_LEN / walls["card"] / 1e6, 3),
-              "output_bytes": os.path.getsize(outs["card"]),
-              "output_rows": rows, "launches": runs["card"],
-              "byte_equal": True})
-        launches[f"{label} {wl}"] = runs["card"]["segment_contract"]
-        for p in outs.values():
-            os.remove(p)
+              "reads": int(n), "card_wall_s": round(wall, 3),
+              "host_wall_s": round(host["wall_s"], 3),
+              "host_process_wall_s": round(host["process_wall_s"], 3),
+              "Mbases_per_s": round(n * READ_LEN / wall / 1e6, 3),
+              "output_bytes": os.path.getsize(out), "output_rows": rows,
+              "launches": card, "byte_equal": True})
+        launches[f"{label} {wl}"] = card["segment_contract"]
+        os.remove(out)
+        os.remove(host_out)
 
     # bedcov as a user runs it: the BAM on standard input
     bed = os.path.join(workdir, "regions.bed")
     bed_intervals(bed, FRONT_END)
     got, walls = {}, {}
-    for engine in ("card", "host"):
+
+    def bedcov(engine):
         env = dict(os.environ)
         env.pop("SAMTPU_DEVICE", None)
         if engine == "host":
@@ -1108,6 +1143,10 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
         require(p.returncode == 0, f"bedcov ({engine}): rc {p.returncode}: "
                 f"{p.stderr.decode()[-2000:]}")
         got[engine] = p.stdout
+    # the card's process and the host branch's at once
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(bedcov, e) for e in ("card", "host")]:
+            f.result()
     require(got["card"] == got["host"], "bedcov: the card's output differs "
             "from the host branch's")
     require(got["card"].count(b"\n") == 1000, "bedcov: not 1,000 rows")
@@ -1150,7 +1189,6 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
     import filecmp
 
     import torch
-    from samtools_tpu_torch import cli, kernels
     from samtools_tpu_torch.io import native
     from samtools_tpu_torch.io.files import read_alignments
     from samtools_tpu_torch.ops import baq
@@ -1257,28 +1295,12 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
     # --- the general path as a user runs it
     fa = os.path.join(workdir, "ref.fa")
     launches = {}
-    for label, argv, wl, engines in GENERAL_RUNS:
-        args = [a.format(fa=fa, **bams) for a in argv]
-        outs, walls, runs = {}, {}, {}
-        for engine in engines:
-            outs[engine] = os.path.join(workdir, f"general.{engine}.txt")
-            saved = os.environ.pop("SAMTPU_DEVICE", None)
-            if engine == "host":
-                os.environ["SAMTPU_DEVICE"] = "0"
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            try:
-                rc = cli.main([*args, "-o", outs[engine]])
-                torch.cuda.synchronize()
-            finally:
-                os.environ.pop("SAMTPU_DEVICE", None)
-                if saved is not None:
-                    os.environ["SAMTPU_DEVICE"] = saved
-            walls[engine] = time.perf_counter() - t0
-            runs[engine] = dict(kernels.launches)
-            require(rc == 0, f"{label} ({engine}): rc {rc}")
-        card = runs["card"]
-        is_mpileup = args[0] == "mpileup"
+    runs = [(label, [a.format(fa=fa, **bams) for a in argv], "-o",
+             "host" in engines) for label, argv, _, engines in GENERAL_RUNS]
+    for (label, argv, wl, _), (_, (wall, card, out), host) in zip(
+            GENERAL_RUNS, card_and_host(runs, workdir, "general")):
+        outs, walls = {"card": out}, {"card": wall}
+        is_mpileup = argv[0] == "mpileup"
         require(card["stable_order"] > 0 and card["segment_census"] == 0
                 and card["segment_contract"] == 0
                 and (card["baq_apply"] > 0) == is_mpileup
@@ -1290,9 +1312,10 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
             require(card["stable_order"] >= n_windows
                     and card["baq_apply"] >= n_windows,
                     f"{label}: {card} over {n_windows} stream windows")
-        if "host" in engines:
-            require(not any(runs["host"].values()),
-                    f"{label}: the host run launched {runs['host']}")
+        if host is not None:
+            walls["host"] = host[0]["wall_s"]
+            walls["host_process"] = host[0]["process_wall_s"]
+            outs["host"] = host[1]
             require(filecmp.cmp(outs["card"], outs["host"], shallow=False),
                     f"{label}: the card's output differs from the host "
                     "branch's")
@@ -1358,13 +1381,92 @@ def run_cli(argv: list[str], out: str, to: str, host: bool) -> float:
     return time.perf_counter() - t0
 
 
+# host-branch twins run as processes, this many at a time beside the
+# card's in-process runs (the phases that hold the card to SAMTPU_DEVICE=0)
+HOST_TWINS = 2
+
+# one host-branch twin: the command through cli.main, its output to a
+# file by -o or standard output; a JSON report of its exit code, its wall
+# (cli.main's, as an in-process run's), its launches and whether it made
+# a CUDA context
+HOST_CHILD = r"""
+import contextlib, json, sys, time
+import torch
+from samtools_tpu_torch import cli, kernels
+report, spec = sys.argv[1], json.loads(sys.argv[2])
+t0 = time.perf_counter()
+if spec["to"] == "-o":
+    rc = cli.main([*spec["argv"], "-o", spec["out"]])
+else:
+    with open(spec["out"], "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(spec["argv"])
+res = {"rc": rc, "wall_s": time.perf_counter() - t0,
+       "launches": {k: v for k, v in kernels.launches.items() if v},
+       "cuda_initialized": torch.cuda.is_initialized()}
+with open(report, "w") as f:
+    json.dump(res, f)
+"""
+
+
+def host_twin(argv: list[str], out: str, to: str) -> dict:
+    """``argv`` on the host branch (SAMTPU_DEVICE=0) as a HOST_CHILD
+    process, its output in ``out``; its report, with the process's wall
+    from spawn (``process_wall_s``).  Raises unless it exits 0, launches
+    no kernel and makes no CUDA context."""
+    report = out + ".json"
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", HOST_CHILD, report,
+                        json.dumps({"argv": argv, "out": out, "to": to})],
+                       env=dict(os.environ, SAMTPU_DEVICE="0"), cwd=ROOT,
+                       stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                       stderr=subprocess.PIPE, timeout=900)
+    wall = time.perf_counter() - t0
+    what = " ".join(argv[:3]) + " (host branch)"
+    require(p.returncode == 0 and os.path.exists(report),
+            f"{what}: process rc {p.returncode}: "
+            f"{p.stderr.decode()[-500:]}")
+    with open(report) as f:
+        res = json.load(f)
+    os.remove(report)
+    require(res["rc"] == 0, f"{what}: rc {res['rc']}")
+    require(not res["launches"] and not res["cuda_initialized"],
+            f"{what}: launched {res['launches']}, CUDA context "
+            f"{res['cuda_initialized']}")
+    res["process_wall_s"] = wall
+    return res
+
+
+def card_and_host(runs, workdir: str, name: str):
+    """Each of ``runs`` ((label, argv, output: "-o" or "stdout", whether
+    the host branch runs too)) in-process on the card, and where asked
+    its host twin (``host_twin``, HOST_TWINS at a time, all started
+    first).  Yields in order (label, card run: (wall, launches, output),
+    host twin: (report, output) or None); the caller removes the
+    outputs."""
+    from samtools_tpu_torch import kernels
+    ex = ThreadPoolExecutor(HOST_TWINS)
+    try:
+        host = {}
+        for i, (_, argv, to, twin) in enumerate(runs):
+            if twin:
+                out = os.path.join(workdir, f"{name}{i}.host")
+                host[i] = (ex.submit(host_twin, argv, out, to), out)
+        for i, (label, argv, to, twin) in enumerate(runs):
+            out = os.path.join(workdir, f"{name}{i}.card")
+            kernels.reset_launches()
+            wall = run_cli(argv, out, to, False)
+            yield (label, (wall, dict(kernels.launches), out),
+                   (host[i][0].result(), host[i][1]) if twin else None)
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
 def phase_consensus(workdir: str, bams: dict, clean_text: str,
                     counts: dict, dev) -> tuple:
     """consensus, flagstat and mpileup --checkpoint as a user runs them,
     then K10 and K11 against their plain versions at those runs' shapes."""
     import filecmp
 
-    import torch
     from samtools_tpu_torch import kernels
     from samtools_tpu_torch.io.files import read_alignments
     from samtools_tpu_torch.io.stream import BamStream
@@ -1379,32 +1481,28 @@ def phase_consensus(workdir: str, bams: dict, clean_text: str,
         if not first:
             first.append(args)
         return scorer(*args)
-    for label, argv, wl, to in CONSENSUS_RUNS:
-        args = [a.format(**bams) for a in argv]
-        outs, walls, runs = {}, {}, {}
-        for engine in ("card", "host"):
-            outs[engine] = os.path.join(workdir, f"cons.{engine}.out")
-            kernels.reset_launches()
-            cv.gap5_scores_device = keep_first
-            try:
-                walls[engine] = run_cli(args, outs[engine], to,
-                                        engine == "host")
-            finally:
-                cv.gap5_scores_device = scorer
-            runs[engine] = dict(kernels.launches)
+    runs = [(label, [a.format(**bams) for a in argv], to, True)
+            for label, argv, _, to in CONSENSUS_RUNS]
+    cv.gap5_scores_device = keep_first
+    try:
+        done = list(card_and_host(runs, workdir, "cons"))
+    finally:
+        cv.gap5_scores_device = scorer
+    for (label, argv, wl, _), (_, (wall, card, out), (host, host_out)) in \
+            zip(CONSENSUS_RUNS, done):
+        outs = {"card": out, "host": host_out}
+        walls = {"card": wall, "host": host["wall_s"],
+                 "host_process": host["process_wall_s"]}
         require(filecmp.cmp(outs["card"], outs["host"], shallow=False),
                 f"{label}: the card's output differs from the host "
                 "branch's")
-        card = runs["card"]
         want = (("consensus_segsum", "stable_order")
-                if args[0] == "consensus" else ("flagstat",))
+                if argv[0] == "consensus" else ("flagstat",))
         require(all(card[k] > 0 for k in want) and not any(
             v for k, v in card.items() if k not in want),
             f"{label}: the card run launched {card}")
-        require(not any(runs["host"].values()),
-                f"{label}: the host run launched {runs['host']}")
         n_rows = count_rows(outs["card"])
-        require(n_rows > (1000 if args[0] == "consensus" else 10),
+        require(n_rows > (1000 if argv[0] == "consensus" else 10),
                 f"{label}: too few rows")
         n = counts[wl]
         emit({"phase": "consensus", "run": label, "reads": int(n),
@@ -1672,30 +1770,24 @@ def phase_stats(bams: dict, workdir: str, counts: dict) -> dict:
     branch, byte for byte."""
     import filecmp
 
-    from samtools_tpu_torch import kernels
     launches = {}
-    for label, argv, wl in STATS_RUNS:
-        args = [a.format(fa=os.path.join(workdir, "ref.fa"), **bams)
-                for a in argv]
-        outs, walls, runs = {}, {}, {}
-        for engine in ("card", "host"):
-            outs[engine] = os.path.join(workdir, f"stats.{engine}.txt")
-            kernels.reset_launches()
-            walls[engine] = run_cli(args, outs[engine], "stdout",
-                                    engine == "host")
-            runs[engine] = dict(kernels.launches)
+    runs = [(label, [a.format(fa=os.path.join(workdir, "ref.fa"), **bams)
+                     for a in argv], "stdout", True)
+            for label, argv, _ in STATS_RUNS]
+    for (label, _, wl), (_, (wall, card, out), (host, host_out)) in zip(
+            STATS_RUNS, card_and_host(runs, workdir, "stats")):
+        outs = {"card": out, "host": host_out}
+        walls = {"card": wall, "host": host["wall_s"],
+                 "host_process": host["process_wall_s"]}
         require(filecmp.cmp(outs["card"], outs["host"], shallow=False),
                 f"{label} ({wl}): the card's output differs from the host "
                 "branch's")
         n = counts[wl]
-        card = runs["card"]
         chunks = -(-n // CHUNK)
         require(card["stats_hists"] >= chunks and not any(
             v for k, v in card.items() if k != "stats_hists"),
             f"{label} ({wl}): {chunks} chunks, the card run launched "
             f"{card}")
-        require(not any(runs["host"].values()),
-                f"{label} ({wl}): the host run launched {runs['host']}")
         n_rows = count_rows(outs["card"])
         require(n_rows > 500, f"{label} ({wl}): too few rows")
         emit({"phase": "stats", "run": label, "input": wl, "reads": int(n),
@@ -2835,6 +2927,261 @@ def phase_view_tools(workdir: str, front: str, cram_bam: str) -> None:
                                             3)})
 
 
+# the prep_tools phase: its front (clean's reads that start before this:
+# the sorts of the phase on clean's whole 2 Mbp front would take it past
+# its ~45 s), the share of the front's reads made unplaced for sort -M
+# and -I, and the spill runs sort -m must reach
+PREP_FRONT_END = 1_000_000
+PREP_UNPLACED_EVERY = 10
+PREP_SPILL_RUNS = 6
+
+# the pairs' chain of the prep_tools phase as a process beside the
+# front's runs: collate, fixmate -m, sort and sort -n through cli.main;
+# a JSON report of each run's wall, exit code and launches, and whether
+# the process made a CUDA context
+PREP_CHILD = r"""
+import json, sys, time
+import torch
+from samtools_tpu_torch import cli, kernels
+report, spec = sys.argv[1], json.loads(sys.argv[2])
+runs = []
+for label, argv in spec["runs"]:
+    b0 = dict(kernels.launches)
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    runs.append({"run": label, "rc": rc,
+                 "wall_s": time.perf_counter() - t0,
+                 "launches": {k: v - b0.get(k, 0)
+                              for k, v in kernels.launches.items()
+                              if v != b0.get(k, 0)}})
+    if rc:
+        break
+with open(report, "w") as f:
+    json.dump({"runs": runs, "cuda_initialized": torch.cuda.is_initialized(),
+               "process_wall_s": time.time() - spec["t_spawn"]}, f)
+"""
+
+
+def _name_rows(b) -> np.ndarray:
+    """The batch's qnames as one fixed-width bytes value each (the
+    simulated names are all one width, so byte order is the natural
+    order)."""
+    w = np.diff(b.qname_off)
+    require(b.n == 0 or (w == w[0]).all(), "names of several widths")
+    return b.qname.reshape(b.n, -1).view(f"S{int(w[0]) if b.n else 1}")[:, 0]
+
+
+def _coordinate_sorted(b) -> bool:
+    """(tid with unmapped last, pos) never decreases."""
+    tid = np.where(b.tid < 0, np.iinfo(np.int64).max, b.tid.astype(np.int64))
+    return bool(np.all((tid[1:] > tid[:-1])
+                       | ((tid[1:] == tid[:-1]) & (b.pos[1:] >= b.pos[:-1]))))
+
+
+def _templates_adjacent(b) -> bool:
+    """Each template's records lie together: as many runs of equal names
+    as distinct names."""
+    names = _name_rows(b)
+    runs = 1 + int(np.count_nonzero(names[1:] != names[:-1])) if b.n else 0
+    return runs == np.unique(names).size
+
+
+def _template_order(b) -> bool:
+    """template-coordinate on single-end reads without clips or hard
+    clips: (tid, the 5' end's unclipped position, reverse before
+    forward) never decreases."""
+    require(not (b.flag & 1).any() and not np.isin(b.cigar & 0xF,
+                                                   (4, 5)).any(),
+            "the template check takes single-end reads without clips")
+    rev = (b.flag & 0x10) != 0
+    p1 = np.where(rev, b.end_pos(), b.pos + 1).astype(np.int64)
+    key = np.stack([b.tid.astype(np.int64), p1, (~rev).astype(np.int64)])
+    d = key[:, 1:] - key[:, :-1]
+    first = np.argmax(d != 0, axis=0)
+    return bool(np.all(d[first, np.arange(d.shape[1])] >= 0))
+
+
+def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
+                     ref: np.ndarray) -> None:
+    """collate, fixmate, sort and merge (module doc, phase 16): the pairs'
+    chain in a process, the front's runs in-process; no kernel."""
+    import contextlib
+    import io
+
+    from samtools_tpu_torch import cli, kernels
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.io.extsort import batch_nbytes
+    from samtools_tpu_torch.io.files import read_alignments
+    t_phase = time.perf_counter()
+    before = dict(kernels.launches)
+    d = os.path.join(workdir, "prep_tools")
+    os.makedirs(d, exist_ok=True)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    threads = str(THREADS)
+    # the pairs' chain, beside the front's runs
+    chain = [("collate", ["collate", "-@", threads, "-o", p("g.bam"),
+                          pairs]),
+             ("fixmate -m", ["fixmate", "-@", threads, "-m", p("g.bam"),
+                             p("fm.bam")]),
+             ("sort (pairs)", ["sort", "-@", threads, "-o", p("fs.bam"),
+                               p("fm.bam")]),
+             ("sort -n (pairs)", ["sort", "-@", threads, "-n", "-o",
+                                  p("fn.bam"), p("fm.bam")])]
+    with open(p("child.err"), "wb") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", PREP_CHILD, p("child.json"),
+             json.dumps({"runs": chain, "t_spawn": time.time()})],
+            cwd=ROOT, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+            stderr=err)
+    # the front at the phase's depth, and a copy with one read in
+    # PREP_UNPLACED_EVERY unmapped (sort -M and -I cluster those)
+    got = read_alignments(clean_front, THREADS)
+    keep = np.nonzero(got.batch.pos < PREP_FRONT_END)[0]
+    b = got.batch.take(keep)
+    n = b.n
+    front = p("front.bam")
+    write_bam(front, got.header, b, threads=THREADS)
+    um = np.arange(n) % PREP_UNPLACED_EVERY == 0
+    u = b.take(np.arange(n))
+    u.tid[um], u.pos[um] = -1, -1
+    u.flag[um] |= 0x4
+    unplaced = p("unplaced.bam")
+    write_bam(unplaced, got.header, u, threads=THREADS)
+    del got, u
+    fa = p("front.fa")
+    write_fasta(fa, ref[:PREP_FRONT_END])
+
+    def run(label, argv, outs=(), reads=n):
+        """One in-process run: its stdout and stderr, and a line of wall,
+        reads a second, output bytes and launches (none allowed)."""
+        raw, err = io.BytesIO(), io.StringIO()
+        out = io.TextIOWrapper(raw, encoding="latin-1", write_through=True)
+        b0 = dict(kernels.launches)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        launched = {k: v - b0[k] for k, v in kernels.launches.items()
+                    if v != b0[k]}
+        require(rc == 0, f"{label}: rc {rc}: {err.getvalue()[-500:]}")
+        require(not launched, f"{label}: launched {launched}")
+        emit({"phase": "prep_tools", "run": label, "reads": reads,
+              "wall_s": round(wall, 3),
+              "reads_per_s": round(reads / wall) if reads else None,
+              "output_bytes": len(raw.getvalue()) + sum(
+                  os.path.getsize(o) for o in outs), "launches": {}})
+        return raw.getvalue(), err.getvalue()
+
+    def records(path):
+        return read_alignments(path, THREADS).batch
+
+    # in memory, then spilled to PREP_SPILL_RUNS runs: the same bytes
+    run("sort", ["sort", "--no-PG", "-@", threads, "-o", p("mem.bam"),
+                 front], [p("mem.bam")])
+    mem = records(p("mem.bam"))
+    require(mem.n == n and _coordinate_sorted(mem), "sort: not in order")
+    arena = batch_nbytes(b) // (PREP_SPILL_RUNS * THREADS)
+    _, err = run("sort -m (spilled)", [
+        "sort", "--no-PG", "-@", threads, "--verbosity", "4", "-m",
+        str(arena), "-T", p("spill"), "-o", p("spill.bam"), front],
+        [p("spill.bam")])
+    spills = int(err.split("[I::sort] merging from ")[1].split()[0])
+    with open(p("mem.bam"), "rb") as f, open(p("spill.bam"), "rb") as g:
+        require(f.read() == g.read(),
+                "sort -m: the spilled run's bytes differ from in-memory")
+    require(spills >= 4, f"sort -m spilled {spills} runs, not 4 or more")
+    require(not [x for x in os.listdir(d) if x.startswith("spill.0")],
+            "sort -m left a spill run behind")
+    emit({"phase": "prep_tools", "run": "sort -m runs", "arena_bytes": arena,
+          "threads": THREADS, "spill_runs": spills, "byte_equal": True})
+    # an index written beside the sort, read by idxstats
+    run("sort --write-index", ["sort", "-@", threads, "--write-index", "-o",
+                               p("idx.bam"), front], [p("idx.bam")])
+    got, _ = run("idxstats", ["idxstats", p("idx.bam")], reads=n)
+    mapped = sum(int(ln.split(b"\t")[2]) for ln in got.splitlines())
+    require(mapped == n, f"idxstats: {mapped} mapped reads of {n}")
+    # minimisers: the mapped reads in coordinate order, the unplaced ones
+    # last with their key fields cleared
+    for label, extra in (("sort -M", ["-M"]), ("sort -I", ["-I", fa])):
+        out = p(label[-1] + ".bam")
+        run(label, ["sort", "-@", threads, *extra, "-o", out, unplaced],
+            [out])
+        m = records(out)
+        k = int(um.sum())
+        require(m.n == n and (m.tid[n - k:] < 0).all()
+                and _coordinate_sorted(m.take(np.arange(n - k)))
+                and (m.pos[n - k:] == -1).all(),
+                f"{label}: not in minimiser order")
+    run("sort --template-coordinate", [
+        "sort", "-@", threads, "--template-coordinate", "-o", p("t.bam"),
+        front], [p("t.bam")])
+    require(_template_order(records(p("t.bam"))),
+            "sort --template-coordinate: not in order")
+    # merge of the halves that view -e splits off: the whole sort's records
+    mid = PREP_FRONT_END // 2
+    halves = []
+    for k, cond in enumerate(("pos < %d", "pos >= %d")):
+        halves.append(p(f"half{k}.bam"))
+        run(f"view -e half {k}", ["view", "-b", "-@", threads, "-e",
+                                  cond % mid, "-o", halves[-1],
+                                  p("mem.bam")], [halves[-1]])
+    run("merge", ["merge", "-@", threads, "-c", "-p", "-o", p("merged.bam"),
+                  *halves], [p("merged.bam")])
+    require(_same_records(records(p("merged.bam")), mem),
+            "merge: the halves are not the whole sort")
+    # the pairs' chain
+    rc = child.wait(timeout=600)
+    with open(p("child.err"), "rb") as f:
+        err = f.read().decode("latin-1")[-500:]
+    require(rc == 0 and os.path.exists(p("child.json")),
+            f"the pairs' chain: process rc {rc}: {err}")
+    with open(p("child.json")) as f:
+        res = json.load(f)
+    require(not res["cuda_initialized"],
+            "the pairs' chain made a CUDA context")
+    require(len(res["runs"]) == len(chain), f"the pairs' chain: {err}")
+    n_pairs = records(pairs).n
+    for r, (label, argv) in zip(res["runs"], chain):
+        require(r["rc"] == 0 and not r["launches"],
+                f"{label}: rc {r['rc']}, launched {r['launches']}: {err}")
+        out = argv[argv.index("-o") + 1] if "-o" in argv else argv[-1]
+        emit({"phase": "prep_tools", "run": label, "reads": n_pairs,
+              "wall_s": round(r["wall_s"], 3),
+              "reads_per_s": round(n_pairs / r["wall_s"]),
+              "output_bytes": os.path.getsize(out), "launches": {},
+              "process": True})
+    g = records(p("g.bam"))
+    require(g.n == n_pairs and _templates_adjacent(g),
+            "collate: a template's records are apart")
+    fm = records(p("fm.bam"))
+    flat = fm.aux.tobytes()
+    require(fm.n == n_pairs and all(flat.count(t) == n_pairs
+                                    for t in (b"MQi", b"MCZ", b"msi")),
+            "fixmate -m: a read without its MQ, MC or ms tag")
+    fs = records(p("fs.bam"))
+    require(fs.n == n_pairs and _coordinate_sorted(fs),
+            "sort (pairs): not in order")
+    fn = records(p("fn.bam"))
+    names = _name_rows(fn)
+    require(fn.n == n_pairs and bool(np.all(names[1:] >= names[:-1]))
+            and not ((names[1:] == names[:-1])
+                     & ((fn.flag[:-1] & 0x80) != 0)).any(),
+            "sort -n (pairs): not in name order, READ1 first")
+    # quickcheck every output
+    outs = sorted(os.path.join(d, x) for x in os.listdir(d)
+                  if x.endswith(".bam"))
+    run("quickcheck (outputs)", ["quickcheck", *outs], reads=0)
+    require(kernels.launches == before,
+            "the prep_tools phase launched a kernel")
+    for x in os.listdir(d):
+        os.remove(os.path.join(d, x))
+    os.rmdir(d)
+    emit({"phase": "prep_tools", "run": "all", "reads": n,
+          "pairs_reads": n_pairs,
+          "child_process_wall_s": round(res["process_wall_s"], 3),
+          "wall_s": round(time.perf_counter() - t_phase, 3)})
+
+
 # the sharded cell: a 2.5 Mi contig (three spans under SAMTPU_SHARDS=3)
 # at 10x of 100 bp reads, indexed
 SHARD_LEN = 5 << 19
@@ -3292,6 +3639,7 @@ def main() -> int:
         del cram_reads
         tools = phase_pileup_tools(workdir)
         phase_view_tools(workdir, bams["clean_front"], cram_bam)
+        phase_prep_tools(workdir, bams["clean_front"], bams["pairs"], ref)
         rows["pileup_scatter"], sharded_launches = phase_sharded(
             workdir, bams, torch.device("cuda"))
     rows.update(general_rows)

@@ -11,6 +11,7 @@ import os
 import sys
 
 from . import SAMTOOLS_PARITY_VERSION, __version__
+from .core import metrics
 from .tools import COMMANDS, run_command
 
 
@@ -26,12 +27,16 @@ Commands:
      index          index alignment
 
   -- Editing
+     fixmate        fix mate information
      targetcut      cut fosmid regions (for fosmid pool only)
 
   -- File operations
+     collate        shuffle and group alignments by name
      cat            concatenate BAMs
      consensus      produce a consensus Pileup/FASTA/FASTQ
+     merge          merge sorted alignments
      mpileup        multi-way pileup
+     sort           sort alignment file
      quickcheck     quickly check if SAM/BAM/CRAM file appears intact
 
   -- Statistics
@@ -71,7 +76,9 @@ def print_version() -> None:
 
 def main(argv: list[str] | None = None, device=None) -> int:
     """Run one command.  ``device`` goes to the command's entry point:
-    None means the CUDA card; the tests pass "cpu"."""
+    None means the CUDA card; the tests pass "cpu".  After the command,
+    the stage breakdown goes to stderr under ``--verbosity`` 4 or
+    ``SAMTPU_METRICS=1`` (``core/metrics.report``)."""
     if argv is None:
         argv = sys.argv[1:]
     if not argv:
@@ -92,8 +99,14 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if cmd not in COMMANDS:
         sys.stderr.write(f"[main] unrecognized command '{cmd}'\n")
         return 1
+    # each command starts with no stages and the default verbosity, as a
+    # fresh process of the JAX tool does
+    metrics.reset()
+    metrics.set_verbosity(metrics.DEFAULT_VERBOSITY)
     try:
-        return run_command(cmd, argv[1:], device)
+        rc = run_command(cmd, argv[1:], device)
+        metrics.report(cmd)
+        return rc
     except BrokenPipeError:
         # downstream closed the pipe (`... | head`): exit quietly
         try:

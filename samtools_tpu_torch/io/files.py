@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..core import metrics
 from ..core.batch import ReadBatch
 from . import bgzf, hfile, native
 from . import fasta as fastamod
@@ -70,7 +71,10 @@ def read_alignments(path: str, threads: int = 0,
     else:
         with open(hfile.resolve(path), "rb") as f:
             data = f.read()
-    return _read_from_bytes(data, max(1, threads or 2), reference)
+    with metrics.stage("read+decode", len(data), "bytes"):
+        af = _read_from_bytes(data, max(1, threads or 2), reference)
+    metrics.add("decode.records", 0.0, af.batch.n, "reads")
+    return af
 
 
 def _read_from_bytes(data: bytes, threads: int,
@@ -210,6 +214,15 @@ def write_alignments(path: str | None, header: SamHeader, batch: ReadBatch,
     FASTA ``reference`` or the REF_PATH/REF_CACHE M5 store, its version
     from ``fmt_opts``, and writes a ``.crai`` beside a path with
     ``write_index``."""
+    with metrics.stage("encode+write", batch.n, "reads"):
+        _write_alignments(path, header, batch, fmt, threads, level,
+                          include_header, header_only, reference,
+                          write_index, fmt_opts)
+
+
+def _write_alignments(path, header, batch, fmt, threads, level,
+                      include_header, header_only, reference, write_index,
+                      fmt_opts) -> None:
     if fmt == "cram":
         from .cram_encode import encode_cram, write_crai
         payload, crai = encode_cram(header, batch,

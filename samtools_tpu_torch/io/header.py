@@ -2,13 +2,15 @@
 ``decode_header``, the simulated ``@HD``/``@SQ`` header, mpileup's sample
 count and RNAME/RNEXT columns, the name lookups of ``-r`` and
 ``bedcov``, CRAM's read-group list, the @PG line of ``phase -b``, ``view``
-and ``cat``, and view's ``@CO`` line need).
+and ``cat``, view's ``@CO`` line, and the sort order that ``sort``,
+``collate`` and ``fixmate`` read and stamp need).
 
 Keeps the raw header text verbatim plus the @SQ (name, length) list.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -107,9 +109,31 @@ class SamHeader:
                         out.append(f[len(tag) + 1:])
         return out
 
+    def sort_order(self) -> str:
+        """The @HD line's SO value, or "unknown"."""
+        m = re.search(r"^@HD\t.*\bSO:(\S+)", self.text, re.M)
+        return m.group(1) if m else "unknown"
+
     def with_text(self, text: str) -> "SamHeader":
         return SamHeader.from_text(text, self.ref_names or None,
                                    self.ref_lens or None)
+
+    def ensure_hd_so(self, so: str, subsort: str | None = None) -> "SamHeader":
+        """A copy whose @HD line has SO:``so`` (and SS:``subsort``), its
+        other fields kept and any old SO/SS dropped; a header without @HD
+        gets ``@HD VN:1.6`` first (bam_sort.c's set_sort_order)."""
+        lines = self.text.split("\n")
+        hd = next((i for i, line in enumerate(lines)
+                   if line.startswith("@HD")), None)
+        tail = [f"SO:{so}"] + ([f"SS:{subsort}"] if subsort else [])
+        if hd is None:
+            lines = ["\t".join(["@HD", "VN:1.6"] + tail)] + lines
+        else:
+            lines[hd] = "\t".join(
+                [f for f in lines[hd].split("\t")
+                 if not (f.startswith("SO:") or f.startswith("SS:"))]
+                + tail)
+        return self.with_text("\n".join(lines))
 
     def add_pg_line(self, id_: str, pn: str, cl: str, vn: str) -> "SamHeader":
         """A copy with a @PG line appended: its ID made unique (``id_``,

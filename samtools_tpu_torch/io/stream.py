@@ -23,6 +23,7 @@ import struct
 
 import numpy as np
 
+from ..core import metrics
 from ..core.batch import ReadBatch
 from . import bgzf, hfile, native
 from .bam import BamError, decode_header, decode_records
@@ -126,7 +127,7 @@ class BamStream:
                     blk = max(0, min(blk, coffs.size - 1))
                     nxt = (int(coffs[blk]) << 16) | int(rel - uoffs[blk])
                 self.next_record_voffset = nxt
-                yield decode_records(data, offs, self.threads, fields)
+                yield _decode(data, offs, self.threads, fields)
             cpos = cend
             skip = 0
         if leftover.size:
@@ -181,7 +182,17 @@ class BamStream:
         offs, consumed = native.bam_scan_partial(data, 0)
         if consumed != data.size:
             raise BamError("index chunk does not end on a record boundary")
-        return decode_records(data, offs, self.threads, fields)
+        if not offs.size:
+            return decode_records(data, offs, self.threads, fields)
+        return _decode(data, offs, self.threads, fields)
+
+
+def _decode(data: np.ndarray, offs: np.ndarray, threads: int,
+            fields: int) -> ReadBatch:
+    """decode_records of one stream window or index chunk, counted as
+    the ``stream.decode`` stage."""
+    with metrics.stage("stream.decode", offs.size, "reads"):
+        return decode_records(data, offs, threads, fields)
 
 
 class WindowedReader:

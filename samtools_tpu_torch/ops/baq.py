@@ -27,6 +27,7 @@ import numpy as np
 
 from ..core import aux as auxmod
 from ..core import flags as F
+from ..core import metrics
 from ..core.batch import ragged_gather_indices
 from ..device import h2d
 from ..io import native
@@ -403,13 +404,15 @@ def _apply_baq_native(sub, ref_int: np.ndarray, device, ref_dev) -> bool:
         _apply_baq_device(sub, ref_int, done, device, ref_dev)
     rest = np.nonzero(~done)[0]
     if rest.size:
-        idx = _ragged_idx(sub, rest)
-        out, _ = native.baq_batch(
-            sub.pos[rest], _gather_cigar(sub, rest), _cigar_off_of(sub, rest),
-            sub.seq[idx], sub.qual[idx], _seq_off_of(sub, rest),
-            np.ascontiguousarray(ref_int, np.uint8), flag=3,
-            threads=HOST_THREADS)
-        sub.qual[idx] = out
+        with metrics.stage("native.baq", rest.size, "reads"):
+            idx = _ragged_idx(sub, rest)
+            out, _ = native.baq_batch(
+                sub.pos[rest], _gather_cigar(sub, rest),
+                _cigar_off_of(sub, rest), sub.seq[idx], sub.qual[idx],
+                _seq_off_of(sub, rest),
+                np.ascontiguousarray(ref_int, np.uint8), flag=3,
+                threads=HOST_THREADS)
+            sub.qual[idx] = out
     return True
 
 
@@ -466,9 +469,10 @@ def _apply_baq_device(sub, ref_int: np.ndarray, done: np.ndarray, device,
         if ref_dev is None:
             ref_dev = h2d(np.ascontiguousarray(ref_int, np.uint8), device)
         idx2 = sub.seq_off[grp][:, None] + np.arange(L)[None, :]
-        out, risky = baq_device.baq_apply_nt16(
-            ref_dev, sub.pos[grp].astype(np.int64), sub.seq[idx2],
-            sub.qual[idx2])
+        with metrics.stage("device.baq", grp.size, "reads"):
+            out, risky = baq_device.baq_apply_nt16(
+                ref_dev, sub.pos[grp].astype(np.int64), sub.seq[idx2],
+                sub.qual[idx2])
         ok = ~risky
         sub.qual[idx2[ok].ravel()] = out[ok].ravel()
         done[grp[ok]] = True

@@ -30,6 +30,7 @@ import torch
 
 from .. import kernels
 from ..core import flags as F
+from ..core import metrics
 from ..core.batch import ragged_gather_indices
 from ..device import h2d
 from .cigar import expand_ops
@@ -195,7 +196,11 @@ def entry_order(pos: np.ndarray, device=None) -> np.ndarray:
 def _finish(p: Pileup, device) -> Pileup:
     if p.n_entries == 0:
         return p
-    order = entry_order(p.pos, device)
+    if device is None:
+        order = entry_order(p.pos, device)
+    else:
+        with metrics.stage("device.pileup_sort", p.n_entries, "entries"):
+            order = entry_order(p.pos, device)
     for f in ("pos", "rid", "qpos", "is_del", "is_refskip", "is_head",
               "is_tail", "indel"):
         setattr(p, f, getattr(p, f)[order])

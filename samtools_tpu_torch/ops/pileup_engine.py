@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core import flags as F
+from ..core import metrics
 from ..core.batch import ragged_gather_indices
 from ..device import resolve
 from .cigar import expand_ops
@@ -111,6 +112,12 @@ def segment_matmul(refpos: np.ndarray, W: np.ndarray, plan: TilePlan,
     [n, K] and adds the contraction into ``out`` (a fresh int32
     [n_tiles*tile, K] on ``device`` when None), which it returns.  Raises
     at 2^31 items or more, where the plan's int32 indices would wrap."""
+    with metrics.stage("device.segment_matmul", refpos.size, "events"):
+        return _segment_matmul(refpos, W, plan, device, out)
+
+
+def _segment_matmul(refpos: np.ndarray, W: np.ndarray, plan: TilePlan,
+                    device, out: torch.Tensor | None) -> torch.Tensor:
     K = W.shape[1]
     if out is None:
         out = torch.zeros(plan.n_tiles * plan.tile, K, dtype=torch.int32,

@@ -19,6 +19,10 @@ COMMANDS = {
     "index": ("samtools_tpu_torch.tools.index_cmd", "main_index"),
     "depth": ("samtools_tpu_torch.tools.depth_cmd", "main_depth"),
     "mpileup": ("samtools_tpu_torch.tools.mpileup_cmd", "main_mpileup"),
+    "sort": ("samtools_tpu_torch.tools.sort_cmd", "main_sort"),
+    "merge": ("samtools_tpu_torch.tools.merge_cmd", "main_merge"),
+    "collate": ("samtools_tpu_torch.tools.collate_cmd", "main_collate"),
+    "fixmate": ("samtools_tpu_torch.tools.fixmate_cmd", "main_fixmate"),
     "stats": ("samtools_tpu_torch.tools.stats_cmd", "main_stats"),
     "coverage": ("samtools_tpu_torch.tools.coverage_cmd", "main_coverage"),
     "bedcov": ("samtools_tpu_torch.tools.bedcov_cmd", "main_bedcov"),
@@ -32,7 +36,7 @@ COMMANDS = {
 
 # commands that do no device work and take no ``device``
 HOST_COMMANDS = ("view", "head", "flags", "quickcheck", "cat", "idxstats",
-                 "index")
+                 "index", "sort", "merge", "collate", "fixmate")
 
 
 def run_command(name: str, argv: list[str], device=None) -> int:

@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..core import metrics
 from ..core.regions import parse_region
 from ..device import resolve
 from ..io.files import AlignmentFile
@@ -106,6 +107,7 @@ def handle_global_opt(ga: GlobalArgs, opt: str, val: str,
         ga.write_index = True
     elif opt == "--verbosity":
         ga.verbosity = int(val)
+        metrics.set_verbosity(ga.verbosity)
     else:
         return False
     return True

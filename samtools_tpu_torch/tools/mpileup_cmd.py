@@ -61,6 +61,7 @@ import torch
 
 from ..core import aux as auxmod
 from ..core import flags as F
+from ..core import metrics
 from ..core.batch import ReadBatch, ragged_gather_indices
 from ..core.regions import RegionError, parse_region
 from ..io import bed as bedmod
@@ -1246,7 +1247,8 @@ class _DeviceBaqEngine:
                 ref_int, wlen=we - wb, base=wb, min_baseq=self.min_baseq,
                 baq_flag=self.baq_flag, l_query=lq, device=self.device,
                 ref_dev=ref_dev)
-            nh = pipe.apply_window(sub, wb, we)
+            with metrics.stage("mpileup.device_window", sub.n, "reads"):
+                nh = pipe.apply_window(sub, wb, we)
             self.n_reads += sub.n
             self.n_host += nh
             self.n_device_windows += 1

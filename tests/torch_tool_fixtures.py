@@ -30,7 +30,9 @@ consensus's: ``small`` (the messy reads starting before 40,000;
 8x whose reads carry insertions of 1-12 bases, some with a deletion or
 pads beside them, pads alone in the first 4 kbp, and MD tags;
 ``longins`` the same reads without their pads) and a BED of regions.
-``make_stats_inputs`` adds stats's: ``realloc`` (reads of 30-500 bases,
+``make_prep_inputs`` adds the inputs of
+sort, merge, collate and fixmate (its doc).  ``make_stats_inputs`` adds
+stats's: ``realloc`` (reads of 30-500 bases,
 so the histograms grow past 300 cycles mid-file, with hard clips,
 indels, every flag stats counts and NM tags: the JAX stats tests'
 ``_messy_sam``), ``unsorted`` (the same kind of reads at random
@@ -579,9 +581,9 @@ def run_port_full(cmd: str, args: list[str], device="cpu"):
 def run_jax_full(cmd: str, args: list[str], env: dict | None = None):
     """(exit code, standard output bytes, standard error text) of ``python
     -m samtools_tpu <cmd>`` on its host branch, with ``env`` added to the
-    environment."""
-    full = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-                SAMTPU_DEVICE="0", **(env or {}))
+    environment (its SAMTPU_DEVICE picks another branch)."""
+    full = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO,
+            "SAMTPU_DEVICE": "0", **(env or {})}
     p = subprocess.run([sys.executable, "-m", "samtools_tpu", cmd] + args,
                        capture_output=True, env=full, cwd=REPO,
                        stdin=subprocess.DEVNULL, timeout=600)
@@ -781,6 +783,109 @@ def make_view_inputs(d: str) -> dict:
     with open(got["hdr"], "w") as f:
         f.write(VIEW_TEXT.replace("view inputs", "another header"))
     return got
+
+
+def make_prep_inputs(d: str) -> dict:
+    """make_view_inputs plus the inputs of sort, merge, collate and
+    fixmate, each derived by the JAX package's commands in-process:
+    ``ha``/``hb`` (``general`` coordinate-sorted, split at 20,000 on sim1,
+    the unmapped reads in ``hb``; both carry the same @RG and @PG IDs;
+    ``norg`` is ``ha`` under a header without its @RG lines),
+    ``na``/``nb`` (the halves name-sorted), ``gname`` (``general``
+    name-sorted), ``grouped`` (the pairs collated; ``grouped_sam`` the
+    same as SAM, ``grouped_cram`` and ``grouped2k`` its first 2,000 reads
+    as CRAM 3.0 on ``fa`` and as BAM), ``mc`` (``grouped`` through
+    ``fixmate -m``, coordinate-sorted: reads with MC tags for
+    ``--template-coordinate``), ``unplaced`` (the
+    pairs, two reads in three unmapped, for ``sort -M``), ``broken``
+    (``gname`` with the faults ``fixmate -z`` repairs, ``broken_batch``)
+    and ``list`` (a file naming ``ha`` and ``hb``)."""
+    from samtools_tpu.io.files import read_alignments as jread
+    from samtools_tpu.io.files import write_alignments as jwrite
+    from samtools_tpu.tools.collate_cmd import main_collate as jcollate
+    from samtools_tpu.tools.fixmate_cmd import main_fixmate as jfixmate
+    from samtools_tpu.tools.sort_cmd import main_sort as jsort
+    got = make_view_inputs(d)
+    p = os.path.join
+    for k in ("gsorted", "ha", "hb", "na", "nb", "gname", "grouped",
+              "grouped_sam", "grouped_cram", "mc", "unplaced"):
+        got[k] = p(d, k + (".sam" if k.endswith("_sam") else ".cram"
+                           if k.endswith("_cram") else ".bam"))
+    fm = p(d, "fixmate.bam")
+    for argv, run in ((["-o", got["gsorted"], got["general"]], jsort),
+                      (["-n", "-o", got["gname"], got["general"]], jsort),
+                      (["-o", got["grouped"], got["pairs"]], jcollate),
+                      (["-m", got["grouped"], fm], jfixmate),
+                      (["-o", got["mc"], fm], jsort)):
+        assert run(argv) == 0, argv
+    gs = jread(got["gsorted"])
+    first = (gs.batch.tid == 0) & (gs.batch.pos < 20000)
+    for k, m in (("ha", first), ("hb", ~first)):
+        jwrite(got[k], gs.header, gs.batch.take(np.nonzero(m)[0]),
+               fmt="bam")
+    for k in ("a", "b"):
+        assert jsort(["-n", "-o", got["n" + k], got["h" + k]]) == 0
+    got["norg"] = p(d, "norg.bam")
+    jwrite(got["norg"], gs.header.with_text("".join(
+        ln + "\n" for ln in gs.header.lines() if not ln.startswith("@RG"))),
+        gs.batch.take(np.nonzero(first)[0]), fmt="bam")
+    grp = jread(got["grouped"])
+    jwrite(got["grouped_sam"], grp.header, grp.batch)
+    first = grp.batch.take(np.arange(2000))
+    jwrite(got["grouped_cram"], grp.header, first, fmt="cram",
+           reference=got["fa"])
+    got["grouped2k"] = p(d, "grouped2k.bam")
+    jwrite(got["grouped2k"], grp.header, first, fmt="bam")
+    gn = read_alignments(got["gname"])
+    got["broken"] = p(d, "broken.bam")
+    write_bam(got["broken"], gn.header, broken_batch(gn.batch))
+    pairs = jread(got["pairs"])
+    b = pairs.batch
+    um = np.arange(b.n) % 3 != 0
+    b.tid[um] = -1
+    b.pos[um] = -1
+    b.flag[um] |= 0x4
+    jwrite(got["unplaced"], pairs.header, b, fmt="bam")
+    got["list"] = p(d, "list.txt")
+    with open(got["list"], "w") as f:
+        f.write(got["ha"] + "\n" + got["hb"] + "\n")
+    return got
+
+
+def broken_batch(b: ReadBatch) -> ReadBatch:
+    """A copy of ``b`` with what ``fixmate -z`` repairs, on every seventh
+    read from the second on, in turn: unmapped reads that keep a cigar,
+    a MAPQ and NM tags; reads running off the contig's end (the last
+    ending in a deletion, a skip and a hard clip); a position but no
+    contig; cigars with = and X ops, and with empty and repeated ops."""
+    b = b.take(np.arange(b.n))
+    ln = b.l_qseq
+    cig = [[(int(c) & 0xF, int(c) >> 4) for c in b.cigar_of(i)]
+           for i in range(b.n)]
+    blobs = [bytes(b.aux_of(i)) for i in range(b.n)]
+    mapped = np.nonzero((b.tid == 0) & (ln >= 60))[0]
+    for k, i in enumerate(mapped[1::7]):
+        i, L = int(i), int(ln[i])
+        kind = k % 6
+        if kind == 0:
+            b.flag[i] |= 0x4
+            b.mapq[i] = 40
+            blobs[i] += b"NMC\x02MDZ10A5\x00"
+        elif kind == 1:
+            b.pos[i] = REF_LEN - L // 2
+        elif kind == 2:
+            b.pos[i] = REF_LEN - 10
+            cig[i] = [(0, L - 10), (2, 3), (3, 4), (4, 10), (5, 5)]
+        elif kind == 3:
+            b.tid[i] = -1
+        elif kind == 4:
+            cig[i] = [(7, 20), (8, 1), (7, L - 21)]
+        else:
+            cig[i] = [(0, 10), (0, 0), (0, L - 30), (1, 0), (4, 10),
+                      (4, 10)]
+    _cigar_batch(b, cig)
+    _set_aux(b, blobs)
+    return b
 
 
 # ------------------------------------------------ byte-for-byte tool runs
