@@ -218,19 +218,28 @@ from the sources in this checkout.  Phases, one JSON line each:
    must launch no kernel).  On the tool phase's 512 kbp pairs (157,286
    reads), as one process beside the in-process runs (it reports its
    runs' launches and that it made no CUDA context): ``collate``, then
-   ``fixmate -m``, then ``sort`` and ``sort -n``; collate keeps each
-   template together, fixmate gives every read MQ, MC and ms, and the
-   sorts are in coordinate and in name order (READ1 first).  On clean's
-   first 1 Mbp (its reads that start there, a cut of clean's 2 Mbp
-   front): ``sort`` in memory, ``sort -m`` with an arena that spills
-   four runs or more (the bytes of the in-memory run, no run left
-   behind), ``sort --write-index`` read by ``idxstats``, ``sort -M`` and
+   ``fixmate -m``, then ``sort`` and ``sort -n``, then ``markdup -S -s
+   -f`` and ``rmdup`` on the sorted pairs; collate keeps each template
+   together, fixmate gives every read MQ, MC and ms, the sorts are in
+   coordinate and in name order (READ1 first), markdup flags as many
+   reads as its stats file's DUPLICATE TOTAL and leaves no spill file,
+   rmdup removes one or two reads a duplicate pair it reports.  In a
+   second process beside them, ``calmd -r`` on the front's first 2,000
+   reads (the f64 HMM a read): a BQ tag on every read, no byte below
+   '@'.  On clean's first 1 Mbp (its reads that start there, a cut of
+   clean's 2 Mbp front): ``sort`` in memory, ``sort -m`` with an arena
+   that spills four runs or more (the bytes of the in-memory run, no run
+   left behind), ``sort --write-index`` read by ``idxstats``, ``sort -M`` and
    ``sort -I`` (the first 1 Mbp as FASTA) on a copy with one read in ten
    unmapped (the mapped ones in coordinate order, the unmapped ones
    last), ``--template-coordinate`` (in its order), and ``merge`` of the
-   halves that ``view -e`` splits off (the whole sort's records); every
-   run passes ``-@`` and every output ``quickcheck``.  Per run: wall,
-   reads a second, output bytes, launches.
+   halves that ``view -e`` splits off (the whole sort's records);
+   ``calmd -b`` against the first 1 Mbp (NM:i and MD:Z on every read; NM
+   numpy's mismatch count and MD as many bases, on the reads inside the
+   FASTA) and ``addreplacerg -r '@RG\\tID:x\\tSM:y'`` (the one @RG line,
+   every read in it); every run but rmdup's and calmd -r's passes ``-@``
+   and every output ``quickcheck``.  Per run: wall, reads a second,
+   output bytes, launches.
 17. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
    ``graft_entry.entry()``'s shape (65,536 items, a 16,384-row window)
    and on clean's first 1 Mbp window (its reads' M bases): the scatter
@@ -275,6 +284,7 @@ code is not 0 and that last line is not printed.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import subprocess
@@ -2935,20 +2945,30 @@ PREP_FRONT_END = 1_000_000
 PREP_UNPLACED_EVERY = 10
 PREP_SPILL_RUNS = 6
 
-# the pairs' chain of the prep_tools phase as a process beside the
-# front's runs: collate, fixmate -m, sort and sort -n through cli.main;
-# a JSON report of each run's wall, exit code and launches, and whether
-# the process made a CUDA context
+# the front's reads that calmd -r realigns, one at a time, in the HMM
+# process of the prep_tools phase
+PREP_REALN_READS = 2000
+
+# the prep_tools phase's processes beside the front's runs (the pairs'
+# chain: collate, fixmate -m, sort, sort -n, markdup -S and rmdup; calmd
+# -r on the front's first reads) through cli.main, each run's standard
+# output into a file when one is named; a JSON report of each run's wall,
+# exit code and launches, and whether the process made a CUDA context
 PREP_CHILD = r"""
-import json, sys, time
+import contextlib, io, json, sys, time
 import torch
 from samtools_tpu_torch import cli, kernels
 report, spec = sys.argv[1], json.loads(sys.argv[2])
 runs = []
-for label, argv in spec["runs"]:
+for label, argv, stdout in spec["runs"]:
     b0 = dict(kernels.launches)
     t0 = time.perf_counter()
-    rc = cli.main(argv)
+    if stdout:
+        with open(stdout, "wb") as f, contextlib.redirect_stdout(
+                io.TextIOWrapper(f, encoding="latin-1", write_through=True)):
+            rc = cli.main(argv)
+    else:
+        rc = cli.main(argv)
     runs.append({"run": label, "rc": rc,
                  "wall_s": time.perf_counter() - t0,
                  "launches": {k: v - b0.get(k, 0)
@@ -3001,10 +3021,45 @@ def _template_order(b) -> bool:
     return bool(np.all(d[first, np.arange(d.shape[1])] >= 0))
 
 
+def _md_nm_check(path: str, n: int, ref: np.ndarray, ref_end: int) -> int:
+    """calmd -b's BAM at ``path``, of the front's ``n`` all-M reads: every
+    read has NM:i and MD:Z; where it ends inside the FASTA (by
+    ``ref_end``), NM is numpy's count of its mismatches to ``ref`` and
+    its MD names as many bases.  Returns the reads held to numpy."""
+    from samtools_tpu_torch.io import native
+    from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.io.sam_text import NT16_LUT
+    out = read_alignments(path, THREADS).batch
+    L = int(out.l_qseq[0]) if out.n else 0
+    require(out.n == n and (out.cigar & 0xF == 0).all()
+            and (out.l_qseq == L).all(),
+            "calmd -b: not the front's all-M reads of one length")
+    idx = np.arange(n, dtype=np.int64)
+    nm_off, nm_t = native.aux_find_batch(out.aux, out.aux_off, idx, "NM")
+    md_off, md_t = native.aux_find_batch(out.aux, out.aux_off, idx, "MD")
+    require((nm_t == ord("i")).all() and (md_t == ord("Z")).all(),
+            "calmd -b: a read without its NM:i or MD:Z")
+    nm = out.aux[nm_off[:, None] + np.arange(4)].copy().view("<i4")[:, 0]
+    inside = np.nonzero(out.end_pos() <= ref_end)[0]
+    seq = out.seq.reshape(n, L)[inside]
+    want = NT16_LUT[ref[out.pos[inside, None] + np.arange(L)]]
+    mism = (seq != want).sum(axis=1)
+    require(np.array_equal(nm[inside], mism),
+            "calmd -b: NM differs from numpy's mismatch count")
+    flat = out.aux.tobytes()
+    letters = [len(flat[o:flat.index(b"\0", o)].translate(None,
+                                                          b"0123456789"))
+               for o in md_off[inside].tolist()]
+    require(np.array_equal(letters, mism),
+            "calmd -b: MD names other bases than NM counts")
+    return int(inside.size)
+
+
 def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
                      ref: np.ndarray) -> None:
-    """collate, fixmate, sort and merge (module doc, phase 16): the pairs'
-    chain in a process, the front's runs in-process; no kernel."""
+    """collate, fixmate, sort, merge, markdup, rmdup, calmd and
+    addreplacerg (module doc, phase 16): the pairs' chain and calmd -r in
+    processes, the front's other runs in-process; no kernel."""
     import contextlib
     import io
 
@@ -3018,21 +3073,33 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
     os.makedirs(d, exist_ok=True)
     p = lambda name: os.path.join(d, name)  # noqa: E731
     threads = str(THREADS)
+
+    def spawn(name, runs):
+        """A PREP_CHILD process of ``runs`` (label, argv, stdout file),
+        killed at exit if a failed check leaves it running."""
+        with open(p(name + ".err"), "wb") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", PREP_CHILD, p(name + ".json"),
+                 json.dumps({"runs": runs, "t_spawn": time.time()})],
+                cwd=ROOT, stdin=subprocess.DEVNULL,
+                stdout=subprocess.DEVNULL, stderr=err)
+        atexit.register(proc.kill)
+        return proc
+
     # the pairs' chain, beside the front's runs
     chain = [("collate", ["collate", "-@", threads, "-o", p("g.bam"),
-                          pairs]),
+                          pairs], None),
              ("fixmate -m", ["fixmate", "-@", threads, "-m", p("g.bam"),
-                             p("fm.bam")]),
+                             p("fm.bam")], None),
              ("sort (pairs)", ["sort", "-@", threads, "-o", p("fs.bam"),
-                               p("fm.bam")]),
+                               p("fm.bam")], None),
              ("sort -n (pairs)", ["sort", "-@", threads, "-n", "-o",
-                                  p("fn.bam"), p("fm.bam")])]
-    with open(p("child.err"), "wb") as err:
-        child = subprocess.Popen(
-            [sys.executable, "-c", PREP_CHILD, p("child.json"),
-             json.dumps({"runs": chain, "t_spawn": time.time()})],
-            cwd=ROOT, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
-            stderr=err)
+                                  p("fn.bam"), p("fm.bam")], None),
+             ("markdup -S (pairs)", ["markdup", "-@", threads, "-S", "-s",
+                                     "-f", p("md.txt"), p("fs.bam"),
+                                     p("md.bam")], None),
+             ("rmdup (pairs)", ["rmdup", p("fs.bam"), p("rd.bam")], None)]
+    child = spawn("child", chain)
     # the front at the phase's depth, and a copy with one read in
     # PREP_UNPLACED_EVERY unmapped (sort -M and -I cluster those)
     got = read_alignments(clean_front, THREADS)
@@ -3047,9 +3114,16 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
     u.flag[um] |= 0x4
     unplaced = p("unplaced.bam")
     write_bam(unplaced, got.header, u, threads=THREADS)
+    header = got.header
     del got, u
     fa = p("front.fa")
     write_fasta(fa, ref[:PREP_FRONT_END])
+    # calmd -r's HMM, a read at a time, on the front's first reads
+    write_bam(p("front2k.bam"), header, b.take(np.arange(PREP_REALN_READS)),
+              threads=THREADS)
+    realn = [("calmd -r", ["calmd", "-r", p("front2k.bam"), fa],
+              p("calmd_r.sam"))]
+    hmm = spawn("hmm", realn)
 
     def run(label, argv, outs=(), reads=n):
         """One in-process run: its stdout and stderr, and a line of wall,
@@ -3129,27 +3203,52 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
                   *halves], [p("merged.bam")])
     require(_same_records(records(p("merged.bam")), mem),
             "merge: the halves are not the whole sort")
+    # calmd -b: NM and MD on every read, NM held to numpy's count
+    raw, _ = run("calmd -b", ["calmd", "-@", threads, "-b", front, fa])
+    with open(p("calmd.bam"), "wb") as f:
+        f.write(raw)
+    held = _md_nm_check(p("calmd.bam"), n, ref, PREP_FRONT_END)
+    emit({"phase": "prep_tools", "run": "calmd -b check", "reads": n,
+          "nm_held_to_numpy": held})
+    # addreplacerg: the new @RG line, and every read in it
+    run("addreplacerg", ["addreplacerg", "-@", threads, "-r",
+                         "@RG\\tID:x\\tSM:y", "-o", p("rg.bam"), front],
+        [p("rg.bam")])
+    rg = read_alignments(p("rg.bam"), THREADS)
+    require([ln for ln in rg.header.lines() if ln.startswith("@RG")]
+            == ["@RG\tID:x\tSM:y"]
+            and rg.batch.aux.tobytes().count(b"RGZx\0") == n,
+            "addreplacerg: a read outside the new read group")
+    del rg
+
+    def child_runs(proc, name, what, runs, reads):
+        """Wait for a PREP_CHILD process: no CUDA context, each run rc 0
+        with no launch, a line a run; its report and stderr."""
+        rc = proc.wait(timeout=600)
+        with open(p(name + ".err"), "rb") as f:
+            err = f.read().decode("latin-1")
+        require(rc == 0 and os.path.exists(p(name + ".json")),
+                f"{what}: process rc {rc}: {err[-500:]}")
+        with open(p(name + ".json")) as f:
+            res = json.load(f)
+        require(not res["cuda_initialized"], f"{what} made a CUDA context")
+        require(len(res["runs"]) == len(runs), f"{what}: {err[-500:]}")
+        for r, (label, argv, stdout) in zip(res["runs"], runs):
+            require(r["rc"] == 0 and not r["launches"],
+                    f"{label}: rc {r['rc']}, launched {r['launches']}: "
+                    f"{err[-500:]}")
+            out = stdout or (argv[argv.index("-o") + 1] if "-o" in argv
+                             else argv[-1])
+            emit({"phase": "prep_tools", "run": label, "reads": reads,
+                  "wall_s": round(r["wall_s"], 3),
+                  "reads_per_s": round(reads / r["wall_s"]),
+                  "output_bytes": os.path.getsize(out), "launches": {},
+                  "process": True})
+        return res, err
+
     # the pairs' chain
-    rc = child.wait(timeout=600)
-    with open(p("child.err"), "rb") as f:
-        err = f.read().decode("latin-1")[-500:]
-    require(rc == 0 and os.path.exists(p("child.json")),
-            f"the pairs' chain: process rc {rc}: {err}")
-    with open(p("child.json")) as f:
-        res = json.load(f)
-    require(not res["cuda_initialized"],
-            "the pairs' chain made a CUDA context")
-    require(len(res["runs"]) == len(chain), f"the pairs' chain: {err}")
     n_pairs = records(pairs).n
-    for r, (label, argv) in zip(res["runs"], chain):
-        require(r["rc"] == 0 and not r["launches"],
-                f"{label}: rc {r['rc']}, launched {r['launches']}: {err}")
-        out = argv[argv.index("-o") + 1] if "-o" in argv else argv[-1]
-        emit({"phase": "prep_tools", "run": label, "reads": n_pairs,
-              "wall_s": round(r["wall_s"], 3),
-              "reads_per_s": round(n_pairs / r["wall_s"]),
-              "output_bytes": os.path.getsize(out), "launches": {},
-              "process": True})
+    res, err = child_runs(child, "child", "the pairs' chain", chain, n_pairs)
     g = records(p("g.bam"))
     require(g.n == n_pairs and _templates_adjacent(g),
             "collate: a template's records are apart")
@@ -3167,6 +3266,40 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
             and not ((names[1:] == names[:-1])
                      & ((fn.flag[:-1] & 0x80) != 0)).any(),
             "sort -n (pairs): not in name order, READ1 first")
+    # markdup: the reads flagged are the stats file's total; its spill
+    # file is gone.  rmdup: between one and two reads a duplicate pair
+    # removed
+    md = records(p("md.bam"))
+    with open(p("md.txt")) as f:
+        mstats = dict(ln.rstrip("\n").split(": ", 1) for ln in f
+                      if ": " in ln)
+    flagged = int(np.count_nonzero(md.flag & 0x400))
+    require(md.n == n_pairs and int(mstats["READ"]) == n_pairs
+            and int(mstats["DUPLICATE TOTAL"]) == flagged,
+            f"markdup -S: {flagged} reads flagged, the stats say "
+            f"{mstats.get('DUPLICATE TOTAL')}")
+    require(not [x for x in os.listdir(d) if ".supp." in x],
+            "markdup -S left its spill file behind")
+    removed = sum(int(ln.split()[1]) for ln in err.splitlines()
+                  if ln.startswith("[bam_rmdup_core]") and " / " in ln)
+    rd = records(p("rd.bam"))
+    require(fs.n - 2 * removed <= rd.n <= fs.n - removed
+            and _coordinate_sorted(rd),
+            f"rmdup: {rd.n} reads left of {fs.n}, {removed} pairs removed")
+    emit({"phase": "prep_tools", "run": "markdup -S, rmdup checks",
+          "reads": n_pairs, "duplicates_flagged": flagged,
+          "rmdup_pairs_removed": removed, "rmdup_reads_left": rd.n})
+    del g, fm, fs, fn, md, rd
+    # calmd -r: a BQ tag on every read, none below '@' (all-M reads)
+    hres, _ = child_runs(hmm, "hmm", "calmd -r", realn, PREP_REALN_READS)
+    with open(p("calmd_r.sam"), "rb") as f:
+        recs = [ln for ln in f.read().split(b"\n")
+                if ln and not ln.startswith(b"@")]
+    bq = [ln.split(b"\tBQ:Z:")[1].split(b"\t")[0] for ln in recs
+          if b"\tBQ:Z:" in ln]
+    require(len(recs) == len(bq) == PREP_REALN_READS
+            and min(min(x) for x in bq) >= ord("@"),
+            f"calmd -r: {len(bq)} BQ tags on {len(recs)} reads")
     # quickcheck every output
     outs = sorted(os.path.join(d, x) for x in os.listdir(d)
                   if x.endswith(".bam"))
@@ -3179,6 +3312,7 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
     emit({"phase": "prep_tools", "run": "all", "reads": n,
           "pairs_reads": n_pairs,
           "child_process_wall_s": round(res["process_wall_s"], 3),
+          "hmm_process_wall_s": round(hres["process_wall_s"], 3),
           "wall_s": round(time.perf_counter() - t_phase, 3)})
 
 

@@ -27,8 +27,11 @@ Commands:
      index          index alignment
 
   -- Editing
+     calmd          recalculate MD/NM tags and '=' bases
      fixmate        fix mate information
      targetcut      cut fosmid regions (for fosmid pool only)
+     addreplacerg   adds or replaces RG tags
+     markdup        mark duplicates
 
   -- File operations
      collate        shuffle and group alignments by name

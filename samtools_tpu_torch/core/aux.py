@@ -2,7 +2,8 @@
 samtools_tpu/core/aux.py): the walk the long-CIGAR fixup, mpileup's
 read-group filter, its extra tag columns, the stored BAQ tags and tview's
 ``-s`` filter need; the SAM text of a field (htslib's ``%g`` floats) and a
-SAM text field's BAM bytes; and view's tag edits (``-x``, ``--keep-tag``)."""
+SAM text field's BAM bytes; view's tag edits (``-x``, ``--keep-tag``); and
+the updaters markdup and its kin splice a Z or integer field with."""
 
 from __future__ import annotations
 
@@ -96,6 +97,31 @@ def delete_tags(buf: np.ndarray, tags: set[str]) -> np.ndarray:
 def keep_tags(buf: np.ndarray, tags: set[str]) -> np.ndarray:
     """The aux bytes with only the fields whose tag is in ``tags``."""
     return _select_tags(buf, tags, True)
+
+
+def _update(buf: np.ndarray, tag: str, blob: bytes) -> np.ndarray:
+    """``buf`` with ``tag``'s field replaced by ``blob`` where it stood, or
+    ``blob`` appended (htslib's bam_aux_update_*)."""
+    blob = np.frombuffer(blob, np.uint8)
+    buf = np.asarray(buf, np.uint8)
+    got = find_tag(buf, tag)
+    if got is None:
+        return np.concatenate([buf, blob])
+    return np.concatenate([buf[:got[0]], blob, buf[got[1]:]])
+
+
+def update_str_tag(buf: np.ndarray, tag: str, value: str) -> np.ndarray:
+    """Set ``tag`` to the Z string ``value`` (bam_aux_update_str)."""
+    return _update(buf, tag, tag.encode() + b"Z" + value.encode("latin-1")
+                   + b"\0")
+
+
+def update_int_tag(buf: np.ndarray, tag: str, value: int) -> np.ndarray:
+    """Set ``tag`` to ``value`` in the smallest integer type that holds it
+    (bam_aux_update_int)."""
+    tc, fmt = _best_int_type(int(value))
+    return _update(buf, tag, tag.encode() + tc.encode()
+                   + struct.pack(fmt, int(value)))
 
 
 def batch_adjust_tags(batch, keep: set[str] | None = None,

@@ -23,20 +23,27 @@ COMMANDS = {
     "merge": ("samtools_tpu_torch.tools.merge_cmd", "main_merge"),
     "collate": ("samtools_tpu_torch.tools.collate_cmd", "main_collate"),
     "fixmate": ("samtools_tpu_torch.tools.fixmate_cmd", "main_fixmate"),
+    "markdup": ("samtools_tpu_torch.tools.markdup_cmd", "main_markdup"),
     "stats": ("samtools_tpu_torch.tools.stats_cmd", "main_stats"),
     "coverage": ("samtools_tpu_torch.tools.coverage_cmd", "main_coverage"),
     "bedcov": ("samtools_tpu_torch.tools.bedcov_cmd", "main_bedcov"),
     "consensus": ("samtools_tpu_torch.tools.consensus_cmd",
                   "main_consensus"),
+    "addreplacerg": ("samtools_tpu_torch.tools.addrprg_cmd",
+                     "main_addreplacerg"),
+    "calmd": ("samtools_tpu_torch.tools.calmd_cmd", "main_calmd"),
+    "fillmd": ("samtools_tpu_torch.tools.calmd_cmd", "main_calmd"),
     "phase": ("samtools_tpu_torch.tools.phase_cmd", "main_phase"),
     "targetcut": ("samtools_tpu_torch.tools.targetcut_cmd",
                   "main_targetcut"),
+    "rmdup": ("samtools_tpu_torch.tools.rmdup_cmd", "main_rmdup"),
     "tview": ("samtools_tpu_torch.tools.tview_cmd", "main_tview"),
 }
 
 # commands that do no device work and take no ``device``
 HOST_COMMANDS = ("view", "head", "flags", "quickcheck", "cat", "idxstats",
-                 "index", "sort", "merge", "collate", "fixmate")
+                 "index", "sort", "merge", "collate", "fixmate", "markdup",
+                 "addreplacerg", "calmd", "fillmd", "rmdup")
 
 
 def run_command(name: str, argv: list[str], device=None) -> int:

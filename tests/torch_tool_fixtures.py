@@ -852,6 +852,270 @@ def make_prep_inputs(d: str) -> dict:
     return got
 
 
+DUP_TILES = (1101, 1102, 2101)
+DUP_UMIS = ("ACGTACGT", "TTGGCCAA")
+DUP_BCS = (b"AAAACCCC", b"GGGGTTTT")
+# the calmd inputs' FASTA: sim1's first MD_FA_LEN bases (the reads that
+# start before MD_READS_END, some running past the slice's end)
+MD_FA_LEN = 40000
+MD_READS_END = 39950
+
+
+def _rows(b: ReadBatch) -> list[dict]:
+    """The records of ``b`` as one dict each (the fields _batch_of takes)."""
+    return [{"name": b.qname_str(i), "flag": int(b.flag[i]),
+             "tid": int(b.tid[i]), "pos": int(b.pos[i]),
+             "mapq": int(b.mapq[i]),
+             "cigar": [(int(c) & 0xF, int(c) >> 4) for c in b.cigar_of(i)],
+             "mtid": int(b.mtid[i]), "mpos": int(b.mpos[i]),
+             "tlen": int(b.tlen[i]), "seq": b.seq_of(i).copy(),
+             "qual": b.qual_of(i).copy(), "aux": bytes(b.aux_of(i))}
+            for i in range(b.n)]
+
+
+def _batch_of(rows: list[dict]) -> ReadBatch:
+    """A batch of the records ``rows`` (_rows's dicts), in order."""
+    b = ReadBatch(n=len(rows))
+    for k, dt in (("tid", np.int32), ("pos", np.int64), ("mapq", np.uint8),
+                  ("flag", np.uint16), ("mtid", np.int32),
+                  ("mpos", np.int64), ("tlen", np.int64)):
+        setattr(b, k, np.array([r[k] for r in rows], dt))
+    names = [r["name"].encode() for r in rows]
+    b.qname = np.frombuffer(b"".join(names), np.uint8).copy()
+    b.qname_off = np.concatenate([[0], np.cumsum([len(x) for x in names])]
+                                 ).astype(np.int64)
+    _cigar_batch(b, [r["cigar"] for r in rows])
+    b.seq = np.concatenate([r["seq"] for r in rows]).astype(np.uint8)
+    b.qual = np.concatenate([r["qual"] for r in rows]).astype(np.uint8)
+    b.seq_off = np.concatenate([[0], np.cumsum([r["seq"].size
+                                                for r in rows])]
+                               ).astype(np.int64)
+    _set_aux(b, [r["aux"] for r in rows])
+    return b
+
+
+def _cigar_text(cig) -> str:
+    return "".join(f"{n}{'MIDNSHP=X'[op]}" for op, n in cig)
+
+
+def _dup_templates(rows: list[dict], rng) -> list[dict]:
+    """make_dup_inputs's records, name-grouped (its doc), from the
+    collated pairs."""
+    temps: list[list[dict]] = []
+    for r in rows:
+        if temps and temps[-1][0]["name"] == r["name"]:
+            temps[-1].append(r)
+        else:
+            temps.append([r])
+    out = []
+    n_copy = 0
+
+    def name(tile, x, y, umi):
+        return f"SIM:1:FC1:1:{tile}:{x}:{y}" + (f":{umi}" if umi else "")
+
+    for k, t in enumerate(temps):
+        tile = int(rng.choice(DUP_TILES))
+        x, y = (int(v) for v in rng.integers(1000, 40000, 2))
+        umi = DUP_UMIS[int(rng.integers(2))] if rng.random() < 0.3 else None
+        bc = DUP_BCS[int(rng.integers(2))]
+        base = [dict(r, name="weird_name" if k == 3 else name(tile, x, y,
+                                                                umi),
+                     aux=r["aux"] + b"BCZ" + bc + b"\0") for r in t]
+        if k % 97 == 5 and len(base) == 2:
+            # the second mate unmapped, placed at the first's position
+            r1, r2 = base
+            r1["flag"] = (r1["flag"] | 0x8) & ~0x2
+            r2.update(flag=(r2["flag"] | 0x4) & ~0x12, tid=r1["tid"],
+                      pos=r1["pos"], cigar=[], mapq=0)
+        group = [base]
+        if k == 3 or rng.random() < 0.2:
+            for c in range(1 + int(rng.integers(3))):
+                n_copy += 1
+                if k == 3 or rng.random() < 0.5:   # within -d 100
+                    cname = name(tile, x + int(rng.integers(-90, 91)),
+                                 y + int(rng.integers(-90, 91)), umi)
+                else:
+                    cname = name(int(rng.choice([t2 for t2 in DUP_TILES
+                                                 if t2 != tile])),
+                                 *(int(v) for v in
+                                   rng.integers(1000, 40000, 2)), umi)
+                if umi and n_copy % 3 == 0:
+                    cname = cname[:-len(umi)] + DUP_UMIS[
+                        1 - DUP_UMIS.index(umi)]
+                cbc = DUP_BCS[1 - DUP_BCS.index(bc)] if n_copy % 4 == 0 \
+                    else bc
+                copy = []
+                for r in base:
+                    q = r["qual"].copy() if n_copy % 10 == 1 else \
+                        np.maximum(r["qual"].astype(np.int64)
+                                   - int(rng.integers(1, 8)), 2
+                                   ).astype(np.uint8)
+                    cr = dict(r, name=cname, qual=q, seq=r["seq"].copy(),
+                              cigar=list(r["cigar"]),
+                              aux=r["aux"].replace(b"BCZ" + bc,
+                                                   b"BCZ" + cbc))
+                    if n_copy % 8 == 0:
+                        cr["flag"] |= 0x200
+                    cig = cr["cigar"]
+                    if n_copy % 5 == 0 and cr["flag"] & 0x10 and cig \
+                            and cig[-1][0] == 0 and cig[-1][1] > 10:
+                        # a soft clip at the 5' end of a reverse read
+                        cr["cigar"] = cig[:-1] + [(0, cig[-1][1] - 6),
+                                                  (4, 6)]
+                    if n_copy % 6 == 0 and not cr["flag"] & 0x14 and cig \
+                            and cig[0][0] == 0 and cig[0][1] > 10:
+                        cr["cigar"] = [(4, 6), (0, cig[0][1] - 6)] + cig[1:]
+                        cr["pos"] += 6
+                    copy.append(cr)
+                group.append(copy)
+            if k % 3 == 0:
+                # single-end copies of a read (the first, or the reverse
+                # second): two with lower qualities, one within -d 100
+                r = base[k % 2 * (len(base) - 1)]
+                for j, dq in enumerate((3, 9)):
+                    group.append([dict(
+                        r, name=name(tile, x + 40 * j + 7, y + 11, umi),
+                        flag=r["flag"] & 0x10, mtid=-1, mpos=-1, tlen=0,
+                        qual=np.maximum(r["qual"].astype(np.int64) - dq, 2
+                                        ).astype(np.uint8))])
+            if k % 4 == 0 and len(base) == 2 and base[1]["cigar"]:
+                # a supplementary alignment of each copy's first read
+                for g in group:
+                    if len(g) != 2:
+                        continue
+                    r = g[0]
+                    L = int(r["seq"].size)
+                    spos = (r["pos"] + 30011) % (REF_LEN - 400)
+                    scig = [(4, 50), (0, L - 50)]
+                    strand = "-" if r["flag"] & 0x10 else "+"
+                    sa = (f"SAZsim1,{spos + 1},{strand},{_cigar_text(scig)},"
+                          f"{r['mapq']},0;\0").encode()
+                    sup = dict(r, flag=r["flag"] | 0x800, pos=spos,
+                               cigar=scig,
+                               aux=r["aux"] + (
+                                   f"SAZsim1,{r['pos'] + 1},{strand},"
+                                   f"{_cigar_text(r['cigar'])},{r['mapq']},"
+                                   "0;\0").encode())
+                    r["aux"] += sa
+                    g.append(sup)
+        for g in group:
+            out.extend(g)
+    return out
+
+
+def make_dup_inputs(d: str) -> dict:
+    """make_prep_inputs plus the inputs of markdup, rmdup, calmd and
+    addreplacerg.  ``dup``: the collated pairs, each template renamed
+    Illumina-style (``SIM:1:FC1:1:<tile>:<x>:<y>``, some with a UMI as an
+    eighth field, one named ``weird_name``), with a ``BC`` tag, about one
+    template in five copied under new names (copies within 90 pixels of
+    their original, or on another tile; lower base qualities, one copy in
+    ten tied on score; some QC-failed, with another UMI or barcode, a soft
+    clip at a reverse read's 5' end or a forward read's start), single-end
+    copies, supplementary records with ``SA`` tags, a few templates with
+    an unmapped mate, two read groups with libraries; then ``fixmate -m``
+    and ``sort`` by the JAX package's commands in-process, so ``MC`` and
+    ``ms`` are right.  ``dup_sam`` is it as SAM, ``dup_name`` name-sorted,
+    ``dup_nomc`` sorted without ``fixmate`` (no MC), ``dup_norg`` without
+    its @RG lines, ``dup_grouped`` the
+    name-grouped input (not in coordinate order), ``dup_marked`` through
+    the JAX ``markdup -t -d 100`` (dup flags and dt/do tags for ``-c``).
+    ``md`` (``dup``'s reads that start before 39,950, every 7th with a
+    wrong NM, every 11th a wrong MD, every 19th with six mismatches more,
+    one without a sequence) and ``md_fa``, sim1's first 40,000 bases (its
+    second half in lower case), so the last reads run past its end;
+    ``md_small`` 300 reads of ``md`` without soft clips or insertions,
+    ``md_clipped`` its first 300; ``md_nmz`` its first 200, every 5th
+    with an NM stored as a string; ``md_missing`` 200 of them under a
+    header with a second contig, 50 moved onto it, which ``md_fa`` lacks;
+    ``headerless``, SAM records without a header."""
+    from samtools_tpu.tools.fixmate_cmd import main_fixmate as jfixmate
+    from samtools_tpu.tools.markdup_cmd import main_markdup as jmarkdup
+    from samtools_tpu.tools.sort_cmd import main_sort as jsort
+    got = make_prep_inputs(d)
+    p = os.path.join
+    grp = read_alignments(got["grouped"])
+    text = grp.header.text.replace("SM:s1", "SM:s1\tLB:libA").replace(
+        "SM:s2", "SM:s2\tLB:libB")
+    header = SamHeader.from_text(text)
+    rows = _dup_templates(_rows(grp.batch), np.random.default_rng(19))
+    got["dup_grouped"] = p(d, "dup_grouped.bam")
+    write_bam(got["dup_grouped"], header, _batch_of(rows))
+    for k in ("dup", "dup_name", "dup_nomc", "dup_marked"):
+        got[k] = p(d, k + ".bam")
+    fm = p(d, "dup_fm.bam")
+    for argv, run in ((["-m", got["dup_grouped"], fm], jfixmate),
+                      (["-o", got["dup"], fm], jsort),
+                      (["-n", "-o", got["dup_name"], got["dup"]], jsort),
+                      (["-o", got["dup_nomc"], got["dup_grouped"]], jsort),
+                      (["-t", "-d", "100", got["dup"], got["dup_marked"]],
+                       jmarkdup)):
+        assert run(argv) == 0, argv
+    dup = read_alignments(got["dup"])
+    got["dup_norg"] = p(d, "dup_norg.bam")
+    write_bam(got["dup_norg"], dup.header.with_text("".join(
+        ln + "\n" for ln in dup.header.lines() if not ln.startswith("@RG"))),
+        dup.batch)
+    got["dup_sam"] = p(d, "dup.sam")
+    with open(got["dup_sam"], "wb") as f:
+        f.write(subprocess.run(
+            [sys.executable, "-m", "samtools_tpu_torch", "view", "-h",
+             got["dup"]], capture_output=True, check=True,
+            cwd=REPO).stdout)
+    got["headerless"] = p(d, "headerless.sam")
+    with open(got["headerless"], "wb") as f:
+        f.write(subprocess.run(
+            [sys.executable, "-m", "samtools_tpu_torch", "view",
+             got["dup"]], capture_output=True, check=True,
+            cwd=REPO).stdout)
+    # calmd's inputs
+    ref = got["ref"]
+    got["md_fa"] = p(d, "md.fa")
+    half = MD_FA_LEN // 2
+    with open(got["md_fa"], "w") as f:
+        f.write(">sim1\n" + ref[:half].tobytes().decode() + "\n"
+                + ref[half:MD_FA_LEN].tobytes().decode().lower() + "\n")
+    rows = _rows(dup.batch.take(np.nonzero(
+        (dup.batch.tid == 0) & (dup.batch.pos < MD_READS_END))[0]))
+    for i, r in enumerate(rows):
+        if i % 7 == 0:
+            r["aux"] += b"NMC\x63"
+        if i % 11 == 0:
+            r["aux"] += b"MDZ10A5\0"
+        if i % 19 == 0 and r["seq"].size > 40:
+            for j in range(5, 35, 5):
+                r["seq"][j] = 1 if r["seq"][j] != 1 else 2
+    rows[5].update(seq=np.empty(0, np.uint8), qual=np.empty(0, np.uint8),
+                   cigar=[])
+    md = _batch_of(rows)
+    got["md"] = p(d, "md.bam")
+    write_bam(got["md"], dup.header, md)
+    # -r's HMM leaves the BQ bytes of soft-clipped and inserted bases
+    # unclamped in both packages (ROADMAP Queue 3): md_small holds reads
+    # without them, md_clipped the first 300 reads as they come
+    plain = [i for i, r in enumerate(rows)
+             if r["seq"].size and not {op for op, _ in r["cigar"]} & {1, 4}]
+    got["md_small"] = p(d, "md_small.bam")
+    write_bam(got["md_small"], dup.header, md.take(np.array(plain[:300])))
+    got["md_clipped"] = p(d, "md_clipped.bam")
+    write_bam(got["md_clipped"], dup.header, md.take(np.arange(300)))
+    nmz = md.take(np.arange(200))
+    _set_aux(nmz, [bytes(nmz.aux_of(i)) + (b"NMZ3\0" if i % 5 == 0 else b"")
+                   for i in range(nmz.n)])
+    got["md_nmz"] = p(d, "md_nmz.bam")
+    write_bam(got["md_nmz"], dup.header, nmz)
+    two = SamHeader.from_text(dup.header.text.replace(
+        f"@SQ\tSN:sim1\tLN:{REF_LEN}\n",
+        f"@SQ\tSN:sim1\tLN:{REF_LEN}\n@SQ\tSN:sim2\tLN:5000\n"))
+    m = md.take(np.arange(200))
+    m.tid[150:] = 1
+    m.pos[150:] = np.minimum(m.pos[150:], 4800)
+    m.mtid[150:] = 1
+    got["md_missing"] = p(d, "md_missing.bam")
+    write_bam(got["md_missing"], two, m)
+    return got
+
+
 def broken_batch(b: ReadBatch) -> ReadBatch:
     """A copy of ``b`` with what ``fixmate -z`` repairs, on every seventh
     read from the second on, in turn: unmapped reads that keep a cigar,
