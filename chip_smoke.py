@@ -240,7 +240,30 @@ from the sources in this checkout.  Phases, one JSON line each:
    every read in it); every run but rmdup's and calmd -r's passes ``-@``
    and every output ``quickcheck``.  Per run: wall, reads a second,
    output bytes, launches.
-17. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
+17. realign_tools -- the re-alignment round trip and the reference's
+   indexes (no device work: the phase must launch no kernel and its
+   processes make no CUDA context).  The tool phase's 512 kbp pairs
+   (157,286 reads) get read groups grpA and grpB on alternate templates
+   and none on one template in 50, written by the port's writer; one
+   process runs ``collate -u``, ``fastq -1 -2 -0 -s -N -T RG``, ``fasta
+   -N -o``, ``import -1 -2 -T '*'`` of fastq's two files, ``fqidx`` of
+   its READ1 file and ``fqidx -r`` of 100 of its reads; beside it a
+   second runs ``faidx`` of clean's 8 Mbp FASTA (without its .fai),
+   ``faidx -r`` and ``faidx -i -r`` of 1,000 regions of 1-5,000 bases,
+   ``dict``, ``reset`` and ``split -f '%*_%!.bam' -u`` of the pairs.
+   Checks: every primary read comes out of fastq once, its sequence and
+   qualities those numpy takes from the BAM's columns (reverse reads
+   reverse complemented back), its RG comment its read group's, READ1 and
+   READ2 names paired line for line; fasta prints the same sequences,
+   READ1 then READ2; import's BAM and reset's hold the same names, flags,
+   sequences, qualities and tags; split's outputs add up to the input,
+   each read group's header holding only its @RG line; fqidx writes a
+   line a read and fetches the 100 reads equal to their records; faidx
+   writes clean's .fai and each region equals the reference's slice (with
+   ``-i`` its reverse complement); dict's LN and M5 are the length and
+   ``hashlib.md5`` of the upper-cased sequence.  Per run: wall, reads or
+   bases a second, output bytes, launches.
+18. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
    ``graft_entry.entry()``'s shape (65,536 items, a 16,384-row window)
    and on clean's first 1 Mbp window (its reads' M bases): the scatter
    entry (counts and qual sums) and the tiled entry (the items bucketed
@@ -2949,11 +2972,12 @@ PREP_SPILL_RUNS = 6
 # process of the prep_tools phase
 PREP_REALN_READS = 2000
 
-# the prep_tools phase's processes beside the front's runs (the pairs'
-# chain: collate, fixmate -m, sort, sort -n, markdup -S and rmdup; calmd
-# -r on the front's first reads) through cli.main, each run's standard
-# output into a file when one is named; a JSON report of each run's wall,
-# exit code and launches, and whether the process made a CUDA context
+# the host-command processes of the prep_tools phase (beside the front's
+# runs: the pairs' chain, collate, fixmate -m, sort, sort -n, markdup -S
+# and rmdup; calmd -r on the front's first reads) and of the
+# realign_tools phase: runs through cli.main, each run's standard output
+# into a file when one is named; a JSON report of each run's wall, exit
+# code and launches, and whether the process made a CUDA context
 PREP_CHILD = r"""
 import contextlib, io, json, sys, time
 import torch
@@ -2980,6 +3004,42 @@ with open(report, "w") as f:
     json.dump({"runs": runs, "cuda_initialized": torch.cuda.is_initialized(),
                "process_wall_s": time.time() - spec["t_spawn"]}, f)
 """
+
+
+def spawn_cli_child(d: str, name: str, runs: list):
+    """A PREP_CHILD process of ``runs`` (label, argv, stdout file), its
+    report to ``d/<name>.json`` and its stderr to ``d/<name>.err``;
+    killed at exit if a failed check leaves it running."""
+    with open(os.path.join(d, name + ".err"), "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", PREP_CHILD,
+             os.path.join(d, name + ".json"),
+             json.dumps({"runs": runs, "t_spawn": time.time()})],
+            cwd=ROOT, stdin=subprocess.DEVNULL,
+            stdout=subprocess.DEVNULL, stderr=err)
+    atexit.register(proc.kill)
+    return proc
+
+
+def wait_cli_child(proc, d: str, name: str, what: str, runs: list):
+    """Wait for a spawn_cli_child process: it exits 0 without a CUDA
+    context, and each of ``runs`` ran to rc 0 with no launch.  Its report
+    and its stderr."""
+    rc = proc.wait(timeout=600)
+    with open(os.path.join(d, name + ".err"), "rb") as f:
+        err = f.read().decode("latin-1")
+    report = os.path.join(d, name + ".json")
+    require(rc == 0 and os.path.exists(report),
+            f"{what}: process rc {rc}: {err[-500:]}")
+    with open(report) as f:
+        res = json.load(f)
+    require(not res["cuda_initialized"], f"{what} made a CUDA context")
+    require(len(res["runs"]) == len(runs), f"{what}: {err[-500:]}")
+    for r, (label, _, _) in zip(res["runs"], runs):
+        require(r["rc"] == 0 and not r["launches"],
+                f"{label}: rc {r['rc']}, launched {r['launches']}: "
+                f"{err[-500:]}")
+    return res, err
 
 
 def _name_rows(b) -> np.ndarray:
@@ -3074,18 +3134,6 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
     p = lambda name: os.path.join(d, name)  # noqa: E731
     threads = str(THREADS)
 
-    def spawn(name, runs):
-        """A PREP_CHILD process of ``runs`` (label, argv, stdout file),
-        killed at exit if a failed check leaves it running."""
-        with open(p(name + ".err"), "wb") as err:
-            proc = subprocess.Popen(
-                [sys.executable, "-c", PREP_CHILD, p(name + ".json"),
-                 json.dumps({"runs": runs, "t_spawn": time.time()})],
-                cwd=ROOT, stdin=subprocess.DEVNULL,
-                stdout=subprocess.DEVNULL, stderr=err)
-        atexit.register(proc.kill)
-        return proc
-
     # the pairs' chain, beside the front's runs
     chain = [("collate", ["collate", "-@", threads, "-o", p("g.bam"),
                           pairs], None),
@@ -3099,7 +3147,7 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
                                      "-f", p("md.txt"), p("fs.bam"),
                                      p("md.bam")], None),
              ("rmdup (pairs)", ["rmdup", p("fs.bam"), p("rd.bam")], None)]
-    child = spawn("child", chain)
+    child = spawn_cli_child(d, "child", chain)
     # the front at the phase's depth, and a copy with one read in
     # PREP_UNPLACED_EVERY unmapped (sort -M and -I cluster those)
     got = read_alignments(clean_front, THREADS)
@@ -3123,7 +3171,7 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
               threads=THREADS)
     realn = [("calmd -r", ["calmd", "-r", p("front2k.bam"), fa],
               p("calmd_r.sam"))]
-    hmm = spawn("hmm", realn)
+    hmm = spawn_cli_child(d, "hmm", realn)
 
     def run(label, argv, outs=(), reads=n):
         """One in-process run: its stdout and stderr, and a line of wall,
@@ -3222,21 +3270,10 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
     del rg
 
     def child_runs(proc, name, what, runs, reads):
-        """Wait for a PREP_CHILD process: no CUDA context, each run rc 0
-        with no launch, a line a run; its report and stderr."""
-        rc = proc.wait(timeout=600)
-        with open(p(name + ".err"), "rb") as f:
-            err = f.read().decode("latin-1")
-        require(rc == 0 and os.path.exists(p(name + ".json")),
-                f"{what}: process rc {rc}: {err[-500:]}")
-        with open(p(name + ".json")) as f:
-            res = json.load(f)
-        require(not res["cuda_initialized"], f"{what} made a CUDA context")
-        require(len(res["runs"]) == len(runs), f"{what}: {err[-500:]}")
+        """Wait for a PREP_CHILD process (wait_cli_child), a line a run;
+        its report and stderr."""
+        res, err = wait_cli_child(proc, d, name, what, runs)
         for r, (label, argv, stdout) in zip(res["runs"], runs):
-            require(r["rc"] == 0 and not r["launches"],
-                    f"{label}: rc {r['rc']}, launched {r['launches']}: "
-                    f"{err[-500:]}")
             out = stdout or (argv[argv.index("-o") + 1] if "-o" in argv
                              else argv[-1])
             emit({"phase": "prep_tools", "run": label, "reads": reads,
@@ -3313,6 +3350,302 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
           "pairs_reads": n_pairs,
           "child_process_wall_s": round(res["process_wall_s"], 3),
           "hmm_process_wall_s": round(hres["process_wall_s"], 3),
+          "wall_s": round(time.perf_counter() - t_phase, 3)})
+
+
+# the realign_tools phase: the pairs' templates in read group grpA (even
+# template numbers) or grpB (odd ones), none on a template number
+# REALIGN_NO_RG_AT modulo REALIGN_NO_RG_EVERY; the regions faidx fetches
+# from clean's FASTA (their lengths up to REALIGN_REGION_MAX), and the
+# reads fqidx fetches from the FASTQ fastq wrote
+REALIGN_NO_RG_EVERY = 50
+REALIGN_NO_RG_AT = 7
+REALIGN_REGIONS = 1000
+REALIGN_REGION_MAX = 5000
+REALIGN_FQ_READS = 100
+REALIGN_SEED = 29
+
+
+def _fastq_records(path: str, fasta: bool = False) -> list:
+    """(name, comment, sequence, quality) of each record of a FASTQ (a
+    FASTA with ``fasta``: quality None) whose records take one line each,
+    as fastq/fasta and fqidx write them."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    step = 2 if fasta else 4
+    require(lines[-1] == b"" and (len(lines) - 1) % step == 0,
+            f"{path}: not whole records")
+    head = lines[0:-1:step]
+    require(all(h[:1] == (b">" if fasta else b"@") for h in head)
+            and (fasta or all(x == b"+" for x in lines[2:-1:4])),
+            f"{path}: a malformed record")
+    names = [h[1:].split(b"\t", 1) for h in head]
+    return [(nm[0], nm[1] if len(nm) > 1 else b"", sq,
+             None if fasta else ql)
+            for nm, sq, ql in zip(names, lines[1:-1:step],
+                                  lines[3:-1:4] if not fasta
+                                  else [None] * len(head))]
+
+
+def _read_texts(b) -> dict:
+    """(qname, 1 for READ1 or 2 for READ2) -> (sequence, quality) of each
+    record of ``b`` as fastq prints it: a reverse read reverse
+    complemented (its qualities reversed), qualities + 33."""
+    from samtools_tpu_torch.core.flags import SEQ_NT16_STR
+    comp = np.array([int(f"{c:04b}"[::-1], 2) for c in range(16)], np.uint8)
+    chars = np.frombuffer(SEQ_NT16_STR.encode(), np.uint8)
+    lens = np.diff(b.seq_off)
+    read = np.repeat(np.arange(b.n), lens)
+    rev = (b.flag & 0x10 != 0)[read]
+    within = np.arange(b.seq.size) - b.seq_off[read]
+    src = np.where(rev, b.seq_off[read] + lens[read] - 1 - within,
+                   np.arange(b.seq.size))
+    seq = chars[np.where(rev, comp[b.seq[src]], b.seq[src])].tobytes()
+    qual = (b.qual[src] + 33).astype(np.uint8).tobytes()
+    off = b.seq_off.tolist()
+    part = np.where(b.flag & 0x40, 1, 2).tolist()
+    return {(b.qname_str(i).encode(), part[i]):
+            (seq[off[i]:off[i + 1]], qual[off[i]:off[i + 1]])
+            for i in range(b.n)}
+
+
+def _unaligned_rows(b) -> list:
+    """(qname, flag, sequence, qualities, aux) of each record of ``b``,
+    sorted."""
+    return sorted((b.qname_str(i), int(b.flag[i]), b.seq_of(i).tobytes(),
+                   b.qual_of(i).tobytes(), b.aux_of(i).tobytes())
+                  for i in range(b.n))
+
+
+def _faidx_records(path: str) -> list:
+    """(header, sequence) of each record faidx printed into ``path``."""
+    with open(path, "rb") as f:
+        text = f.read()
+    require(text[:1] == b">", f"{path}: not FASTA")
+    out = []
+    for rec in text[1:].split(b"\n>"):
+        head, _, body = rec.partition(b"\n")
+        out.append((head, body.replace(b"\n", b"")))
+    return out
+
+
+def phase_realign_tools(workdir: str, pairs: str, ref: np.ndarray) -> None:
+    """fastq, fasta, import, reset, split, faidx, fqidx and dict (module
+    doc, phase 17): two processes at once, their outputs checked here;
+    no kernel and no CUDA context."""
+    import hashlib
+
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.io.header import SamHeader
+    t_phase = time.perf_counter()
+    before = dict(kernels.launches)
+    d = os.path.join(workdir, "realign_tools")
+    os.makedirs(d, exist_ok=True)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    threads = str(THREADS)
+    rng = np.random.default_rng(REALIGN_SEED)
+
+    # the pairs in their read groups, written by the port's writer
+    got = read_alignments(pairs, THREADS)
+    b = got.batch
+    n = b.n
+    width = int(b.qname_off[1] - b.qname_off[0])
+    digits = b.qname.reshape(n, width)[:, 1:].astype(np.int64) - 48
+    tmpl = digits @ (10 ** np.arange(width - 2, -1, -1, dtype=np.int64))
+    group = np.where(tmpl % REALIGN_NO_RG_EVERY == REALIGN_NO_RG_AT, 2,
+                     tmpl % 2)
+    tags = (b"RGZgrpA\0", b"RGZgrpB\0", b"")
+    b.aux = np.frombuffer(b"".join(tags[g] for g in group.tolist()),
+                          np.uint8)
+    b.aux_off = np.concatenate([[0], np.cumsum(
+        np.array([len(t) for t in tags])[group])]).astype(np.int64)
+    header = SamHeader.from_text(got.header.text + "@RG\tID:grpA\tSM:s1\n"
+                                 "@RG\tID:grpB\tSM:s2\n")
+    rg = p("rg.bam")
+    write_bam(rg, header, b, threads=THREADS)
+    # clean's FASTA without its .fai (faidx writes it), the regions and
+    # the reads fqidx fetches
+    fa = p("clean.fa")
+    with open(os.path.join(workdir, "ref.fa"), "rb") as f, \
+            open(fa, "wb") as g:
+        g.write(f.read())
+    beg = rng.integers(0, ref.size - REALIGN_REGION_MAX, REALIGN_REGIONS)
+    end = beg + rng.integers(1, REALIGN_REGION_MAX + 1, REALIGN_REGIONS)
+    regions = [f"sim1:{s + 1}-{e}" for s, e in zip(beg.tolist(),
+                                                   end.tolist())]
+    with open(p("regions.txt"), "w") as f:
+        f.write("".join(r + "\n" for r in regions))
+    names = sorted({b.qname_str(int(i)) for i in rng.choice(
+        n, REALIGN_FQ_READS * 2, replace=False)})[:REALIGN_FQ_READS]
+    with open(p("reads.txt"), "w") as f:
+        f.write("".join(x + "/1\n" for x in names))
+
+    # the pairs' round trip, and clean's FASTA with the read groups' split
+    pair_runs = [
+        ("collate -u", ["collate", "-@", threads, "-u", "-o", p("g.bam"),
+                        rg], None),
+        ("fastq", ["fastq", "-@", threads, "-1", p("r1.fq"), "-2",
+                   p("r2.fq"), "-0", p("r0.fq"), "-s", p("s.fq"), "-N",
+                   "-T", "RG", p("g.bam")], None),
+        ("fasta", ["fasta", "-@", threads, "-N", "-o", p("reads.fa"), "-0",
+                   p("r0.fa"), p("g.bam")], None),
+        ("import", ["import", "-@", threads, "-1", p("r1.fq"), "-2",
+                    p("r2.fq"), "-T", "*", "-o", p("imp.bam")], None),
+        ("fqidx", ["fqidx", p("r1.fq")], None),
+        ("fqidx -r", ["fqidx", "-r", p("reads.txt"), p("r1.fq")],
+         p("fq_fetched.fq"))]
+    ref_runs = [
+        ("faidx", ["faidx", fa], None),
+        ("faidx -r", ["faidx", "-r", p("regions.txt"), fa], p("fetched.fa")),
+        ("faidx -i -r", ["faidx", "-i", "-r", p("regions.txt"), fa],
+         p("fetched_rc.fa")),
+        ("dict", ["dict", "-o", p("clean.dict"), fa], None),
+        ("reset", ["reset", "-@", threads, "-o", p("rs.bam"), rg], None),
+        ("split", ["split", "-@", threads, "-f", p("%*_%!.bam"), "-u",
+                   p("no_rg.bam"), rg], None)]
+    procs = {"pairs": spawn_cli_child(d, "pairs", pair_runs),
+             "ref": spawn_cli_child(d, "ref", ref_runs)}
+    # what the checks hold the outputs to, meanwhile
+    want = _read_texts(b)
+    want_group = {b.qname_str(i).encode(): group[i] for i in range(n)}
+    del got
+    region_bases = int((end - beg).sum())
+    outputs = {
+        "collate -u": [p("g.bam")],
+        "fastq": [p(x) for x in ("r1.fq", "r2.fq", "r0.fq", "s.fq")],
+        "fasta": [p("reads.fa"), p("r0.fa")], "import": [p("imp.bam")],
+        "fqidx": [p("r1.fq.fai")], "fqidx -r": [p("fq_fetched.fq")],
+        "faidx": [fa + ".fai"], "faidx -r": [p("fetched.fa")],
+        "faidx -i -r": [p("fetched_rc.fa")], "dict": [p("clean.dict")],
+        "reset": [p("rs.bam")],
+        "split": [p(f"rg_{x}.bam") for x in ("grpA", "grpB")]
+        + [p("no_rg.bam")]}
+    counts = {"fqidx": n // 2, "fqidx -r": REALIGN_FQ_READS}
+    bases = {"faidx": ref.size, "faidx -r": region_bases,
+             "faidx -i -r": region_bases, "dict": ref.size}
+    walls = {}
+    for name, runs in (("pairs", pair_runs), ("ref", ref_runs)):
+        res, _ = wait_cli_child(procs[name], d, name,
+                                f"the {name} process", runs)
+        walls[name] = res["process_wall_s"]
+        for r, (label, _, _) in zip(res["runs"], runs):
+            line = {"phase": "realign_tools", "run": label,
+                    "wall_s": round(r["wall_s"], 3)}
+            if label in bases:
+                line.update(bases=bases[label],
+                            bases_per_s=round(bases[label] / r["wall_s"]))
+            else:
+                k = counts.get(label, n)
+                line.update(reads=k, reads_per_s=round(k / r["wall_s"]))
+            emit({**line, "output_bytes": sum(os.path.getsize(o)
+                                              for o in outputs[label]),
+                  "launches": {}, "process": True})
+
+    # fastq: every primary once; sequence and qualities those of its
+    # columns, read orientation; R1 and R2 pair up; its read group
+    r1, r2 = _fastq_records(p("r1.fq")), _fastq_records(p("r2.fq"))
+    rest = _fastq_records(p("r0.fq")) + _fastq_records(p("s.fq"))
+    primary = int(np.count_nonzero(b.flag & 0x900 == 0))
+    require(len(r1) + len(r2) + len(rest) == primary == n and not rest,
+            f"fastq: {len(r1)} + {len(r2)} + {len(rest)} records of "
+            f"{primary} primaries")
+    require([x[0][:-2] for x in r1] == [x[0][:-2] for x in r2]
+            and all(x[0].endswith(b"/1") for x in r1)
+            and all(x[0].endswith(b"/2") for x in r2),
+            "fastq: the READ1 and READ2 names do not pair up")
+    rg_comment = (b"RG:Z:grpA", b"RG:Z:grpB", b"")
+    for part, recs in ((1, r1), (2, r2)):
+        for name, comment, seq, qual in recs:
+            key = name[:-2]
+            require(want.pop((key, part)) == (seq, qual)
+                    and comment == rg_comment[want_group[key]],
+                    f"fastq: {name!r} differs from its BAM record")
+    require(not want, f"fastq: {len(want)} reads never came out")
+    emit({"phase": "realign_tools", "run": "fastq checks", "reads": n,
+          "pairs": len(r1), "equal_to_columns": True})
+    # fasta: the same sequences, interleaved
+    fa_recs = _fastq_records(p("reads.fa"), fasta=True)
+    require([(x[0], x[2]) for x in fa_recs]
+            == [(a[0], a[2]) for pair in zip(r1, r2) for a in pair]
+            and _fastq_records(p("r0.fa"), fasta=True) == [],
+            "fasta: not fastq's sequences, READ1 then READ2")
+    # import of fastq's files against reset of the BAM: the same
+    # unaligned records
+    imp, rs = read_alignments(p("imp.bam")).batch, \
+        read_alignments(p("rs.bam")).batch
+    require(imp.n == rs.n == n and (imp.flag & 0x4).all()
+            and (rs.tid == -1).all() and (imp.tid == -1).all(),
+            f"import / reset: {imp.n} and {rs.n} unaligned reads of {n}")
+    require(_unaligned_rows(imp) == _unaligned_rows(rs),
+            "import of fastq's files and reset of the BAM differ")
+    del imp, rs
+    # split: the outputs' reads add up to the input's; each read group's
+    # header keeps only its @RG line
+    split_n = 0
+    for k, gname in enumerate(("grpA", "grpB", None)):
+        out = read_alignments(p(f"rg_{gname}.bam" if gname
+                                else "no_rg.bam"))
+        rgs = [ln for ln in out.header.lines() if ln.startswith("@RG")]
+        flat = out.batch.aux.tobytes()
+        if gname:
+            require(rgs == [f"@RG\tID:{gname}\tSM:s{k + 1}"]
+                    and flat.count(b"RGZ") == out.batch.n
+                    == flat.count(f"RGZ{gname}\0".encode()),
+                    f"split: {gname}'s output holds other read groups")
+        else:
+            require(len(rgs) == 2 and b"RGZ" not in flat,
+                    "split: a read with a read group left unaccounted")
+        require(out.batch.n == int(np.count_nonzero(group == k)),
+                f"split: {out.batch.n} reads in {gname}")
+        split_n += out.batch.n
+    require(split_n == n, f"split: {split_n} reads of {n}")
+    # fqidx: the index beside the FASTQ, the reads fetched equal to their
+    # records
+    with open(p("r1.fq.fai")) as f:
+        require(sum(1 for _ in f) == len(r1), "fqidx: not a line a read")
+    by_name = {x[0]: (x[2], x[3]) for x in r1}
+    fetched = _fastq_records(p("fq_fetched.fq"))
+    require([x[0] for x in fetched] == [x.encode() + b"/1" for x in names]
+            and all(by_name[x[0]] == (x[2], x[3]) for x in fetched),
+            "fqidx: a fetched read differs from its record")
+    # faidx: the .fai written; each region the reference's slice, -i its
+    # reverse complement
+    with open(fa + ".fai") as f:
+        require(f.read() == f"sim1\t{ref.size}\t6\t60\t61\n",
+                "faidx: not clean's .fai")
+    comp = np.arange(256, dtype=np.uint8)
+    comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA",
+                                                           np.uint8)
+    for path, rc in ((p("fetched.fa"), False), (p("fetched_rc.fa"), True)):
+        recs = _faidx_records(path)
+        require(len(recs) == REALIGN_REGIONS, f"faidx: {len(recs)} records")
+        for (head, seq), reg, s, e in zip(recs, regions, beg.tolist(),
+                                          end.tolist()):
+            piece = ref[s:e]
+            require(head == (reg + ("/rc" if rc else "")).encode()
+                    and seq == (comp[piece][::-1] if rc
+                                else piece).tobytes(),
+                    f"faidx{' -i' if rc else ''}: {reg} differs from the "
+                    "reference")
+    # dict: LN and M5 of the upper-cased sequence
+    with open(p("clean.dict")) as f:
+        sq = [ln.rstrip("\n").split("\t") for ln in f
+              if ln.startswith("@SQ")]
+    md5 = hashlib.md5(bytes(ref).upper()).hexdigest()
+    require(len(sq) == 1 and sq[0][1:4] == ["SN:sim1", f"LN:{ref.size}",
+                                            f"M5:{md5}"],
+            f"dict: {sq}")
+    require(kernels.launches == before,
+            "the realign_tools phase launched a kernel")
+    for x in os.listdir(d):
+        os.remove(os.path.join(d, x))
+    os.rmdir(d)
+    emit({"phase": "realign_tools", "run": "all", "reads": n,
+          "regions": REALIGN_REGIONS, "region_bases": region_bases,
+          "pairs_process_wall_s": round(walls["pairs"], 3),
+          "ref_process_wall_s": round(walls["ref"], 3),
           "wall_s": round(time.perf_counter() - t_phase, 3)})
 
 
@@ -3774,6 +4107,7 @@ def main() -> int:
         tools = phase_pileup_tools(workdir)
         phase_view_tools(workdir, bams["clean_front"], cram_bam)
         phase_prep_tools(workdir, bams["clean_front"], bams["pairs"], ref)
+        phase_realign_tools(workdir, bams["pairs"], ref)
         rows["pileup_scatter"], sharded_launches = phase_sharded(
             workdir, bams, torch.device("cuda"))
     rows.update(general_rows)

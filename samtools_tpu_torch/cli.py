@@ -24,6 +24,9 @@ Usage:   samtools <command> [options]
 
 Commands:
   -- Indexing
+     dict           create a sequence dictionary file
+     faidx          index/extract FASTA
+     fqidx          index/extract FASTQ
      index          index alignment
 
   -- Editing
@@ -40,7 +43,12 @@ Commands:
      merge          merge sorted alignments
      mpileup        multi-way pileup
      sort           sort alignment file
+     split          splits a file by read group
      quickcheck     quickly check if SAM/BAM/CRAM file appears intact
+     fastq          converts a BAM to a FASTQ
+     fasta          converts a BAM to a FASTA
+     import         Converts FASTA or FASTQ files to SAM/BAM/CRAM
+     reset          Reverts aligner changes in reads
 
   -- Statistics
      bedcov         read depth per BED region

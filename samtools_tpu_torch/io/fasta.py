@@ -1,8 +1,8 @@
-"""FASTA + FAI index: what mpileup's ``-f`` needs (htslib faidx.c's
-fai_load / fai_fetch).
+"""FASTA/FASTQ and their FAI index (htslib faidx.c: fai_build_core,
+fai_load, fai_fetch), for ``-f ref.fa`` and for ``faidx``/``fqidx``.
 
 Counterpart of samtools_tpu/io/fasta.py (:19-219).  A bgzipped or gzipped
-FASTA goes through the port's own ``io.bgzf``.
+file goes through the port's own ``io.bgzf``.
 """
 
 from __future__ import annotations
@@ -35,6 +35,25 @@ class FastaIndex:
     def has(self, name: str) -> bool:
         return name in self.records
 
+    def length(self, name: str) -> int:
+        return self.records[name].length if name in self.records else -1
+
+    def _load_data(self) -> bytes:
+        if self._data is None:
+            self._data = bgzf.read_file(self.path)
+        return self._data
+
+    def _span(self, start: int, r: FaiRecord, beg: int, end: int) -> bytes:
+        """The bytes of [beg, end) of the lines that start at ``start``
+        (r.offset or r.qualoffset), line ends dropped."""
+        data = self._load_data()
+        raw = data[start + (beg // r.linebases) * r.linewidth
+                   + beg % r.linebases:start
+                   + ((end - 1) // r.linebases) * r.linewidth
+                   + ((end - 1) % r.linebases) + 1]
+        arr = np.frombuffer(raw, np.uint8)
+        return arr[(arr != 0x0A) & (arr != 0x0D)][:end - beg].tobytes()
+
     def fetch(self, name: str, beg: int = 0, end: int | None = None) -> bytes:
         """Sequence bytes of [beg, end) (0-based), newline-free, case
         preserved (htslib faidx_fetch_seq)."""
@@ -46,17 +65,25 @@ class FastaIndex:
         beg = max(0, beg)
         if beg >= end:
             return b""
-        if self._data is None:
-            self._data = bgzf.read_file(self.path)
-        first_line = beg // r.linebases
-        start_off = r.offset + first_line * r.linewidth + beg % r.linebases
-        raw = self._data[start_off:r.offset
-                         + ((end - 1) // r.linebases) * r.linewidth
-                         + ((end - 1) % r.linebases) + 1]
         if r.linewidth == r.linebases:  # no newlines (unusual)
-            return raw[:end - beg]
-        arr = np.frombuffer(raw, np.uint8)
-        return arr[(arr != 0x0A) & (arr != 0x0D)][:end - beg].tobytes()
+            data = self._load_data()
+            start = r.offset + (beg // r.linebases) * r.linewidth \
+                + beg % r.linebases
+            return data[start:start + end - beg]
+        return self._span(r.offset, r, beg, end)
+
+    def fetch_qual(self, name: str, beg: int = 0,
+                   end: int | None = None) -> bytes:
+        """FASTQ quality string of [beg, end)."""
+        r = self.records.get(name)
+        if r is None or r.qualoffset < 0:
+            return b""
+        if end is None or end > r.length:
+            end = r.length
+        beg = max(0, beg)
+        if beg >= end:
+            return b""
+        return self._span(r.qualoffset, r, beg, end)
 
 
 def parse_fai(text: str, path: str) -> FastaIndex:
@@ -74,8 +101,9 @@ def parse_fai(text: str, path: str) -> FastaIndex:
 
 
 def build_fai(path: str) -> FastaIndex:
-    """Scan a FASTA (or FASTQ) and build its index (htslib
-    fai_build_core)."""
+    """Scan a FASTA or FASTQ and build its index (htslib fai_build_core):
+    a record starts at '>' or '@', and an '@' record's quality lines
+    give its ``qualoffset``."""
     data = bgzf.read_file(path)
     idx = FastaIndex(path=path, _data=data)
     n = len(data)
@@ -141,9 +169,22 @@ def build_fai(path: str) -> FastaIndex:
     return idx
 
 
+def fai_text(idx: FastaIndex, fastq: bool = False) -> str:
+    """The .fai's text: five columns a sequence, six (with the quality
+    offset) for a FASTQ record or when ``fastq``."""
+    out = []
+    for name in idx.order:
+        r = idx.records[name]
+        line = f"{name}\t{r.length}\t{r.offset}\t{r.linebases}\t{r.linewidth}"
+        if fastq or r.qualoffset >= 0:
+            line += f"\t{r.qualoffset}"
+        out.append(line)
+    return "\n".join(out) + ("\n" if out else "")
+
+
 def load_fasta(path: str) -> FastaIndex:
     """fai_load: ``<path>.fai`` when present, else an index built in
-    memory (not written)."""
+    memory (nothing is written)."""
     fai_path = path + ".fai"
     if os.path.exists(fai_path):
         with open(fai_path) as f:

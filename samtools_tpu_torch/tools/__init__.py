@@ -24,15 +24,23 @@ COMMANDS = {
     "collate": ("samtools_tpu_torch.tools.collate_cmd", "main_collate"),
     "fixmate": ("samtools_tpu_torch.tools.fixmate_cmd", "main_fixmate"),
     "markdup": ("samtools_tpu_torch.tools.markdup_cmd", "main_markdup"),
+    "faidx": ("samtools_tpu_torch.tools.faidx_cmd", "main_faidx"),
+    "fqidx": ("samtools_tpu_torch.tools.faidx_cmd", "main_fqidx"),
+    "dict": ("samtools_tpu_torch.tools.dict_cmd", "main_dict"),
     "stats": ("samtools_tpu_torch.tools.stats_cmd", "main_stats"),
     "coverage": ("samtools_tpu_torch.tools.coverage_cmd", "main_coverage"),
     "bedcov": ("samtools_tpu_torch.tools.bedcov_cmd", "main_bedcov"),
     "consensus": ("samtools_tpu_torch.tools.consensus_cmd",
                   "main_consensus"),
+    "fastq": ("samtools_tpu_torch.tools.fastq_cmd", "main_fastq"),
+    "fasta": ("samtools_tpu_torch.tools.fastq_cmd", "main_fasta"),
+    "import": ("samtools_tpu_torch.tools.import_cmd", "main_import"),
+    "split": ("samtools_tpu_torch.tools.split_cmd", "main_split"),
     "addreplacerg": ("samtools_tpu_torch.tools.addrprg_cmd",
                      "main_addreplacerg"),
     "calmd": ("samtools_tpu_torch.tools.calmd_cmd", "main_calmd"),
     "fillmd": ("samtools_tpu_torch.tools.calmd_cmd", "main_calmd"),
+    "reset": ("samtools_tpu_torch.tools.reset_cmd", "main_reset"),
     "phase": ("samtools_tpu_torch.tools.phase_cmd", "main_phase"),
     "targetcut": ("samtools_tpu_torch.tools.targetcut_cmd",
                   "main_targetcut"),
@@ -43,7 +51,9 @@ COMMANDS = {
 # commands that do no device work and take no ``device``
 HOST_COMMANDS = ("view", "head", "flags", "quickcheck", "cat", "idxstats",
                  "index", "sort", "merge", "collate", "fixmate", "markdup",
-                 "addreplacerg", "calmd", "fillmd", "rmdup")
+                 "faidx", "fqidx", "dict", "fastq", "fasta", "import",
+                 "split", "addreplacerg", "calmd", "fillmd", "reset",
+                 "rmdup")
 
 
 def run_command(name: str, argv: list[str], device=None) -> int:

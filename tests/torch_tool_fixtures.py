@@ -31,8 +31,10 @@ consensus's: ``small`` (the messy reads starting before 40,000;
 pads beside them, pads alone in the first 4 kbp, and MD tags;
 ``longins`` the same reads without their pads) and a BED of regions.
 ``make_prep_inputs`` adds the inputs of
-sort, merge, collate and fixmate (its doc).  ``make_stats_inputs`` adds
-stats's: ``realloc`` (reads of 30-500 bases,
+sort, merge, collate and fixmate, ``make_dup_inputs`` those of markdup,
+rmdup, calmd and addreplacerg, ``make_fastq_inputs`` those of fastq,
+fasta, import, reset, split, faidx, fqidx and dict (their docs).
+``make_stats_inputs`` adds stats's: ``realloc`` (reads of 30-500 bases,
 so the histograms grow past 300 cycles mid-file, with hard clips,
 indels, every flag stats counts and NM tags: the JAX stats tests'
 ``_messy_sam``), ``unsorted`` (the same kind of reads at random
@@ -1152,6 +1154,160 @@ def broken_batch(b: ReadBatch) -> ReadBatch:
     return b
 
 
+# the hand-made FASTA of make_fastq_inputs: (header line, sequence, line
+# width, line end) a contig; an empty contig, a colon in a name,
+# descriptions after names, lower case, CRLF line ends; the file's last
+# line has no line end
+FASTA_CONTIGS = (
+    ("chr1 the first contig", "ACGTTGCAAC" * 23 + "ACG", 60, "\n"),
+    ("chr2", ("ggatccTTAA" * 19)[:187], 70, "\n"),
+    ("empty", "", 60, "\n"),
+    ("HLA:01", "ACGTNNRYKMacgt" * 9, 50, "\n"),
+    ("chrM\tmitochondrion", "GATTACA" * 31, 61, "\r\n"),
+    ("MT", "CCGGA" * 40, 40, "\n"),
+    ("chr3", "TTTAAACCCGGG" * 11, 33, "\n"),
+)
+
+
+def _fasta_text(contigs) -> str:
+    out = []
+    for hdr, seq, width, end in contigs:
+        out.append(">" + hdr + end)
+        out.extend(seq[i:i + width] + end for i in range(0, len(seq), width))
+    return "".join(out)[:-1]  # the last line without its line end
+
+
+def _tagged_batch(b: ReadBatch) -> ReadBatch:
+    """The first 800 records of ``b`` with the tags fastq's and split's
+    options read: OQ:Z on every third read (one shorter than its read),
+    RX:Z UMIs on every fourth, OX:Z on every fifth, XN:i from -12 to 12
+    and XC:c from -3 to 3 on all but every seventh, BC:Z with a '-' and a
+    QT:Z of its length on every sixth, a BC of another length on every
+    eleventh."""
+    from samtools_tpu_torch.core.aux import delete_tags
+    rows = _rows(b.take(np.arange(min(800, b.n))))
+    for i, r in enumerate(rows):
+        aux = r["aux"]
+        L = r["qual"].size
+        if i % 3 == 0 and L:
+            oq = bytes(((r["qual"][::-1] % 40) + 33).astype(np.uint8))
+            aux += b"OQZ" + (oq[:-1] if i % 9 == 0 else oq) + b"\0"
+        if i % 4 == 0:
+            aux += b"RXZ" + (b"ACGT-TTGA" if i % 8 else b"CCAA") + b"\0"
+        if i % 5 == 0:
+            aux += b"OXZGGTTCCAA\0"
+        if i % 7:
+            aux += b"XNi" + struct.pack("<i", i % 25 - 12)
+            aux += b"XCc" + struct.pack("<b", i % 7 - 3)
+        if i % 6 == 0 or i % 11 == 0:
+            aux = bytes(delete_tags(np.frombuffer(aux, np.uint8),
+                                    {"BC"}))
+            aux += (b"BCZACGT-TTAA\0QTZ#&*+ ,-./\0" if i % 6 == 0
+                    else b"BCZACGTTT\0")
+        r["aux"] = aux
+    return _batch_of(rows)
+
+
+def make_fastq_inputs(d: str) -> dict:
+    """make_dup_inputs plus the inputs of fastq, fasta, import, reset,
+    split, faidx, fqidx and dict.  From the JAX ``fastq`` of
+    ``dup_grouped``: ``fq1``/``fq2``/``fq0``/``fqs`` (``-1 -2 -0 -s``),
+    ``fq_inter`` (``-N -o``: one file, /1 and /2 names), ``fq1_gz``/
+    ``fq2_gz`` (BGZF, ``.fq.gz``) and ``fq1_gzip`` (``fq1`` through
+    ``gzip``), ``cas1``/``cas2``/``cas_i1`` (``-i --index-format i4i4``
+    with ``--i1``: CASAVA comments), ``tag1``/``tag2`` (``-T '*'``: aux
+    fields in the comment), ``fa1``/``fa2`` (the JAX ``fasta``);
+    ``multi_fq``, hand-made: multi-line records, UMIs at the end of the
+    names, a CRLF record, a description; ``bad_fq`` (a record not
+    starting with '@'), ``short_fq`` (a quality shorter than its
+    sequence).  ``tagged``: ``dup_grouped``'s first 800 records with the
+    tags of ``_tagged_batch``.  ``pgchain``: ``dup``'s first 500 reads
+    under a header with three @PG chains.  ``slash_rg``: the same reads
+    in a read group whose ID holds a '/'.  ``multi_fa``
+    (``FASTA_CONTIGS``), ``multi_fa_gz`` (BGZF), ``multi_fa_gzip``
+    (gzip), ``regions`` (a region file), ``alt`` (an alt-loci file for
+    ``dict -l``) and ``empty`` (an empty file)."""
+    import gzip
+
+    from samtools_tpu.io import bgzf as jbgzf
+    from samtools_tpu.tools.fastq_cmd import main_fastq as jfastq
+    got = make_dup_inputs(d)
+    p = os.path.join
+    for k in ("fq1", "fq2", "fq0", "fqs", "fq_inter", "cas1", "cas2",
+              "cas_i1", "tag1", "tag2", "fa1", "fa2", "multi_fq", "bad_fq",
+              "short_fq"):
+        got[k] = p(d, k + (".fa" if k.startswith("fa") else ".fq"))
+    got["fq1_gz"], got["fq2_gz"] = p(d, "fq1b.fq.gz"), p(d, "fq2b.fq.gz")
+    grouped = got["dup_grouped"]
+    rest = ["-0", p(d, "rest.fq")]  # the reads of neither READ1 nor READ2
+    with contextlib.redirect_stderr(io.StringIO()):
+        for argv in (["-1", got["fq1"], "-2", got["fq2"], "-0", got["fq0"],
+                      "-s", got["fqs"], grouped],
+                     ["-N", "-o", got["fq_inter"], *rest, grouped],
+                     ["-1", got["fq1_gz"], "-2", got["fq2_gz"], *rest,
+                      grouped],
+                     ["-i", "--index-format", "i4i4", "--i1",
+                      got["cas_i1"], "-1", got["cas1"], "-2", got["cas2"],
+                      *rest, grouped],
+                     ["-T", "*", "-1", got["tag1"], "-2", got["tag2"],
+                      *rest, grouped]):
+            assert jfastq(argv) == 0, argv
+        from samtools_tpu.tools.fastq_cmd import main_fasta as jfasta
+        assert jfasta(["-1", got["fa1"], "-2", got["fa2"], *rest,
+                       grouped]) == 0
+    got["fq1_gzip"] = p(d, "fq1.fq.gzip")
+    with open(got["fq1"], "rb") as f, open(got["fq1_gzip"], "wb") as g:
+        g.write(gzip.compress(f.read(), mtime=0))
+    with open(got["multi_fq"], "w", newline="") as f:
+        f.write("@r1:ACGT+TTGA first read\nACGTACGTAC\nGTAC\n+\n"
+                "IIIIIIIIII\nIIII\n"
+                "@r2:NNNN\nACGT\n+r2:NNNN\n#%&(\n"
+                "\n@r3:acgt+GGCC\tRG:Z:x\nAC\nGT\nAA\n+\nII\nI#\n!!\n"
+                "@r4/1\r\nACGTTT\r\n+\r\nIIIII#\r\n"
+                "@r5:ACGX\nAAA\n+\nIII\n")
+    with open(got["bad_fq"], "w") as f:
+        f.write("@a\nACGT\n+\nIIII\nxyz\nACGT\n+\nIIII\n")
+    with open(got["short_fq"], "w") as f:
+        f.write("@a\nACGT\n+\nIIII\n@b\nACGTAC\n+\nIII\n")
+    dg = read_alignments(grouped)
+    got["tagged"] = p(d, "tagged.bam")
+    write_bam(got["tagged"], dg.header, _tagged_batch(dg.batch))
+    dup = read_alignments(got["dup"])
+    first = dup.batch.take(np.arange(500))
+    text = dup.header.text + (
+        "@PG\tID:bwa\tPN:bwa\tVN:0.7\n@PG\tID:pic\tPN:picard\tPP:bwa\n"
+        "@PG\tID:gatk\tPN:gatk\n")
+    got["pgchain"] = p(d, "pgchain.bam")
+    write_bam(got["pgchain"], SamHeader.from_text(text), first)
+    slash = first.take(np.arange(first.n))
+    _set_aux(slash, [bytes(slash.aux_of(i)).replace(b"RGZgrpA\0",
+                                                     b"RGZgrp/A\0")
+                     for i in range(slash.n)])
+    got["slash_rg"] = p(d, "slash_rg.bam")
+    write_bam(got["slash_rg"], SamHeader.from_text(
+        text.replace("ID:grpA", "ID:grp/A")), slash)
+    fa_text = _fasta_text(FASTA_CONTIGS)
+    got["multi_fa"] = p(d, "multi.fa")
+    with open(got["multi_fa"], "w", newline="") as f:
+        f.write(fa_text)
+    got["multi_fa_gz"] = p(d, "multi.fa.gz")
+    with open(got["multi_fa_gz"], "wb") as f:
+        f.write(jbgzf.compress(fa_text.encode()))
+    got["multi_fa_gzip"] = p(d, "multi.fa.gzip")
+    with open(got["multi_fa_gzip"], "wb") as f:
+        f.write(gzip.compress(fa_text.encode(), mtime=0))
+    got["regions"] = p(d, "regions.txt")
+    with open(got["regions"], "w") as f:
+        f.write("chr1:5-80\n\nchr2\nHLA:01:3-20\nMT:190-999\nchr3:7\n"
+                "{HLA:01}:1-4\nchrM:1,000-1,050\r\n")
+    got["alt"] = p(d, "alt.txt")
+    with open(got["alt"], "w") as f:
+        f.write("@SQ\tSN:chr1\n#header\nchr2\t1\t2\n\nMT\n")
+    got["empty"] = p(d, "empty.txt")
+    open(got["empty"], "w").close()
+    return got
+
+
 # ------------------------------------------------ byte-for-byte tool runs
 def take_files(odir: str) -> dict:
     """The files a run wrote into its directory (which is emptied)."""
@@ -1178,14 +1334,19 @@ def _jax_bytes(cmd: str, args: list[str], stdin: str | None, env: dict):
     return p.returncode, p.stdout, p.stderr.decode()
 
 
-def jax_case_runs(cmd: str, inputs: dict, cases: dict) -> dict:
+def jax_case_runs(cmd: str, inputs: dict, cases: dict,
+                  prepare=None) -> dict:
     """Per case (name -> (argument template, standard input key)): the
     JAX tool's default run and its zlib run (``SAMTPU_NO_NATIVE=1``),
     each (exit code, stdout, stderr, {file: bytes}); {x} in a template
-    names an input, {o} the case's output directory."""
+    names an input, {o} the case's output directory.  ``prepare(odir)``,
+    when given, runs before each run (to copy in the inputs a command
+    writes beside, such as a FASTA whose .fai faidx writes)."""
     def phase(env):
         def one(name):
             odir = case_dir(inputs, cmd, name)
+            if prepare is not None:
+                prepare(odir)
             spec, stdin = cases[name]
             args = [a.format(o=odir, **inputs) for a in spec]
             rc, out, err = _jax_bytes(cmd, args, stdin and inputs[stdin],
@@ -1198,10 +1359,13 @@ def jax_case_runs(cmd: str, inputs: dict, cases: dict) -> dict:
     return {k: (default[k], plain[k]) for k in cases}
 
 
-def run_port_case(cmd: str, inputs: dict, cases: dict, name: str):
+def run_port_case(cmd: str, inputs: dict, cases: dict, name: str,
+                  prepare=None):
     """(exit code, stdout bytes, stderr text, {file: bytes}) of the port's
     command in-process, run as jax_case_runs runs the JAX tool."""
     odir = case_dir(inputs, cmd, name)
+    if prepare is not None:
+        prepare(odir)
     spec, stdin = cases[name]
     args = [a.format(o=odir, **inputs) for a in spec]
     raw = io.BytesIO()
