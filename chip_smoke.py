@@ -224,7 +224,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    coordinate and in name order (READ1 first), markdup flags as many
    reads as its stats file's DUPLICATE TOTAL and leaves no spill file,
    rmdup removes one or two reads a duplicate pair it reports.  In a
-   second process beside them, ``calmd -r`` on the front's first 2,000
+   second process beside them, ``calmd -r`` on the front's first 1,000
    reads (the f64 HMM a read): a BQ tag on every read, no byte below
    '@'.  On clean's first 1 Mbp (its reads that start there, a cut of
    clean's 2 Mbp front): ``sort`` in memory, ``sort -m`` with an arena
@@ -263,7 +263,28 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``-i`` its reverse complement); dict's LN and M5 are the length and
    ``hashlib.md5`` of the upper-cased sequence.  Per run: wall, reads or
    bases a second, output bytes, launches.
-18. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
+18. header_tools -- reheader, samples, checksum, depad, reference and
+   cram-size (no device work: the phase must launch no kernel and its
+   processes make no CUDA context), in two processes started beside
+   realign_tools' two, on its read-group BAM.  The header process:
+   ``samples -i -f`` (the rows s1 and s2, no index, clean's FASTA);
+   ``reheader`` with the header plus a @CO line, and ``reheader -P -c``
+   with sed dropping grpB's @RG line (each output ends with the input's
+   bytes from its second BGZF block on, its records the input's); on a
+   copy of the cram phase's CRAM ``reheader -i -P -c`` adding a @CO line
+   (the containers after the header's unchanged, the copy, decoded by
+   ``view``, the BAM twin's reads under the new header); ``cram-size``
+   and ``cram-size -v -e`` on the CRAM (the same content IDs, the
+   compressed total within the file); ``calmd -b`` of clean's first
+   50,000 reads and ``reference`` of its output (every base it prints
+   that is not N is clean's, over 95% of the reads' span covered); and
+   ``depad -T`` of messy's reads inside the contig's first 60,000
+   bases, padded in this script by ``sim.pad_reads`` (each read back at
+   its unpadded position and reference span).  The checksum process: the
+   first 40,000 reads and their two halves (``checksum -m`` of the
+   halves' reports must be the whole's), ``-a`` and ``-B`` on the
+   40,000 (every read counted).  Per run: wall, reads a second, launches.
+19. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
    ``graft_entry.entry()``'s shape (65,536 items, a 16,384-row window)
    and on clean's first 1 Mbp window (its reads' M bases): the scatter
    entry (counts and qual sums) and the tiled entry (the items bucketed
@@ -2365,8 +2386,9 @@ def phase_cram(workdir: str, ref: np.ndarray, header, reads) -> dict:
     through ``REF_CACHE`` by the ``@SQ`` M5) and as BAM: the decoded CRAM
     equals the reads; mpileup, depth, flagstat and stats print the same
     bytes on both and launch the same kernels; idxstats and index on the
-    CRAM.  Returns each run's launches on the CRAM, and the path of the
-    BAM twin (kept for the view_tools phase)."""
+    CRAM.  Returns each run's launches on the CRAM, and the paths of the
+    BAM twin (kept for the view_tools phase) and of the CRAM (kept for
+    the header_tools phase; its reference stays in ``ref_cache``)."""
     import filecmp
     import hashlib
 
@@ -2453,13 +2475,13 @@ def phase_cram(workdir: str, ref: np.ndarray, header, reads) -> dict:
               "idxstats_bam_wall_s": round(w["bam"], 3),
               "index_wall_s": round(t_idx, 3), "crai_bytes": crai,
               "byte_equal": True})
-        for p in (*outs.values(), cram, cram + ".crai"):
+        for p in (*outs.values(), cram + ".crai"):
             os.remove(p)
     finally:
         os.environ.pop("REF_CACHE", None)
         if saved is not None:
             os.environ["REF_CACHE"] = saved
-    return runs, bam
+    return runs, bam, cram
 
 
 # the pileup_tools phase: targetcut's documented use is a fosmid pool, so
@@ -3006,17 +3028,19 @@ with open(report, "w") as f:
 """
 
 
-def spawn_cli_child(d: str, name: str, runs: list):
+def spawn_cli_child(d: str, name: str, runs: list, env: dict | None = None):
     """A PREP_CHILD process of ``runs`` (label, argv, stdout file), its
-    report to ``d/<name>.json`` and its stderr to ``d/<name>.err``;
-    killed at exit if a failed check leaves it running."""
+    report to ``d/<name>.json`` and its stderr to ``d/<name>.err``, with
+    ``env`` added to its environment; killed at exit if a failed check
+    leaves it running."""
     with open(os.path.join(d, name + ".err"), "wb") as err:
         proc = subprocess.Popen(
             [sys.executable, "-c", PREP_CHILD,
              os.path.join(d, name + ".json"),
              json.dumps({"runs": runs, "t_spawn": time.time()})],
             cwd=ROOT, stdin=subprocess.DEVNULL,
-            stdout=subprocess.DEVNULL, stderr=err)
+            stdout=subprocess.DEVNULL, stderr=err,
+            env={**os.environ, **(env or {})})
     atexit.register(proc.kill)
     return proc
 
@@ -3429,10 +3453,14 @@ def _faidx_records(path: str) -> list:
     return out
 
 
-def phase_realign_tools(workdir: str, pairs: str, ref: np.ndarray) -> None:
+def phase_realign_tools(workdir: str, pairs: str, ref: np.ndarray,
+                        beside=None) -> None:
     """fastq, fasta, import, reset, split, faidx, fqidx and dict (module
     doc, phase 17): two processes at once, their outputs checked here;
-    no kernel and no CUDA context."""
+    no kernel and no CUDA context.  ``beside(rg, header, reads)``, when
+    given, starts another phase's processes on the read-group BAM once
+    this phase's are running, and returns what waits for and checks
+    them, called before this phase's files go."""
     import hashlib
 
     from samtools_tpu_torch import kernels
@@ -3507,6 +3535,7 @@ def phase_realign_tools(workdir: str, pairs: str, ref: np.ndarray) -> None:
                    p("no_rg.bam"), rg], None)]
     procs = {"pairs": spawn_cli_child(d, "pairs", pair_runs),
              "ref": spawn_cli_child(d, "ref", ref_runs)}
+    finish_beside = beside(rg, header, b) if beside is not None else None
     # what the checks hold the outputs to, meanwhile
     want = _read_texts(b)
     want_group = {b.qname_str(i).encode(): group[i] for i in range(n)}
@@ -3639,6 +3668,9 @@ def phase_realign_tools(workdir: str, pairs: str, ref: np.ndarray) -> None:
             f"dict: {sq}")
     require(kernels.launches == before,
             "the realign_tools phase launched a kernel")
+    t_realign = time.perf_counter() - t_phase
+    if finish_beside is not None:
+        finish_beside()
     for x in os.listdir(d):
         os.remove(os.path.join(d, x))
     os.rmdir(d)
@@ -3646,7 +3678,263 @@ def phase_realign_tools(workdir: str, pairs: str, ref: np.ndarray) -> None:
           "regions": REALIGN_REGIONS, "region_bases": region_bases,
           "pairs_process_wall_s": round(walls["pairs"], 3),
           "ref_process_wall_s": round(walls["ref"], 3),
-          "wall_s": round(time.perf_counter() - t_phase, 3)})
+          "wall_s": round(t_realign, 3),
+          "with_beside_wall_s": round(time.perf_counter() - t_phase, 3)})
+
+
+# the header_tools phase: checksum's cut of the read-group BAM (the first
+# reads, two halves of it merged with -m); calmd -b and reference on
+# clean's first reads; depad on messy's reads inside the start of the
+# contig, padded by sim.pad_reads
+HEADER_CHECKSUM_READS = 40_000
+HEADER_MD_READS = 50_000
+HEADER_PAD_END = 60_000
+HEADER_PAD_SEED = 31
+
+
+def _first_reads(path: str, n: int = 0, end: int | None = None):
+    """The header and the first ``n`` reads of a BAM, or with ``end`` its
+    reads that lie in [0, end), streamed."""
+    from samtools_tpu_torch.core.batch import ReadBatch
+    from samtools_tpu_torch.io.stream import BamStream
+    parts, got = [], 0
+    with BamStream(path, THREADS) as st:
+        header = st.header
+        for b in st.batches():
+            if end is not None:
+                keep = np.flatnonzero((b.pos + b.ref_span()) <= end)
+                parts.append(b.take(keep))
+                if b.n and int(b.pos[-1]) >= end:
+                    break
+                continue
+            parts.append(b.take(np.arange(min(b.n, n - got))))
+            got += parts[-1].n
+            if got >= n:
+                break
+    return header, ReadBatch.concat(parts)
+
+
+def _report_rows(path: str) -> list:
+    """A checksum report's lines less the one that names its file."""
+    with open(path) as f:
+        return [ln for ln in f if not ln.startswith("# Checksum")]
+
+
+def _cram_tail(path: str) -> bytes:
+    """A CRAM's bytes from its first container after the header's."""
+    from samtools_tpu_torch.io.cram import (parse_container,
+                                            parse_file_definition)
+    with open(path, "rb") as f:
+        data = f.read()
+    major, _minor, pos = parse_file_definition(data)
+    cont, i = parse_container(data, pos, major)
+    return data[i + cont.length:]
+
+
+def start_header_tools(workdir: str, rg: str, rg_header, rg_reads,
+                       ref: np.ndarray, cram: str, cram_bam: str,
+                       clean: str, messy: str):
+    """reheader, samples, checksum, depad, reference and cram-size (module
+    doc, phase 18): writes the inputs, starts the two processes and
+    returns what waits for them and checks their outputs; no kernel and
+    no CUDA context."""
+    import shutil
+
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.io import bgzf
+    from samtools_tpu_torch.io.bam import write_bam
+    from samtools_tpu_torch.io.files import read_alignments
+    from samtools_tpu_torch.io.header import SamHeader
+    from samtools_tpu_torch.sim import pad_reads
+    t_phase = time.perf_counter()
+    before = dict(kernels.launches)
+    d = os.path.join(workdir, "header_tools")
+    os.makedirs(d, exist_ok=True)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    fa = os.path.join(workdir, "ref.fa")
+
+    # checksum's cut and its halves; the new header; the CRAM's copy
+    half = HEADER_CHECKSUM_READS // 2
+    for name, lo, hi in (("cut", 0, 2 * half), ("half_a", 0, half),
+                         ("half_b", half, 2 * half)):
+        write_bam(p(name + ".bam"), rg_header,
+                  rg_reads.take(np.arange(lo, hi)), threads=THREADS)
+    with open(p("hdr.sam"), "w") as f:
+        f.write(rg_header.text + "@CO\theader_tools\n")
+    shutil.copy(cram, p("copy.cram"))
+    twin = read_alignments(cram_bam, THREADS)
+    # clean's first reads, for calmd -b and reference
+    clean_header, md_in = _first_reads(clean, HEADER_MD_READS)
+    write_bam(p("clean_first.bam"), clean_header, md_in, threads=THREADS)
+    md_end = int((md_in.pos + md_in.ref_span()).max())
+    del md_in
+    # messy's reads inside the contig's first HEADER_PAD_END bases, padded
+    _, unpadded = _first_reads(messy, end=HEADER_PAD_END)
+    gone = unpadded.mpos >= HEADER_PAD_END  # mates past the cut: none
+    unpadded.mtid[gone] = -1
+    unpadded.mpos[gone] = -1
+    t0 = time.perf_counter()
+    (padded,), pb = pad_reads([ref[:HEADER_PAD_END]], unpadded,
+                              HEADER_PAD_SEED)
+    t_pad = time.perf_counter() - t0
+    write_bam(p("padded.bam"), SamHeader.from_text(
+        f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:sim1\tLN:{padded.size}\n"),
+        pb, threads=THREADS)
+    write_fasta(p("padded.fa"), padded)
+
+    sed = "sed -e '/^@RG\tID:grpB/d'"
+    add_co = "cat; printf '@CO\\tin place\\n'"
+    sum_runs = [
+        ("checksum", ["checksum", "-o", p("cut.chk"), p("cut.bam")], None),
+        ("checksum half a", ["checksum", "-o", p("a.chk"), p("half_a.bam")],
+         None),
+        ("checksum half b", ["checksum", "-o", p("b.chk"), p("half_b.bam")],
+         None),
+        ("checksum -m", ["checksum", "-m", "-o", p("merged.chk"),
+                         p("a.chk"), p("b.chk")], None),
+        ("checksum -B", ["checksum", "-B", "-o", p("bb.chk"), p("cut.bam")],
+         None)]
+    hdr_runs = [
+        ("samples -i -f", ["samples", "-i", "-f", fa, rg], p("samples.tsv")),
+        ("reheader", ["reheader", p("hdr.sam"), rg], p("rh.bam")),
+        ("reheader -P -c", ["reheader", "-P", "-c", sed, rg], p("rh_c.bam")),
+        ("reheader -i (CRAM)", ["reheader", "-i", "-P", "-c", add_co,
+                                p("copy.cram")], None),
+        ("view (CRAM copy)", ["view", "-@", str(THREADS), "--no-PG", "-b",
+                              "-o", p("copy.bam"), p("copy.cram")], None),
+        ("cram-size", ["cram-size", "-o", p("size.txt"), cram], None),
+        ("cram-size -v -e", ["cram-size", "-v", "-e", "-o",
+                             p("size_ve.txt"), cram], None),
+        ("calmd -b", ["calmd", "-b", p("clean_first.bam"), fa],
+         p("md.bam")),
+        ("reference", ["reference", "-o", p("ref_out.fa"), p("md.bam")],
+         None),
+        ("depad -T", ["depad", "-T", p("padded.fa"), "-o", p("depad.bam"),
+                      p("padded.bam")], None),
+        ("checksum -a", ["checksum", "-a", "-o", p("all.chk"),
+                         p("cut.bam")], None)]
+    procs = {"checksum": spawn_cli_child(d, "checksum", sum_runs),
+             "header": spawn_cli_child(d, "header", hdr_runs, env={
+                 "REF_CACHE": os.path.join(workdir, "ref_cache")})}
+    t_prep = time.perf_counter() - t_phase
+
+    def finish() -> None:
+        n_rg = rg_reads.n
+        # the reads each run reads (none: it reads headers or blocks)
+        counts = {"samples -i -f": None, "reheader": n_rg,
+                  "reheader -P -c": n_rg, "reheader -i (CRAM)": None,
+                  "view (CRAM copy)": twin.batch.n, "cram-size": None,
+                  "cram-size -v -e": None, "calmd -b": HEADER_MD_READS,
+                  "reference": HEADER_MD_READS, "depad -T": unpadded.n,
+                  "checksum half a": half, "checksum half b": half,
+                  "checksum -m": None}
+        walls = {}
+        for name, runs in (("checksum", sum_runs), ("header", hdr_runs)):
+            res, _ = wait_cli_child(procs[name], d, name,
+                                    f"the {name} process", runs)
+            walls[name] = res["process_wall_s"]
+            for r, (label, _, _) in zip(res["runs"], runs):
+                k = counts.get(label, HEADER_CHECKSUM_READS)
+                line = {"phase": "header_tools", "run": label,
+                        "wall_s": round(r["wall_s"], 3)}
+                if k:
+                    line.update(reads=k, reads_per_s=round(k / r["wall_s"]))
+                emit({**line, "launches": {}, "process": name})
+
+        # samples: one row a read group, no index, clean's FASTA matches
+        with open(p("samples.tsv")) as f:
+            require(f.read() == f"s1\t{rg}\tN\t{fa}\ns2\t{rg}\tN\t{fa}\n",
+                    "samples: not the rows s1 and s2")
+        # reheader: the new header, then the input's blocks copied raw
+        with open(rg, "rb") as f:
+            data = f.read()
+        coffs, _ = bgzf.scan_blocks(data)
+        tail = data[int(coffs[1]):]
+        for out, what in ((p("rh.bam"), "reheader"),
+                          (p("rh_c.bam"), "reheader -P -c")):
+            with open(out, "rb") as f:
+                require(f.read().endswith(tail),
+                        f"{what}: the record blocks are not the input's")
+        rh = read_alignments(p("rh.bam"), THREADS)
+        require(rh.header.text.startswith(rg_header.text
+                                          + "@CO\theader_tools\n@PG\t")
+                and _same_records(rh.batch, rg_reads),
+                "reheader: not the new header over the same records")
+        del rh
+        rhc = read_alignments(p("rh_c.bam"), THREADS)
+        require(rhc.header.text == rg_header.text.replace(
+            "@RG\tID:grpB\tSM:s2\n", "") and _same_records(rhc.batch,
+                                                           rg_reads),
+                "reheader -P -c: not sed's header over the same records")
+        del rhc, data, tail
+        # reheader -i: the CRAM's records untouched, its header the new
+        # one; the copy decodes to the reads of the BAM twin
+        require(os.path.getsize(p("copy.cram")) == os.path.getsize(cram)
+                and _cram_tail(p("copy.cram")) == _cram_tail(cram),
+                "reheader -i: the CRAM's containers changed")
+        copy = read_alignments(p("copy.bam"), THREADS)
+        require(copy.header.text == twin.header.text + "@CO\tin place\n"
+                and _same_records(copy.batch, twin.batch),
+                "reheader -i: the CRAM's copy decodes to other reads")
+        del copy
+        # checksum: the halves merged are the cut's report
+        whole, merged = _report_rows(p("cut.chk")), \
+            _report_rows(p("merged.chk"))
+        require(len(whole) > 6 and merged == whole,
+                "checksum -m of the halves is not the cut's report")
+        for path in (p("all.chk"), p("bb.chk")):
+            rows = [ln.split() for ln in _report_rows(path)
+                    if ln.startswith("all")]
+            require(rows and int(rows[0][2]) == HEADER_CHECKSUM_READS,
+                    f"checksum: {path} does not count every read")
+        # reference: every base it prints is clean's, and it covers the
+        # reads' span
+        with open(p("ref_out.fa"), "rb") as f:
+            lines = f.read().split(b"\n")
+        require(lines[0] == b">sim1", "reference: not one contig")
+        got = np.frombuffer(b"".join(lines[1:]), np.uint8)
+        known = got != ord("N")
+        require(got.size == ref.size
+                and np.array_equal(got[known], ref[known])
+                and known[:md_end].mean() > 0.95
+                and not known[md_end + READ_LEN:].any(),
+                "reference: a base differs from clean's reference")
+        # depad: each read back at its unpadded position and span
+        dp = read_alignments(p("depad.bam"), THREADS)
+        require(dp.header.ref_lens == [HEADER_PAD_END]
+                and np.array_equal(dp.batch.pos, unpadded.pos)
+                and np.array_equal(dp.batch.ref_span(), unpadded.ref_span())
+                and np.array_equal(dp.batch.seq, unpadded.seq),
+                "depad: reads not back at their unpadded places")
+        del dp
+        # cram-size: within the file; -v has a row for every content ID
+        def blocks(path):
+            with open(path) as f:
+                rows = [ln.split() for ln in f if ln.startswith("BLOCK")]
+            return {r[1] for r in rows}, sum(int(r[3]) for r in rows)
+        ids, comp = blocks(p("size.txt"))
+        vids, vcomp = blocks(p("size_ve.txt"))
+        with open(p("size_ve.txt")) as f:
+            encodings = f.read().count("Container encodings")
+        require(ids == vids and comp == vcomp
+                and 0 < comp <= os.path.getsize(cram) and encodings > 0,
+                "cram-size: sizes out of the file, or -v's IDs differ")
+        require(kernels.launches == before,
+                "the header_tools phase launched a kernel")
+        for x in os.listdir(d):
+            os.remove(os.path.join(d, x))
+        os.rmdir(d)
+        emit({"phase": "header_tools", "run": "all", "rg_reads": n_rg,
+              "checksum_reads": HEADER_CHECKSUM_READS,
+              "md_reads": HEADER_MD_READS, "padded_reads": unpadded.n,
+              "padded_len": int(padded.size), "pad_reads_s": round(t_pad, 3),
+              "cram_reads": twin.batch.n,
+              "cram_bytes": os.path.getsize(cram),
+              "prep_s": round(t_prep, 3),
+              "checksum_process_wall_s": round(walls["checksum"], 3),
+              "header_process_wall_s": round(walls["header"], 3),
+              "wall_s": round(time.perf_counter() - t_phase, 3)})
+    return finish
 
 
 # the sharded cell: a 2.5 Mi contig (three spans under SAMTPU_SHARDS=3)
@@ -4102,12 +4390,16 @@ def main() -> int:
                                          tool_checksums)
         del core_census
         header, cram_reads = phase_regions(workdir, bams, cons, cons_whole)
-        cram, cram_bam = phase_cram(workdir, ref, header, cram_reads)
+        cram, cram_bam, cram_path = phase_cram(workdir, ref, header,
+                                               cram_reads)
         del cram_reads
         tools = phase_pileup_tools(workdir)
         phase_view_tools(workdir, bams["clean_front"], cram_bam)
         phase_prep_tools(workdir, bams["clean_front"], bams["pairs"], ref)
-        phase_realign_tools(workdir, bams["pairs"], ref)
+        phase_realign_tools(workdir, bams["pairs"], ref, beside=(
+            lambda rg, rg_header, rg_reads: start_header_tools(
+                workdir, rg, rg_header, rg_reads, ref, cram_path, cram_bam,
+                bams["clean"], bams["messy"])))
         rows["pileup_scatter"], sharded_launches = phase_sharded(
             workdir, bams, torch.device("cuda"))
     rows.update(general_rows)

@@ -32,6 +32,7 @@ Commands:
   -- Editing
      calmd          recalculate MD/NM tags and '=' bases
      fixmate        fix mate information
+     reheader       replace BAM header
      targetcut      cut fosmid regions (for fosmid pool only)
      addreplacerg   adds or replaces RG tags
      markdup        mark duplicates
@@ -48,6 +49,7 @@ Commands:
      fastq          converts a BAM to a FASTQ
      fasta          converts a BAM to a FASTA
      import         Converts FASTA or FASTQ files to SAM/BAM/CRAM
+     reference      Generates a reference from aligned data
      reset          Reverts aligner changes in reads
 
   -- Statistics
@@ -56,14 +58,18 @@ Commands:
      depth          compute the depth
      flagstat       simple stats
      idxstats       BAM index stats
+     cram-size      list CRAM Content-ID and Data-Series sizes
      phase          phase heterozygotes
      stats          generate stats (former bamcheck)
+     checksum       produce order-agnostic checksums of sequence content
 
   -- Viewing
      flags          explain BAM flags
      head           header viewer
      tview          text alignment viewer
      view           SAM<->BAM<->CRAM conversion
+     depad          convert padded BAM to unpadded BAM
+     samples        list the samples in a set of SAM/BAM/CRAM files
 
   -- Misc
      help [cmd]     display this help message or help for [cmd]

@@ -32,6 +32,9 @@ class FastaIndex:
     path: str = ""
     _data: bytes | None = None
 
+    def nseq(self) -> int:
+        return len(self.order)
+
     def has(self, name: str) -> bool:
         return name in self.records
 

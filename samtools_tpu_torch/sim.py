@@ -198,3 +198,106 @@ def simulate_overlapping_pairs(ref_len: int, coverage: float = 30.0,
     b.qual = rng.randint(2, 41, n * read_len).astype(np.uint8)
     b.aux_off = np.zeros(n + 1, np.int64)
     return simulate_messy(b, seed)
+
+
+# pad_reads: about one reference base in this many gets pad columns
+_PAD_EVERY = 40
+
+
+def pad_reads(refs: list, b: ReadBatch, seed: int):
+    """A padded copy of unpadded reads, the input of ``depad``: pad
+    columns (``*``) go into each contig's reference, one to three at
+    about one base in _PAD_EVERY and as many as the longest insertion at
+    each insertion site, and each read's CIGAR is rewritten along the
+    padded reference with M and D only (``depad`` refuses I and P): an
+    inserted base is an M on a pad column, a pad column the read passes
+    with no base a D.  A read whose alignment opens with an insertion
+    starts on a pad column.  ``refs`` are the contigs' ASCII bases (uint8
+    arrays) by tid.  Returns (padded references, padded batch);
+    ``depad`` gives back each read's position and reference span."""
+    rng = np.random.default_rng(seed)
+    gaps = []
+    for ref in refs:
+        g = np.zeros(len(ref) + 1, np.int64)
+        sites = rng.random(len(ref) + 1) < 1.0 / _PAD_EVERY
+        sites[0] = False
+        g[sites] = rng.integers(1, 4, int(sites.sum()))
+        gaps.append(g)
+    cigars = [b.cigar_of(i) for i in range(b.n)]
+    for i in range(b.n):
+        r = int(b.pos[i])
+        if b.tid[i] < 0 or r < 0:
+            continue
+        for c in cigars[i]:
+            op, ln = int(c) & 0xF, int(c) >> 4
+            if op == F.CINS:
+                gaps[b.tid[i]][r] = max(gaps[b.tid[i]][r], ln)
+            elif F.CIGAR_CONSUMES_REF[op]:
+                r += ln
+    # cum[t][u]: pad columns before unpadded base u (gap u included)
+    cum = [np.cumsum(g) for g in gaps]
+    padded = []
+    for ref, c in zip(refs, cum):
+        out = np.full(len(ref) + int(c[-1]), ord("*"), np.uint8)
+        out[np.arange(len(ref)) + c[:-1]] = ref
+        padded.append(out)
+
+    pos = b.pos.copy()
+    mpos = b.mpos.copy()
+    for t in range(len(refs)):
+        m = (b.tid == t) & (b.pos >= 0)
+        pos[m] = b.pos[m] + cum[t][b.pos[m]]
+        m = (b.mtid == t) & (b.mpos >= 0)
+        mpos[m] = b.mpos[m] + cum[t][b.mpos[m]]
+    new_cig = []
+    for i in range(b.n):
+        tid, r = int(b.tid[i]), int(b.pos[i])
+        if tid < 0 or r < 0 or not len(cigars[i]):
+            new_cig.append(cigars[i])
+            continue
+        g = gaps[tid]
+        ops: list = []
+
+        def put(op, ln):
+            if ln <= 0:
+                return
+            if ops and ops[-1][0] == op:
+                ops[-1][1] += ln
+            else:
+                ops.append([op, ln])
+        crossed = r        # gap r lies before the read's first base
+        started = False
+        for c in cigars[i]:
+            op, ln = int(c) & 0xF, int(c) >> 4
+            if op in (F.CSOFT_CLIP, F.CHARD_CLIP):
+                put(op, ln)
+            elif op == F.CINS:
+                if started:
+                    put(F.CDEL, int(g[r]) - ln)
+                else:
+                    pos[i] -= ln
+                put(F.CMATCH, ln)
+                crossed = r
+                started = True
+            elif F.CIGAR_CONSUMES_REF[op]:
+                kind = F.CMATCH if F.CIGAR_CONSUMES_QUERY[op] else F.CDEL
+                start = r
+                for u in (np.nonzero(g[r:r + ln])[0] + r).tolist():
+                    if u != crossed:
+                        put(kind, u - start)
+                        put(F.CDEL, int(g[u]))
+                        start = u
+                put(kind, r + ln - start)
+                r += ln
+                crossed = -1
+                started = True
+        new_cig.append(np.array([(ln << 4) | op for op, ln in ops],
+                                np.uint32))
+    out = b.take(np.arange(b.n))
+    out.pos = pos
+    out.mpos = mpos
+    out.cigar = (np.concatenate(new_cig) if new_cig
+                 else np.empty(0, np.uint32))
+    out.cigar_off = np.concatenate(
+        [[0], np.cumsum([len(c) for c in new_cig])]).astype(np.int64)
+    return padded, out

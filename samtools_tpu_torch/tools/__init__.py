@@ -38,22 +38,31 @@ COMMANDS = {
     "split": ("samtools_tpu_torch.tools.split_cmd", "main_split"),
     "addreplacerg": ("samtools_tpu_torch.tools.addrprg_cmd",
                      "main_addreplacerg"),
+    "reheader": ("samtools_tpu_torch.tools.reheader_cmd", "main_reheader"),
     "calmd": ("samtools_tpu_torch.tools.calmd_cmd", "main_calmd"),
     "fillmd": ("samtools_tpu_torch.tools.calmd_cmd", "main_calmd"),
+    "checksum": ("samtools_tpu_torch.tools.checksum_cmd", "main_checksum"),
+    "samples": ("samtools_tpu_torch.tools.samples_cmd", "main_samples"),
     "reset": ("samtools_tpu_torch.tools.reset_cmd", "main_reset"),
+    "depad": ("samtools_tpu_torch.tools.depad_cmd", "main_depad"),
     "phase": ("samtools_tpu_torch.tools.phase_cmd", "main_phase"),
     "targetcut": ("samtools_tpu_torch.tools.targetcut_cmd",
                   "main_targetcut"),
     "rmdup": ("samtools_tpu_torch.tools.rmdup_cmd", "main_rmdup"),
     "tview": ("samtools_tpu_torch.tools.tview_cmd", "main_tview"),
+    "reference": ("samtools_tpu_torch.tools.reference_cmd",
+                  "main_reference"),
+    "cram-size": ("samtools_tpu_torch.tools.cram_size_cmd",
+                  "main_cram_size"),
 }
 
 # commands that do no device work and take no ``device``
 HOST_COMMANDS = ("view", "head", "flags", "quickcheck", "cat", "idxstats",
                  "index", "sort", "merge", "collate", "fixmate", "markdup",
                  "faidx", "fqidx", "dict", "fastq", "fasta", "import",
-                 "split", "addreplacerg", "calmd", "fillmd", "reset",
-                 "rmdup")
+                 "split", "addreplacerg", "reheader", "calmd", "fillmd",
+                 "checksum", "samples", "reset", "depad", "rmdup",
+                 "reference", "cram-size")
 
 
 def run_command(name: str, argv: list[str], device=None) -> int:

@@ -16,7 +16,6 @@ host command: no device work.
 from __future__ import annotations
 
 import os
-import struct
 import sys
 
 from .. import SAMTOOLS_PARITY_VERSION
@@ -163,7 +162,7 @@ def _try_external_sort(fn_in, fn_out, order, natural, by_tag, tag_by_name,
             mapped = mapped or bool((b.tid >= 0).any())
             sorter.add(b)
         mode, result = sorter.finish()
-    except (RuntimeError, ValueError, OSError, struct.error) as e:
+    except Exception as e:
         print_error("sort", "error while sorting: %s", e)
         return 1
     finally:

@@ -23,7 +23,8 @@ import shutil
 import numpy as np
 import pytest
 from torch_tool_fixtures import (FASTA_CONTIGS, check_case, jax_case_runs,
-                                 make_fastq_inputs, run_port_case)
+                                 make_fastq_inputs, run_jax_full,
+                                 run_port_case)
 
 from samtools_tpu.io import fasta as jfasta
 from samtools_tpu_torch import kernels
@@ -152,6 +153,25 @@ def test_faidx_dict_equal_jax_tool(inputs, want, cmd, case):
                              _copy_inputs(inputs)),
                want[cmd][case], f"{cmd}/{case}")
     assert not any(kernels.launches.values())
+
+
+@pytest.mark.parametrize("length,region,warns", [
+    (4611686018427387905, "c1", False), (30, "c1:1-20", True)])
+def test_truncation_warning_follows_the_jax_tool(tmp_path, length, region,
+                                                 warns):
+    """A ``.fai`` that claims more bases than the file holds: at 2^62
+    bases or more the JAX tool prints what there is without a warning,
+    below that both warn "Truncated sequence"."""
+    fa = tmp_path / "a.fa"
+    fa.write_text(">c1\nACGTACGTAC\nGGTT\n")
+    (tmp_path / "a.fa.fai").write_text(f"c1\t{length}\t4\t10\t11\n")
+    got = run_port_case("faidx", {"dir": str(tmp_path)},
+                        {"run": ([str(fa), region], None)}, "run")
+    want = run_jax_full("faidx", [str(fa), region])
+    assert got[:3] == want and got[3] == {}
+    assert got[0] == 0 and b"ACGTACGTAC" in got[1]
+    assert got[2] == (f"[faidx] Truncated sequence: {region}\n" if warns
+                      else "")
 
 
 # the port's io/fasta.py against the JAX module

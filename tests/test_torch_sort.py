@@ -17,9 +17,10 @@ import os
 
 import pytest
 from torch_tool_fixtures import (check_case, jax_case_runs, make_prep_inputs,
-                                 run_port_case)
+                                 run_jax_full, run_port_full, run_port_case)
 
 from samtools_tpu_torch import kernels
+from samtools_tpu_torch.io import bgzf
 from samtools_tpu_torch.tools import sort_cmd
 
 # name -> (arguments, standard input); {x} names an input of the fixture,
@@ -181,3 +182,27 @@ def test_spill_files_are_removed_when_the_merge_fails(inputs, monkeypatch,
     assert rc == 1
     assert "failed writing to" in err and "No space left" in err
     assert os.listdir(tmp_path) == []
+
+
+def test_corrupt_block_gives_the_jax_tool_error_line(inputs, tmp_path):
+    """A BGZF block that does not inflate (the fifth of ``general``, one
+    byte of its deflate stream flipped) stops the streamed sort with the
+    JAX tool's one error line and exit code (its zlib run: the default
+    run's libdeflate words the error its own way), not a traceback."""
+    with open(inputs["general"], "rb") as f:
+        data = bytearray(f.read())
+    coffs, _ = bgzf.scan_blocks(bytes(data))
+    data[int(coffs[4]) + 18] ^= 0xFF
+    bad = str(tmp_path / "bad.bam")
+    with open(bad, "wb") as f:
+        f.write(bytes(data))
+    want = run_jax_full("sort", ["-o", str(tmp_path / "jax.bam"), bad],
+                        {"SAMTPU_NO_NATIVE": "1"})
+    got = run_port_full("sort", ["-o", str(tmp_path / "port.bam"), bad])
+    assert got[0] == want[0] == 1
+    assert got[1] == want[1] == b""
+    assert got[2] == want[2]
+    assert got[2].startswith("samtools sort: error while sorting: ")
+    assert len(got[2].splitlines()) == 1
+    assert os.path.exists(tmp_path / "jax.bam") == \
+        os.path.exists(tmp_path / "port.bam")

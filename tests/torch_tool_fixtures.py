@@ -33,7 +33,10 @@ pads beside them, pads alone in the first 4 kbp, and MD tags;
 ``make_prep_inputs`` adds the inputs of
 sort, merge, collate and fixmate, ``make_dup_inputs`` those of markdup,
 rmdup, calmd and addreplacerg, ``make_fastq_inputs`` those of fastq,
-fasta, import, reset, split, faidx, fqidx and dict (their docs).
+fasta, import, reset, split, faidx, fqidx and dict, ``make_header_inputs``
+those of reheader, samples, checksum and cram-size, ``make_md_inputs``
+those of reference and ``make_padded_inputs`` those of depad (their
+docs).
 ``make_stats_inputs`` adds stats's: ``realloc`` (reads of 30-500 bases,
 so the histograms grow past 300 cycles mid-file, with hard clips,
 indels, every flag stats counts and NM tags: the JAX stats tests'
@@ -1305,6 +1308,248 @@ def make_fastq_inputs(d: str) -> dict:
         f.write("@SQ\tSN:chr1\n#header\nchr2\t1\t2\n\nMT\n")
     got["empty"] = p(d, "empty.txt")
     open(got["empty"], "w").close()
+    return got
+
+
+def _checksum_report(path: str, args: list[str]) -> None:
+    """The JAX ``checksum`` of ``args`` into ``path``, in-process."""
+    from samtools_tpu.tools.checksum_cmd import main_checksum as jchecksum
+    assert jchecksum(["-o", path] + args) == 0, args
+
+
+def make_header_inputs(d: str) -> dict:
+    """make_prep_inputs plus the inputs of reheader, samples, checksum and
+    cram-size: ``grouped_cram31`` (``grouped_cram``'s reads as CRAM 3.1,
+    by the JAX writer), ``hsplit`` (``general`` with its header in BGZF
+    blocks of its own, so its first record starts a block), ``two_fa``
+    (sim1 and a random sim2, the contigs of ``general``'s header),
+    ``fa_list`` (``fa`` and ``two_fa``), ``names`` (``general`` and
+    ``norg``, one a line), ``idx_pairs`` (``indexed`` and ``general``,
+    each beside an index name, tab-separated) and checksum reports
+    written by the JAX tool: ``chk_ha``/``chk_hb`` (default), ``chk_hb_B``
+    (``-B``), ``chk_hb_tags`` (``-t BC,RG``, another tag set) and
+    ``chk_hb_pcm`` (``-P -C -M``)."""
+    from samtools_tpu.io.files import read_alignments as jread
+    from samtools_tpu.io.files import write_alignments as jwrite
+    from samtools_tpu_torch.io import bgzf
+    from samtools_tpu_torch.io.bam import encode_header
+    from samtools_tpu_torch.io.stream import BamStream
+    got = make_prep_inputs(d)
+    p = os.path.join
+    grp = jread(got["grouped_cram"])
+    got["grouped_cram31"] = p(d, "grouped31.cram")
+    jwrite(got["grouped_cram31"], grp.header, grp.batch, fmt="cram",
+           reference=got["fa"], fmt_opts={"version": "3.1"})
+    with BamStream(got["general"]) as st:
+        header, voff = st.header, st._hdr_voffset
+    raw = bgzf.decompress(open(got["general"], "rb").read()).tobytes()
+    hlen = len(encode_header(header))
+    assert voff >> 16 == 0 and (voff & 0xFFFF) == hlen
+    got["hsplit"] = p(d, "hsplit.bam")
+    with open(got["hsplit"], "wb") as f:
+        f.write(bgzf.compress(raw[:hlen], append_eof=False)
+                + bgzf.compress(raw[hlen:]))
+    got["two_fa"] = p(d, "two.fa")
+    sim2 = sim.simulate_reference(VIEW_LEN2, seed=61).tobytes().decode()
+    with open(got["fa"]) as f, open(got["two_fa"], "w") as g:
+        g.write(f.read() + ">sim2\n" + "".join(
+            sim2[i:i + 70] + "\n" for i in range(0, VIEW_LEN2, 70)))
+    for key, lines in (("fa_list", [got["fa"], got["two_fa"]]),
+                       ("names", [got["general"], got["norg"]]),
+                       ("idx_pairs", [got["indexed"] + "\t"
+                                      + got["indexed"] + ".bai",
+                                      got["general"] + "\t"
+                                      + got["general"] + ".bai"])):
+        got[key] = p(d, key + ".txt")
+        with open(got[key], "w") as f:
+            f.write("".join(x + "\n" for x in lines))
+    for key, args in (("chk_ha", [got["ha"]]), ("chk_hb", [got["hb"]]),
+                      ("chk_hb_B", ["-B", got["hb"]]),
+                      ("chk_hb_tags", ["-t", "BC,RG", got["hb"]]),
+                      ("chk_hb_pcm", ["-P", "-C", "-M", got["hb"]])):
+        got[key] = p(d, key + ".chk")
+        _checksum_report(got[key], args)
+    return got
+
+
+MD_KEEP_END = 100000
+
+
+def make_md_inputs(d: str) -> dict:
+    """make_inputs plus the inputs of reference: ``md`` (the messy reads
+    that start before MD_KEEP_END through the JAX ``calmd -b``, so they
+    carry MD tags, every 7th without its MD, every 13th without NM;
+    indels and soft clips from the messy reads) and ``md_sam`` (the same
+    as SAM)."""
+    from samtools_tpu.io.files import read_alignments as jread
+    from samtools_tpu.io.files import write_alignments as jwrite
+    got = make_inputs(d)
+    p = os.path.join
+    rc, out, err = run_jax_full("calmd", ["-b", got["messy"], got["fa"]])
+    assert rc == 0, err
+    full = p(d, "calmd.bam")
+    with open(full, "wb") as f:
+        f.write(out)
+    f = jread(full)
+    b = f.batch.take(np.nonzero(f.batch.pos < MD_KEEP_END)[0])
+    from samtools_tpu_torch.core.aux import delete_tag
+    blobs = []
+    for i in range(b.n):
+        buf = b.aux_of(i)
+        if i % 7 == 3:
+            buf = delete_tag(buf, b"MD")
+        if i % 13 == 5:
+            buf = delete_tag(buf, b"NM")
+        blobs.append(bytes(buf))
+    _set_aux(b, blobs)
+    got["md"] = p(d, "md.bam")
+    jwrite(got["md"], f.header, b, fmt="bam")
+    got["md_sam"] = p(d, "md.sam")
+    jwrite(got["md_sam"], f.header, b)
+    return got
+
+
+PAD_LENS = (6000, 2500)
+
+
+def _fasta_of(path: str, seqs: dict, width: int = 60) -> None:
+    with open(path, "w") as f:
+        for name, s in seqs.items():
+            f.write(">" + name + "\n" + "".join(
+                s[i:i + width] + "\n" for i in range(0, len(s), width)))
+
+
+def make_padded_inputs(d: str) -> dict:
+    """The inputs of depad, from simulated unpadded reads on two contigs
+    (``pad1``, ``pad2``): overlapping pairs at 8x with the messy indels
+    and soft clips, reverse second mates, mates of about one pair in
+    twelve moved to the other contig, a hard clip on a few reads, some
+    reads that open with an insertion (so they start on a pad column)
+    and ten unmapped reads at the end.  ``sim.pad_reads`` pads the
+    references and rewrites the CIGARs along them; one read that starts
+    on a base after pad columns is moved back to open with a D over them.
+    ``padded`` (coordinate-sorted BAM, @SQ lengths the padded ones),
+    ``padded_fa`` (the padded references, ``*`` at the pads),
+    ``padded_fa1`` (``pad1`` only), ``padded_emb`` (``padded`` with an
+    embedded reference read at position 0 of each contig, named after
+    it, M over bases and D over pads; ``padded_emb1`` the same with
+    only ``pad1``'s read and the reads on ``pad1`` whose mates are not on
+    ``pad2``, which depad takes without a FASTA), ``padded_bad`` (one
+    read with an I op, which depad refuses), and ``unpadded`` (the reads
+    before padding, for the positions and spans depad must give back)."""
+    rng = np.random.default_rng(71)
+    refs, parts = [], []
+    for t, L in enumerate(PAD_LENS):
+        ref = sim.simulate_reference(L, seed=72 + t)
+        refs.append(ref)
+        b = sim.simulate_overlapping_pairs(L, coverage=8.0, ref=ref,
+                                           seed=74 + t)
+        b.tid[:] = t
+        b.mtid[:] = t
+        _prefix_qnames(b, b"t%d_" % t)
+        parts.append(b)
+    b = ReadBatch.concat(parts)
+    cig = [[(int(c) & 0xF, int(c) >> 4) for c in b.cigar_of(i)]
+           for i in range(b.n)]
+    for i in rng.choice(b.n, 12, replace=False):
+        if cig[i][0][0] == 0 and cig[i][0][1] > 10:
+            cig[i] = [(1, 2), (0, cig[i][0][1] - 2)] + cig[i][1:]
+            b.pos[i] += 2
+    for i in rng.choice(b.n, 6, replace=False):
+        cig[i] = [(5, 4)] + cig[i]
+    _cigar_batch(b, cig)
+    far = rng.choice(b.n, b.n // 24, replace=False)
+    b.mtid[far] = 1 - b.mtid[far]
+    b.mpos[far] = rng.integers(0, 2000, far.size)
+    b.tlen[far] = 0
+    b = b.take(np.lexsort((b.pos, b.tid)))
+    um = b.take(np.arange(10))
+    um.tid[:] = -1
+    um.pos[:] = -1
+    um.mtid[:] = -1
+    um.mpos[:] = -1
+    um.tlen[:] = 0
+    um.flag = (um.flag & 0xC1) | 0x4 | 0x8
+    _cigar_batch(um, [[] for _ in range(um.n)])
+    _prefix_qnames(um, b"u")
+    unpadded = ReadBatch.concat([b, um])
+    padded, pb = sim.pad_reads(refs, unpadded, seed=76)
+    # one read that starts on a base after pad columns opens with a D
+    # over them instead
+    for i in range(pb.n):
+        t, u = int(unpadded.tid[i]), int(unpadded.pos[i])
+        c = pb.cigar_of(i)
+        if t < 0 or u < 50 or not len(c) or (int(c[0]) & 0xF) != 0:
+            continue
+        k = int(pb.pos[i])
+        g = 0
+        while padded[t][k - g - 1] == ord("*"):
+            g += 1
+        if g:
+            cig = [[(int(x) & 0xF, int(x) >> 4) for x in pb.cigar_of(j)]
+                   for j in range(pb.n)]
+            cig[i] = [(2, g)] + cig[i]
+            pb.pos[i] -= g
+            _cigar_batch(pb, cig)
+            break
+    names = ("pad1", "pad2")
+    text = ("@HD\tVN:1.6\tSO:coordinate\n" + "".join(
+        f"@SQ\tSN:{n}\tLN:{len(s)}\n" for n, s in zip(names, padded))
+        + "@CO\tpadded inputs\n")
+    header = SamHeader.from_text(text)
+    p = os.path.join
+    got = {"dir": d, "refs": refs, "names": names}
+    got["padded"] = p(d, "padded.bam")
+    write_bam(got["padded"], header, pb)
+    got["unpadded"] = unpadded
+    seqs = {n: s.tobytes().decode() for n, s in zip(names, padded)}
+    got["padded_fa"] = p(d, "padded.fa")
+    _fasta_of(got["padded_fa"], seqs)
+    got["padded_fa1"] = p(d, "padded1.fa")
+    _fasta_of(got["padded_fa1"], {"pad1": seqs["pad1"]})
+    # embedded reference reads: M over bases, D over pads
+    emb = []
+    for t, s in enumerate(padded):
+        isbase = s != ord("*")
+        edges = np.flatnonzero(np.diff(isbase.astype(np.int8))) + 1
+        runs = np.diff(np.concatenate([[0], edges, [s.size]]))
+        kinds = isbase[np.concatenate([[0], edges])]
+        e = ReadBatch(n=1)
+        e.tid = np.array([t], np.int32)
+        e.pos = np.zeros(1, np.int64)
+        e.mapq = np.zeros(1, np.uint8)
+        e.flag = np.zeros(1, np.uint16)
+        e.mtid = np.full(1, -1, np.int32)
+        e.mpos = np.full(1, -1, np.int64)
+        e.tlen = np.zeros(1, np.int64)
+        e.qname = np.frombuffer(names[t].encode(), np.uint8).copy()
+        e.qname_off = np.array([0, len(names[t])], np.int64)
+        lut = np.zeros(256, np.uint8)
+        lut[np.frombuffer(b"ACGT", np.uint8)] = [1, 2, 4, 8]
+        e.seq = lut[s[isbase]]
+        e.seq_off = np.array([0, e.seq.size], np.int64)
+        e.qual = np.full(e.seq.size, 30, np.uint8)
+        e.aux_off = np.zeros(2, np.int64)
+        e.cigar = ((runs << 4) | np.where(kinds, 0, 2)).astype(np.uint32)
+        e.cigar_off = np.array([0, runs.size], np.int64)
+        emb.append(e)
+    withemb = ReadBatch.concat(emb + [pb])
+    order = np.lexsort((withemb.pos, np.where(withemb.tid < 0, 99,
+                                              withemb.tid)))
+    got["padded_emb"] = p(d, "padded_emb.bam")
+    write_bam(got["padded_emb"], header, withemb.take(order))
+    got["padded_emb1"] = p(d, "padded_emb1.bam")
+    write_bam(got["padded_emb1"], header, ReadBatch.concat([emb[0], pb.take(
+        np.flatnonzero((pb.tid == 0) & (pb.mtid != 1)))]))
+    cig = [[(int(x) & 0xF, int(x) >> 4) for x in pb.cigar_of(j)]
+           for j in range(pb.n)]
+    j = int(np.flatnonzero(pb.tid == 1)[5])
+    op, n = cig[j][0]
+    cig[j][:1] = [(op, n - 1), (1, 1)]
+    bad = pb.take(np.arange(pb.n))
+    _cigar_batch(bad, cig)
+    got["padded_bad"] = p(d, "padded_bad.bam")
+    write_bam(got["padded_bad"], header, bad)
     return got
 
 
