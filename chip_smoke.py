@@ -240,7 +240,31 @@ from the sources in this checkout.  Phases, one JSON line each:
    every read in it); every run but rmdup's and calmd -r's passes ``-@``
    and every output ``quickcheck``.  Per run: wall, reads a second,
    output bytes, launches.
-17. realign_tools -- the re-alignment round trip and the reference's
+17. amplicon_tools -- the viral amplicon path (no device work: the
+   phase must launch no kernel and its process make no CUDA context),
+   one process started beside prep_tools and checked after it: four
+   samples of 50,000 reads of an ARTIC-shaped panel
+   (``sim.amplicon_panel``: 98 amplicons on a 29,903-base contig, 2x150
+   pairs, alternative primers, ends near and beyond the tolerance,
+   indels and soft clips in primers, short, unmapped, QC-fail, secondary
+   and supplementary records), simulated in the process; ``ampliconclip
+   --both-ends --strand --primer-counts --rejects-file --filter-len 30
+   -f`` on each, ``ampliconclip --hard-clip --original --fail
+   --tolerance 3 -O sam`` on the first, ``sort`` of the four clipped
+   BAMs and ``ampliconstats -s`` of them.  Checks, in numpy against the
+   simulator's truth: TOTAL is WRITTEN + FILTERED, the primer counts add
+   up to FORWARD + REVERSE CLIPPED, the output and the rejects hold every
+   input read once, every forward read the clip moved starts at or past
+   a left primer of its amplicon; the hard clip's OA tags are its clipped
+   reads, each with as many bases as its CIGAR holds, and the unclipped
+   reads fail QC; the sorts are in order; each sample's FREADS are its
+   matching sequences and, with its failed primer matches, its reads
+   that pass ``-F``; COMBINED's reads and totals are the four samples'
+   sums.  Per run: wall, reads a second, launches.  plot-ampliconstats
+   and plot-bamstats do not run: they draw with matplotlib, which the
+   card's machine does not list (the CPU tests hold them to the JAX
+   tool).
+18. realign_tools -- the re-alignment round trip and the reference's
    indexes (no device work: the phase must launch no kernel and its
    processes make no CUDA context).  The tool phase's 512 kbp pairs
    (157,286 reads) get read groups grpA and grpB on alternate templates
@@ -263,7 +287,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``-i`` its reverse complement); dict's LN and M5 are the length and
    ``hashlib.md5`` of the upper-cased sequence.  Per run: wall, reads or
    bases a second, output bytes, launches.
-18. header_tools -- reheader, samples, checksum, depad, reference and
+19. header_tools -- reheader, samples, checksum, depad, reference and
    cram-size (no device work: the phase must launch no kernel and its
    processes make no CUDA context), in two processes started beside
    realign_tools' two, on its read-group BAM.  The header process:
@@ -284,7 +308,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    first 40,000 reads and their two halves (``checksum -m`` of the
    halves' reports must be the whole's), ``-a`` and ``-B`` on the
    40,000 (every read counted).  Per run: wall, reads a second, launches.
-19. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
+20. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
    ``graft_entry.entry()``'s shape (65,536 items, a 16,384-row window)
    and on clean's first 1 Mbp window (its reads' M bases): the scatter
    entry (counts and qual sums) and the tiled entry (the items bucketed
@@ -331,6 +355,7 @@ from __future__ import annotations
 import atexit
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2999,12 +3024,19 @@ PREP_REALN_READS = 2000
 # and rmdup; calmd -r on the front's first reads) and of the
 # realign_tools phase: runs through cli.main, each run's standard output
 # into a file when one is named; a JSON report of each run's wall, exit
-# code and launches, and whether the process made a CUDA context
+# code and launches, and whether the process made a CUDA context.  Where
+# the spec names an amplicon directory, the process first simulates the
+# amplicon_tools phase's samples into it (simulate_amplicon_samples),
+# beside prep_tools, and not in this script's own process, whose wall is
+# the limit's
 PREP_CHILD = r"""
 import contextlib, io, json, sys, time
 import torch
 from samtools_tpu_torch import cli, kernels
 report, spec = sys.argv[1], json.loads(sys.argv[2])
+if spec.get("amplicon_dir"):
+    from chip_smoke import simulate_amplicon_samples
+    simulate_amplicon_samples(spec["amplicon_dir"])
 runs = []
 for label, argv, stdout in spec["runs"]:
     b0 = dict(kernels.launches)
@@ -3028,16 +3060,19 @@ with open(report, "w") as f:
 """
 
 
-def spawn_cli_child(d: str, name: str, runs: list, env: dict | None = None):
+def spawn_cli_child(d: str, name: str, runs: list, env: dict | None = None,
+                    amplicon_dir: str | None = None):
     """A PREP_CHILD process of ``runs`` (label, argv, stdout file), its
     report to ``d/<name>.json`` and its stderr to ``d/<name>.err``, with
-    ``env`` added to its environment; killed at exit if a failed check
-    leaves it running."""
+    ``env`` added to its environment, that first simulates the amplicon
+    samples into ``amplicon_dir`` when one is given; killed at exit if a
+    failed check leaves it running."""
     with open(os.path.join(d, name + ".err"), "wb") as err:
         proc = subprocess.Popen(
             [sys.executable, "-c", PREP_CHILD,
              os.path.join(d, name + ".json"),
-             json.dumps({"runs": runs, "t_spawn": time.time()})],
+             json.dumps({"runs": runs, "t_spawn": time.time(),
+                         "amplicon_dir": amplicon_dir})],
             cwd=ROOT, stdin=subprocess.DEVNULL,
             stdout=subprocess.DEVNULL, stderr=err,
             env={**os.environ, **(env or {})})
@@ -3377,6 +3412,205 @@ def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
           "wall_s": round(time.perf_counter() - t_phase, 3)})
 
 
+# the amplicon_tools phase: samples of the ARTIC-shaped panel
+# (sim.amplicon_panel), their reads, and the first sample's seed
+AMPLICON_SAMPLES = 4
+AMPLICON_READS = 50_000
+AMPLICON_SEED = 43
+
+def simulate_amplicon_samples(d: str) -> None:
+    """The amplicon process's first step: the samples simulated and
+    written to ``d``, with each record's amplicon and each amplicon's
+    left primers (the panel the samples share) kept for the checks, and
+    the time it took in ``d/sim.json``."""
+    from samtools_tpu_torch import sim
+    from samtools_tpu_torch.io.bam import write_bam
+    t_sim = time.perf_counter()
+    for k in range(AMPLICON_SAMPLES):
+        panel = sim.amplicon_panel(AMPLICON_READS, AMPLICON_SEED + k,
+                                   sample=f"s{k}")
+        write_bam(os.path.join(d, f"s{k}.bam"), panel.header, panel.batch)
+        np.save(os.path.join(d, f"amp{k}.npy"), panel.amplicon)
+    with open(os.path.join(d, "primers.bed"), "w") as f:
+        f.write(panel.bed)
+    np.save(os.path.join(d, "left_ends.npy"),
+            np.array([min(r for _, r in x) for x in panel.lefts]))
+    with open(os.path.join(d, "sim.json"), "w") as f:
+        json.dump({"sim_s": time.perf_counter() - t_sim}, f)
+
+
+def _clip_report(path: str) -> dict:
+    """An ampliconclip stats file as {field: number}, the command left
+    out."""
+    with open(path) as f:
+        return {k: int(v) for k, v in (ln.rstrip("\n").split(": ", 1)
+                                       for ln in f)
+                if k != "COMMAND"}
+
+
+def _record_keys(b) -> np.ndarray:
+    """(qname, READ1/READ2/secondary/supplementary bits) of each record,
+    what ampliconclip leaves as it was, as one structured value each."""
+    names = _name_rows(b)
+    keys = np.empty(b.n, [("name", names.dtype), ("bits", np.uint16)])
+    keys["name"] = names
+    keys["bits"] = b.flag & 0x9C0
+    return keys
+
+
+def _query_len(cigar) -> int:
+    """The bases a SAM CIGAR string's M, I, S, = and X ops hold."""
+    return sum(int(n) for n, op in re.findall(r"(\d+)([MIDNSHP=X])", cigar)
+               if op in "MIS=X")
+
+
+def start_amplicon_tools(workdir: str):
+    """ampliconclip, sort and ampliconstats, the viral amplicon path
+    (module doc, phase 17): starts the process, which simulates the
+    samples and runs the commands, and returns what waits for it and
+    checks its outputs against the simulator's truth in numpy.  No
+    kernel, no CUDA context.  plot-ampliconstats and plot-bamstats do
+    not run here: they draw with matplotlib, which the card's machine
+    does not list (the CPU tests hold them to the JAX tool)."""
+    t_phase = time.perf_counter()
+    d = os.path.join(workdir, "amplicon_tools")
+    os.makedirs(d, exist_ok=True)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    bed = p("primers.bed")
+    runs = []
+    for k in range(AMPLICON_SAMPLES):
+        runs.append((f"ampliconclip s{k}", [
+            "ampliconclip", "--both-ends", "--strand", "--primer-counts",
+            p(f"pc{k}.txt"), "--rejects-file", p(f"rej{k}.bam"),
+            "--filter-len", "30", "-f", p(f"st{k}.txt"), "-b", bed, "-o",
+            p(f"clip{k}.bam"), p(f"s{k}.bam")], None))
+    runs.append(("ampliconclip --hard-clip", [
+        "ampliconclip", "--hard-clip", "--original", "--fail",
+        "--tolerance", "3", "-O", "sam", "-f", p("hard.txt"), "-b", bed,
+        p("s0.bam")], p("hard.sam")))
+    for k in range(AMPLICON_SAMPLES):
+        runs.append((f"sort s{k}", ["sort", "-o", p(f"sorted{k}.bam"),
+                                    p(f"clip{k}.bam")], None))
+    runs.append(("ampliconstats -s", [
+        "ampliconstats", "-s", "-o", p("astats.txt"), bed,
+        *[p(f"sorted{k}.bam") for k in range(AMPLICON_SAMPLES)]], None))
+    proc = spawn_cli_child(d, "amplicon", runs, amplicon_dir=d)
+
+    def finish() -> None:
+        from samtools_tpu_torch import kernels
+        from samtools_tpu_torch.io.files import read_alignments
+        before = dict(kernels.launches)
+        res, _ = wait_cli_child(proc, d, "amplicon", "the amplicon process",
+                                runs)
+        with open(p("sim.json")) as f:
+            sim_s = json.load(f)["sim_s"]
+        n = AMPLICON_READS
+        left_end = np.load(p("left_ends.npy"))
+        passing = []
+        for k in range(AMPLICON_SAMPLES):
+            st = _clip_report(p(f"st{k}.txt"))
+            require(st["TOTAL READS"] == n
+                    and st["TOTAL READS"] == st["WRITTEN"] + st["FILTERED"],
+                    f"ampliconclip s{k}: TOTAL is not WRITTEN + FILTERED")
+            with open(p(f"pc{k}.txt")) as f:
+                counted = sum(int(ln.split("\t")[6]) for ln in f
+                              if not ln.startswith("#"))
+            require(counted == st["FORWARD CLIPPED"] + st["REVERSE CLIPPED"],
+                    f"ampliconclip s{k}: the primer counts add up to "
+                    f"{counted}, not FORWARD + REVERSE CLIPPED")
+            b = read_alignments(p(f"s{k}.bam"), THREADS).batch
+            out = read_alignments(p(f"clip{k}.bam"), THREADS).batch
+            rej = read_alignments(p(f"rej{k}.bam"), THREADS).batch
+            keys, kout = _record_keys(b), _record_keys(out)
+            order = np.argsort(keys)
+            require(out.n == st["WRITTEN"] and rej.n == st["FILTERED"]
+                    and np.array_equal(np.sort(np.concatenate(
+                        [kout, _record_keys(rej)])), keys[order]),
+                    f"ampliconclip s{k}: the output and the rejects do not "
+                    "hold every input read once")
+            # each soft-clipped forward read starts at or past a left
+            # primer of its amplicon
+            src = order[np.searchsorted(keys[order], kout)]
+            amp = np.load(p(f"amp{k}.npy"))[src]
+            fwd = (amp >= 0) & ((b.flag[src] & 0x14) == 0) \
+                & ((out.flag & 0x4) == 0)
+            moved = fwd & (out.pos != b.pos[src])
+            require(moved.sum() > 0.5 * fwd.sum() and bool(np.all(
+                out.pos[moved] >= left_end[amp[moved]])),
+                    f"ampliconclip s{k}: a clipped forward read starts "
+                    "inside its primer")
+            s = read_alignments(p(f"sorted{k}.bam"), THREADS).batch
+            require(s.n == out.n and _coordinate_sorted(s),
+                    f"sort s{k}: not the clipped reads in order")
+            ends = s.pos + np.where(((s.flag & 0x4) == 0) & (s.n_cigar > 0),
+                                    s.ref_span(), 1)
+            passing.append(int(np.count_nonzero(
+                (s.tid >= 0) & ((s.flag & 0xB04) == 0) & (ends != s.pos))))
+            del b, out, rej, s
+        # the hard clip: an OA tag on each clipped read, bases as many as
+        # its CIGAR holds, QC-fail on the unclipped ones
+        hard = _clip_report(p("hard.txt"))
+        with open(p("hard.sam")) as f:
+            recs = [ln.rstrip("\n").split("\t") for ln in f
+                    if not ln.startswith("@")]
+        oa = [r for r in recs if any(x.startswith("OA:Z:") for x in r[11:])]
+        require(len(recs) == hard["WRITTEN"]
+                and len(oa) == hard["TOTAL CLIPPED"]
+                and all(r[5] == "*" or _query_len(r[5]) == len(r[9])
+                        for r in oa)
+                and hard["FAILED"] >= hard["NOT CLIPPED"] > 0,
+                "ampliconclip --hard-clip: OA tags, bases or QC-fail flags "
+                "off")
+        # ampliconstats: each sample's reads that pass -F are its FREADS
+        # plus its failed primer matches; COMBINED is the sum of the four
+        with open(p("astats.txt")) as f:
+            rows = [ln.rstrip("\n").split("\t") for ln in f]
+        freads = {r[1]: list(map(int, r[2:])) for r in rows
+                  if r[0] == "FREADS"}
+        fss = {(r[1], r[3]): int(r[4]) for r in rows if r[0] == "FSS"}
+        for k in range(AMPLICON_SAMPLES):
+            name = f"s{k}"
+            require(sum(freads[name]) == fss[(name, "matching sequences:")]
+                    and sum(freads[name]) + fss[(name,
+                                                 "failed primer match:")]
+                    == passing[k],
+                    f"ampliconstats: {name}'s FREADS are not its reads that "
+                    "pass -F")
+        comb = [list(map(int, r[2:])) for r in rows
+                if r[:2] == ["CREADS", "COMBINED"]][0]
+        css = {r[3]: int(r[4]) for r in rows if r[0] == "CSS"}
+        require(comb == [sum(x) for x in zip(*freads.values())]
+                and css["raw total sequences:"] == sum(
+                    fss[(f"s{k}", "raw total sequences:")]
+                    for k in range(AMPLICON_SAMPLES)),
+                "ampliconstats: COMBINED is not the sum of the samples")
+        require(kernels.launches == before,
+                "the amplicon_tools phase launched a kernel")
+        # the reads each run reads: a sample, its clipped reads, or all
+        # four samples' clipped reads
+        written = [_clip_report(p(f"st{k}.txt"))["WRITTEN"]
+                   for k in range(AMPLICON_SAMPLES)]
+        for r, (label, _, _) in zip(res["runs"], runs):
+            k = (sum(written) if label.startswith("ampliconstats")
+                 else written[int(label[-1])] if label.startswith("sort")
+                 else n)
+            emit({"phase": "amplicon_tools", "run": label, "reads": k,
+                  "wall_s": round(r["wall_s"], 3),
+                  "reads_per_s": round(k / r["wall_s"]), "launches": {},
+                  "process": True})
+        for x in os.listdir(d):
+            os.remove(os.path.join(d, x))
+        os.rmdir(d)
+        emit({"phase": "amplicon_tools", "run": "all",
+              "samples": AMPLICON_SAMPLES, "reads": n,
+              "matching_reads": [fss[(f"s{k}", "matching sequences:")]
+                                 for k in range(AMPLICON_SAMPLES)],
+              "sim_s": round(sim_s, 3),
+              "process_wall_s": round(res["process_wall_s"], 3),
+              "wall_s": round(time.perf_counter() - t_phase, 3)})
+    return finish
+
+
 # the realign_tools phase: the pairs' templates in read group grpA (even
 # template numbers) or grpB (odd ones), none on a template number
 # REALIGN_NO_RG_AT modulo REALIGN_NO_RG_EVERY; the regions faidx fetches
@@ -3456,7 +3690,7 @@ def _faidx_records(path: str) -> list:
 def phase_realign_tools(workdir: str, pairs: str, ref: np.ndarray,
                         beside=None) -> None:
     """fastq, fasta, import, reset, split, faidx, fqidx and dict (module
-    doc, phase 17): two processes at once, their outputs checked here;
+    doc, phase 18): two processes at once, their outputs checked here;
     no kernel and no CUDA context.  ``beside(rg, header, reads)``, when
     given, starts another phase's processes on the read-group BAM once
     this phase's are running, and returns what waits for and checks
@@ -3735,7 +3969,7 @@ def start_header_tools(workdir: str, rg: str, rg_header, rg_reads,
                        ref: np.ndarray, cram: str, cram_bam: str,
                        clean: str, messy: str):
     """reheader, samples, checksum, depad, reference and cram-size (module
-    doc, phase 18): writes the inputs, starts the two processes and
+    doc, phase 19): writes the inputs, starts the two processes and
     returns what waits for them and checks their outputs; no kernel and
     no CUDA context."""
     import shutil
@@ -4395,7 +4629,9 @@ def main() -> int:
         del cram_reads
         tools = phase_pileup_tools(workdir)
         phase_view_tools(workdir, bams["clean_front"], cram_bam)
+        amplicon_tools = start_amplicon_tools(workdir)
         phase_prep_tools(workdir, bams["clean_front"], bams["pairs"], ref)
+        amplicon_tools()
         phase_realign_tools(workdir, bams["pairs"], ref, beside=(
             lambda rg, rg_header, rg_reads: start_header_tools(
                 workdir, rg, rg_header, rg_reads, ref, cram_path, cram_bam,

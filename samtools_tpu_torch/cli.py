@@ -36,6 +36,7 @@ Commands:
      targetcut      cut fosmid regions (for fosmid pool only)
      addreplacerg   adds or replaces RG tags
      markdup        mark duplicates
+     ampliconclip   clip oligos from the end of reads
 
   -- File operations
      collate        shuffle and group alignments by name
@@ -61,6 +62,7 @@ Commands:
      cram-size      list CRAM Content-ID and Data-Series sizes
      phase          phase heterozygotes
      stats          generate stats (former bamcheck)
+     ampliconstats  generate amplicon specific stats
      checksum       produce order-agnostic checksums of sequence content
 
   -- Viewing

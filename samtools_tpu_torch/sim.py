@@ -7,10 +7,12 @@ of the JAX package's bench workload with indels and soft clips.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 
 from .core import flags as F
-from .core.batch import ReadBatch
+from .core.batch import ReadBatch, ragged_gather_indices
 from .io.header import SamHeader
 
 # nt16 codes for A,C,G,T
@@ -301,3 +303,322 @@ def pad_reads(refs: list, b: ReadBatch, seed: int):
     out.cigar_off = np.concatenate(
         [[0], np.cumsum([len(c) for c in new_cig])]).astype(np.int64)
     return padded, out
+
+
+# the shape of the ARTIC SARS-CoV-2 V3 scheme: one contig of 29,903 bases
+# (its GenBank accession) tiled by 98 overlapping amplicons of about 400
+# bases in two pools, primers of 22-26 bases
+ARTIC_CONTIG = ("MN908947.3", 29903, 98)
+ARTIC_SCHEME = "nCoV-2019"
+# an amplicon sample's read length and substitution rate, and the seed of
+# the panel every sample shares
+AMPLICON_READ_LEN = 150
+AMPLICON_ERR_RATE = 0.003
+AMPLICON_PANEL_SEED = 0
+
+# nt16 code -> base index 0-3 (A, C, G, T); ASCII base -> nt16 code
+_BASE_OF_NT16 = np.zeros(16, np.int64)
+_BASE_OF_NT16[_ACGT16] = np.arange(4)
+_NT16_OF_ASCII = np.zeros(256, np.uint8)
+_NT16_OF_ASCII[np.frombuffer(b"ACGT", np.uint8)] = _ACGT16
+
+
+@dataclass
+class AmpliconPanel:
+    """An amplicon panel and one sample's reads (``amplicon_panel``).
+
+    ``bed`` is the primers' 6-column BED text (score: the pool);
+    ``lefts`` the (start, end) of each amplicon's left primers, main
+    first, by the amplicon's number over all contigs; ``amplicon`` that
+    number for each record of ``batch``, the template's (-1 for a
+    secondary, supplementary or unplaced record)."""
+    header: SamHeader
+    bed: str
+    lefts: list
+    batch: ReadBatch
+    amplicon: np.ndarray
+
+
+def _panel_primers(rng, name: str, length: int, n_amp: int, scheme: str):
+    """One contig's amplicons: their left and their right primers, each
+    a list of (start, end), the main one first, an alternative one on
+    about one amplicon in 16; and the contig's BED rows, amplicon by
+    amplicon (left primers, then right)."""
+    margin = 30
+    step = (length - 2 * margin - 420) / max(n_amp - 1, 1)
+    start = margin + np.round(np.arange(n_amp) * step).astype(np.int64)
+    end = start + rng.integers(380, 421, n_amp)
+    lp = rng.integers(22, 27, n_amp)
+    rp = rng.integers(22, 27, n_amp)
+    lefts = [[(int(s), int(s + a))] for s, a in zip(start, lp)]
+    rights = [[(int(e - a), int(e))] for e, a in zip(end, rp)]
+    for i in rng.choice(n_amp, max(1, n_amp // 16), replace=False):
+        shift = int(rng.choice([-4, -3, -2, 2, 3, 4]))
+        plen = int(rng.integers(22, 27))
+        if rng.random() < 0.5:
+            s = lefts[i][0][0] + shift
+            lefts[i].append((s, s + plen))
+        else:
+            e = rights[i][0][1] + shift
+            rights[i].append((e - plen, e))
+    rows = []
+    for i in range(n_amp):
+        pool = f"{scheme}_{1 + i % 2}"
+        for side, prim, strand in (("LEFT", lefts[i], "+"),
+                                   ("RIGHT", rights[i], "-")):
+            for k, (lo, hi) in enumerate(prim):
+                rows.append(f"{name}\t{lo}\t{hi}\t{scheme}_{i + 1}_{side}"
+                            f"{'_alt0' if k else ''}\t{pool}\t{strand}\n")
+    return lefts, rights, rows
+
+
+def _offset_draws(rng, n: int, outward: int) -> np.ndarray:
+    """How far each of ``n`` fragment ends lies from its primer's outer
+    end: 0 in 60%, -5 to 5 in 35%, 6-10 outward (beyond the default
+    tolerance of 5) in 5%."""
+    u = rng.random(n)
+    near = rng.integers(-5, 6, n)
+    far = outward * rng.integers(6, 11, n)
+    return np.where(u < 0.6, 0, np.where(u < 0.95, near, far))
+
+
+def _read_ops(kind: int, length: int, a: int, k: int, rev: bool) -> list:
+    """A read's CIGAR as (op, length) pairs: all M (kind 0), or an
+    insertion (1) or a deletion (2) ``a`` bases from its 5' end, or its
+    first ``a`` bases soft-clipped (3); a reverse read's 5' end is its
+    right end on the reference."""
+    if kind == 0:
+        return [(F.CMATCH, length)]
+    if kind == 1:
+        ops = [(F.CMATCH, a), (F.CINS, k), (F.CMATCH, length - a - k)]
+    elif kind == 2:
+        ops = [(F.CMATCH, a), (F.CDEL, k), (F.CMATCH, length - a)]
+    else:
+        ops = [(F.CSOFT_CLIP, a), (F.CMATCH, length - a)]
+    return ops[::-1] if rev else ops
+
+
+def amplicon_panel(n_reads: int, seed: int, contigs=(ARTIC_CONTIG,),
+                   sample: str = "sample1") -> AmpliconPanel:
+    """An amplicon panel shaped like ARTIC SARS-CoV-2 V3, from
+    ``AMPLICON_PANEL_SEED``, and ``n_reads`` reads of one sample on it,
+    coordinate-sorted, from ``seed``: the input of ``ampliconclip`` and
+    ``ampliconstats``.  Samples with the same ``contigs`` share the
+    panel.
+
+    ``contigs`` are (name, length, amplicons): random bases tiled by
+    amplicons of 380-420 bases, primers of 22-26 bases, an alternative
+    primer shifted 2-4 bases on about one amplicon in 16, two pools (the
+    BED's score).  A template is one amplicon (drawn lognormally, by the
+    panel's weights times the sample's, one amplicon dropping out) read
+    as a 2x150 pair from its ends,
+    read 1 forward or reverse at random; its ends lie on the primers
+    (main or alternative) as ``_offset_draws`` says, some beyond the
+    default tolerance.  One read in 100 is 8-20 bases long (shorter than
+    a primer); of the others, one in 50 has an insertion, one a deletion
+    and one a soft clip 3-15 bases into its 5' primer; substitutions at
+    ``AMPLICON_ERR_RATE``.  One pair in 100 has its reverse mate unmapped, one in
+    200 fails QC; 1% more records are secondary alignments at another
+    amplicon's left primer and supplementary ones, hard-clipped, at a
+    right primer; one template in 200 is an unplaced pair.  Every read
+    is in read group ``sample`` (SM ``sample``); mapped ones but one in
+    50 carry NM and MD, filled by the port's ``calmd``."""
+    from .tools.calmd_cmd import UPDATE_MD, UPDATE_NM, fillmd_batch
+    read_len = AMPLICON_READ_LEN
+    prng = np.random.default_rng(AMPLICON_PANEL_SEED)
+    refs, lefts, rights, tids, bed = [], [], [], [], []
+    for t, (name, length, n_amp) in enumerate(contigs):
+        refs.append(np.frombuffer(b"ACGT", np.uint8)[
+            prng.integers(0, 4, length)])
+        lp, rp, rows = _panel_primers(prng, name, length, n_amp,
+                                      ARTIC_SCHEME if t == 0 else name)
+        lefts += lp
+        rights += rp
+        tids += [t] * n_amp
+        bed += rows
+    ref_all = np.concatenate(refs)
+    ref_base = np.cumsum([0] + [len(r) for r in refs])
+    n_amp = len(tids)
+    weight = prng.lognormal(0.0, 0.6, n_amp)
+    weight[prng.integers(0, n_amp)] *= 0.02
+    rng = np.random.default_rng(seed)
+    weight *= rng.lognormal(0.0, 0.3, n_amp)
+    n_pairs = int(n_reads * 0.495)
+    n_unplaced = max(1, n_pairs // 200)
+    n_pairs -= n_unplaced
+    n_extra = n_reads - 2 * (n_pairs + n_unplaced)
+
+    # the pairs: read 2p forward from the fragment's start, read 2p + 1
+    # reverse to its end
+    amps = rng.choice(n_amp, n_pairs, p=weight / weight.sum())
+    alt_l = rng.random(n_pairs) < 0.3
+    alt_r = rng.random(n_pairs) < 0.3
+    lp = np.array([lefts[a][int(x and len(lefts[a]) > 1)]
+                   for a, x in zip(amps.tolist(), alt_l.tolist())], np.int64)
+    rp = np.array([rights[a][int(x and len(rights[a]) > 1)]
+                   for a, x in zip(amps.tolist(), alt_r.tolist())],
+                  np.int64)
+    lo = lp[:, 0] + _offset_draws(rng, n_pairs, -1)
+    hi = rp[:, 1] + _offset_draws(rng, n_pairs, 1)
+    n = 2 * n_pairs
+    rev = np.tile([False, True], n_pairs)
+    tid = np.repeat(np.array(tids, np.int32)[amps], 2)
+    length = np.repeat(np.minimum(read_len, hi - lo), 2)
+    short = rng.random(n) < 0.01
+    length[short] = rng.integers(8, 21, int(short.sum()))
+    u = np.where(length >= 40, rng.random(n), 0.0)
+    kind = np.select([u < 0.94, u < 0.96, u < 0.98], [0, 1, 2], 3)
+    a = rng.integers(3, 16, n)
+    k = rng.integers(1, 4, n)
+    span = length + np.select([kind == 1, kind == 2, kind == 3],
+                              [-k, k, -a], 0)
+    clip = np.where(kind == 3, a, 0)
+    pos = np.where(rev, np.repeat(hi, 2) - span - clip,
+                   np.repeat(lo, 2) + clip)
+    ops_l = [_read_ops(*x) for x in zip(kind.tolist(), length.tolist(),
+                                        a.tolist(), k.tolist(),
+                                        rev.tolist())]
+
+    # bases: the reference's along each read's alignment, random ones
+    # inserted or soft-clipped, then substitutions
+    seq_off = _offsets(length)
+    codes = np.empty(int(seq_off[-1]), np.uint8)
+    plain = kind == 0
+    gi = ragged_gather_indices((ref_base[tid] + pos)[plain], length[plain])
+    codes[ragged_gather_indices(seq_off[:-1][plain], length[plain])] = \
+        _NT16_OF_ASCII[ref_all[gi]]
+    for i in np.flatnonzero(~plain).tolist():
+        q, r = int(seq_off[i]), int(ref_base[tid[i]] + pos[i])
+        for op, ln in ops_l[i]:
+            if op == F.CMATCH:
+                codes[q:q + ln] = _NT16_OF_ASCII[ref_all[r:r + ln]]
+            else:
+                codes[q:q + ln] = _ACGT16[rng.integers(0, 4, ln)]
+            r += ln if F.CIGAR_CONSUMES_REF[op] else 0
+            q += ln if F.CIGAR_CONSUMES_QUERY[op] else 0
+    err = np.flatnonzero(rng.random(codes.size) < AMPLICON_ERR_RATE)
+    codes[err] = _ACGT16[(_BASE_OF_NT16[codes[err]]
+                          + rng.integers(1, 4, err.size)) % 4]
+
+    r1_fwd = np.repeat(rng.random(n_pairs) < 0.5, 2)
+    flag = (0x1 | 0x2 | np.where(rev, 0x10, 0x20)
+            | np.where(rev == r1_fwd, 0x80, 0x40)).astype(np.int64)
+    mapq = rng.integers(20, 61, n)
+    fate = np.repeat(rng.random(n_pairs), 2)
+    # the reverse mate unmapped and placed at its mate, or both failing
+    # QC
+    lost = (fate < 0.01) & rev
+    flag[lost] = (flag[lost] & ~(0x2 | 0x10)) | 0x4
+    flag[np.roll(lost, -1)] = (flag[np.roll(lost, -1)] & ~(0x2 | 0x20)) | 0x8
+    pos[lost] = pos[np.roll(lost, -1)]
+    mapq[lost] = 0
+    for i in np.flatnonzero(lost).tolist():
+        ops_l[i] = []
+    flag[(fate >= 0.01) & (fate < 0.015)] |= 0x200
+    mate = np.arange(n) ^ 1
+    amp_of = np.repeat(amps, 2)
+    pair = np.repeat(np.arange(n_pairs), 2)
+
+    # secondary records at another amplicon's left primer, supplementary
+    # (hard-clipped) ones at a right primer, of distinct mapped reads;
+    # then the unplaced pairs
+    ex = {"tid": [], "pos": [], "flag": [], "mapq": [], "ops": [],
+          "codes": [], "pair": [], "mate": []}
+    for j, i in enumerate(rng.choice(np.flatnonzero((flag & 0x4) == 0),
+                                     n_extra, replace=False).tolist()):
+        b = int(rng.integers(0, n_amp))
+        keep = int(flag[i]) & (0x1 | 0x8 | 0x20 | 0x40 | 0x80)
+        if j % 2 == 0:
+            p0, ops, fl = lefts[b][0][0], [(F.CMATCH, read_len)], 0x100
+        else:
+            h = int(rng.integers(30, 80))
+            p0 = rights[b][0][1] - (read_len - h)
+            ops = [(F.CHARD_CLIP, h), (F.CMATCH, read_len - h)]
+            fl = 0x800 | 0x10
+        r = int(ref_base[tids[b]]) + p0
+        for key, v in (("tid", tids[b]), ("pos", p0), ("flag", keep | fl),
+                       ("mapq", 0 if j % 2 == 0 else 30), ("ops", ops),
+                       ("codes", _NT16_OF_ASCII[
+                           ref_all[r:r + ops[-1][1]]]),
+                       ("pair", int(pair[i])), ("mate", int(mate[i]))):
+            ex[key].append(v)
+    for p in range(n_pairs, n_pairs + n_unplaced):
+        for fl in (0x1 | 0x4 | 0x8 | 0x40, 0x1 | 0x4 | 0x8 | 0x80):
+            for key, v in (("tid", -1), ("pos", -1), ("flag", fl),
+                           ("mapq", 0), ("ops", []),
+                           ("codes", _ACGT16[rng.integers(0, 4,
+                                                          read_len)]),
+                           ("pair", p), ("mate", -1)):
+                ex[key].append(v)
+    m = len(ex["tid"])
+    tid = np.concatenate([tid, np.array(ex["tid"], np.int32)])
+    pos = np.concatenate([pos, np.array(ex["pos"], np.int64)])
+    flag = np.concatenate([flag, np.array(ex["flag"], np.int64)])
+    mapq = np.concatenate([mapq, np.array(ex["mapq"], np.int64)])
+    ops_l += ex["ops"]
+    codes = np.concatenate([codes] + ex["codes"])
+    seq_off = _offsets(np.concatenate(
+        [length, [len(c) for c in ex["codes"]]]).astype(np.int64))
+    pair = np.concatenate([pair, np.array(ex["pair"], np.int64)])
+    mate = np.concatenate([mate, np.array(ex["mate"], np.int64)])
+    amp_of = np.concatenate([amp_of, np.full(m, -1)])
+    n += m
+
+    has_mate = mate >= 0
+    mtid = np.where(has_mate, tid[np.maximum(mate, 0)], -1).astype(np.int32)
+    mpos = np.where(has_mate, pos[np.maximum(mate, 0)], -1)
+    span = np.array([sum(ln for op, ln in ops if F.CIGAR_CONSUMES_REF[op])
+                     for ops in ops_l], np.int64)
+    # TLEN on the primary records of a pair with both mates mapped: the
+    # leftmost (on a tie the forward one) positive
+    tlen = np.zeros(n, np.int64)
+    prim = has_mate & ((flag & 0x90C) == 0)
+    mt = mate[prim]
+    lo_t = np.minimum(pos[prim], pos[mt])
+    hi_t = np.maximum(pos[prim] + span[prim], pos[mt] + span[mt])
+    first = (pos[prim] < pos[mt]) | ((pos[prim] == pos[mt])
+                                     & ((flag[prim] & 0x10) == 0))
+    tlen[prim] = np.where(first, 1, -1) * (hi_t - lo_t)
+
+    # the mapped reads left without NM and MD
+    untagged = rng.random(n) < 0.02
+    names = [b"amp%07d" % p for p in pair.tolist()]
+    header = SamHeader.from_text(
+        "@HD\tVN:1.6\tSO:coordinate\n"
+        + "".join(f"@SQ\tSN:{c[0]}\tLN:{c[1]}\n" for c in contigs)
+        + f"@RG\tID:{sample}\tSM:{sample}\tPL:ILLUMINA\n"
+        "@PG\tID:bwa\tPN:bwa\tVN:0.7.17-r1188\tCL:bwa mem -t 8 ref.fa"
+        " r1.fq.gz r2.fq.gz\n")
+    b = ReadBatch(n=n)
+    b.tid, b.pos = tid, pos
+    b.flag = flag.astype(np.uint16)
+    b.mapq = mapq.astype(np.uint8)
+    b.mtid, b.mpos, b.tlen = mtid, mpos, tlen
+    b.qname = np.frombuffer(b"".join(names), np.uint8).copy()
+    b.qname_off = _offsets([len(x) for x in names])
+    b.cigar = np.array([(ln << 4) | op for ops in ops_l for op, ln in ops],
+                       np.uint32)
+    b.cigar_off = _offsets([len(ops) for ops in ops_l])
+    b.seq = codes
+    b.seq_off = seq_off
+    b.qual = rng.integers(20, 41, codes.size).astype(np.uint8)
+    # NM and MD on the mapped reads but one in 50, then the read group
+    aux_out = [np.empty(0, np.uint8)] * n
+    for t, (name, _, _) in enumerate(contigs):
+        fillmd_batch(b, np.flatnonzero((tid == t) & ((flag & 0x4) == 0)
+                                       & ~untagged),
+                     refs[t].tobytes(), len(refs[t]), UPDATE_NM | UPDATE_MD,
+                     0, True, name, aux_out, aux_native_ok=False)
+    rg = np.frombuffer(b"RGZ" + sample.encode() + b"\0", np.uint8)
+    auxes = [np.concatenate([a, rg]) for a in aux_out]
+    b.aux = np.concatenate(auxes)
+    b.aux_off = _offsets([len(x) for x in auxes])
+    order = np.lexsort((pos, np.where(tid < 0, len(contigs), tid)))
+    return AmpliconPanel(header, "".join(bed), lefts, b.take(order),
+                         amp_of[order])
+
+
+def _offsets(lens) -> np.ndarray:
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    return off

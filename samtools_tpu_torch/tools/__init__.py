@@ -54,6 +54,14 @@ COMMANDS = {
                   "main_reference"),
     "cram-size": ("samtools_tpu_torch.tools.cram_size_cmd",
                   "main_cram_size"),
+    "ampliconclip": ("samtools_tpu_torch.tools.ampliconclip_cmd",
+                     "main_ampliconclip"),
+    "ampliconstats": ("samtools_tpu_torch.tools.ampliconstats_cmd",
+                      "main_ampliconstats"),
+    "plot-bamstats": ("samtools_tpu_torch.tools.plot_bamstats_cmd",
+                      "main_plot_bamstats"),
+    "plot-ampliconstats": ("samtools_tpu_torch.tools.plot_ampliconstats_cmd",
+                           "main_plot_ampliconstats"),
 }
 
 # commands that do no device work and take no ``device``
@@ -62,7 +70,8 @@ HOST_COMMANDS = ("view", "head", "flags", "quickcheck", "cat", "idxstats",
                  "faidx", "fqidx", "dict", "fastq", "fasta", "import",
                  "split", "addreplacerg", "reheader", "calmd", "fillmd",
                  "checksum", "samples", "reset", "depad", "rmdup",
-                 "reference", "cram-size")
+                 "reference", "cram-size", "ampliconclip", "ampliconstats",
+                 "plot-bamstats", "plot-ampliconstats")
 
 
 def run_command(name: str, argv: list[str], device=None) -> int:

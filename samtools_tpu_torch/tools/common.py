@@ -126,6 +126,15 @@ def gnu_getopt(argv: list[str], shortopts: str, longopts: list[str]):
         raise UsageError(str(e)) from None
 
 
+def out_level(ga: GlobalArgs) -> int:
+    """The compression level of ``--output-fmt-option level=N``: 6 by
+    default or when N is not a number."""
+    try:
+        return int(ga.out_opts.get("level", 6))
+    except ValueError:
+        return 6
+
+
 def open_stream(path: str, threads: int) -> BamStream | None:
     """A BamStream on ``path``, or None when the file is not a
     BGZF-compressed BAM (the caller reads it whole).  OSError

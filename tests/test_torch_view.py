@@ -19,10 +19,12 @@ whole-file path) and with small stream windows: the bytes stay the
 same.  No case launches a kernel.
 """
 
+import os
+
 import numpy as np
 import pytest
 from torch_tool_fixtures import (check_case, jax_case_runs, make_view_inputs,
-                                 run_port_case)
+                                 run_jax_full, run_port_case, run_port_full)
 
 from samtools_tpu_torch import cli, kernels
 from samtools_tpu_torch.tools import view_cmd
@@ -239,3 +241,31 @@ def test_inputs_cover_every_path(inputs, want):
     assert [c for c in CASES if want[c][0][0] != 0] == [
         "bad_subsample", "bad_subsample_fraction", "unoutput_and_unmap",
         "missing_file", "bad_region", "bad_option"]
+
+
+def test_bgzf_crc32_is_not_checked(inputs, tmp_path):
+    """Neither package checks a BGZF block's CRC32: ``general`` with its
+    middle byte XORed with 0xFF still inflates, ``view -c`` and
+    ``flagstat`` print the JAX tool's bytes (2,455 reads), and ``sort``
+    writes the bytes of the JAX tool's zlib run."""
+    with open(inputs["general"], "rb") as f:
+        data = bytearray(f.read())
+    data[len(data) // 2] ^= 0xFF
+    bad = str(tmp_path / "crc.bam")
+    with open(bad, "wb") as f:
+        f.write(data)
+    for cmd, args in (("view", ["-c", bad]), ("flagstat", [bad])):
+        got = run_port_full(cmd, args)
+        assert got == run_jax_full(cmd, args), cmd
+    assert run_port_full("view", ["-c", bad])[1] == b"2455\n"
+    out = str(tmp_path / "sorted.bam")
+    sort = ["sort", "-o", out, bad]
+    jrc, jout, jerr = run_jax_full(sort[0], sort[1:],
+                                   {"SAMTPU_NO_NATIVE": "1"})
+    with open(out, "rb") as f:
+        want = f.read()
+    os.remove(out)
+    assert run_port_full(sort[0], sort[1:]) == (jrc, jout, jerr) == (
+        0, b"", "")
+    with open(out, "rb") as f:
+        assert f.read() == want

@@ -35,8 +35,9 @@ sort, merge, collate and fixmate, ``make_dup_inputs`` those of markdup,
 rmdup, calmd and addreplacerg, ``make_fastq_inputs`` those of fastq,
 fasta, import, reset, split, faidx, fqidx and dict, ``make_header_inputs``
 those of reheader, samples, checksum and cram-size, ``make_md_inputs``
-those of reference and ``make_padded_inputs`` those of depad (their
-docs).
+those of reference, ``make_padded_inputs`` those of depad and
+``make_amplicon_inputs`` those of ampliconclip, ampliconstats,
+plot-ampliconstats and plot-bamstats (their docs).
 ``make_stats_inputs`` adds stats's: ``realloc`` (reads of 30-500 bases,
 so the histograms grow past 300 cycles mid-file, with hard clips,
 indels, every flag stats counts and NM tags: the JAX stats tests'
@@ -1553,6 +1554,83 @@ def make_padded_inputs(d: str) -> dict:
     return got
 
 
+# the amplicon inputs: the ARTIC-shaped contig and a second, smaller
+# panel contig
+AMP_CONTIGS = (sim.ARTIC_CONTIG, ("panel2", 6000, 15))
+AMP_READS = 2400
+AMP_SAMPLE_READS = 1200
+
+
+def make_amplicon_inputs(d: str) -> dict:
+    """The inputs of ampliconclip, ampliconstats and the plot commands,
+    from ``sim.amplicon_panel``: ``amp`` (2,400 reads over both contigs
+    of AMP_CONTIGS, coordinate-sorted, written by the port) and
+    ``primers`` (its BED, both contigs); ``s0``-``s3`` (four samples of
+    1,200 reads on the ARTIC contig alone, read groups s0-s3; ``s0_sam``
+    the first as SAM) and ``artic`` (their BED); ``clipped`` (``s0``
+    through the port's ``ampliconclip --both-ends --strand`` and
+    ``sort``); ``other`` (``s1`` under a header whose contig is a base
+    longer); BEDs that ampliconclip or ampliconstats refuse or read
+    otherwise: ``bed3`` (three columns), ``bad_strand`` (a ``.`` strand),
+    ``short_row`` (a row of five columns), ``artic_only`` (the primers of
+    the first contig, beside ``amp``'s reads on both); and the JAX tool's
+    ``stats`` of ``amp`` (``stats``) and ``ampliconstats`` of the four
+    samples (``astats``), the inputs of the plot commands."""
+    from samtools_tpu_torch.io.files import write_alignments
+    p = os.path.join
+    got = {"dir": d}
+    panel = sim.amplicon_panel(AMP_READS, 81, AMP_CONTIGS)
+    got["amp"], got["primers"] = p(d, "amp.bam"), p(d, "primers.bed")
+    write_bam(got["amp"], panel.header, panel.batch)
+    with open(got["primers"], "w") as f:
+        f.write(panel.bed)
+    for k in range(4):
+        s = sim.amplicon_panel(AMP_SAMPLE_READS, 90 + k, sample=f"s{k}")
+        got[f"s{k}"] = p(d, f"s{k}.bam")
+        write_bam(got[f"s{k}"], s.header, s.batch)
+        if k == 0:
+            got["s0_sam"] = p(d, "s0.sam")
+            write_alignments(got["s0_sam"], s.header, s.batch)
+        if k == 1:
+            got["other"] = p(d, "other.bam")
+            write_bam(got["other"], SamHeader.from_text(
+                s.header.text.replace("LN:29903", "LN:29904")), s.batch)
+    got["artic"] = p(d, "artic.bed")
+    with open(got["artic"], "w") as f:
+        f.write(s.bed)
+    rows = panel.bed.splitlines(keepends=True)
+    for key, text in (
+            ("bed3", "".join("\t".join(r.split("\t")[:3]) + "\n"
+                             for r in rows)),
+            ("bad_strand", "".join(rows[:7]) + rows[7].replace("\t-\n",
+                                                               "\t.\n")
+             + "".join(rows[8:])),
+            ("short_row", "".join(rows[:3]) + rows[3].rsplit("\t", 1)[0]
+             + "\n" + "".join(rows[4:])),
+            ("artic_only", "".join(r for r in rows
+                                   if r.startswith("MN908947.3\t")))):
+        got[key] = p(d, key + ".bed")
+        with open(got[key], "w") as f:
+            f.write(text)
+    got["clipped"] = p(d, "clipped.bam")
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert cli.main(["ampliconclip", "--both-ends", "--strand", "-b",
+                         got["artic"], "-o", p(d, "clip_unsorted.bam"),
+                         got["s0"]]) == 0
+        assert cli.main(["sort", "-o", got["clipped"],
+                         p(d, "clip_unsorted.bam")]) == 0
+    for key, cmd, args in (
+            ("stats", "stats", [got["amp"]]),
+            ("astats", "ampliconstats", [got["artic"]] + [
+                got[f"s{k}"] for k in range(4)])):
+        rc, out, _ = run_jax_full(cmd, args)
+        assert rc == 0
+        got[key] = p(d, key + ".txt")
+        with open(got[key], "wb") as f:
+            f.write(out)
+    return got
+
+
 # ------------------------------------------------ byte-for-byte tool runs
 def take_files(odir: str) -> dict:
     """The files a run wrote into its directory (which is emptied)."""
@@ -1580,13 +1658,15 @@ def _jax_bytes(cmd: str, args: list[str], stdin: str | None, env: dict):
 
 
 def jax_case_runs(cmd: str, inputs: dict, cases: dict,
-                  prepare=None) -> dict:
+                  prepare=None, zlib_run: bool = True) -> dict:
     """Per case (name -> (argument template, standard input key)): the
     JAX tool's default run and its zlib run (``SAMTPU_NO_NATIVE=1``),
     each (exit code, stdout, stderr, {file: bytes}); {x} in a template
     names an input, {o} the case's output directory.  ``prepare(odir)``,
     when given, runs before each run (to copy in the inputs a command
-    writes beside, such as a FASTA whose .fai faidx writes)."""
+    writes beside, such as a FASTA whose .fai faidx writes).  A command
+    that writes no BGZF passes ``zlib_run=False``: its default run
+    stands for both."""
     def phase(env):
         def one(name):
             odir = case_dir(inputs, cmd, name)
@@ -1600,7 +1680,7 @@ def jax_case_runs(cmd: str, inputs: dict, cases: dict,
         with ThreadPoolExecutor(4) as ex:
             return dict(zip(cases, ex.map(one, cases)))
     default = phase({})
-    plain = phase({"SAMTPU_NO_NATIVE": "1"})
+    plain = phase({"SAMTPU_NO_NATIVE": "1"}) if zlib_run else default
     return {k: (default[k], plain[k]) for k in cases}
 
 
