@@ -190,7 +190,36 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``phase``, and K13 once a ``tview`` draw on a window with reads (none
    on the gap), and nothing else.  Per run: both walls (the host's with
    the interpreter's start), output bytes and lines, launches.
-15. view_tools -- the host commands ``view``, ``head``, ``flags``,
+15. ancillary_tools -- wgsim, wgsim_eval, the aligner converters, md5fa,
+   md5sum-lite, seq_cache_populate, fasta-sanitize and ace2sam (host
+   commands: the phase must launch no kernel and its process make no
+   CUDA context), one process started beside pileup_tools and checked
+   after it: ``wgsim -S 11 -N 20000 -1 100 -2 100`` on clean's first 2
+   Mbp, ``import -1 -2`` of its FASTQs; ``wgsim_eval alneval`` and
+   ``unique`` on a SAM that puts every read at its true place by
+   alneval's own rule (read 1 forward, read 2 reverse) and every 10th
+   record 10 kbp away at MAPQ 10, and ``bowtie2sam`` of the same
+   placements in bowtie's format; ``md5fa`` and ``md5sum-lite`` of
+   clean's 8 Mbp FASTA, ``seq_cache_populate -subdirs 0`` of it, then
+   ``view`` of the cram phase's CRAM with ``REF_CACHE`` at that cache and
+   no ``-T`` (and of its BAM twin); ``fasta-sanitize`` of a FASTA with
+   bad names; ``ace2sam -p -c`` and ``ace2sam`` of ``sim.ace_assembly``,
+   ``view -c`` of the first behind its stderr header and ``depad -T``
+   of it against the stderr consensus.  Checks: 20,000 records in each
+   FASTQ, 100 bases each, with names that parse; import's BAM holds
+   40,000 reads; alneval counts exactly the moved records wrong, all at
+   MAPQ 10, and every record; unique keeps one record a pair;
+   bowtie2sam's RNAME, POS and SEQ are the placements; md5fa's digest
+   (and ordered, unordered) is the cram phase's ``@SQ`` M5, md5sum-lite
+   ``hashlib.md5`` of the file; the CRAM decoded through the populated
+   cache gives its BAM twin's reads; the sanitized names match SAM's
+   RNAME rule, the sequences unchanged; ace2sam gives one record a read
+   plus one a contig, each CIGAR holding as many query bases as its
+   sequence, ``view`` counts them all, and depad gives each read the
+   position and CIGAR of the unpadded output.  Per run: wall, records
+   (reads, bases or bytes) a second, launches; the process's
+   ``tune()``.
+16. view_tools -- the host commands ``view``, ``head``, ``flags``,
    ``quickcheck`` and ``cat`` (no device work: the phase must launch no
    kernel) on clean's front (2 Mbp, 600,280 reads) and on the cram
    phase's reads (its BAM twin; the CRAM runs take its first 80 kbp,
@@ -214,7 +243,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    halves that ``view`` wrote, as BAM and as CRAM: the same records as
    the whole (for CRAM, every container of both halves spliced).
    Per run: wall, the reads it read and a second, output bytes, launches.
-16. prep_tools -- the pre-processing commands (no device work: the phase
+17. prep_tools -- the pre-processing commands (no device work: the phase
    must launch no kernel).  On the tool phase's 512 kbp pairs (157,286
    reads), as one process beside the in-process runs (it reports its
    runs' launches and that it made no CUDA context): ``collate``, then
@@ -240,7 +269,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    every read in it); every run but rmdup's and calmd -r's passes ``-@``
    and every output ``quickcheck``.  Per run: wall, reads a second,
    output bytes, launches.
-17. amplicon_tools -- the viral amplicon path (no device work: the
+18. amplicon_tools -- the viral amplicon path (no device work: the
    phase must launch no kernel and its process make no CUDA context),
    one process started beside prep_tools and checked after it: four
    samples of 50,000 reads of an ARTIC-shaped panel
@@ -264,7 +293,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    and plot-bamstats do not run: they draw with matplotlib, which the
    card's machine does not list (the CPU tests hold them to the JAX
    tool).
-18. realign_tools -- the re-alignment round trip and the reference's
+19. realign_tools -- the re-alignment round trip and the reference's
    indexes (no device work: the phase must launch no kernel and its
    processes make no CUDA context).  The tool phase's 512 kbp pairs
    (157,286 reads) get read groups grpA and grpB on alternate templates
@@ -287,7 +316,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    ``-i`` its reverse complement); dict's LN and M5 are the length and
    ``hashlib.md5`` of the upper-cased sequence.  Per run: wall, reads or
    bases a second, output bytes, launches.
-19. header_tools -- reheader, samples, checksum, depad, reference and
+20. header_tools -- reheader, samples, checksum, depad, reference and
    cram-size (no device work: the phase must launch no kernel and its
    processes make no CUDA context), in two processes started beside
    realign_tools' two, on its read-group BAM.  The header process:
@@ -308,7 +337,7 @@ from the sources in this checkout.  Phases, one JSON line each:
    first 40,000 reads and their two halves (``checksum -m`` of the
    halves' reports must be the whole's), ``-a`` and ``-B`` on the
    40,000 (every read counted).  Per run: wall, reads a second, launches.
-20. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
+21. sharded -- K14 (``ops/pileup_device.py``, csrc/pileup_counts.cu) at
    ``graft_entry.entry()``'s shape (65,536 items, a 16,384-row window)
    and on clean's first 1 Mbp window (its reads' M bases): the scatter
    entry (counts and qual sums) and the tiled entry (the items bucketed
@@ -343,7 +372,9 @@ the phase, beside the card's in-process runs) that must exit 0, launch no
 kernel and make no CUDA context; ``host_wall_s`` is its ``cli.main``
 wall, ``host_process_wall_s`` the process's from spawn.
 
-Then the kernel table (``baq_apply`` and ``stable_order`` with their
+Then the script's process: what ``core/malloc_tune.tune()`` gave its
+``cli.main`` calls, and its peak RSS.  Then the
+kernel table (``baq_apply`` and ``stable_order`` with their
 ``pileup_tools_launches``; ``pileup_scatter``, K14, with the launches of
 the sharded pileup run and its tiled entry), the script's wall against its 1,200 s limit, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -356,6 +387,7 @@ import atexit
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2757,7 +2789,7 @@ def _sam_records(text: bytes) -> bytes:
 
 def phase_view_tools(workdir: str, front: str, cram_bam: str) -> None:
     """view, head, flags, quickcheck and cat on clean's front and on the
-    cram phase's reads (module doc, phase 15).  The phase launches no
+    cram phase's reads (module doc, phase 16).  The phase launches no
     kernel."""
     import contextlib
     import io
@@ -3023,29 +3055,36 @@ PREP_REALN_READS = 2000
 # runs: the pairs' chain, collate, fixmate -m, sort, sort -n, markdup -S
 # and rmdup; calmd -r on the front's first reads) and of the
 # realign_tools phase: runs through cli.main, each run's standard output
-# into a file when one is named; a JSON report of each run's wall, exit
-# code and launches, and whether the process made a CUDA context.  Where
-# the spec names an amplicon directory, the process first simulates the
-# amplicon_tools phase's samples into it (simulate_amplicon_samples),
-# beside prep_tools, and not in this script's own process, whose wall is
-# the limit's
+# into a file when one is named (and its standard error when a fourth
+# element names one); a JSON report of each run's wall, exit code and
+# launches, whether the process made a CUDA context, and what
+# core/malloc_tune.tune() gave.  Where the spec's ``before`` names a
+# function of this script for a run (its name and arguments), the process
+# calls it first: the amplicon_tools phase's simulate_amplicon_samples,
+# the ancillary_tools phase's write_eval_inputs and write_ace_sam, which
+# need not run in this script's own process, whose wall is the limit's
 PREP_CHILD = r"""
-import contextlib, io, json, sys, time
+import contextlib, importlib, io, json, sys, time
 import torch
 from samtools_tpu_torch import cli, kernels
+from samtools_tpu_torch.core.malloc_tune import tune
 report, spec = sys.argv[1], json.loads(sys.argv[2])
-if spec.get("amplicon_dir"):
-    from chip_smoke import simulate_amplicon_samples
-    simulate_amplicon_samples(spec["amplicon_dir"])
+before = spec.get("before") or {}
 runs = []
-for label, argv, stdout in spec["runs"]:
+for label, argv, stdout, *stderr in spec["runs"]:
+    if label in before:
+        fn, args = before[label]
+        getattr(importlib.import_module("chip_smoke"), fn)(*args)
     b0 = dict(kernels.launches)
     t0 = time.perf_counter()
-    if stdout:
-        with open(stdout, "wb") as f, contextlib.redirect_stdout(
-                io.TextIOWrapper(f, encoding="latin-1", write_through=True)):
-            rc = cli.main(argv)
-    else:
+    with contextlib.ExitStack() as st:
+        for path, redirect in ((stdout, contextlib.redirect_stdout),
+                               (stderr and stderr[0],
+                                contextlib.redirect_stderr)):
+            if path:
+                st.enter_context(redirect(io.TextIOWrapper(
+                    st.enter_context(open(path, "wb")), encoding="latin-1",
+                    write_through=True)))
         rc = cli.main(argv)
     runs.append({"run": label, "rc": rc,
                  "wall_s": time.perf_counter() - t0,
@@ -3056,23 +3095,25 @@ for label, argv, stdout in spec["runs"]:
         break
 with open(report, "w") as f:
     json.dump({"runs": runs, "cuda_initialized": torch.cuda.is_initialized(),
+               "tune": tune(),
                "process_wall_s": time.time() - spec["t_spawn"]}, f)
 """
 
 
 def spawn_cli_child(d: str, name: str, runs: list, env: dict | None = None,
-                    amplicon_dir: str | None = None):
-    """A PREP_CHILD process of ``runs`` (label, argv, stdout file), its
-    report to ``d/<name>.json`` and its stderr to ``d/<name>.err``, with
-    ``env`` added to its environment, that first simulates the amplicon
-    samples into ``amplicon_dir`` when one is given; killed at exit if a
-    failed check leaves it running."""
+                    before: dict | None = None):
+    """A PREP_CHILD process of ``runs`` (label, argv, stdout file[,
+    stderr file]), its report to ``d/<name>.json`` and its stderr to
+    ``d/<name>.err``, with ``env`` added to its environment, that calls
+    ``before``'s functions (run label -> [function of this script,
+    arguments]) before their runs; killed at exit if a failed check
+    leaves it running."""
     with open(os.path.join(d, name + ".err"), "wb") as err:
         proc = subprocess.Popen(
             [sys.executable, "-c", PREP_CHILD,
              os.path.join(d, name + ".json"),
              json.dumps({"runs": runs, "t_spawn": time.time(),
-                         "amplicon_dir": amplicon_dir})],
+                         "before": before})],
             cwd=ROOT, stdin=subprocess.DEVNULL,
             stdout=subprocess.DEVNULL, stderr=err,
             env={**os.environ, **(env or {})})
@@ -3094,7 +3135,7 @@ def wait_cli_child(proc, d: str, name: str, what: str, runs: list):
         res = json.load(f)
     require(not res["cuda_initialized"], f"{what} made a CUDA context")
     require(len(res["runs"]) == len(runs), f"{what}: {err[-500:]}")
-    for r, (label, _, _) in zip(res["runs"], runs):
+    for r, (label, *_) in zip(res["runs"], runs):
         require(r["rc"] == 0 and not r["launches"],
                 f"{label}: rc {r['rc']}, launched {r['launches']}: "
                 f"{err[-500:]}")
@@ -3177,7 +3218,7 @@ def _md_nm_check(path: str, n: int, ref: np.ndarray, ref_end: int) -> int:
 def phase_prep_tools(workdir: str, clean_front: str, pairs: str,
                      ref: np.ndarray) -> None:
     """collate, fixmate, sort, merge, markdup, rmdup, calmd and
-    addreplacerg (module doc, phase 16): the pairs' chain and calmd -r in
+    addreplacerg (module doc, phase 17): the pairs' chain and calmd -r in
     processes, the front's other runs in-process; no kernel."""
     import contextlib
     import io
@@ -3466,7 +3507,7 @@ def _query_len(cigar) -> int:
 
 def start_amplicon_tools(workdir: str):
     """ampliconclip, sort and ampliconstats, the viral amplicon path
-    (module doc, phase 17): starts the process, which simulates the
+    (module doc, phase 18): starts the process, which simulates the
     samples and runs the commands, and returns what waits for it and
     checks its outputs against the simulator's truth in numpy.  No
     kernel, no CUDA context.  plot-ampliconstats and plot-bamstats do
@@ -3494,7 +3535,8 @@ def start_amplicon_tools(workdir: str):
     runs.append(("ampliconstats -s", [
         "ampliconstats", "-s", "-o", p("astats.txt"), bed,
         *[p(f"sorted{k}.bam") for k in range(AMPLICON_SAMPLES)]], None))
-    proc = spawn_cli_child(d, "amplicon", runs, amplicon_dir=d)
+    proc = spawn_cli_child(d, "amplicon", runs, before={
+        runs[0][0]: ["simulate_amplicon_samples", [d]]})
 
     def finish() -> None:
         from samtools_tpu_torch import kernels
@@ -3611,6 +3653,282 @@ def start_amplicon_tools(workdir: str):
     return finish
 
 
+# the ancillary_tools phase: wgsim's pairs on clean's first ANC_FRONT
+# bases (its seed and pairs), every ANC_MOVE_EVERY-th record of the
+# evaluation SAM moved ANC_MOVE bases away at MAPQ ANC_MOVE_MAPQ, and the
+# seed of the ACE that ace2sam converts
+ANC_FRONT = 2_000_000
+ANC_SEED = 11
+ANC_PAIRS = 20_000
+ANC_READ_LEN = 100
+ANC_MOVE_EVERY = 10
+ANC_MOVE = 10_000
+ANC_MOVE_MAPQ = 10
+ANC_ACE_SEED = 37
+# fasta-sanitize's input: names with characters outside SAM's RNAME
+# alphabet, first and later ones
+ANC_BAD_NAMES = ("*star", "=equal", "has space", "a<b>c", "x,y(z)",
+                 "ok_name", "tab\there", "quote'd\"", "[br]{ace}")
+_RNAME = re.compile(r"^[0-9A-Za-z!#$%&+./:;?@^_|~-][0-9A-Za-z!#$%&*+./:;=?@"
+                    r"^_|~-]*$")
+_WGSIM_NAME = re.compile(r"^sim1_(\d+)_(\d+)_\d+:\d+:\d+_\d+:\d+:\d+_"
+                         r"[0-9a-f]+/([12])$")
+_COMP = bytes.maketrans(b"ACGTN", b"TGCAN")
+
+
+def _fastq(path: str) -> list:
+    """(name, bases) of each record of a FASTQ of 4-line records."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    return [(lines[i][1:].decode(), lines[i + 1])
+            for i in range(0, len(lines) - 1, 4)]
+
+
+def eval_placements(d: str) -> list:
+    """Each wgsim read's placement by wgsim_eval alneval's own rule for
+    its true place (no -c: a forward record's leftmost base at the
+    name's first coordinate, a reverse one's rightmost at its second):
+    read 1 forward, read 2 reverse (its bases reverse-complemented, as an
+    aligner reports them); every ANC_MOVE_EVERY-th record moved ANC_MOVE
+    bases away at MAPQ ANC_MOVE_MAPQ.  (qname, flag, pos, mapq, bases,
+    moved), in the FASTQs' order, read 1 before read 2."""
+    out = []
+    for (n1, s1), (n2, s2) in zip(_fastq(os.path.join(d, "r1.fq")),
+                                  _fastq(os.path.join(d, "r2.fq"))):
+        m = _WGSIM_NAME.match(n1)
+        lo, hi = int(m.group(1)), int(m.group(2))
+        for name, seq, fl, pos in ((n1, s1, 0x41, lo),
+                                   (n2, s2.translate(_COMP)[::-1], 0x91,
+                                    hi - len(s2) + 1)):
+            moved = len(out) % ANC_MOVE_EVERY == 0
+            if moved:
+                pos += ANC_MOVE if pos + ANC_MOVE + len(seq) < ANC_FRONT \
+                    else -ANC_MOVE
+            out.append((name[:-2], fl, pos, ANC_MOVE_MAPQ if moved else 60,
+                        seq.decode(), moved))
+    return out
+
+
+def write_eval_inputs(d: str) -> None:
+    """The ancillary process's step after wgsim: eval_placements as a SAM
+    (for wgsim_eval) and in bowtie's format (for bowtie2sam)."""
+    with open(os.path.join(d, "eval.sam"), "w") as sam, \
+            open(os.path.join(d, "aln.bowtie"), "w") as bt:
+        sam.write(f"@HD\tVN:1.6\tSO:unsorted\n@SQ\tSN:sim1\tLN:{ANC_FRONT}"
+                  "\n")
+        for name, fl, pos, mapq, seq, _ in eval_placements(d):
+            sam.write(f"{name}\t{fl}\tsim1\t{pos}\t{mapq}\t{len(seq)}M\t*\t0"
+                      f"\t0\t{seq}\t{'I' * len(seq)}\n")
+            bt.write(f"{name}/{1 if fl & 0x40 else 2}\t"
+                     f"{'-' if fl & 0x10 else '+'}\tsim1\t{pos - 1}\t{seq}\t"
+                     f"{'I' * len(seq)}\t0\t\n")
+
+
+def _inner_s_as_d(cigar: str) -> str:
+    """A SAM CIGAR with each S op between two others read as D."""
+    ops = re.findall(r"\d+[MIDNSHP=X]", cigar)
+    return "".join(op[:-1] + "D" if 0 < i < len(ops) - 1 and op[-1] == "S"
+                   else op for i, op in enumerate(ops))
+
+
+def write_ace_sam(d: str) -> None:
+    """The ancillary process's step after ace2sam -p -c: its SAM behind
+    the header it wrote to stderr (the H lines), and the padded
+    consensus it wrote there (the S lines) as a FASTA, for view and
+    depad."""
+    with open(os.path.join(d, "ace.err")) as f:
+        err = f.read().splitlines()
+    with open(os.path.join(d, "ace.sam")) as f:
+        body = f.read()
+    with open(os.path.join(d, "ace_full.sam"), "w") as f:
+        f.write("".join(ln[2:] + "\n" for ln in err if ln.startswith("H "))
+                + body)
+    with open(os.path.join(d, "pad.fa"), "w") as f:
+        f.write("".join(ln[2:] + "\n" for ln in err if ln.startswith("S ")))
+
+
+def start_ancillary_tools(workdir: str, ref: np.ndarray, cram: str,
+                          cram_bam: str):
+    """wgsim, wgsim_eval, the converters, md5fa, md5sum-lite,
+    seq_cache_populate, fasta-sanitize and ace2sam (module doc, phase
+    15): starts the process that runs them and returns what waits for it
+    and checks its outputs.  No kernel, no CUDA context."""
+    from samtools_tpu_torch import sim
+    t_phase = time.perf_counter()
+    d = os.path.join(workdir, "ancillary")
+    os.makedirs(d, exist_ok=True)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    front = p("front.fa")
+    write_fasta(front, ref[:ANC_FRONT])
+    fa = os.path.join(workdir, "ref.fa")
+    rng = np.random.default_rng(ANC_SEED)
+    bad = [(n, "".join(rng.choice(list("ACGTN"), int(rng.integers(5, 90)))))
+           for n in ANC_BAD_NAMES]
+    with open(p("bad.fa"), "w") as f:
+        f.write("".join(f">{n} d\n{s[:50]}\n{s[50:]}\n" for n, s in bad))
+    asm = sim.ace_assembly(ANC_ACE_SEED)
+    with open(p("in.ace"), "w") as f:
+        f.write(asm.ace)
+    cache = p("cache")
+    runs = [
+        ("wgsim", ["wgsim", "-S", str(ANC_SEED), "-N", str(ANC_PAIRS),
+                   "-1", str(ANC_READ_LEN), "-2", str(ANC_READ_LEN), front,
+                   p("r1.fq"), p("r2.fq")], p("mut.txt")),
+        ("import -1 -2", ["import", "-1", p("r1.fq"), "-2", p("r2.fq"),
+                          "-o", p("import.bam")], None),
+        ("wgsim_eval alneval", ["wgsim_eval", "alneval", p("eval.sam")],
+         p("alneval.txt")),
+        ("wgsim_eval unique", ["wgsim_eval", "unique", p("eval.sam")],
+         p("unique.sam")),
+        ("bowtie2sam", ["bowtie2sam", p("aln.bowtie")], p("bowtie.sam")),
+        ("md5fa", ["md5fa", fa], p("md5fa.txt")),
+        ("md5sum-lite", ["md5sum-lite", fa], p("md5sum.txt")),
+        ("seq_cache_populate -subdirs 0", [
+            "seq_cache_populate", "-root", cache, "-subdirs", "0", fa],
+         None, p("populate.err")),
+        ("view (REF_CACHE)", ["view", cram], p("cram.sam")),
+        ("view (BAM twin)", ["view", cram_bam], p("bam.sam")),
+        ("fasta-sanitize", ["fasta-sanitize", p("bad.fa")], p("san.fa"),
+         p("san.err")),
+        ("ace2sam -p -c", ["ace2sam", "-p", "-c", p("in.ace")],
+         p("ace.sam"), p("ace.err")),
+        ("ace2sam", ["ace2sam", p("in.ace")], p("ace_u.sam"),
+         p("ace_u.err")),
+        ("view -c (ace2sam)", ["view", "-c", p("ace_full.sam")],
+         p("ace_count.txt")),
+        ("depad -T (ace2sam)", ["depad", "-s", "-T", p("pad.fa"),
+                                p("ace_full.sam")], p("depad.sam")),
+    ]
+    proc = spawn_cli_child(d, "ancillary", runs, env={"REF_CACHE": cache},
+                           before={"wgsim_eval alneval": [
+                               "write_eval_inputs", [d]],
+                               "view -c (ace2sam)": ["write_ace_sam", [d]]})
+
+    def finish() -> dict:
+        import hashlib
+
+        from samtools_tpu_torch import kernels
+        from samtools_tpu_torch.io.files import read_alignments
+        before = dict(kernels.launches)
+        res, _ = wait_cli_child(proc, d, "ancillary",
+                                "the ancillary process", runs)
+        n_reads = 2 * ANC_PAIRS
+        # wgsim: both FASTQs whole, names that parse
+        for k in (1, 2):
+            recs = _fastq(p(f"r{k}.fq"))
+            require(len(recs) == ANC_PAIRS and all(
+                len(s) == ANC_READ_LEN and _WGSIM_NAME.match(n)
+                and n.endswith(f"/{k}") for n, s in recs),
+                    f"wgsim: r{k}.fq is not {ANC_PAIRS} records of "
+                    f"{ANC_READ_LEN} bases with wgsim's names")
+        imported = read_alignments(p("import.bam"), THREADS).batch.n
+        require(imported == n_reads, f"import: {imported} reads")
+        # alneval: the moved records, and only they, are wrong
+        place = eval_placements(d)
+        n_moved = sum(x[5] for x in place)
+        with open(p("alneval.txt")) as f:
+            rows = [re.match(r"^(\d+)x\s+(\d+) / (\d+)\s", ln).groups()
+                    for ln in f]
+        wrong = {int(q): int(w) for q, w, _ in rows}
+        total = {int(q): int(t) for q, _, t in rows}
+        require(sum(wrong.values()) == wrong.get(ANC_MOVE_MAPQ // 10)
+                == n_moved and sum(total.values()) == n_reads,
+                f"alneval: wrong {wrong} of {total}, {n_moved} moved")
+        with open(p("unique.sam")) as f:
+            uniq = sum(1 for ln in f if not ln.startswith("@"))
+        require(uniq == ANC_PAIRS, f"unique: {uniq} records")
+        with open(p("bowtie.sam")) as f:
+            bt = [ln.split("\t") for ln in f.read().splitlines()]
+        require(len(bt) == n_reads and all(
+            (r[2], int(r[3]), r[9]) == ("sim1", x[2], x[4])
+            for r, x in zip(bt, place)),
+            "bowtie2sam: RNAME, POS or SEQ differ from the placements")
+        # md5fa and md5sum-lite: the cram phase's @SQ M5, the file's MD5
+        m5 = re.search(r"\tM5:([0-9a-f]{32})", read_alignments(
+            cram_bam).header.text).group(1)
+        with open(p("md5fa.txt")) as f:
+            md5fa = [ln.split("  ") for ln in f.read().splitlines()]
+        with open(fa, "rb") as f:
+            whole = hashlib.md5(f.read()).hexdigest()
+        with open(p("md5sum.txt")) as f:
+            md5sum = f.read()
+        require(md5fa[0][0] == m5 and md5fa[0][2] == "sim1"
+                and md5fa[1][0] == md5fa[2][0] == m5,
+                f"md5fa: {md5fa} against M5 {m5}")
+        require(md5sum == f"{whole}  {fa}\n", f"md5sum-lite: {md5sum}")
+        # the CRAM through the populated cache: the BAM twin's reads (the
+        # eleven mandatory fields; bases N where no reference was found)
+        require(os.path.getsize(os.path.join(cache, m5)) == ref.size,
+                "seq_cache_populate: no flat cache entry")
+        with open(p("cram.sam"), "rb") as f, open(p("bam.sam"), "rb") as g:
+            cram_recs = [ln.split(b"\t")[:11] for ln in f.read().split(b"\n")]
+            require(cram_recs == [ln.split(b"\t")[:11]
+                                  for ln in g.read().split(b"\n")],
+                    "view of the CRAM through REF_CACHE differs from its "
+                    "BAM twin's reads")
+        n_cram = len(cram_recs) - 1
+        # fasta-sanitize: SAM's RNAME alphabet, sequences as they were
+        with open(p("san.fa")) as f:
+            san = f.read().split("\n")
+        names = [ln[1:].split()[0] for ln in san if ln.startswith(">")]
+        seqs = ["".join(san[i + 1:i + 3]) for i, ln in enumerate(san)
+                if ln.startswith(">")]
+        require(len(names) == len(bad) and all(map(_RNAME.match, names))
+                and seqs == [s for _, s in bad],
+                f"fasta-sanitize: names {names}")
+        # ace2sam: a record a read and one a contig, CIGARs as long as
+        # SEQ; view reads it, depad gives the unpadded records
+        with open(p("ace.sam")) as f:
+            ace = [ln.split("\t") for ln in f.read().splitlines()]
+        with open(p("ace_count.txt")) as f:
+            counted = int(f.read())
+        require(len(ace) == counted == len(asm.reads) + len(asm.padded)
+                and all(_query_len(r[5]) == len(r[9]) for r in ace),
+                "ace2sam -p -c: records or CIGARs off")
+        with open(p("depad.sam")) as f:
+            dep = [ln.split("\t")[:6] for ln in f.read().splitlines()
+                   if not ln.startswith("@") and ln.split("\t")[1] != "516"]
+        with open(p("ace_u.sam")) as f:
+            unp = [ln.split("\t")[:6] for ln in f.read().splitlines()]
+        # ace2sam's unpadded CIGARs keep the JAX tool's fault: two D runs
+        # around a squeezed P merge with their op bits added, 2 + 2 = S
+        # (ROADMAP Queue 3); depad's D there is samtools' op
+        faulty = [u for u, x in zip(unp, dep) if u != x]
+        require(len(dep) == len(unp) and all(
+            u[:5] == x[:5] and _inner_s_as_d(u[5]) == x[5]
+            for u, x in zip(unp, dep) if u != x),
+                "depad of ace2sam -p differs from ace2sam beyond its "
+                "merged-D fault")
+        require(kernels.launches == before,
+                "the ancillary_tools phase launched a kernel")
+        units = {"wgsim": ("reads", n_reads), "md5fa": ("bases", ref.size),
+                 "md5sum-lite": ("bytes", os.path.getsize(fa)),
+                 "seq_cache_populate -subdirs 0": ("bases", ref.size),
+                 "view (REF_CACHE)": ("reads", n_cram),
+                 "view (BAM twin)": ("reads", n_cram),
+                 "fasta-sanitize": ("records", len(bad)),
+                 "ace2sam -p -c": ("records", len(ace)),
+                 "ace2sam": ("records", len(unp)),
+                 "view -c (ace2sam)": ("records", len(ace)),
+                 "depad -T (ace2sam)": ("records", len(ace))}
+        for r, (label, *_) in zip(res["runs"], runs):
+            unit, k = units.get(label, ("records", n_reads))
+            emit({"phase": "ancillary_tools", "run": label, unit: k,
+                  "wall_s": round(r["wall_s"], 3),
+                  f"{unit}_per_s": round(k / r["wall_s"]), "launches": {},
+                  "process": True})
+        shutil.rmtree(d)
+        emit({"phase": "ancillary_tools", "run": "all", "reads": n_reads,
+              "moved": n_moved, "cram_reads": n_cram, "m5": m5,
+              "ace_reads": len(asm.reads),
+              "ace2sam_merged_d_fault_reads": len(faulty),
+              "process_tune": res["tune"],
+              "process_wall_s": round(res["process_wall_s"], 3),
+              "wall_s": round(time.perf_counter() - t_phase, 3)})
+        return res
+    return finish
+
+
 # the realign_tools phase: the pairs' templates in read group grpA (even
 # template numbers) or grpB (odd ones), none on a template number
 # REALIGN_NO_RG_AT modulo REALIGN_NO_RG_EVERY; the regions faidx fetches
@@ -3690,7 +4008,7 @@ def _faidx_records(path: str) -> list:
 def phase_realign_tools(workdir: str, pairs: str, ref: np.ndarray,
                         beside=None) -> None:
     """fastq, fasta, import, reset, split, faidx, fqidx and dict (module
-    doc, phase 18): two processes at once, their outputs checked here;
+    doc, phase 19): two processes at once, their outputs checked here;
     no kernel and no CUDA context.  ``beside(rg, header, reads)``, when
     given, starts another phase's processes on the read-group BAM once
     this phase's are running, and returns what waits for and checks
@@ -3969,7 +4287,7 @@ def start_header_tools(workdir: str, rg: str, rg_header, rg_reads,
                        ref: np.ndarray, cram: str, cram_bam: str,
                        clean: str, messy: str):
     """reheader, samples, checksum, depad, reference and cram-size (module
-    doc, phase 19): writes the inputs, starts the two processes and
+    doc, phase 20): writes the inputs, starts the two processes and
     returns what waits for them and checks their outputs; no kernel and
     no CUDA context."""
     import shutil
@@ -4627,7 +4945,10 @@ def main() -> int:
         cram, cram_bam, cram_path = phase_cram(workdir, ref, header,
                                                cram_reads)
         del cram_reads
+        ancillary_tools = start_ancillary_tools(workdir, ref, cram_path,
+                                                cram_bam)
         tools = phase_pileup_tools(workdir)
+        ancillary_tools()
         phase_view_tools(workdir, bams["clean_front"], cram_bam)
         amplicon_tools = start_amplicon_tools(workdir)
         phase_prep_tools(workdir, bams["clean_front"], bams["pairs"], ref)
@@ -4638,6 +4959,12 @@ def main() -> int:
                 bams["clean"], bams["messy"])))
         rows["pileup_scatter"], sharded_launches = phase_sharded(
             workdir, bams, torch.device("cuda"))
+    import resource
+
+    from samtools_tpu_torch.core.malloc_tune import tune
+    emit({"phase": "process", "tune": tune(),
+          "peak_rss_mib": round(resource.getrusage(
+              resource.RUSAGE_SELF).ru_maxrss / 1024, 1)})
     rows.update(general_rows)
     rows.update(cons_rows)
     rows.update(stats_rows)

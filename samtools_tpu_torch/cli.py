@@ -2,7 +2,7 @@
 
 ``python -m samtools_tpu_torch <command> [options]`` mirrors
 ``python -m samtools_tpu <command> [options]`` byte for byte on stdout for
-the commands ported so far; ``version`` names torch and CUDA.
+every command of the JAX package; ``version`` names torch and CUDA.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import sys
 
 from . import SAMTOOLS_PARITY_VERSION, __version__
 from .core import metrics
+from .core.malloc_tune import tune
 from .tools import COMMANDS, run_command
 
 
@@ -95,7 +96,8 @@ def print_version() -> None:
 
 def main(argv: list[str] | None = None, device=None) -> int:
     """Run one command.  ``device`` goes to the command's entry point:
-    None means the CUDA card; the tests pass "cpu".  After the command,
+    None means the CUDA card; the tests pass "cpu".  The allocator
+    tuning (``core/malloc_tune.tune``) comes first.  After the command,
     the stage breakdown goes to stderr under ``--verbosity`` 4 or
     ``SAMTPU_METRICS=1`` (``core/metrics.report``)."""
     if argv is None:
@@ -103,6 +105,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if not argv:
         usage(sys.stderr)
         return 1
+    tune()
     if os.environ.get("SAMTPU_DIST_COORD"):
         from .parallel.dist import maybe_init_distributed
         maybe_init_distributed(device)
@@ -114,6 +117,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
         return 0
     if cmd in ("version", "--version"):
         print_version()
+        return 0
+    if cmd == "--version-only":
+        print(f"{SAMTOOLS_PARITY_VERSION}+samtools_tpu_torch{__version__}")
         return 0
     if cmd not in COMMANDS:
         sys.stderr.write(f"[main] unrecognized command '{cmd}'\n")

@@ -618,6 +618,140 @@ def amplicon_panel(n_reads: int, seed: int, contigs=(ARTIC_CONTIG,),
                          amp_of[order])
 
 
+# ace_assembly: its contigs (name, unpadded length, reads), a pad site
+# about every this many consensus bases, the bases a line of the ACE's
+# sequences
+ACE_CONTIGS = (("Contig1", 3000, 40), ("Contig2", 1500, 20))
+_ACE_PAD_EVERY = 30
+_ACE_LINE = 50
+
+
+@dataclass
+class AceRead:
+    """One read of an ACE contig: its padded bases as the ACE holds them
+    (complemented when ``complemented``), its AF position (1-based
+    padded; below 1 where it hangs off the contig's left end) and its QA
+    align clip (``beg`` bases clipped before, ``end`` the last aligned
+    one, 1-based)."""
+    name: str
+    padded: str
+    af_pos: int
+    complemented: bool
+    beg: int
+    end: int
+
+
+@dataclass
+class AceAssembly:
+    """A phrap-style ACE assembly (``ace_assembly``): its text, each
+    contig's padded consensus by name, and its reads in the ACE's
+    order."""
+    ace: str
+    padded: dict
+    reads: list
+
+
+def _ace_lines(seq: str) -> str:
+    return "".join(seq[i:i + _ACE_LINE] + "\n"
+                   for i in range(0, len(seq), _ACE_LINE))
+
+
+def ace_assembly(seed: int) -> AceAssembly:
+    """A phrap-style ACE, the input of ``ace2sam``: for each of
+    ACE_CONTIGS (name, unpadded length, reads), a padded consensus (one
+    or two ``*`` columns at a site about every _ACE_PAD_EVERY bases) with
+    its BQ qualities, the reads' AF placements (complemented at random;
+    the first read of a contig hangs off its left end), BS segments, and
+    each read's padded bases, QA clip bounds and DS line; a CT and a WA
+    tag at the end.  A read's bases follow the consensus from its AF
+    column, with a substitution in 100, a pad on a consensus base (a
+    deletion) in 50 and a base on a pad column (an insertion) in 4; its
+    clipped ends, 0-30 bases each, hold no pad, and its first and last
+    aligned bases lie on consensus bases, so ``ace2sam``'s CIGARs hold as
+    many query bases as its sequences, in both of its modes."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out_co, padded_of, reads = [], {}, []
+    for name, length, n_reads in ACE_CONTIGS:
+        base = acgt[rng.integers(0, 4, length)]
+        gaps = np.zeros(length, np.int64)
+        sites = rng.random(length) < 1.0 / _ACE_PAD_EVERY
+        sites[:20] = sites[-20:] = False
+        gaps[sites] = rng.integers(1, 3, int(sites.sum()))
+        cols = np.full(length + int(gaps.sum()), ord("*"), np.uint8)
+        cols[np.arange(length) + np.cumsum(gaps) - gaps] = base
+        cons = cols.tobytes().decode()
+        ncol = len(cons)
+        padded_of[name] = cons
+        contig_reads = []
+        for r in range(n_reads):
+            n = int(rng.integers(200, 501))
+            if r == 0:
+                start = -int(rng.integers(2, 12))
+            else:
+                start = int(rng.integers(0, ncol - n + 1))
+            lo = max(int(rng.integers(0, 31)), -start)
+            hi = n - int(rng.integers(0, 31))
+            # the first and last aligned columns: consensus bases
+            while start + lo < ncol and cons[start + lo] == "*":
+                lo += 1
+            hi = min(hi, ncol - start)
+            while cons[start + hi - 1] == "*":
+                hi -= 1
+            chars = []
+            for i in range(n):
+                c = start + i
+                clipped = i < lo or i >= hi
+                if c < 0 or c >= ncol:
+                    chars.append("ACGT"[int(rng.integers(0, 4))])
+                elif cons[c] == "*":
+                    chars.append("ACGT"[int(rng.integers(0, 4))]
+                                 if clipped or rng.random() < 0.25 else "*")
+                elif (not clipped and lo < i < hi - 1
+                      and rng.random() < 0.02):
+                    chars.append("*")
+                elif rng.random() < 0.01:
+                    chars.append("ACGT".replace(cons[c], "")[
+                        int(rng.integers(0, 3))])
+                else:
+                    chars.append(cons[c])
+            contig_reads.append(AceRead(
+                f"{name}.r{r:03d}", "".join(chars), start + 1,
+                bool(rng.random() < 0.5), lo, hi))
+        quals = rng.integers(10, 91, length)
+        text = [f"CO {name} {ncol} {n_reads} {n_reads} U\n",
+                _ace_lines(cons), "\nBQ\n"]
+        for i in range(0, length, 25):
+            text.append(" " + " ".join(map(str, quals[i:i + 25])) + "\n")
+        text.append("\n")
+        for rd in contig_reads:
+            text.append(f"AF {rd.name} {'C' if rd.complemented else 'U'} "
+                        f"{rd.af_pos}\n")
+        # base segments: the consensus in runs of 100 columns, each from
+        # a read that covers its start (none where no read does)
+        for c in range(0, ncol, 100):
+            rd = [x.name for x in contig_reads
+                  if x.af_pos <= c + 1 < x.af_pos + len(x.padded)]
+            if rd:
+                text.append(f"BS {c + 1} {min(c + 100, ncol)} {rd[0]}\n")
+        text.append("\n")
+        for rd in contig_reads:
+            text += [f"RD {rd.name} {len(rd.padded)} 0 0\n",
+                     _ace_lines(rd.padded),
+                     f"\nQA 1 {len(rd.padded)} {rd.beg + 1} {rd.end}\n",
+                     f"DS CHROMAT_FILE: {rd.name} PHD_FILE: {rd.name}.phd.1 "
+                     "TIME: Thu Jan  1 00:00:00 2026\n\n"]
+        out_co.append("".join(text))
+        reads += contig_reads
+    first = ACE_CONTIGS[0][0]
+    tags = (f"CT{{\n{first} repeat consed 10 40 260101:000000\n}}\n\n"
+            "WA{\nphrap 1 260101:000000\nphrap reads.fasta.screen "
+            "-new_ace\n}\n")
+    ace = (f"AS {len(ACE_CONTIGS)} {len(reads)}\n\n" + "".join(out_co)
+           + tags)
+    return AceAssembly(ace, padded_of, reads)
+
+
 def _offsets(lens) -> np.ndarray:
     off = np.zeros(len(lens) + 1, np.int64)
     np.cumsum(lens, out=off[1:])

@@ -1,5 +1,5 @@
-"""Subcommand registry of the port (samtools' bamtk.c dispatch table):
-the commands ported so far."""
+"""Subcommand registry of the port (samtools' bamtk.c dispatch table,
+and samtools' misc/ programs): every command of the JAX package."""
 
 from __future__ import annotations
 
@@ -58,10 +58,34 @@ COMMANDS = {
                      "main_ampliconclip"),
     "ampliconstats": ("samtools_tpu_torch.tools.ampliconstats_cmd",
                       "main_ampliconstats"),
+    # ancillary (samtools' misc/ programs, not bamtk subcommands)
+    "wgsim": ("samtools_tpu_torch.tools.wgsim_cmd", "main_wgsim"),
+    "md5fa": ("samtools_tpu_torch.tools.misc_cmds", "main_md5fa"),
     "plot-bamstats": ("samtools_tpu_torch.tools.plot_bamstats_cmd",
                       "main_plot_bamstats"),
     "plot-ampliconstats": ("samtools_tpu_torch.tools.plot_ampliconstats_cmd",
                            "main_plot_ampliconstats"),
+    "md5sum-lite": ("samtools_tpu_torch.tools.misc_cmds",
+                    "main_md5sum_lite"),
+    "seq_cache_populate": ("samtools_tpu_torch.tools.misc_cmds",
+                           "main_seq_cache_populate"),
+    "ace2sam": ("samtools_tpu_torch.tools.ace2sam_cmd", "main_ace2sam"),
+    "maq2sam": ("samtools_tpu_torch.tools.convert_cmds", "main_maq2sam"),
+    "bowtie2sam": ("samtools_tpu_torch.tools.convert_cmds",
+                   "main_bowtie2sam"),
+    "psl2sam": ("samtools_tpu_torch.tools.convert_cmds", "main_psl2sam"),
+    "soap2sam": ("samtools_tpu_torch.tools.convert_cmds", "main_soap2sam"),
+    "zoom2sam": ("samtools_tpu_torch.tools.convert_cmds", "main_zoom2sam"),
+    "novo2sam": ("samtools_tpu_torch.tools.convert_cmds", "main_novo2sam"),
+    "export2sam": ("samtools_tpu_torch.tools.convert_cmds",
+                   "main_export2sam"),
+    "fasta-sanitize": ("samtools_tpu_torch.tools.convert_cmds",
+                       "main_fasta_sanitize"),
+    "blast2sam": ("samtools_tpu_torch.tools.convert_cmds", "main_blast2sam"),
+    "interpolate_sam": ("samtools_tpu_torch.tools.convert_cmds",
+                        "main_interpolate_sam"),
+    "wgsim_eval": ("samtools_tpu_torch.tools.wgsim_eval_cmd",
+                   "main_wgsim_eval"),
 }
 
 # commands that do no device work and take no ``device``
@@ -71,7 +95,11 @@ HOST_COMMANDS = ("view", "head", "flags", "quickcheck", "cat", "idxstats",
                  "split", "addreplacerg", "reheader", "calmd", "fillmd",
                  "checksum", "samples", "reset", "depad", "rmdup",
                  "reference", "cram-size", "ampliconclip", "ampliconstats",
-                 "plot-bamstats", "plot-ampliconstats")
+                 "plot-bamstats", "plot-ampliconstats", "wgsim", "md5fa",
+                 "md5sum-lite", "seq_cache_populate", "ace2sam", "maq2sam",
+                 "bowtie2sam", "psl2sam", "soap2sam", "zoom2sam", "novo2sam",
+                 "export2sam", "fasta-sanitize", "blast2sam",
+                 "interpolate_sam", "wgsim_eval")
 
 
 def run_command(name: str, argv: list[str], device=None) -> int:

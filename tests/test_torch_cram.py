@@ -13,7 +13,7 @@
   with ``REF_CACHE``, and with no reference, where a mapped read's bases
   that no feature stores stay ``N`` (the JAX package's fill);
 * ``encode_cram`` and ``write_alignments`` give the JAX writer's bytes and
-  ``.crai`` lines;
+  ``.crai`` lines, and keep its fault past 2^21 (positions lost);
 * ``hfile.resolve`` maps plain paths, ``file://`` URLs and cached remote
   URLs to the JAX package's local paths (nothing is fetched).
 """
@@ -33,6 +33,7 @@ from samtools_tpu.io import cram_fqz as jfqz
 from samtools_tpu.io import cram_tok3 as jtok
 from samtools_tpu.io import hfile as jhfile
 from samtools_tpu.io.cram_encode import encode_cram as jencode_cram
+from samtools_tpu.io.cram_encode import itf8_enc as jitf8_enc
 from samtools_tpu.io.files import cram_ref_lookup as jref_lookup
 from samtools_tpu.io.files import read_alignments as jread
 from samtools_tpu.io.files import write_alignments as jwrite
@@ -43,7 +44,8 @@ from samtools_tpu_torch.io import cram_codecs as cc
 from samtools_tpu_torch.io import cram_fqz as fqz
 from samtools_tpu_torch.io import cram_tok3 as tok
 from samtools_tpu_torch.io import hfile
-from samtools_tpu_torch.io.cram_encode import encode_cram
+from samtools_tpu_torch.io.cram import itf8
+from samtools_tpu_torch.io.cram_encode import encode_cram, itf8_enc
 from samtools_tpu_torch.io.files import cram_ref_lookup, read_alignments
 from samtools_tpu_torch.io.files import write_alignments
 from samtools_tpu_torch.io.header import SamHeader
@@ -414,6 +416,43 @@ def test_write_alignments_cram_through_ref_cache(crams, monkeypatch,
     bam = str(tmp_path / "a.bam")
     write_alignments(bam, SamHeader.from_text(text), pb, fmt="bam")
     _same_batch(read_alignments(bam).batch, pb)
+
+
+@pytest.mark.parametrize("version", ["3.0", "3.1"])
+def test_cram_writer_loses_positions_past_2_21(tmp_path, version):
+    """A fault of the JAX writer that the port keeps: ``itf8_enc`` takes
+    its 3-byte form up to 2^22 where ITF8's holds 21 bits, so from 2^21
+    (2,097,152) on a value is written with the 4-byte form's lead byte
+    and read back as something else.  Reads of a contig of 2^21 + 4096
+    bases from 2^21 - 300 on (18 reads): both writers give the same
+    bytes, both readers the same batch, and every read at or past 2^21,
+    and only those, comes back at a wrong position (the first, 2,097,184,
+    as 8,671)."""
+    for enc in (itf8_enc, jitf8_enc):
+        assert itf8(enc((1 << 21) - 1), 0) == ((1 << 21) - 1, 3)
+        assert enc(1 << 21) == b"\xe0\x00\x00"
+    length = (1 << 21) + 4096
+    ref = sim.simulate_reference(length, seed=7)
+    fa = str(tmp_path / "r.fa")
+    write_fasta(fa, ref)
+    b = sim.simulate_batch(length, coverage=0.5, seed=3)
+    b = b.take(np.flatnonzero(b.pos >= (1 << 21) - 300))
+    m5 = hashlib.md5(ref.tobytes().upper()).hexdigest()
+    text = (f"@HD\tVN:1.6\tSO:coordinate\n"
+            f"@SQ\tSN:sim1\tLN:{length}\tM5:{m5}\n")
+    mine, theirs = str(tmp_path / "a.cram"), str(tmp_path / "b.cram")
+    write_alignments(mine, SamHeader.from_text(text), b, fmt="cram",
+                     reference=fa, fmt_opts={"version": version})
+    jwrite(theirs, JSamHeader.from_text(text), _to_jax(b), fmt="cram",
+           reference=fa, fmt_opts={"version": version})
+    with open(mine, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
+    got = read_alignments(mine, reference=fa).batch
+    _same_batch(got, jread(mine, reference=fa).batch)
+    assert b.n == got.n == 18
+    np.testing.assert_array_equal(got.pos != b.pos, b.pos >= 1 << 21)
+    first = int(np.argmax(b.pos >= 1 << 21))
+    assert (b.pos[first], got.pos[first]) == (2_097_184, 8_671)
 
 
 # --------------------------------------------------------------- hfile

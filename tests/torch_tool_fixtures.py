@@ -37,7 +37,12 @@ fasta, import, reset, split, faidx, fqidx and dict, ``make_header_inputs``
 those of reheader, samples, checksum and cram-size, ``make_md_inputs``
 those of reference, ``make_padded_inputs`` those of depad and
 ``make_amplicon_inputs`` those of ampliconclip, ampliconstats,
-plot-ampliconstats and plot-bamstats (their docs).
+plot-ampliconstats and plot-bamstats, ``make_misc_inputs`` those of
+md5fa, md5sum-lite and seq_cache_populate, ``make_converter_inputs``
+those of the aligner converters, fasta-sanitize, interpolate_sam and
+ace2sam, and ``make_wgsim_inputs`` those of wgsim and wgsim_eval (their
+docs; these commands run in both packages in-process:
+``check_ancillary``).
 ``make_stats_inputs`` adds stats's: ``realloc`` (reads of 30-500 bases,
 so the histograms grow past 300 cycles mid-file, with hard clips,
 indels, every flag stats counts and NM tags: the JAX stats tests'
@@ -1750,3 +1755,548 @@ def check_case(got, want_pair, name: str) -> None:
     assert sorted(got[3]) == sorted(files) == sorted(pfiles), name
     for fname, data in got[3].items():
         check_output(data, files[fname], pfiles[fname], f"{name}/{fname}")
+
+
+# ------------------------------------------- the ancillary commands, in-process
+# wgsim, wgsim_eval, md5fa, md5sum-lite, seq_cache_populate, ace2sam, the
+# aligner converters, fasta-sanitize and interpolate_sam import no JAX in
+# either package, so both packages run them in this process: the JAX tool
+# through its tools.run_command (what its cli.main dispatches to), the
+# port through cli.main.  cli.main tunes the allocator first
+# (core/malloc_tune.tune); run_inproc sets SAMTPU_MALLOC=0 for the call,
+# unless the environment sets it, so that the pytest worker's allocator
+# stays as it was (test_torch_cli.py runs tune() itself in subprocesses).
+
+
+class TtyStdin(io.StringIO):
+    """An empty standard input that is a terminal."""
+
+    def isatty(self) -> bool:
+        return True
+
+
+def take_tree(odir: str) -> dict:
+    """The files a run wrote under its directory, by path relative to
+    it (subdirectories included; the directory is emptied)."""
+    got = {}
+    for root, _, names in os.walk(odir):
+        for name in names:
+            path = os.path.join(root, name)
+            with open(path, "rb") as f:
+                got[os.path.relpath(path, odir)] = f.read()
+    for name in os.listdir(odir):
+        path = os.path.join(odir, name)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+    return got
+
+
+def run_inproc(pkg: str, cmd: str, argv: list[str], stdin=None):
+    """(exit code, stdout bytes, stderr text) of ``cmd`` of ``pkg``
+    ("jax" or "port") run in this process, on standard input ``stdin``
+    (a path; "tty" for an empty terminal; None for an empty file).  An
+    exception a process would die of gives exit code None and its type
+    and message in place of stderr; SystemExit its code."""
+    raw = io.BytesIO()
+    out = io.TextIOWrapper(raw, encoding="latin-1", write_through=True)
+    err = io.StringIO()
+    old_in = sys.stdin
+    sys.stdin = TtyStdin() if stdin == "tty" else io.TextIOWrapper(
+        open(stdin or os.devnull, "rb"))
+    untuned = "SAMTPU_MALLOC" not in os.environ
+    if untuned:
+        os.environ["SAMTPU_MALLOC"] = "0"
+    died = None
+    try:
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            try:
+                if pkg == "jax":
+                    from samtools_tpu.tools import run_command
+                    rc = run_command(cmd, argv)
+                else:
+                    rc = cli.main([cmd, *argv])
+            except SystemExit as e:
+                rc = e.code
+            except Exception as e:  # noqa: BLE001 - a process would die
+                rc, died = None, f"{type(e).__name__}: {e}"
+    finally:
+        sys.stdin.close()
+        sys.stdin = old_in
+        if untuned:
+            del os.environ["SAMTPU_MALLOC"]
+    return rc, raw.getvalue(), died if died is not None else err.getvalue()
+
+
+def ancillary_run(pkg: str, cmd: str, inputs: dict, cases: dict,
+                  name: str):
+    """(exit code, stdout, stderr, {file: bytes}) of one case of
+    ``cases`` (name -> (argument template, standard input key or "tty"
+    or None[, prepare(odir, inputs)])) run by ``pkg`` in the case's
+    directory; {x} in a template names an input, {o} the case's output
+    directory, whose files (subdirectories included) are taken."""
+    spec, stdin, *prep = cases[name]
+    odir = case_dir(inputs, cmd, name)
+    take_tree(odir)
+    if prep:
+        prep[0](odir, inputs)
+    args = [a.format(o=odir, **inputs) for a in spec]
+    rc, out, err = run_inproc(pkg, cmd, args, stdin if stdin in (
+        None, "tty") else inputs[stdin])
+    return rc, out, err, take_tree(odir)
+
+
+def mask_port(text):
+    """The port's package name as the JAX package's, in str or bytes."""
+    if isinstance(text, bytes):
+        return text.replace(b"samtools_tpu_torch", b"samtools_tpu")
+    return text.replace("samtools_tpu_torch", "samtools_tpu")
+
+
+def check_ancillary(cmd: str, inputs: dict, cases: dict, name: str):
+    """A case run by the JAX tool and then by the port: the same exit
+    code, stdout, stderr (the package name masked) and files, byte for
+    byte.  Returns the port's run."""
+    want = ancillary_run("jax", cmd, inputs, cases, name)
+    got = ancillary_run("port", cmd, inputs, cases, name)
+    assert got[0] == want[0], (name, got[2], want[2])
+    assert mask_port(got[2]) == want[2], name
+    assert mask_port(got[1]) == want[1], name
+    assert sorted(got[3]) == sorted(want[3]), name
+    for fname, data in got[3].items():
+        assert data == want[3][fname], (name, fname)
+    return got
+
+
+def _gz(path: str, data: bytes) -> str:
+    import gzip
+    with gzip.open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+def _write(path: str, data) -> str:
+    with open(path, "wb" if isinstance(data, bytes) else "w") as f:
+        f.write(data)
+    return path
+
+
+def _fasta_lines(name: str, seq: str, width: int = 60) -> str:
+    return f">{name}\n" + "".join(seq[i:i + width] + "\n"
+                                  for i in range(0, len(seq), width))
+
+
+def make_misc_inputs(d: str) -> dict:
+    """md5fa's, md5sum-lite's and seq_cache_populate's inputs: ``fa``
+    (two contigs, lower case, IUPAC codes, spaces and a CR, a '*'), ``fq``
+    (FASTQ records, one with a '+' line repeating the name), ``fa_gz``
+    (``fa`` gzip'd), ``fa2`` (a contig that is also in ``fa``, an empty
+    record) and ``bin`` (bytes of every value, for md5sum-lite)."""
+    rng = np.random.default_rng(5)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    got = {"dir": d}
+    s1 = "".join(rng.choice(list("ACGTacgtn"), 700))
+    s2 = "".join(rng.choice(list("ACGTRYKMSWBDHVN"), 300))
+    fa = (_fasta_lines("chr1 first contig", s1, 50)
+          + ">chr2\tIUPAC\n" + s2[:100] + " " + s2[100:200] + "\r\n"
+          + s2[200:] + "*\n")
+    got["fa"] = _write(p("in.fa"), fa)
+    got["fa_gz"] = _gz(p("in.fa.gz"), fa.encode())
+    got["fa2"] = _write(p("two.fa"), _fasta_lines("again", s1[::-1])
+                        + ">empty\n" + _fasta_lines("chr2", s2))
+    reads = ["".join(rng.choice(list("ACGTN"), 36)) for _ in range(4)]
+    got["fq"] = _write(p("in.fq"), "".join(
+        f"@r{i}/1 x\n{r}\n+{'r%d' % i if i % 2 else ''}\n{'I' * 36}\n"
+        for i, r in enumerate(reads)))
+    got["bin"] = _write(p("bytes.bin"), bytes(range(256)) * 9000)
+    return got
+
+
+# the aligner outputs of the JAX package's converter tests
+# (tests/test_converters.py), and more of each kind
+BOWTIE = b"""\
+read1/1\t+\tchr1\t100\tACGTACGT\tIIIIIIII\t0\t3:A>G
+read1/1\t-\tchr1\t200\tACGTACGT\tIIIIIIII\t1\t1:C>T,5:G>A
+read2\t+\tchr2\t50\tAAAA\tIIII\t2\t
+read3\t-\tchr3\t75\tCCCCC\tHHHHH\t0\t0:T>C
+"""
+BOWTIE_MORE = b"""\
+multi/1\t+\tchr1\t10\tACGTAC\tIIIIII\t1\t
+multi/1\t+\tchr1\t40\tACGTAC\tIIIIII\t0\t2:a>c
+multi/1\t-\tchr2\t90\tACGTAC\tIIIIII\t0\t
+tie\t+\tchr1\t5\tGGGG\tIIII\t0\t1:A>G,2:C>T,3:G>N
+tie\t+\tchr1\t15\tGGGG\tIIII\t0\t1:A>G,2:C>T,3:G>N
+solo\t-\tchr9\t0\tTTTTTT\tABCDEF\t0\t
+"""
+PSL = b"""\
+50\t2\t0\t0\t1\t3\t1\t5\t+\tquery1\t60\t2\t55\tchr1\t1000\t100\t160\t2\t30,20,\t2,35,\t100,135,
+40\t1\t0\t0\t0\t0\t0\t0\t-\tquery2\t45\t0\t41\tchr2\t500\t200\t241\t1\t41,\t4,\t200,
+"""
+PSL_MORE = b"""\
+psLayout version 3
+
+match\tmis-\trep.\tN's\tQ gap\tQ gap\tT gap\tT gap\tstrand\tQ\tQ\tQ\tQ\tT\tT\tT\tT\tblock\tblockSizes\tqStarts\t tStarts
+---------------------------------------------------------------------------------------------------------------------------------------------------------------
+30\t9\t0\t0\t1\t2\t2\t9\t-\tquery3\t50\t1\t48\tchr1\t2000\t300\t359\t3\t10,15,14,\t2,14,34,\t300,315,345,
+2\t40\t0\t0\t0\t0\t0\t0\t+\tquery4\t42\t0\t42\tchr3\t900\t10\t52\t1\t42,\t0,\t10,
+"""
+SOAP = b"""\
+pair1/1\tACGTACGTAC\tIIIIIIIIII\t1\ta\t10\t+\tchr1\t101\t0
+pair1/2\tGGGGACGTAC\tJJJJJJJJJJ\t1\tb\t10\t-\tchr1\t201\t2\tA->3\tC->7
+solo1\tTTTTT\tHHHHH\t3\ta\t5\t+\tchr2\t55\t0
+"""
+SOAP_MORE = (b"p2/1\tACGTAC\tIIIIIIII\t1\ta\t6\t-\tchr2\t30\t1\tT->0\n"
+             b"p2/2\tACGTAC\tIIIIII\t2\tb\t6\t+\tchr3\t90\t0\n"
+             b"  leading\tAC\tII\t1\ta\t2\t+\tchr1\t1\t0\n"
+             b"old/1\tACGTAC\tIIIIII\tx\t1\ta\t6\t+\tchr1\t7\t2\tG->4\t"
+             b"A->1\n"
+             b"short\tAC\tII\n"
+             b"ctl\x01x\tAC\tII\t1\ta\t2\t+\tchr1\t9\t0 \x7f\n")
+ZOOM = b"""\
+rd1_F\tchr1:100\t+\t1
+rd1_R\tchr1:300\t-\t0
+solo_F\tchr2:50\t-\t2
+"""
+ZOOM_MORE = b"""\
+plain\tchr3 x:7\t-\t0
+pr_F\tchr1:10\t-\t0
+pr_R\tchr2:20\t+\t3
+"""
+NOVO = b"""\
+# comment line
+@pair1/1\tL\tACGTACGTAC\tIIIIIIIIII\tU\t30\t20\t>chr1\t101\tF\t.\t.\t.
+@pair1/2\tR\tGGGGACGTAC\tJJJJJJJJJJ\tU\t25\t28\t>chr1\t201\tR\t.\t.\t.\t3A>G
+@solo\tL\tTTTTTGGGGG\tHHHHHHHHHH\tU\t40\t10\t>chr2\t55\tF\t.\t.\t.\t2+AC\t7A>C
+@multi\tL\tAAAA\tIIII\tR\t9
+"""
+NOVO_MORE = b"""\
+@del/1\tL\tACGTACGTACGT\tIIIIIIIIIIII\tU\t12\t12\t>chr3\t40\tF\t1\t>chr3\t80\t4-C\t5-G\t9T>A
+@del/2\tR\tCCGTACGTACGT\tIIIIIIIIIIII\tU\t50\t7\t>chr3\t80\tR\t1\t>chr3\t40\t3+T
+@qc\tL\tACGT\tIIII\tQC
+@nm\tL\tACGT\tIIII\tNM
+@ins\tL\tACGTACGTAC\tIIIIIIIIII\tU\t20\t30\t>chr4\t5\tF\t.\t.\t.\t1+GG\t6+T
+"""
+
+
+def export_line(machine, run, lane, tile, x, y, index, readno, seq,
+                qual, chrom, contig, pos, strand, md, semap, pemap,
+                passfilt):
+    """One GERALD export record (tests/test_converters.py's
+    ``_export_line``)."""
+    f = [machine, run, str(lane), str(tile), str(x), str(y), index,
+         str(readno), seq, qual, chrom, contig, str(pos), strand, md,
+         semap, pemap, "", "", "", "", passfilt]
+    return "\t".join(f)
+
+
+EXPORT1 = "\n".join([
+    export_line("M0", "5", 1, 2, 3, 4, "ACGT", 1, "ACGTACGT",
+                "hhhhhhhh", "chr1", "", 100, "F", "8", "30", "40", "Y"),
+    export_line("M0", "5", 1, 2, 3, 5, "", 1, "AAGTACGT", "hhhhhhhh",
+                "chr1", "c2", 200, "R", "1A6", "25", "", "Y"),
+    export_line("M0", "5", 1, 2, 3, 6, "", 1, "CCGTACGT", "hhhhhhhh",
+                "NM", "", 0, "F", "", "", "", "Y"),
+    export_line("M0", "5", 1, 2, 3, 7, "", 1, "GCGTACGT", "hhhhhhhh",
+                "1:2:3", "", 0, "F", "", "", "", "Y"),
+    export_line("M0", "5", 1, 2, 3, 8, "", 1, "TCGTACGT", "hhhhhhhh",
+                "chr3", "", 300, "F", "2^AC$4", "12", "", "N"),
+]) + "\n"
+
+EXPORT2 = "\n".join([
+    export_line("M0", "5", 1, 2, 3, 4, "ACGT", 2, "TTTTACGT",
+                "hhhhhhhh", "chr1", "", 400, "R", "8", "31", "40", "Y"),
+    export_line("M0", "5", 1, 2, 3, 5, "", 2, "GGGTACGT", "hhhhhhhh",
+                "QC", "", 0, "F", "", "", "", "Y"),
+    export_line("M0", "5", 1, 2, 3, 6, "", 2, "ACGTACGT", "hhhhhhhh",
+                "chr2", "", 500, "F", "8", "20", "", "Y"),
+    export_line("M0", "5", 1, 2, 3, 7, "", 2, "ACGAACGT", "hhhhhhhh",
+                "chr4", "", 600, "F", "8", "22", "15", "Y"),
+    export_line("M0", "5", 1, 2, 3, 8, "", 2, "ACGCACGT", "hhhhhhhh",
+                "chr3", "", 700, "R", "3^2$3", "13", "", "N"),
+]) + "\n"
+
+BLAST = """\
+BLASTN 2.2.26
+
+Query= readA
+fragment1
+         (60 letters)
+
+Database: ref.fa
+           2 sequences; 12,000 total letters
+
+>chr9
+          Length = 5000
+
+ Score = 95.6 bits (48), Expect = 2e-20
+ Identities = 55/60 (91%)
+ Strand=Plus/Plus
+
+Query  1   ACGTACGTACGTACGTACGT-ACGTACGTA  29
+           ||||||||||||||||||||  ||||||||
+Sbjct  101 ACGTACGTACGTACGTACGTTACGTACGTA  130
+
+Query  30  CCGTACGTACGTACGTACGTACGTACGTAC  59
+           ||||||||||||||||||||||||||||||
+Sbjct  131 CCGTACGTACGTACGTACGTACGTACGTAC  160
+
+
+ Score = 40.1 bits (20), Expect = 3e-05
+ Identities = 20/22 (90%)
+ Strand=Plus/Minus
+
+Query  5    ACGTACGTACGTACGTACGTAC  26
+            ||||||||||||||||||||||
+Sbjct  900  ACGTACGTACGT-CGTACGTAC  880
+
+Query= readB
+         (30 letters)
+
+>chr2
+          Length = 7000
+
+ Score = 60.2 bits (30), Expect = 1e-10
+ Strand=Plus/Plus
+
+Query  3   ACGTACGTACGTACGTACGTACGTAC  28
+           ||||||||||||||||||||||||||
+Sbjct  55  ACGTACGTACGTACGTACGTACGTAC  80
+
+"""
+BLAST_MORE = """\
+Query= readC
+         (20 letters)
+
+>chr4 another
+          Length = 900
+
+ Score = 30.0 bits (15), Expect(2) = e-04
+ Strand=Plus/Plus
+
+Query: 1   ACGTACGTAC--GTACGTAC  18
+           ||||||||||  ||||||||
+Sbjct: 10  ACGTACGTACAAGTACGTAC  29
+
+"""
+INTERP_SAM = "".join(
+    "\t".join([name, str(fl), rn, str(pos), "30", cg, "*", "0", "0",
+               "ACGT", "IIII"]) + "\n"
+    for name, fl, rn, pos, cg in (
+        ("r1", 0x43, "frag:1:2:3:40", 3, "10M"),
+        ("r2", 0x53, "frag:1:2:3:40", 8, "6M2D4M"),
+        ("r3", 0x0, "frag:1:2:3:40", 15, "12M"),
+        ("r4", 0x63, "frag:1:2:3:40", 20, "5M"),
+        ("r5", 0x93, "frag:1:2:3:40", 20, "3S4M1I2M"),
+        ("r6", 0x1, "other:9:9:9:25", 2, "4M"),
+        ("r7", 0xA3, "other:9:9:9:25", 6, "2M3N2M"),
+        ("r8", 0x0, "short", 4, "3M")))
+
+
+def maq_record(name, seq_bases, quals, size, map_qual, info1, info2, c0,
+               c1, flag, alt_qual, seqid, pos, dist, last_byte=0) -> bytes:
+    """One MAQ .map record as maq2sam.c reads it
+    (tests/test_converters.py's ``_maq_map``)."""
+    max_readlen = 64
+    seq = bytearray(max_readlen)
+    code = {"A": 0, "C": 1, "G": 2, "T": 3}
+    for i, (b, q) in enumerate(zip(seq_bases, quals)):
+        seq[i] = 0 if b == "N" else (code[b] << 6) | (q & 0x3F)
+    seq[max_readlen - 1] = last_byte & 0xFF
+    return struct.pack("<%dB8B3i36s" % max_readlen, *seq, size, map_qual,
+                       info1, info2, c0, c1, flag, alt_qual, seqid, pos,
+                       dist, name.encode() + b"\x00")
+
+
+def maq_map(recs: list, fmt: int = -1, names=(b"chrA\x00", b"chrB\x00"),
+            tail: bytes = b"") -> bytes:
+    """A MAQ .map file's bytes (before gzip): ``fmt``, the reference
+    names, the records, then ``tail``."""
+    out = [struct.pack("<i", fmt), struct.pack("<i", len(names))]
+    for nm in names:
+        out += [struct.pack("<i", len(nm)), nm]
+    out.append(struct.pack("<Q", len(recs)))
+    return b"".join(out + list(recs)) + tail
+
+
+MAQ_RECS = [
+    maq_record("read1/1", "ACGT", [30, 31, 32, 33], 4, 40, 2, 10, 1, 2,
+               0x12, 35, 0, 200 << 1, 150, last_byte=44),
+    maq_record("read1/2", "TTGG", [20, 21, 22, 23], 4, 38, 1, 9, 1, 0,
+               0x12, 33, 0, (350 << 1) | 1, -150, last_byte=40),
+    maq_record("solo", "NACG", [0, 10, 11, 12], 4, 37, 0, 0, 0, 0, 0, 30,
+               1, 77 << 1, 0, last_byte=37),
+    maq_record("unm", "AAAA", [9, 9, 9, 9], 4, 0, 0, 0, 0, 0, 192, 0, 0,
+               5 << 1, 0, last_byte=0),
+    maq_record("ins/1", "ACGTACGTAC", [20] * 10, 10, 3, 1, 5, 1, 0, 130,
+               25, 1, 40 << 1, 0, last_byte=2),
+    maq_record("del/2", "ACGTACGTAC", [20] * 10, 10, 4, 1, 5, 1, 0, 130,
+               25, 1, 60 << 1, 0, last_byte=0xFD),
+    maq_record("sw/1", "CCCC", [40] * 4, 4, 20, 0, 0, 1, 0, 0x80 | 0x04,
+               9, 0, (9 << 1) | 1, -30, last_byte=12),
+    maq_record("mate/2", "GGGG", [40] * 4, 4, 20, 0, 0, 1, 0, 64, 9, 1,
+               11 << 1, 0, last_byte=12),
+    maq_record("rf", "TTTT", [40] * 4, 4, 20, 0, 0, 1, 0, 0x04, 9, 1,
+               13 << 1, 25, last_byte=12),
+]
+
+
+def make_converter_inputs(d: str) -> dict:
+    """The converters' inputs: each aligner output of the JAX package's
+    converter tests with more records of its kind (``<kind>``; the
+    ``<kind>_gz`` gzip'd), GERALD export files (``r1``, ``r2`` and their
+    broken variants), MAQ .map files (``map``, ``map_trunc``,
+    ``map_old``, ``map_zero``), FASTA/FASTQ names for fasta-sanitize
+    (``names``), interpolate_sam's SAM and the simulated ACE
+    (``sim.ace_assembly``: ``ace``, ``ace_gz``)."""
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    got = {"dir": d}
+    for kind, data in (("bowtie", BOWTIE + BOWTIE_MORE),
+                       ("psl", PSL + PSL_MORE), ("soap", SOAP + SOAP_MORE),
+                       ("zoom", ZOOM + ZOOM_MORE),
+                       ("novo", NOVO + NOVO_MORE),
+                       ("blast", (BLAST + BLAST_MORE).encode()),
+                       ("interp", INTERP_SAM.encode())):
+        got[kind] = _write(p(f"in.{kind}"), data)
+        got[kind + "_gz"] = _gz(p(f"in.{kind}.gz"), data)
+    got["r1"] = _write(p("r1.export"), EXPORT1)
+    got["r2"] = _write(p("r2.export"), EXPORT2)
+    got["r1_gz"] = _gz(p("r1.export.gz"), EXPORT1.encode())
+    lines2 = EXPORT2.splitlines(True)
+    got["r2_short"] = _write(p("r2_short.export"), "".join(lines2[:-1]))
+    got["r2_long"] = _write(p("r2_long.export"), EXPORT2 + lines2[0])
+    got["r2_renamed"] = _write(p("r2_renamed.export"),
+                               lines2[0].replace("\t4\t", "\t9\t", 1)
+                               + "".join(lines2[1:]))
+    got["r2_readno"] = _write(p("r2_readno.export"),
+                              EXPORT1.splitlines(True)[0])
+    got["r1_fields"] = _write(p("r1_fields.export"), "M0\t5\t1\n")
+    got["r1_lowq"] = _write(p("r1_lowq.export"), export_line(
+        "M0", "5", 1, 2, 3, 4, "", 1, "ACGT", "h;hh", "chr1", "", 100, "F",
+        "4", "30", "", "Y") + "\n")
+    got["map"] = _gz(p("in.map"), maq_map(MAQ_RECS))
+    got["map_trunc"] = _gz(p("trunc.map"), maq_map(MAQ_RECS[:3],
+                                                   tail=MAQ_RECS[3][:50]))
+    got["map_old"] = _gz(p("old.map"), maq_map([], fmt=3))
+    got["map_zero"] = _gz(p("zero.map"), maq_map([], fmt=0))
+    got["names"] = _write(p("names.fa"), (
+        ">ok_name desc\nACGT\n>bad*name|x\nGGTT\n"
+        "@fq bad<>\nACGT\n+\n@III\n"
+        ">*star first\nAC\nGT\n>=eq\nA\n> \nCC\n>\nTT\n"
+        ">   spaced  name\nGG\n@q2\nACGTAC\n+q2\nII\nIIII\n"
+        ">a,b(c)[d]{e}\nAAAA\n>x\\y'z\"w\nC\n>tab\tname\nG\n"))
+    got["ace_text"] = sim.ace_assembly(3).ace
+    got["ace"] = _write(p("in.ace"), got["ace_text"])
+    got["ace_gz"] = _gz(p("in.ace.gz"), got["ace_text"].encode())
+    return got
+
+
+def wgsim_reads(fq1: str, fq2: str) -> list:
+    """(name, read 1's bases, read 2's bases) of each pair of wgsim's two
+    FASTQs, the /1 and /2 left off the name."""
+    with open(fq1) as f1, open(fq2) as f2:
+        a, b = f1.read().split("\n"), f2.read().split("\n")
+    return [(a[i][1:-2], a[i + 1], b[i + 1]) for i in range(0, len(a) - 1, 4)]
+
+
+def make_wgsim_inputs(d: str) -> dict:
+    """wgsim's inputs: ``ref`` (one 20 kbp contig), ``refn`` (12 kbp with
+    runs of N, one of 2 kbp), ``multi`` (three contigs: 9 kbp, 6 kbp in
+    lower case and 400 bp, shorter than a fragment; gzip'd as
+    ``multi_gz``); and wgsim_eval's, built from the JAX wgsim's own
+    reads (``-S 7 -N 300`` on ``ref``): ``sam`` (each read placed at its
+    true place by alneval's rule, some 2-300 bases off, soft-clipped,
+    unmapped, on another contig, secondary, or named by another tool;
+    MAPQ 0-60; a second hit for one name in ten, some with AS), ``sam2``
+    (the same moved about for uniqcmp, NM tags), ``snp`` (the run's
+    mutation report) and ``pileup`` (calls at its SNPs and indels and
+    false ones)."""
+    rng = np.random.default_rng(17)
+    p = lambda name: os.path.join(d, name)  # noqa: E731
+    got = {"dir": d}
+    acgt = np.array(list("ACGT"))
+    ref = "".join(rng.choice(acgt, 20000))
+    got["ref"] = _write(p("ref.fa"), _fasta_lines("sim1", ref))
+    refn = list("".join(rng.choice(acgt, 12000)))
+    for lo, hi in ((500, 520), (3000, 5000), (8000, 8004), (11990, 12000)):
+        refn[lo:hi] = "N" * (hi - lo)
+    got["refn"] = _write(p("refn.fa"), _fasta_lines("withN", "".join(refn)))
+    multi = (_fasta_lines("ctgA desc", "".join(rng.choice(acgt, 9000)))
+             + _fasta_lines("ctgB", "".join(rng.choice(acgt, 6000)).lower())
+             + _fasta_lines("tiny", "".join(rng.choice(acgt, 400))))
+    got["multi"] = _write(p("multi.fa"), multi)
+    got["multi_gz"] = _gz(p("multi.fa.gz"), multi.encode())
+
+    fq1, fq2 = p("eval1.fq"), p("eval2.fq")
+    rc, out, _ = run_inproc("jax", "wgsim", ["-S", "7", "-N", "300",
+                                             got["ref"], fq1, fq2])
+    assert rc == 0
+    got["snp"] = _write(p("eval.snp"), out)
+    recs, recs2 = ["@HD\tVN:1.6\tSO:unsorted\n",
+                   "@SQ\tSN:sim1\tLN:20000\n"], []
+    for k, (name, s1, s2) in enumerate(wgsim_reads(fq1, fq2)):
+        p2, p3 = (int(x) for x in name.split("_")[1:3])
+        for mate, seq in ((0x40, s1), (0x80, s2)):
+            rev = (mate == 0x80) != (k % 7 == 3)
+            fl = 0x1 | 0x2 | mate | (0x10 if rev else 0)
+            pos = p3 - len(seq) + 1 if rev else p2
+            cig = f"{len(seq)}M"
+            u = rng.random()
+            rname, qname = "sim1", name
+            if u < 0.1:
+                pos += int(rng.integers(2, 300)) * (1 if pos < 10000 else -1)
+            elif u < 0.15:
+                cig = f"5S{len(seq) - 5}M" if not rev else \
+                    f"{len(seq) - 4}M4S"
+                pos += 0 if rev else 5
+            elif u < 0.18:
+                fl |= 0x4
+            elif u < 0.2:
+                rname = "sim2"
+            elif u < 0.22:
+                qname = f"bwa_{k}"
+            elif u < 0.25:
+                cig = f"{len(seq) // 2}M2I{len(seq) - len(seq) // 2 - 2}M"
+            mapq = int(rng.integers(0, 61))
+            aux = f"\tAS:i:{int(rng.integers(20, 100))}" if u > 0.9 else ""
+            row = [qname, str(fl), rname, str(pos), str(mapq), cig, "=",
+                   "0", "0", seq, "I" * len(seq)]
+            recs.append("\t".join(row) + aux + "\n")
+            if k % 10 == 0:
+                row2 = list(row)
+                row2[1] = str(fl | 0x100)
+                row2[3] = str(pos + 5000 if pos < 10000 else pos - 5000)
+                row2[4] = "0"
+                recs.append("\t".join(row2) + (
+                    f"\tAS:i:{int(rng.integers(20, 100))}" if k % 20 == 0
+                    else "") + "\n")
+            nm = int(rng.integers(0, 4))
+            moved = int(pos + (rng.integers(50, 200) if rng.random() < 0.2
+                               else 0))
+            if rng.random() < 0.95:
+                recs2.append("\t".join(
+                    [qname, str(fl ^ (0x10 if rng.random() < 0.05 else 0)),
+                     rname, str(moved), str(int(rng.integers(0, 61))), cig,
+                     "*", "0", "0", seq, "*", f"NM:i:{nm}"]) + "\n")
+    recs2.append("onlyhere\t0\tsim1\t5\t60\t10M\t*\t0\t0\tACGTACGTAC\t*\n")
+    got["sam"] = _write(p("eval.sam"), "".join(recs))
+    got["sam2"] = _write(p("eval2.sam"), "".join(recs2))
+    calls = []
+    for line in out.decode().splitlines():
+        t = line.split("\t")
+        q = int(rng.integers(0, 260))
+        if t[2] != "-" and t[3] != "-":
+            calls.append(f"{t[0]}\t{t[1]}\t{t[2]}\t{t[3]}\t0\t{q}\n")
+        else:
+            calls.append(f"{t[0]}\t{int(t[1]) + int(rng.integers(-12, 13))}"
+                         f"\t*\t+A/+A\t0\t{q}.5\n")
+    for _ in range(40):
+        calls.append(f"sim1\t{int(rng.integers(1, 20000))}\t"
+                     f"{'*' if rng.random() < 0.3 else 'A'}\tC\t0\t"
+                     f"{int(rng.integers(0, 300))}\n")
+    calls.append("sim1\t5\tA\tA\t0\t50\nshort\tline\n")
+    got["pileup"] = _write(p("calls.pileup"), "".join(calls))
+    os.remove(fq1)
+    os.remove(fq2)
+    return got
