@@ -29,9 +29,18 @@ from the sources in this checkout.  Phases, one JSON line each:
    K4's and K5's ``device_ms``: a CUDA graph of wrapper calls (each
    wrapper only allocates its outputs and launches).  The
    generic form must launch here: the main path no longer calls it.
-   Then K6, the chunk step (``_chunk_step``: K4, K5, K1's census form and
-   the torch ops around them) on the clean chunk, in the census core's
-   form and in the tool's (with the sparse qual deltas).
+   K6's front, ``chunk_expand`` (csrc/chunk_expand.cu: the buffer parse,
+   the cigar expansion and the reference-window gather), and its tail,
+   ``qual_deltas`` (csrc/qual_deltas.cu: the changed quals compacted in
+   order at capacity C x 100 / 16), on the same clean and messy chunks,
+   each equal to its plain version byte for byte, with ``device_ms`` (a
+   CUDA graph of the bare C entry on preallocated outputs) and, for
+   qual_deltas, ``torch.nonzero`` of the flat mask as its library call
+   (none computes a cigar expansion).  Then K6, the chunk step
+   (``_chunk_step``: chunk_expand, K4, K5, K1's census form) on the clean
+   chunk, in the census core's form and in the tool's (with qual_deltas),
+   its ``device_ms`` a CUDA graph of chunk steps, its bound the sum of
+   its five kernels'.
 3. main path — 8 Mbp x 30x x 100 bp simulated reads (the JAX package's
    bench workload) and its messy indel/soft-clip variant, written as BAMs
    by the port's writer (the two simulated in two processes at once),
@@ -51,7 +60,9 @@ from the sources in this checkout.  Phases, one JSON line each:
    each kernel over the run.  Each window's ``--census-out`` checksum must
    equal the oracle census of phase 3 over the window's columns, the
    windows' starting reads must add up to the oracle's reads, and the run
-   must launch the census form, K4 and K5 and never the generic K1.
+   must launch chunk_expand, the census form, K4 and K5 and never the
+   generic K1, qual_deltas and chunk_expand once a device chunk and K7
+   (``census_checksum``) once a device window.
    Then the command itself, as a subprocess, on a 512 kbp x 30x BAM of
    overlapping messy pairs (so the overlap tweak runs), once with the
    card's engine and once with ``SAMTPU_DEVICE=0`` (the host's f64 HMM,
@@ -147,9 +158,12 @@ from the sources in this checkout.  Phases, one JSON line each:
    launch, beside ``amax`` with ``.to()``, with ``device_ms`` (the
    cooperative kernel alone, without the host's read of the maxima), the
    share of rows staged in shared memory and its earlier two-pass form
-   timed on the same census; K7's checksum
-   (``census_checksum_dev``) on the clean census, equal to
-   ``census_checksum``, beside ``torch.sum`` of the weighted lanes.
+   timed on the same census; K7 (``census_checksum_dev``,
+   csrc/census_checksum.cu) on the clean census (8,388,608 rows) and on
+   its first 1 Mi (the tool's window), equal to its plain version on the
+   card and to ``census_checksum`` in one launch, with ``device_ms`` (a
+   CUDA graph of the bare C entry, the output's zeroing included),
+   beside ``torch.sum`` of the weighted lanes.
 12. regions -- ``index`` in-process on clean (BAI), ``index -c`` on a
    copy (CSI); ``BamStream.query`` through each on five seeded regions
    (1 kbp, 1 kbp around a read whose bytes cross a BGZF block boundary,
@@ -446,10 +460,21 @@ KERNEL_META = {
     # entry (pileup_counts_tiled, :55) is in the row's "tiled"
     "pileup_scatter": ("samtools_tpu_torch/csrc/pileup_counts.cu",
                        "samtools_tpu/ops/pileup_device.py:29"),
+    # K7, the census checksum (_ck_jit), once a window of the tool's
+    # --census-out and once in the census core's finish_checksum
+    "census_checksum": ("samtools_tpu_torch/csrc/census_checksum.cu",
+                        "samtools_tpu/ops/mpileup_device.py:376"),
+    # K6's front (chunk_step's parse, cigar expansion and window gather,
+    # :152-215) and tail (its collect_quals compaction, :273-279)
+    "chunk_expand": ("samtools_tpu_torch/csrc/chunk_expand.cu",
+                     "samtools_tpu/ops/mpileup_device.py:152"),
+    "qual_deltas": ("samtools_tpu_torch/csrc/qual_deltas.cu",
+                    "samtools_tpu/ops/mpileup_device.py:273"),
 }
-# what DeviceCensusPipeline launches; the generic K1 runs only in the
-# kernels phase
-MAIN_PATH = ("segment_census", "baq_hmm", "baq_finalize")
+# what DeviceCensusPipeline launches (the tool's engine also qual_deltas
+# once a chunk and census_checksum once a window); the generic K1 runs
+# only in the kernels phase
+MAIN_PATH = ("segment_census", "baq_hmm", "baq_finalize", "chunk_expand")
 # the pileup family's in-process runs: (label, argv, input); {name} is a
 # BAM of the main path (clean, messy) or the tool phase's pairs
 PILEUP_RUNS = (
@@ -578,11 +603,90 @@ def chunk_inputs(batch, ref_int: np.ndarray, ref_len: int, dev):
             torch.from_numpy(hi).to(dev), wbeg, ntp, buf)
 
 
+def _k6_rows(pipe, buf, x: dict, appq, LQ: int) -> dict:
+    """K6's front (``chunk_expand``) and tail (``qual_deltas``) timed on
+    one chunk: the wrapper's single and back-to-back calls, the kernel
+    alone (a CUDA graph of the bare C entry on preallocated outputs), the
+    plain version, the library call where one computes the same function,
+    and the bound from bytes."""
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.ops import mpileup_device as md
+    lib = kernels._load()
+    C = buf.shape[0]
+    names = md.EXPAND_KEYS
+    outs = {k: torch.empty_like(x[k]) for k in names}
+    ref, table = pipe.ref_dev, pipe._nt16_to4
+
+    # the stream is the current one at each call: the graph's capture
+    # stream while graph_ms captures
+    def expand_bare():
+        require(lib.samtpu_chunk_expand(
+            buf.data_ptr(), C, LQ, ref.data_ptr(), ref.numel(),
+            table.data_ptr(), *(outs[k].data_ptr() for k in names),
+            kernels.stream_of(buf)) == 0,
+            "chunk_expand's C entry point failed")
+    expand_bare()
+    torch.cuda.synchronize()
+    require(all(torch.equal(outs[k], x[k]) for k in names),
+            "chunk_expand's C entry point differs from its wrapper")
+    expand = dict(
+        max_abs_err=0, ms=cuda_ms(lambda: pipe._expand(buf)),
+        b2b_ms=cuda_ms(lambda: pipe._expand(buf), per=10),
+        device_ms=graph_ms(expand_bare),
+        plain_ms=cuda_ms(lambda: md.chunk_expand_plain(buf, ref, table, LQ),
+                         reps=3),
+        # no PyTorch call parses a packed read buffer and walks cigars
+        library_ms=None,
+        library_note="no PyTorch call computes a cigar expansion",
+        detail={"reads": C, "l_query": LQ},
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            C * ((md.HDR + 2 * LQ) + (LQ + md.LREF_PAD) + 2 * LQ + 12 * LQ
+                 + 12), 0))))
+
+    qq = x["qq"]
+    n = appq.numel()
+    cap = n // 16
+    blocks = md.deltas_plan(n)
+    counts = torch.empty(blocks, dtype=torch.int32, device=appq.device)
+    dcount = torch.empty((), dtype=torch.int32, device=appq.device)
+    didx = torch.empty(cap, dtype=torch.int32, device=appq.device)
+    dval = torch.empty(cap, dtype=torch.uint8, device=appq.device)
+
+    def deltas_bare():
+        require(lib.samtpu_qual_deltas(
+            appq.data_ptr(), qq.data_ptr(), n, cap, blocks,
+            counts.data_ptr(), dcount.data_ptr(), didx.data_ptr(),
+            dval.data_ptr(), kernels.stream_of(appq)) == 0,
+            "qual_deltas' C entry point failed")
+    want = md.qual_deltas(appq, qq, cap)
+    deltas_bare()
+    torch.cuda.synchronize()
+    require(int(dcount) == int(want[0]) and torch.equal(didx, want[1])
+            and torch.equal(dval, want[2]),
+            "qual_deltas' C entry point differs from its wrapper")
+    mask = (appq != qq).reshape(-1)
+    deltas = dict(
+        max_abs_err=0, ms=cuda_ms(lambda: md.qual_deltas(appq, qq, cap)),
+        b2b_ms=cuda_ms(lambda: md.qual_deltas(appq, qq, cap), per=10),
+        device_ms=graph_ms(deltas_bare),
+        plain_ms=cuda_ms(lambda: md.qual_deltas_plain(appq, qq, cap)),
+        # the positions of the changed quals by one library call (it
+        # fetches their count to size its output: a host sync)
+        library_ms=cuda_ms(lambda: torch.nonzero(mask)),
+        detail={"quals": n, "cap": cap, "changed": int(want[0]),
+                "tiles": blocks},
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * n + 5 * cap + 4, 0))))
+    return {"chunk_expand": expand, "qual_deltas": deltas}
+
+
 def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     """Each kernel against its plain version at main-path shapes."""
     import torch
     from samtools_tpu_torch import kernels
     from samtools_tpu_torch.ops import baq_device as bd
+    from samtools_tpu_torch.ops import mpileup_device as md
     from samtools_tpu_torch.ops import segment_kernel as sk
     from samtools_tpu_torch.sim import simulate_batch, simulate_messy
     ref_len = ref.size
@@ -597,6 +701,7 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     hmm_t = hmm_b2b = hmm_plain_t = fin_t = fin_b2b = fin_plain_t = None
     hmm_dev = fin_dev = None
     k4_bytes = k4_ops = k5_bytes = 0
+    k6_checks = []
     for messy in (False, True):
         b = simulate_batch(ref_len=sub_len, coverage=COVERAGE,
                            read_len=READ_LEN, seed=5 + messy, paired=False,
@@ -660,7 +765,31 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
         fp = bd.baq_finalize_plain(kq, kg, x["qq"], x["seg"])
         fin_err = max(fin_err, int((fk.int() - fp.int()).abs().max()))
         require(fin_err == 0, "K5 differs from its plain version")
+        # K6's front (chunk_inputs' tensors came through it) and tail (on
+        # K5's applied quals), each against its plain version on the
+        # same inputs, byte for byte
+        xp = md.chunk_expand_plain(buf, pipe.ref_dev, pipe._nt16_to4, LQ)
+        for k, w in xp.items():
+            g = x[k]
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            require(g.shape == w.shape and torch.equal(g, w),
+                    f"chunk_expand's {k} differs from its plain version "
+                    f"(messy={messy})")
+        del xp
+        cap = fk.numel() // 16
+        dk = md.qual_deltas(fk, x["qq"], cap)
+        dp = md.qual_deltas_plain(fk, x["qq"], cap)
+        require(int(dk[0]) == int(dp[0]) and torch.equal(dk[1], dp[1])
+                and torch.equal(dk[2], dp[2]),
+                f"qual_deltas differs from its plain version (messy={messy})")
+        k6_checks.append({"messy": messy, "reads": C,
+                          "chunk_expand_equal": True,
+                          "changed_quals": int(dk[0]), "delta_cap": cap,
+                          "qual_deltas_equal": True})
+        emit({"phase": "chunk_kernels_check", **k6_checks[-1]})
         if not messy:
+            k6 = _k6_rows(pipe, buf, x, fk, LQ)
             hmm_t = cuda_ms(lambda: bd.baq_hmm(*args))
             hmm_b2b = cuda_ms(lambda: bd.baq_hmm(*args), per=10)
             hmm_plain_t = cuda_ms(lambda: bd.baq_hmm_plain(*args))
@@ -689,7 +818,13 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
                 "tool_ms": cuda_ms(lambda: pipe._chunk_step(
                     *step, collect=True)),
                 "tool_b2b_ms": cuda_ms(lambda: pipe._chunk_step(
-                    *step, collect=True), per=10), "reads": C}
+                    *step, collect=True), per=10),
+                # the device's time alone: a CUDA graph of chunk steps
+                # (every wrapper only allocates and launches)
+                "device_ms": graph_ms(lambda: pipe._chunk_step(*step),
+                                      calls=5),
+                "tool_device_ms": graph_ms(lambda: pipe._chunk_step(
+                    *step, collect=True), calls=5), "reads": C}
     rows["baq_hmm"] = dict(max_abs_err=max(h["bq_max_abs_err"]
                                            for h in hmm_stats), ms=hmm_t,
                            b2b_ms=hmm_b2b, device_ms=hmm_dev,
@@ -805,11 +940,15 @@ def phase_kernels(ref: np.ndarray, ref_int: np.ndarray, dev) -> dict:
     for r in k1:
         if r["chunk"] == "deep_pile":
             rows[r["kernel"]] = r
+    for name, row in k6.items():
+        rows[name] = dict(row, checks=k6_checks)
     # K6, the chunk step: the sum of its parts' bounds at this chunk (K4
-    # by operations, K5 and K1's census form by bytes)
-    chunk_step = {"bound_ms": sum(rows[k]["bound_ms"] for k in (
-        "baq_hmm", "baq_finalize", "segment_census")),
-        "bound_by": "sum of K4, K5 and K1 census-form bounds", **step_t}
+    # by operations, the others by bytes)
+    parts = ("baq_hmm", "baq_finalize", "segment_census", "chunk_expand",
+             "qual_deltas")
+    chunk_step = {"bound_ms": sum(rows[k]["bound_ms"] for k in parts),
+                  "bound_by": "sum of K4, K5, K1 census-form, chunk_expand "
+                              "and qual_deltas bounds", **step_t}
     emit({"phase": "kernels", **rows, "chunk_step": chunk_step,
           "k1_plain_30x": [r for r in k1 if r["chunk"] == "plain_30x"]})
     return rows
@@ -982,32 +1121,20 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
     import torch
     from samtools_tpu_torch import cli, kernels
     from samtools_tpu_torch.io.bam import write_bam
-    from samtools_tpu_torch.ops import mpileup_device as md
     from samtools_tpu_torch.ops.mpileup_device import census_checksum
     from samtools_tpu_torch.sim import (make_header,
                                         simulate_overlapping_pairs)
     fa = os.path.join(workdir, "ref.fa")
     write_fasta(fa, ref)
     launches, texts = {}, {}
-    checksum = md.census_checksum_dev
-    n_checksums = []
-
-    def count_checksum(*args):
-        n_checksums.append(1)
-        return checksum(*args)
     for name, (bam, o_census, o_qsum, nrec) in oracles.items():
         out = os.path.join(workdir, f"{name}.pileup")
         cj = os.path.join(workdir, f"{name}.census.json")
         kernels.reset_launches()
-        n_checksums.clear()
-        md.census_checksum_dev = count_checksum
         t0 = time.perf_counter()
-        try:
-            rc = cli.main(["mpileup", "-f", fa, bam, "-o", out,
-                           "--census-out", cj])
-            torch.cuda.synchronize()
-        finally:
-            md.census_checksum_dev = checksum
+        rc = cli.main(["mpileup", "-f", fa, bam, "-o", out, "--census-out",
+                       cj])
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs = dict(kernels.launches)
         require(rc == 0, f"tool {name}: rc {rc}")
@@ -1024,6 +1151,17 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
                 runs["segment_contract"] == 0,
                 f"tool {name}: the main path's kernels are {MAIN_PATH}: "
                 f"{runs}")
+        # K7 once a device window's --census-out checksum; K6's front and
+        # tail once a device chunk (each chunk launches K1's census form
+        # once)
+        require(runs["census_checksum"] == rec["device_windows"] > 0,
+                f"tool {name}: K7 launched {runs['census_checksum']} times "
+                f"for {rec['device_windows']} device windows")
+        require(runs["chunk_expand"] == runs["qual_deltas"]
+                == runs["segment_census"],
+                f"tool {name}: chunk_expand {runs['chunk_expand']} and "
+                f"qual_deltas {runs['qual_deltas']} launches for "
+                f"{runs['segment_census']} device chunks")
         launches[name] = runs
         texts[name] = out
         emit({"phase": "tool", "workload": name, "reads": int(nrec),
@@ -1037,10 +1175,8 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
               "host_reads": rec["host_reads"],
               "risky_reads": sum(w.get("risky_reads", 0)
                                  for w in rec["windows"]),
-              "census_checksum_calls": len(n_checksums),
+              "device_chunks": runs["segment_census"],
               "launches": runs, "census_equal": True})
-        if name == "clean":
-            tool_checksums = len(n_checksums)
         if name != "clean":
             os.remove(out)
 
@@ -1083,7 +1219,7 @@ def phase_tool(ref: np.ndarray, workdir: str, oracles: dict) -> dict:
           "host_wall_s": round(walls["host"], 3),
           "output_bytes": len(card), "output_rows": card.count(b"\n"),
           "byte_equal": True})
-    return launches, (bam, n_pairs_reads), texts["clean"], tool_checksums
+    return launches, (bam, n_pairs_reads), texts["clean"]
 
 
 def global_share(rp, lo, hi, wbeg: int, tile: int, P: int, win: int):
@@ -2121,11 +2257,10 @@ def k12_stress_inputs(seq, qual, off, order, rev) -> dict:
 
 
 def phase_kernels_stats(bams: dict, ref: np.ndarray, ref_int: np.ndarray,
-                        dev, core_census, tool_checksums: int) -> dict:
+                        dev, core_census) -> dict:
     """K12 on chunks of clean, the pairs and long synthetic reads; K7n on
     clean's core census and on a 300x census; K7's checksum on clean's
-    core census."""
-    import torch
+    core census and on the tool's window of it."""
     from samtools_tpu_torch.io.stream import BamStream
     from samtools_tpu_torch.ops import mpileup_device as md
     from samtools_tpu_torch.sim import simulate_batch
@@ -2178,28 +2313,70 @@ def phase_kernels_stats(bams: dict, ref: np.ndarray, ref_int: np.ndarray,
             "the 300x census did not narrow to u16")
     del deep
     rows["census_narrow"] = dict(narrow["core_clean"], censuses=narrow)
-    # K7's checksum on the same census; the library: torch.sum of the
-    # weighted lanes (built once, not timed)
-    c = core_census[:REF_LEN]
-    v = torch.cat([c[:, :5].reshape(-1), c[:, 5]]).to(torch.int64)
-    idx = torch.arange(v.numel(), dtype=torch.int64, device=dev)
-    weighted = md._mulmod32(v, md._mulmod32(idx, torch.full_like(
-        idx, 2654435761)))
-    del v, idx
-    got = md.census_checksum_dev(core_census, REF_LEN)
-    h = c.cpu().numpy()
-    want = md.census_checksum(h[:, :5], h[:, 5])
-    require(got == want, "K7's checksum differs from census_checksum")
-    checksum = dict(
-        ms=cuda_ms(lambda: md.census_checksum_dev(core_census, REF_LEN)),
-        library_ms=cuda_ms(lambda: torch.sum(weighted)),
-        launches_tool_clean=tool_checksums, launches_core=1,
-        detail={"rows": REF_LEN},
-        **dict(zip(("bound_ms", "bound_by"), bound(REF_LEN * 24 + 8, 0))))
-    del weighted
+    # K7's checksum on the same census, on its 8 Mi rows and on the
+    # tool's window of 1 Mi
+    rows["census_checksum"] = checksum = _k7_case(core_census, REF_LEN)
+    checksum["windows"] = {"tool_window_clean": _k7_case(core_census,
+                                                         WINDOW_ROWS)}
     emit({"phase": "kernels_stats", "census_narrow": narrow,
           "census_checksum": checksum})
     return rows
+
+
+def _k7_case(census, wlen: int) -> dict:
+    """K7 on rows [0, wlen) of ``census``: equal to its plain version on
+    the card and to the host's ``census_checksum``, the wrapper's time
+    (its launch, and the fetch of the two words: a host sync a call, so
+    back-to-back calls do not overlap), the kernel alone (a CUDA graph of
+    the bare C entry, the output's zeroing included), the plain version,
+    ``torch.sum`` of the weighted lanes (built once, not timed) and the
+    bound from bytes."""
+    import torch
+    from samtools_tpu_torch import kernels
+    from samtools_tpu_torch.ops import mpileup_device as md
+    c = census[:wlen]
+    h = c.cpu().numpy()
+    want = md.census_checksum(h[:, :5], h[:, 5])
+    before = kernels.launches["census_checksum"]
+    got = md.census_checksum_dev(census, wlen)
+    require(kernels.launches["census_checksum"] == before + 1,
+            "K7 did not launch once")
+    plain = md.census_checksum_plain(census, wlen)
+    require(got == want == plain, f"K7's checksum {got} differs from its "
+            f"plain version {plain} or census_checksum {want}")
+    lib = kernels._load()
+    out = torch.zeros(2, dtype=torch.int32, device=census.device)
+    blocks = md.checksum_plan(wlen, kernels.sm_count(census.device))
+
+    # on the current stream at each call: the graph's capture stream
+    # while graph_ms captures
+    def bare():
+        out.zero_()
+        require(lib.samtpu_census_checksum(
+            census.data_ptr(), wlen, blocks, out.data_ptr(),
+            kernels.stream_of(census)) == 0, "K7's C entry point failed")
+    bare()
+    require([v & 0xFFFFFFFF for v in out.tolist()] == list(got),
+            "K7's C entry point differs from its wrapper")
+    v = torch.cat([c[:, :5].reshape(-1), c[:, 5]]).to(torch.int64)
+    idx = torch.arange(v.numel(), dtype=torch.int64, device=census.device)
+    weighted = md._mulmod32(v, md._mulmod32(idx, torch.full_like(
+        idx, 2654435761)))
+    del v, idx
+    row = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: md.census_checksum_dev(census, wlen)),
+        b2b_ms=cuda_ms(lambda: md.census_checksum_dev(census, wlen),
+                       per=10),
+        device_ms=graph_ms(bare),
+        plain_ms=cuda_ms(lambda: md.census_checksum_plain(census, wlen),
+                         reps=3),
+        library_ms=cuda_ms(lambda: torch.sum(weighted)),
+        detail={"rows": wlen, "blocks": blocks},
+        **dict(zip(("bound_ms", "bound_by"), bound(wlen * 24 + 8, 0))))
+    del weighted
+    return row
+
 
 # the regions phase's card runs: (label, argv; {bam}: the input)
 REGION = "sim1:3000001-4000000"
@@ -4912,8 +5089,8 @@ def main() -> int:
     rows = phase_kernels(ref, ref_int, torch.device("cuda"))
     with tempfile.TemporaryDirectory() as workdir:
         launches, oracles, core_census = phase_main(ref, ref_int, workdir)
-        tool_launches, (pairs, n_pairs), clean_text, tool_checksums = \
-            phase_tool(ref, workdir, oracles)
+        tool_launches, (pairs, n_pairs), clean_text = phase_tool(
+            ref, workdir, oracles)
         bams = {"clean": oracles["clean"][0], "messy": oracles["messy"][0],
                 "pairs": pairs}
         fronts = {}
@@ -4938,8 +5115,7 @@ def main() -> int:
         stats = phase_stats(bams, workdir, {
             "clean": oracles["clean"][3], "pairs": n_pairs, **fronts})
         stats_rows = phase_kernels_stats(bams, ref, ref_int,
-                                         torch.device("cuda"), core_census,
-                                         tool_checksums)
+                                         torch.device("cuda"), core_census)
         del core_census
         header, cram_reads = phase_regions(workdir, bams, cons, cons_whole)
         cram, cram_bam, cram_path = phase_cram(workdir, ref, header,
@@ -5064,6 +5240,17 @@ def main() -> int:
                        qual_sums_ms=r["qual_sums_ms"], tiled=tiled,
                        device_ms=r["device_ms"], detail=r["detail"],
                        shapes=r["shapes"])
+        if name in ("census_checksum", "chunk_expand", "qual_deltas"):
+            # launches: the mpileup command on clean (K7 a window, K6's
+            # front and tail a device chunk); core_launches: the census
+            # core's (K7 in finish_checksum, K6's front a chunk)
+            row["detail"] = r["detail"]
+        if name == "census_checksum":
+            row["windows"] = r["windows"]
+        if name in ("chunk_expand", "qual_deltas"):
+            row["checks"] = r["checks"]
+        if name == "chunk_expand":
+            row["library_note"] = r["library_note"]
         cram_launches = {k: v[name] for k, v in cram.items() if v[name]}
         if cram_launches:
             # the cram phase's runs on the CRAM input

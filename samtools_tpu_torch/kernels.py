@@ -25,7 +25,8 @@ from . import build
 launches = {"segment_contract": 0, "segment_census": 0, "baq_hmm": 0,
             "baq_finalize": 0, "baq_apply": 0, "stable_order": 0,
             "consensus_segsum": 0, "flagstat": 0, "stats_hists": 0,
-            "census_narrow": 0, "pileup_scatter": 0, "pileup_tiled": 0}
+            "census_narrow": 0, "pileup_scatter": 0, "pileup_tiled": 0,
+            "census_checksum": 0, "chunk_expand": 0, "qual_deltas": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -51,6 +52,11 @@ _SIGNATURES = {
     "samtpu_pileup_scatter": [_P, _P, _P, _P, ctypes.c_int64, _INT, _INT,
                               _INT, _P, _P],
     "samtpu_pileup_tiled": [_P, _P, _P, _INT, _INT, _INT, _P, _P],
+    "samtpu_census_checksum": [_P, ctypes.c_int64, _INT, _P, _P],
+    "samtpu_chunk_expand": [_P, _INT, _INT, _P, ctypes.c_int64, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P],
+    "samtpu_qual_deltas": [_P, _P, ctypes.c_int64, _INT, _INT, _P, _P, _P,
+                           _P, _P],
     # device queries: int64 values written, CUDA error returned
     "samtpu_census_narrow_limits": [ctypes.POINTER(ctypes.c_int64)],
 }

@@ -3,8 +3,9 @@
 Counterpart of samtools_tpu/ops/mpileup_device.py (its census path):
 
   BamStream batch -> columnar decode (C++) -> classify reads -> one packed
-  host->device buffer per chunk -> cigar expansion, ref-window gather,
-  banded pair-HMM BAQ (K4), finalize (K5) -> census contraction (K1's
+  host->device buffer per chunk -> buffer parse, cigar expansion and
+  ref-window gather (K6's front, ``chunk_expand``), banded pair-HMM BAQ
+  (K4), finalize (K5) -> census contraction (K1's
   census form: quality and ownership gate, one-hot and qual lane built
   in its load step) added in place into a resident int32 [pad_len, 6]
   census -> ONE device->host fetch at the end, narrowed on the card to
@@ -23,9 +24,11 @@ Two consumers (as in the JAX package):
 * ``begin_window``/``finish_window``/``apply_window`` -- the mpileup
   tool's engine: the text must print the BAQ'd quals, so each chunk also
   compacts the quals BAQ changed into a fixed-capacity sparse list
-  (count, flat index, value) on the device, without a host sync, and the
-  host fetches those and writes them into the window's reads; the census
-  of the window's owned columns rides along for ``--census-out``.
+  (count, flat index, value) on the device, without a host sync (K6's
+  tail, ``qual_deltas``), and the host fetches those and writes them
+  into the window's reads; the census of the window's owned columns
+  rides along for ``--census-out`` as its two-lane checksum (K7,
+  ``census_checksum_dev``).
 """
 
 from __future__ import annotations
@@ -187,7 +190,7 @@ def stored_baq_tags(b, rows: np.ndarray | None = None) -> bool:
                for i in (range(b.n) if rows is None else rows.tolist()))
 
 
-def qual_deltas(appq: torch.Tensor, qq: torch.Tensor, cap: int):
+def qual_deltas_plain(appq: torch.Tensor, qq: torch.Tensor, cap: int):
     """The quals BAQ changed, compacted on the device without a host
     sync: (dcount int32 scalar, didx int32[cap] flat index into [C, LQ],
     dval uint8[cap] new qual), in flat order.  Past dcount, didx is 0
@@ -204,6 +207,47 @@ def qual_deltas(appq: torch.Tensor, qq: torch.Tensor, cap: int):
     didx.scatter_(0, slot.long(), ar)
     didx = didx[:cap]
     return rank[-1] + 1, didx, appq.reshape(-1)[didx.long()]
+
+
+# the qual-delta kernel's tile (csrc/qual_deltas.cu): flat quals a block
+DELTA_TILE = 8192
+
+
+def deltas_plan(n: int) -> int:
+    """Blocks of both grids of the qual-delta kernel over ``n`` flat
+    quals: one a tile of DELTA_TILE."""
+    return -(-n // DELTA_TILE)
+
+
+def qual_deltas(appq: torch.Tensor, qq: torch.Tensor, cap: int):
+    """K6's tail: ``qual_deltas_plain``'s (dcount, didx, dval) of the
+    applied quals ``appq`` against the read's ``qq`` (uint8 [C, LQ]), at
+    capacity ``cap``.  CPU tensors take the plain version; CUDA tensors
+    launch csrc/qual_deltas.cu (two grids behind one entry: the changed
+    count a tile, then each tile's changes written at their ranks), with
+    no host sync."""
+    kernels.check(appq, "appq", torch.uint8, (None, None))
+    kernels.check(qq, "qq", torch.uint8, tuple(appq.shape))
+    n = appq.numel()
+    if not 0 < n < (1 << 31):
+        raise ValueError(f"qual_deltas takes 1 to 2^31 - 1 quals, got {n}")
+    if not 0 <= cap < (1 << 31):
+        raise ValueError(f"cap {cap} out of range")
+    if not kernels.on_card(appq, qq):
+        return qual_deltas_plain(appq, qq, cap)
+    if appq.data_ptr() % 16 or qq.data_ptr() % 16:
+        raise ValueError("qual_deltas needs 16-byte aligned quals")
+    dev = appq.device
+    blocks = deltas_plan(n)
+    counts = torch.empty(blocks, dtype=torch.int32, device=dev)
+    dcount = torch.empty((), dtype=torch.int32, device=dev)
+    didx = torch.empty(cap, dtype=torch.int32, device=dev)
+    dval = torch.empty(cap, dtype=torch.uint8, device=dev)
+    kernels.launch("qual_deltas", "samtpu_qual_deltas", appq.data_ptr(),
+                   qq.data_ptr(), n, cap, blocks, counts.data_ptr(),
+                   dcount.data_ptr(), didx.data_ptr(), dval.data_ptr(),
+                   kernels.stream_of(appq), device=dev)
+    return dcount, didx, dval
 
 
 def census_checksum(census: np.ndarray, qsum: np.ndarray):
@@ -235,9 +279,9 @@ def _mulmod32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def census_checksum_dev(census_dev: torch.Tensor, wlen: int):
-    """``census_checksum`` of the resident [pad_len, 6] census, computed
-    on its device (the counterpart of the JAX package's ``_ck_jit``)."""
+def census_checksum_plain(census_dev: torch.Tensor, wlen: int):
+    """K7's plain version: ``census_checksum`` of rows [0, wlen) of the
+    resident [pad_len, 6] census, in int64 tensor ops on its device."""
     c = census_dev[:wlen]
     v = torch.cat([c[:, :5].reshape(-1), c[:, 5]]).to(torch.int64) & _M32
     idx = torch.arange(v.numel(), dtype=torch.int64, device=v.device)
@@ -246,6 +290,49 @@ def census_checksum_dev(census_dev: torch.Tensor, wlen: int):
     s1 = int(_mulmod32(v, w1).sum()) & _M32
     s2 = int(_mulmod32(v, w2).sum()) & _M32
     return s1, s2
+
+
+# K7's grid (csrc/census_checksum.cu): threads a block, blocks an SM at most
+CHECKSUM_THREADS = 256
+CHECKSUM_BLOCKS_PER_SM = 4
+
+
+def checksum_plan(wlen: int, sms: int) -> int:
+    """K7's blocks for rows [0, wlen) on a card of ``sms`` SMs: enough
+    for a 16-byte vector (4 words) a thread, at most
+    CHECKSUM_BLOCKS_PER_SM an SM (a grid-stride loop takes the rest)."""
+    vectors = -(-6 * wlen // 4)
+    return max(1, min(-(-vectors // CHECKSUM_THREADS),
+                      CHECKSUM_BLOCKS_PER_SM * sms))
+
+
+def census_checksum_dev(census_dev: torch.Tensor, wlen: int):
+    """K7: ``census_checksum`` of rows [0, wlen) of the resident
+    [pad_len, 6] census, computed on its device (the counterpart of the
+    JAX package's ``_ck_jit``).  A CPU tensor takes the plain version; a
+    CUDA tensor launches csrc/census_checksum.cu into a zeroed 2-word
+    output, fetched once."""
+    kernels.check(census_dev, "census", torch.int32, (None, CENSUS_K))
+    if not 0 <= wlen <= census_dev.shape[0]:
+        raise ValueError(f"wlen {wlen} outside the census's "
+                         f"{census_dev.shape[0]} rows")
+    if 6 * wlen >= (1 << 32):
+        raise ValueError(f"wlen {wlen}: the checksum's index is 32-bit")
+    if not kernels.on_card(census_dev):
+        return census_checksum_plain(census_dev, wlen)
+    if census_dev.data_ptr() % 16:
+        raise ValueError("census: K7 needs a 16-byte aligned census")
+    if wlen == 0:
+        return 0, 0
+    dev = census_dev.device
+    out = torch.zeros(2, dtype=torch.int32, device=dev)
+    kernels.launch("census_checksum", "samtpu_census_checksum",
+                   census_dev.data_ptr(), wlen,
+                   checksum_plan(wlen, kernels.sm_count(dev)),
+                   out.data_ptr(), kernels.stream_of(census_dev),
+                   device=dev)
+    s1, s2 = out.tolist()
+    return s1 & _M32, s2 & _M32
 
 
 def narrow_types(cmax: int, qmax: int) -> tuple[torch.dtype, torch.dtype]:
@@ -390,6 +477,101 @@ def census_narrow(census: torch.Tensor, wlen: int):
     return buf[:_narrow_offsets(wlen, cdt, qdt)[1]], cdt, qdt
 
 
+def chunk_expand_plain(buf: torch.Tensor, ref_dev: torch.Tensor,
+                       nt16_to4: torch.Tensor, l_query: int) -> dict:
+    """Parse one chunk's device buffer and expand its cigars.  Returns
+    device tensors: the HMM inputs (ref_win, sq, qq, cdT, lref, bMv,
+    bIv), the M-op ordinal of each base (seg, -1 off M) and each
+    base's absolute reference position (refpos, valid on M bases)."""
+    LQ = l_query
+    LRM = LQ + LREF_PAD
+    dev = buf.device
+    i32 = torch.int32
+    # a copy with its own row stride: a one-read chunk's slice counts as
+    # contiguous and would keep the buffer's stride, which is not a
+    # multiple of 4 for an odd l_query
+    hdr = buf[:, :HDR].clone(memory_format=torch.contiguous_format)
+    pc = hdr[:, 0:4].view(i32)[:, 0]
+    lead = hdr[:, 4:6].view(torch.int16)[:, 0].to(i32) & 0xFFFF
+    lref = (hdr[:, 6:8].view(torch.int16)[:, 0].to(i32) & 0xFFFF) \
+        .contiguous()
+    cig = hdr[:, 16:HDR].view(i32)
+
+    # cigar expansion (consensus_pileup.c:81 walk): per base, whether
+    # it is an M base, its expected diagonal and its M-op ordinal
+    ops = cig & 0xF
+    ln = (cig >> 4) & 0x0FFFFFFF
+    is_m_op = (ops == 0) | (ops == 7) | (ops == 8)
+    qlen = ln * (is_m_op | (ops == 1) | (ops == 4))
+    rlen = ln * (is_m_op | (ops == 2))
+    qstart = torch.cumsum(qlen, 1, dtype=i32) - qlen
+    rstart = torch.cumsum(rlen, 1, dtype=i32) - rlen
+    qi = torch.arange(LQ, dtype=i32, device=dev)
+    inm = (is_m_op[:, :, None] & (qi >= qstart[:, :, None])
+           & (qi < (qstart + qlen)[:, :, None]))          # [C, 8, LQ]
+    is_m = inm.any(1)
+    cd_op = rstart - qstart + lead[:, None]
+    cdelta = (inm * cd_op[:, :, None]).sum(1, dtype=i32)
+    opid = torch.arange(MAXOPS, dtype=i32, device=dev)
+    segid = (inm * opid[None, :, None]).sum(1, dtype=i32)
+
+    xb = pc - lead
+    idx = xb[:, None] + torch.arange(LRM, dtype=i32, device=dev)
+    return dict(
+        ref_win=ref_dev[idx.clamp(0, ref_dev.numel() - 1).long()],
+        sq=nt16_to4[buf[:, HDR:HDR + LQ].long()],
+        qq=buf[:, HDR + LQ:HDR + 2 * LQ].contiguous(),
+        cdT=torch.where(is_m, cdelta, _BIGC).t().contiguous(),
+        lref=lref,
+        bMv=hdr[:, 8:12].view(torch.float32)[:, 0].contiguous(),
+        bIv=hdr[:, 12:16].view(torch.float32)[:, 0].contiguous(),
+        seg=torch.where(is_m, segid, -1).contiguous(),
+        refpos=xb[:, None] + qi[None, :] + cdelta)
+
+
+# chunk_expand's tensors, in the order of the kernel's output arguments
+EXPAND_KEYS = ("ref_win", "sq", "qq", "cdT", "lref", "bMv", "bIv", "seg",
+               "refpos")
+
+
+def chunk_expand(buf: torch.Tensor, ref_dev: torch.Tensor,
+                 nt16_to4: torch.Tensor, l_query: int) -> dict:
+    """K6's front: ``chunk_expand_plain``'s tensors from one chunk's
+    packed buffer (uint8 [C, HDR + 2 l_query], C >= 1), the contig's 0-4
+    codes ``ref_dev`` and the nt16 -> 0-4 table.  CPU tensors take the
+    plain version; CUDA tensors launch csrc/chunk_expand.cu (a block of
+    32 reads, each base's op found from the read's 8 cigar words, cdT
+    transposed through shared memory), which allocates nothing of
+    [C, 8, l_query]."""
+    if l_query < 1:
+        raise ValueError(f"l_query {l_query} < 1")
+    kernels.check(buf, "buf", torch.uint8, (None, HDR + 2 * l_query))
+    kernels.check(ref_dev, "ref_dev", torch.uint8, (None,))
+    kernels.check(nt16_to4, "nt16_to4", torch.uint8, (16,))
+    C = buf.shape[0]
+    if not 0 < C < (1 << 31) or ref_dev.numel() == 0:
+        raise ValueError(f"chunk_expand takes 1 to 2^31 - 1 reads and a "
+                         f"contig, got {C} reads, {ref_dev.numel()} bases")
+    if not kernels.on_card(buf, ref_dev, nt16_to4):
+        return chunk_expand_plain(buf, ref_dev, nt16_to4, l_query)
+    dev = buf.device
+    LQ = l_query
+
+    def out(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    x = dict(ref_win=out((C, LQ + LREF_PAD), torch.uint8),
+             sq=out((C, LQ), torch.uint8), qq=out((C, LQ), torch.uint8),
+             cdT=out((LQ, C), torch.int32), lref=out(C, torch.int32),
+             bMv=out(C, torch.float32), bIv=out(C, torch.float32),
+             seg=out((C, LQ), torch.int32), refpos=out((C, LQ), torch.int32))
+    kernels.launch("chunk_expand", "samtpu_chunk_expand", buf.data_ptr(), C,
+                   LQ, ref_dev.data_ptr(), ref_dev.numel(),
+                   nt16_to4.data_ptr(),
+                   *(x[k].data_ptr() for k in EXPAND_KEYS),
+                   kernels.stream_of(buf), device=dev)
+    return x
+
+
 class DeviceCensusPipeline:
     """Accumulates the BAQ'd base census of one window [base, base+wlen)
     of contig ``ref_int`` (0-4 codes) on the device across streamed
@@ -488,52 +670,10 @@ class DeviceCensusPipeline:
         return plan.lo, plan.hi, t0 * tile, ntp
 
     def _expand(self, buf: torch.Tensor) -> dict:
-        """Parse one chunk's device buffer and expand its cigars.  Returns
-        device tensors: the HMM inputs (ref_win, sq, qq, cdT, lref, bMv,
-        bIv), the M-op ordinal of each base (seg, -1 off M) and each
-        base's absolute reference position (refpos, valid on M bases)."""
-        LQ = self.l_query
-        LRM = LQ + LREF_PAD
-        dev = buf.device
-        i32 = torch.int32
-        hdr = buf[:, :HDR].contiguous()
-        pc = hdr[:, 0:4].view(i32)[:, 0]
-        lead = hdr[:, 4:6].view(torch.int16)[:, 0].to(i32) & 0xFFFF
-        lref = (hdr[:, 6:8].view(torch.int16)[:, 0].to(i32) & 0xFFFF) \
-            .contiguous()
-        cig = hdr[:, 16:HDR].view(i32)
-
-        # cigar expansion (consensus_pileup.c:81 walk): per base, whether
-        # it is an M base, its expected diagonal and its M-op ordinal
-        ops = cig & 0xF
-        ln = (cig >> 4) & 0x0FFFFFFF
-        is_m_op = (ops == 0) | (ops == 7) | (ops == 8)
-        qlen = ln * (is_m_op | (ops == 1) | (ops == 4))
-        rlen = ln * (is_m_op | (ops == 2))
-        qstart = torch.cumsum(qlen, 1, dtype=i32) - qlen
-        rstart = torch.cumsum(rlen, 1, dtype=i32) - rlen
-        qi = torch.arange(LQ, dtype=i32, device=dev)
-        inm = (is_m_op[:, :, None] & (qi >= qstart[:, :, None])
-               & (qi < (qstart + qlen)[:, :, None]))          # [C, 8, LQ]
-        is_m = inm.any(1)
-        cd_op = rstart - qstart + lead[:, None]
-        cdelta = (inm * cd_op[:, :, None]).sum(1, dtype=i32)
-        opid = torch.arange(MAXOPS, dtype=i32, device=dev)
-        segid = (inm * opid[None, :, None]).sum(1, dtype=i32)
-
-        xb = pc - lead
-        idx = xb[:, None] + torch.arange(LRM, dtype=i32, device=dev)
-        return dict(
-            ref_win=self.ref_dev[idx.clamp(0, self.ref_dev.numel() - 1)
-                                 .long()],
-            sq=self._nt16_to4[buf[:, HDR:HDR + LQ].long()],
-            qq=buf[:, HDR + LQ:HDR + 2 * LQ].contiguous(),
-            cdT=torch.where(is_m, cdelta, _BIGC).t().contiguous(),
-            lref=lref,
-            bMv=hdr[:, 8:12].view(torch.float32)[:, 0].contiguous(),
-            bIv=hdr[:, 12:16].view(torch.float32)[:, 0].contiguous(),
-            seg=torch.where(is_m, segid, -1).contiguous(),
-            refpos=xb[:, None] + qi[None, :] + cdelta)
+        """``chunk_expand`` of one chunk's device buffer with this
+        pipeline's contig, table and read length."""
+        return chunk_expand(buf, self.ref_dev, self._nt16_to4,
+                            self.l_query)
 
     def _chunk_step(self, buf, lo, hi, wbeg: int, ntp: int,
                     gate_lo: int, gate_hi: int, collect: bool = False):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_chunk_cases as cc
 import torch_k14_shapes as k14
 from samtools_tpu_torch import kernels, sim
 from samtools_tpu_torch.ops import baq_device as bd
@@ -290,7 +291,9 @@ def test_pipeline_on_card_equals_cpu(cuda):
     # the main path: the census form, never the generic form's (rp, W)
     assert kernels.launches["segment_contract"] == 0
     assert all(kernels.launches[k] > 0 for k in
-               ("segment_census", "baq_hmm", "baq_finalize"))
+               ("segment_census", "baq_hmm", "baq_finalize",
+                "chunk_expand"))
+    assert kernels.launches["census_checksum"] == 1
     assert np.array_equal(got["cpu"][0], got[None][0])
     assert np.array_equal(got["cpu"][1], got[None][1])
     assert got["cpu"][2] == got[None][2]
@@ -339,6 +342,10 @@ def test_tool_on_card_equals_cpu(cuda, tmp_path, monkeypatch, which):
             assert launched["segment_contract"] == 0
             assert all(launched[k] >= 24 for k in
                        ("segment_census", "baq_hmm", "baq_finalize"))
+            # K6's front and tail once a chunk, K7 once a window
+            assert launched["chunk_expand"] == launched["qual_deltas"] \
+                == launched["segment_census"]
+            assert launched["census_checksum"] == len(got[dev][1])
     assert got[None][0].count(b"\n") > L // 2
     assert got[None] == got["cpu"]
 
@@ -1295,3 +1302,158 @@ def test_mesh_of_the_card_equals_unsharded(cuda):
         assert kernels.launches["segment_contract"] - before == \
             4 * (2 if min_qual else 1)
         assert np.array_equal(got, want)
+
+
+# ----------------------------------------------- K6's front and tail, K7
+TABLE = torch.from_numpy(md.NT16_TO4)
+
+
+def _on_card_at(t: torch.Tensor, cuda, offset: int = 0) -> torch.Tensor:
+    """``t`` copied to the card, its data ``offset`` bytes past an
+    allocation's start."""
+    flat = torch.empty(t.numel() * t.element_size() + offset,
+                       dtype=torch.uint8, device=cuda)
+    view = flat[offset:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _assert_same_tensors(got: dict, want: dict):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k].cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if g.dtype == torch.float32:      # bit for bit
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), k
+
+
+def _expand_case(case: str):
+    lq = int(case.split("-")[1])
+    if case.startswith("synthetic"):
+        return (*cc.synthetic_chunk(lq, 1000, ref_len=1 << 14, seed=lq), lq)
+    n = 65536 if case.endswith("65536") else 3000
+    return (*cc.simulated_chunk(lq, case.startswith("messy"), n,
+                                ref_len=1 << 18), lq)
+
+
+@pytest.mark.parametrize("case", [
+    "clean-100-65536", "messy-100-65536", "clean-150-65536",
+    "messy-150-3000", "clean-37-3000", "synthetic-37", "synthetic-100",
+    "synthetic-150", "synthetic-250"])
+def test_chunk_expand_equals_plain(cuda, case):
+    """K6's front on the card: the plain version's tensors byte for byte,
+    one launch; the same from a buffer one byte past 16-byte alignment
+    and from a chunk of one read."""
+    buf, ref_int, lq = _expand_case(case)
+    b, r = torch.from_numpy(buf), torch.from_numpy(ref_int)
+    want = md.chunk_expand_plain(b, r, TABLE, lq)
+    rc, tc = r.to(cuda), TABLE.to(cuda)
+    for offset in (0, 1):
+        before = kernels.launches["chunk_expand"]
+        got = md.chunk_expand(_on_card_at(b, cuda, offset), rc, tc, lq)
+        torch.cuda.synchronize()
+        assert kernels.launches["chunk_expand"] == before + 1
+        _assert_same_tensors(got, want)
+    one = md.chunk_expand(b[:1].to(cuda), rc, tc, lq)
+    _assert_same_tensors(one, md.chunk_expand_plain(b[:1], r, TABLE, lq))
+
+
+@pytest.mark.parametrize("n_reads,lq,changed", [
+    (65536, 100, "3%"), (65536, 100, "cap+1"), (65536, 150, "10%"),
+    (65536, 100, 0), (65536, 100, "all"), (3001, 37, "cap"),
+    (7, 37, "cap-1"), (1, 8, 3)])
+def test_qual_deltas_equals_plain(cuda, n_reads, lq, changed):
+    """K6's tail on the card: the plain version's count, list and values
+    byte for byte (under, at and over capacity; nothing and everything
+    changed; a capacity of 0), one launch, no host sync before the
+    count is read."""
+    n = n_reads * lq
+    cap = n // 16
+    d = {"3%": n * 3 // 100, "10%": n // 10, "cap-1": cap - 1, "cap": cap,
+         "cap+1": cap + 1, "all": n}.get(changed, changed)
+    appq, qq = cc.changed_quals(n_reads, lq, d, seed=n_reads + lq)
+    a, q = torch.from_numpy(appq), torch.from_numpy(qq)
+    want = md.qual_deltas_plain(a, q, cap)
+    before = kernels.launches["qual_deltas"]
+    got = md.qual_deltas(a.to(cuda), q.to(cuda), cap)
+    assert kernels.launches["qual_deltas"] == before + 1
+    assert int(got[0]) == int(want[0]) == d
+    assert got[0].dim() == 0 and got[0].dtype == torch.int32
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+    if n >= 32:
+        with pytest.raises(ValueError):         # 16-byte aligned only
+            md.qual_deltas(_on_card_at(a, cuda, 1), q.to(cuda), cap)
+
+
+@pytest.mark.parametrize("wlen", [0, 1, 4095, 4096, 1 << 20,
+                                  (8 << 20) + 3])
+@pytest.mark.parametrize("negative", [False, True])
+def test_census_checksum_equals_plain(cuda, wlen, negative):
+    """K7 on the card: the plain version's two lanes (the host's
+    ``census_checksum`` past 4,096 rows), rows past wlen ignored, one
+    launch (none for no rows)."""
+    c = cc.census_with_pad(wlen, wlen + 5, seed=wlen, negative=negative)
+    if wlen <= 4096:
+        want = md.census_checksum_plain(torch.from_numpy(c), wlen)
+    else:
+        want = md.census_checksum(c[:wlen, :5], c[:wlen, 5])
+    before = kernels.launches["census_checksum"]
+    assert md.census_checksum_dev(torch.from_numpy(c).to(cuda), wlen) == \
+        want
+    assert kernels.launches["census_checksum"] == before + (wlen > 0)
+
+
+def test_chunk_kernels_on_two_streams_equal_plain(cuda):
+    """K6's front and tail and K7 launched on two streams in turns, on
+    inputs that differ: each call gives its own input's plain result."""
+    cases = []
+    for k, lq in enumerate((100, 150)):
+        buf, ref_int = cc.simulated_chunk(lq, bool(k), 4000, ref_len=1 << 18)
+        appq, qq = cc.changed_quals(4000, lq, 1000 * (k + 1), seed=k)
+        wlen = 50_000 + k
+        census = cc.census_with_pad(wlen, 60_000, seed=k)
+        t = [torch.from_numpy(a) for a in (buf, ref_int, appq, qq, census)]
+        want = (md.chunk_expand_plain(t[0], t[1], TABLE, lq),
+                md.qual_deltas_plain(t[2], t[3], 4000 * lq // 16),
+                md.census_checksum(census[:wlen, :5], census[:wlen, 5]))
+        cases.append((lq, wlen, [a.to(cuda) for a in t], want))
+    tc = TABLE.to(cuda)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(2):
+        for s, (lq, wlen, (b, r, a, q, c), _) in zip(streams, cases):
+            with torch.cuda.stream(s):
+                got.append((md.chunk_expand(b, r, tc, lq),
+                            md.qual_deltas(a, q, a.numel() // 16),
+                            md.census_checksum_dev(c, wlen)))
+    torch.cuda.synchronize()
+    for k, (x, d, ck) in enumerate(got):
+        want = cases[k % 2][3]
+        _assert_same_tensors(x, want[0])
+        assert int(d[0]) == int(want[1][0])
+        assert torch.equal(d[1].cpu(), want[1][1])
+        assert torch.equal(d[2].cpu(), want[1][2])
+        assert ck == want[2]
+
+
+def test_chunk_kernels_on_card_never_take_the_plain_version(cuda,
+                                                            monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+    for name in ("chunk_expand_plain", "qual_deltas_plain",
+                 "census_checksum_plain"):
+        monkeypatch.setattr(md, name, refuse)
+    buf, ref_int = cc.synthetic_chunk(100, 64, ref_len=1 << 12)
+    x = md.chunk_expand(torch.from_numpy(buf).to(cuda),
+                        torch.from_numpy(ref_int).to(cuda), TABLE.to(cuda),
+                        100)
+    assert x["seg"].shape == (64, 100)
+    q = torch.zeros(64, 100, dtype=torch.uint8, device=cuda)
+    assert int(md.qual_deltas(q + 1, q, 400)[0]) == 6400
+    c = torch.ones(4096, 6, dtype=torch.int32, device=cuda)
+    assert md.census_checksum_dev(c, 4000) == md.census_checksum(
+        np.ones((4000, 5), np.int64), np.ones(4000, np.int64))

@@ -173,12 +173,23 @@ def test_cpu_tensors_never_count_a_launch():
     assert int(pileup_counts(i3, i3, ok, 4).sum()) == 3
     assert int(pileup_counts_tiled(i3[None], i3[None], ok[None], 4, 1)
                .sum()) == 3
+    census = torch.ones(8, 6, dtype=torch.int32)
+    assert md.census_checksum_dev(census, 4) == md.census_checksum(
+        np.ones((4, 5), np.int64), np.ones(4, np.int64))
+    cb = torch.zeros(2, md.HDR + 2 * 8, dtype=torch.uint8)
+    x = md.chunk_expand(cb, torch.zeros(16, dtype=torch.uint8),
+                        torch.from_numpy(md.NT16_TO4), 8)
+    assert x["seg"].shape == (2, 8)
+    q = torch.zeros(2, 16, dtype=torch.uint8)
+    assert int(md.qual_deltas(q + 1, q, 2)[0]) == 32
     assert kernels.launches == {"segment_contract": 0, "segment_census": 0,
                                 "baq_hmm": 0, "baq_finalize": 0,
                                 "baq_apply": 0, "stable_order": 0,
                                 "consensus_segsum": 0, "flagstat": 0,
                                 "stats_hists": 0, "census_narrow": 0,
-                                "pileup_scatter": 0, "pileup_tiled": 0}
+                                "pileup_scatter": 0, "pileup_tiled": 0,
+                                "census_checksum": 0, "chunk_expand": 0,
+                                "qual_deltas": 0}
 
 
 def test_mixed_devices_raise():

@@ -31,7 +31,14 @@ stores); both must equal the plain versions and the JAX functions on
 the hard shapes of ``tests/torch_k14_shapes.py``, with the threads a
 block, stages and items a thread read from the kernel's source
 (``torch_k14_shapes.CU``) and the chunk and budget from the constants
-the wrapper passes.
+the wrapper passes.  K6's qual-delta tail (``mpileup_device.deltas_plan``,
+csrc/qual_deltas.cu: each tile's count, then each thread's changes
+written at its block's scanned ranks, the slots past the count filled)
+and K7's grid-stride checksum (``mpileup_device.checksum_plan``,
+csrc/census_checksum.cu: 16-byte vectors, then the odd words, per-block
+sums mod 2^32) are emulated in numpy too, with the threads a block and
+the quals a thread read from the sources, and must give their plain
+versions' lists and sums exactly.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_chunk_cases as cc
 import torch_k14_shapes as k14
 from samtools_tpu_torch.core import flags as F
 from samtools_tpu_torch.ops import consensus_vec as cv
@@ -728,3 +736,129 @@ def test_k14_scatter_chunk_plan():
         stage = 2 * (4 * C + 16) + C + 16 + (4 * C + 16 if weight else 0)
         smem = k14.CU["RING"] * stage + pd.SCATTER_BUDGET_ROWS * 128
         assert blocks * (smem + 1024 + 64) <= 233_472
+
+
+# ------------------------------------------------- K6's tail, K7 (PR 24)
+def _cu_constants(name: str) -> dict:
+    """The ``constexpr int`` constants of a kernel source."""
+    import pathlib
+    import re
+    src = (pathlib.Path(md.__file__).parent.parent / "csrc" / name) \
+        .read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def _deltas_walk(appq: np.ndarray, qq: np.ndarray, cap: int):
+    """csrc/qual_deltas.cu in numpy: grid 1 counts each tile's changed
+    quals; in grid 2 each block takes the counts of the tiles before its
+    own and of all tiles, each thread its 32 quals' changes at the ranks
+    its block's scan gives them while a rank is below cap, then the
+    slots from min(total, cap) to cap get 0 and appq's first qual.
+    Returns (total, didx, dval, writes a slot)."""
+    cu = _cu_constants("qual_deltas.cu")
+    tpb, per = cu["TPB"], cu["PER"]
+    assert md.DELTA_TILE == tpb * per
+    a, q = appq.reshape(-1), qq.reshape(-1)
+    n = a.size
+    blocks = md.deltas_plan(n)
+    ch = np.zeros(blocks * md.DELTA_TILE, bool)
+    ch[:n] = a != q
+    runs = ch.reshape(blocks, tpb, per)
+    counts = runs.sum((1, 2))
+    total = int(counts.sum())
+    didx = np.zeros(cap, np.int64)
+    dval = np.zeros(cap, np.uint8)
+    writes = np.zeros(cap, np.int64)
+    for b in range(blocks):
+        before = int(counts[:b].sum())
+        if before >= cap:
+            continue
+        tc = runs[b].sum(1)
+        pre = np.cumsum(tc) - tc
+        for t in np.flatnonzero(tc):
+            js = np.flatnonzero(runs[b, t])
+            slots = before + pre[t] + np.arange(js.size)
+            keep = slots < cap
+            e = b * md.DELTA_TILE + t * per + js[keep]
+            didx[slots[keep]] = e
+            dval[slots[keep]] = a[e]
+            writes[slots[keep]] += 1
+    fill = np.arange(min(total, cap), cap)
+    didx[fill] = 0
+    dval[fill] = a[0]
+    writes[fill] += 1
+    return total, didx, dval, writes
+
+
+@pytest.mark.parametrize("n_reads,lq,changed", [
+    (300, 101, 0), (300, 101, 1), (300, 101, "cap-1"), (300, 101, "cap+1"),
+    (300, 101, "all"), (7, 37, "cap"), (1, 8, 3), (200, 150, 2000)])
+def test_k6_tail_walk_equals_plain(n_reads, lq, changed):
+    n = n_reads * lq
+    cap = n // 16
+    d = {"cap-1": cap - 1, "cap": cap, "cap+1": cap + 1,
+         "all": n}.get(changed, changed)
+    appq, qq = cc.changed_quals(n_reads, lq, d, seed=n_reads + lq)
+    total, didx, dval, writes = _deltas_walk(appq, qq, cap)
+    assert (writes == 1).all()          # every slot written once
+    want = md.qual_deltas_plain(torch.from_numpy(appq),
+                                torch.from_numpy(qq), cap)
+    assert total == int(want[0]) == d
+    assert np.array_equal(didx, want[1].numpy())
+    assert np.array_equal(dval, want[2].numpy())
+
+
+def test_k6_tail_plan():
+    # 65,536 reads of 100 bases: 800 tiles; a tile for anything up to one
+    assert md.deltas_plan(65536 * 100) == 800
+    assert md.deltas_plan(1) == md.deltas_plan(md.DELTA_TILE) == 1
+    assert md.deltas_plan(md.DELTA_TILE + 1) == 2
+
+
+def _checksum_walk(census: np.ndarray, wlen: int, sms: int):
+    """csrc/census_checksum.cu in numpy: the flat words [0, 6 wlen) as
+    16-byte vectors over a grid-stride loop of checksum_plan's blocks
+    (vector k to thread k mod blocks x TPB), the odd words after them
+    through the same stride, each word's index 5 r + k for a count and
+    5 wlen + r for a qual sum; each block's two sums mod 2^32 added.
+    Returns (s1, s2, the blocks)."""
+    cu = _cu_constants("census_checksum.cu")
+    tpb = cu["TPB"]
+    assert tpb == md.CHECKSUM_THREADS
+    blocks = md.checksum_plan(wlen, sms)
+    v = census[:wlen].reshape(-1).astype(np.int64) & 0xFFFFFFFF
+    e = np.arange(v.size, dtype=np.int64)
+    r, k = e // 6, e % 6
+    idx = np.where(k < 5, 5 * r + k, 5 * wlen + r)
+    nv = v.size // 4
+    stride = blocks * tpb
+    thread = np.where(e < 4 * nv, (e // 4) % stride, (e - 4 * nv) % stride)
+    block = thread // tpb
+    w1 = (idx * 2654435761) & 0xFFFFFFFF
+    w2 = (((idx + 0x9E3779B9) & 0xFFFFFFFF) * 40503) & 0xFFFFFFFF
+    s1 = s2 = 0
+    for b in range(blocks):
+        m = block == b
+        s1 = (s1 + int((v[m] * w1[m] & 0xFFFFFFFF).sum())) & 0xFFFFFFFF
+        s2 = (s2 + int((v[m] * w2[m] & 0xFFFFFFFF).sum())) & 0xFFFFFFFF
+    return s1, s2, blocks
+
+
+@pytest.mark.parametrize("wlen,sms", [(1, 132), (2, 132), (3, 132),
+                                      (4095, 132), (4096, 132),
+                                      (100_003, 132), (100_003, 1)])
+def test_k7_walk_equals_plain(wlen, sms):
+    c = cc.census_with_pad(wlen, wlen + 5, seed=wlen, negative=sms == 1)
+    s1, s2, blocks = _checksum_walk(c, wlen, sms)
+    assert (s1, s2) == md.census_checksum_plain(torch.from_numpy(c), wlen)
+    assert 1 <= blocks <= md.CHECKSUM_BLOCKS_PER_SM * sms
+
+
+def test_k7_plan():
+    # the census core's 8 Mi rows: 4 blocks an SM; a small window: a
+    # block for every 256 vectors
+    assert md.checksum_plan(8 << 20, 132) == 4 * 132
+    assert md.checksum_plan(1, 132) == 1
+    assert md.checksum_plan(4096, 132) == 24
+    assert md.checksum_plan(1 << 20, 1) == 4
