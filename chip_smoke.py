@@ -72,8 +72,16 @@ from the sources in this checkout.  Phases, one JSON line each:
    depth difference events over one whole-contig plan (K = 1), and the
    coverage items of its first streamed window (K = 4); each with the
    share of its items that take the global-atomic path (emulated from the
-   kernel's piece cut), and the time of the K9 torch ops around it (the
-   depth scan with its narrowed copy; the coverage gate and reduction).
+   kernel's piece cut).  Then K9's two kernels on K1's outputs, each equal
+   to its plain version (scripts/torch_apply_depth_kernels.py's rows):
+   ``depth_scan`` (csrc/depth_scan.cu) on the depth column, its
+   ``device_ms`` into pinned host memory (as the wrapper fetches) and into
+   card memory, its bound in two parts (HBM, and the L values at the
+   width their max picks across the host link at its peak; beside it,
+   at the pinned rate measured), and at its narrowing edges;
+   ``cov_reduce`` (csrc/cov_reduce.cu) on the
+   coverage census and at its edges.  ``library_ms``: ``torch.cumsum`` of
+   the column (the scan only); none for the reduction.
 6. pileup_family -- ``depth``, ``coverage`` and ``bedcov``, the commands
    a user runs: depth (default) on clean and messy, ``depth -a -q 13 -J``
    on clean's front (the reads that start in its first 2 Mbp, written as
@@ -81,16 +89,21 @@ from the sources in this checkout.  Phases, one JSON line each:
    on clean (8 windows) and on messy's front (2 windows) and ``coverage
    -r sim1:1-2000000`` on clean, each in-process (``cli.main``) on the
    card and, as its host twin (below), with ``SAMTPU_DEVICE=0`` (numpy):
-   byte-equal outputs, the card runs launch K1's generic form and never
-   the census form, K4 or K5.  Then ``bedcov`` as two subprocesses at
-   once, clean's front on standard input and a BED of 1,000
-   intervals of 1-10 kbp in its first 2 Mbp, card against
-   ``SAMTPU_DEVICE=0``, byte-equal.  Per run: wall, aligned Mbases/s,
+   byte-equal outputs, the card runs launch K1's generic form and K9
+   (depth: ``depth_scan``; coverage: a ``cov_reduce`` a window, as many as
+   K1's launches) and nothing else.  Then ``bedcov`` as two subprocesses
+   at once (``cli.main`` as ``python -m`` runs it, the launches printed
+   on standard error), clean's front on standard input and a BED of
+   1,000 intervals of 1-10 kbp in its first 2 Mbp, card against
+   ``SAMTPU_DEVICE=0``, byte-equal; the card's launches K1 and
+   ``depth_scan``, the host's none.  Per run: wall, aligned Mbases/s,
    output bytes and rows, launches.
-7. kernels_general -- K8 (``baq_apply``: K4 and K5 around torch ops) on a
-   group of 65,536 all-M reads of 100 bases from the clean BAM against its
-   plain version (applied quals equal on every read neither flags risky,
-   at most 1% of reads in the symmetric difference of the risky sets),
+7. kernels_general -- K8 (``baq_apply``: its front ``apply_expand``, K4
+   and K5) on a group of 65,536 all-M reads of 100 bases from the clean
+   BAM against its plain version (applied quals equal on every read
+   neither flags risky, at most 1% of reads in the symmetric difference of
+   the risky sets; the front byte for byte, with its own row), K8's
+   ``device_ms`` a CUDA graph of its three bare entries,
    then ``apply_baq_batch`` through K8 with the host recompute of the
    risky reads equal to ``io.native.baq_batch`` exactly; K13
    (``stable_order``, ``torch.sort(stable=True)``) on the entry positions
@@ -105,7 +118,8 @@ from the sources in this checkout.  Phases, one JSON line each:
    --output-extra FLAG,POS`` on messy and pairs, and ``coverage -m -r
    sim1:1-2000000`` on clean, card
    against ``SAMTPU_DEVICE=0``, byte-equal.  The card runs must launch K13
-   (and for mpileup K8 with its K4 and K5) and never K1 in either form.
+   (and for mpileup K8 with its front, K4 and K5, the front as often as
+   K8) and never K1 in either form.
 9. consensus -- ``consensus``, ``flagstat`` and ``mpileup --checkpoint``
    in-process, each card run against its ``SAMTPU_DEVICE=0`` run, byte
    for byte: ``consensus -r sim1:1-1000000 -o out.fa`` on clean (it must
@@ -187,7 +201,8 @@ from the sources in this checkout.  Phases, one JSON line each:
    on the card ``mpileup -f ref.fa``, ``depth -a``, ``flagstat`` and
    ``stats`` on both inputs: the same bytes (less stats' command-line
    line) and the same kernels launched (K4, K5 and K1's census form in
-   mpileup, K1's generic form in depth, K11 in flagstat, K12 in stats);
+   mpileup, K1's generic form and K9's depth scan in depth, K11 in
+   flagstat, K12 in stats);
    ``idxstats`` on the CRAM equal to ``idxstats`` on the BAM, and
    ``index`` on the CRAM writing a ``.crai``.  Per run: the encode and
    decode seconds a read, and each run's wall beside its BAM twin's.
@@ -199,9 +214,9 @@ from the sources in this checkout.  Phases, one JSON line each:
    middle and a gap (``-d T``) and once ``-d H``, each in-process on the
    card and as a process on the host branch (``SAMTPU_DEVICE=0``, four
    at a time beside the card's runs): the same bytes, and for ``-b`` the
-   same three BAMs decoded.  The card runs must launch K8 with K4 and K5
-   in ``targetcut -f``, K13 at least once a contig in ``targetcut`` and
-   ``phase``, and K13 once a ``tview`` draw on a window with reads (none
+   same three BAMs decoded.  The card runs must launch K8 with its front
+   (as often as K8), K4 and K5 in ``targetcut -f``, K13 at least once a
+   contig in ``targetcut`` and ``phase``, and K13 once a ``tview`` draw on a window with reads (none
    on the gap), and nothing else.  Per run: both walls (the host's with
    the interpreter's start), output bytes and lines, launches.
 15. ancillary_tools -- wgsim, wgsim_eval, the aligner converters, md5fa,
@@ -388,8 +403,9 @@ wall, ``host_process_wall_s`` the process's from spawn.
 
 Then the script's process: what ``core/malloc_tune.tune()`` gave its
 ``cli.main`` calls, and its peak RSS.  Then the
-kernel table (``baq_apply`` and ``stable_order`` with their
-``pileup_tools_launches``; ``pileup_scatter``, K14, with the launches of
+kernel table (``baq_apply``, ``apply_expand`` and ``stable_order`` with
+their ``pileup_tools_launches``; ``depth_scan`` and ``cov_reduce`` with
+the pileup family's launches; ``pileup_scatter``, K14, with the launches of
 the sharded pileup run and its tiled entry), the script's wall against its 1,200 s limit, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is not 0 and that last line is not printed.
@@ -442,10 +458,13 @@ KERNEL_META = {
                 "samtools_tpu/ops/baq_device.py:114"),
     "baq_finalize": ("samtools_tpu_torch/csrc/baq_finalize.cu",
                      "samtools_tpu/ops/baq_device.py:303"),
-    # K8: K4 and K5 (the two sources above) around torch ops for the
-    # unpack and the gather; K13: torch.sort(stable=True)
+    # K8: its front (below), K4 and K5 (the two sources above), composed
+    # in ops/baq_device.py; K13: torch.sort(stable=True)
     "baq_apply": ("samtools_tpu_torch/ops/baq_device.py",
                   "samtools_tpu/ops/baq_device.py:334"),
+    # K8's front (fused's unpack, codes and window gather, :350-362)
+    "apply_expand": ("samtools_tpu_torch/csrc/apply_expand.cu",
+                     "samtools_tpu/ops/baq_device.py:350"),
     "stable_order": ("samtools_tpu_torch/ops/pileup.py",
                      "samtools_tpu/ops/pileup.py:167"),
     "consensus_segsum": ("samtools_tpu_torch/csrc/consensus_segsum.cu",
@@ -470,6 +489,12 @@ KERNEL_META = {
                      "samtools_tpu/ops/mpileup_device.py:152"),
     "qual_deltas": ("samtools_tpu_torch/csrc/qual_deltas.cu",
                     "samtools_tpu/ops/mpileup_device.py:273"),
+    # K9: the depth scan with its fetch (_depth_cumsum_jit, _fetch_narrow
+    # :270) and the coverage gate and sums
+    "depth_scan": ("samtools_tpu_torch/csrc/depth_scan.cu",
+                   "samtools_tpu/ops/pileup_engine.py:254"),
+    "cov_reduce": ("samtools_tpu_torch/csrc/cov_reduce.cu",
+                   "samtools_tpu/ops/pileup_engine.py:443"),
 }
 # what DeviceCensusPipeline launches (the tool's engine also qual_deltas
 # once a chunk and census_checksum once a window); the generic K1 runs
@@ -539,6 +564,14 @@ def pk():
     chunk paths and the bytes it must read."""
     import torch_pileup_kernels
     return torch_pileup_kernels
+
+
+def ad():
+    """scripts/torch_apply_depth_kernels.py: the rows of K8's front and
+    K9's two kernels (their checks against the plain versions, times
+    and bounds) and their edge cases."""
+    import torch_apply_depth_kernels
+    return torch_apply_depth_kernels
 
 
 def emit(obj: dict) -> None:
@@ -1242,7 +1275,7 @@ def global_share(rp, lo, hi, wbeg: int, tile: int, P: int, win: int):
 
 
 def phase_kernels_pileup(clean: str, dev) -> tuple:
-    """K1's generic form and the K9 torch ops at the pileup family's
+    """K1's generic form and K9's two kernels at the pileup family's
     shapes, on the clean BAM; also the reads of the coverage -r run."""
     import torch
     from samtools_tpu_torch import kernels
@@ -1303,29 +1336,25 @@ def phase_kernels_pileup(clean: str, dev) -> tuple:
         outs[shape] = out_k
     require(kernels.launches["segment_contract"] > before,
             "the generic K1 never launched at the pileup shapes")
-    # K9: the depth scan (cumsum + direct, max, narrowing, one copy) and
-    # the coverage gate + subwindow sums, at the same shapes
+    # K9: the depth scan (csrc/depth_scan.cu: the scan and the max, the
+    # first L values as int32 into pinned host memory) on the depth
+    # column (no direct column: the default depth has none) and the
+    # coverage gate
+    # and subwindow sums (csrc/cov_reduce.cu) on the coverage census,
+    # each equal to its plain version, then at their edges
     d_out = outs["depth"]
-    zero = torch.zeros_like(d_out)
     L = wend - wbeg
-    depth = pe.depth_scan(d_out, zero, L)
+    depth = pe.depth_scan(d_out, None, L)
     require(depth.shape == (L,) and int(depth.min()) >= 0
             and 20 < int(depth.max()) < 256, "depth scan: bad depths")
     c_out = outs["coverage"]
     red = pe.cov_reduce(c_out, 1 << 16, 1)
     require(int(red[:, 2].sum()) > 0.99 * (1 << 20),
             "coverage reduction: too few covered positions")
-    rows["k9_depth_scan"] = dict(
-        ms=cuda_ms(lambda: pe.depth_scan(d_out, zero, L)),
-        rows=d_out.shape[0], out_bytes=L,
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(2 * d_out.numel() * 4 + L, 2 * d_out.numel()))))
-    rows["k9_cov_reduce"] = dict(
-        ms=cuda_ms(lambda: pe.cov_reduce(c_out, 1 << 16, 1)),
-        rows=c_out.shape[0],
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(c_out.numel() * 4 + red.numel() * 8,
-                         6 * c_out.shape[0]))))
+    rows["depth_scan"] = ad().depth_row(d_out, None, L)
+    rows["depth_scan"]["edges"] = ad().depth_edges(dev)
+    rows["cov_reduce"] = ad().cov_row(c_out, 1 << 16, 1)
+    rows["cov_reduce"]["edges"] = ad().cov_edges(dev)
     emit({"phase": "kernels_pileup", **rows})
     return rows, region_reads
 
@@ -1341,9 +1370,23 @@ def bed_intervals(path: str, span: int, n: int = 1000) -> None:
             f.write(f"sim1\t{s0}\t{s0 + ln}\tr{i}\n")
 
 
+# a command through cli.main as ``python -m samtools_tpu_torch`` runs it
+# (standard input passed on), the launches of its kernels printed last on
+# standard error
+LAUNCH_CHILD = r"""
+import json, sys
+from samtools_tpu_torch import cli, kernels
+rc = cli.main(sys.argv[1:])
+sys.stdout.flush()
+print(json.dumps({k: v for k, v in kernels.launches.items() if v}),
+      file=sys.stderr)
+sys.exit(rc)
+"""
+
+
 def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
     """depth, coverage and bedcov on the card against SAMTPU_DEVICE=0;
-    the generic K1's launches per in-process card run."""
+    each card run's launches (bedcov's from its process)."""
     import filecmp
 
     launches = {}
@@ -1354,9 +1397,15 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
         require(filecmp.cmp(out, host_out, shallow=False),
                 f"{label} on {wl}: the card's output differs from the "
                 "host branch's")
-        require(card["segment_contract"] > 0 and all(
-            card[k] == 0 for k in MAIN_PATH),
-            f"{label} on {wl}: the card run launched {card}")
+        # depth: K1 and a depth scan a window; coverage: K1 and a
+        # coverage reduction a window (one file: a K1 launch a window)
+        k9 = "cov_reduce" if argv[0] == "coverage" else "depth_scan"
+        require(card["segment_contract"] > 0 and card[k9] > 0
+                and {k for k, v in card.items() if v} == {
+                    "segment_contract", k9}
+                and (k9 == "depth_scan"
+                     or card["cov_reduce"] == card["segment_contract"]),
+                f"{label} on {wl}: the card run launched {card}")
         rows = count_rows(out)
         require(rows > 1, f"{label} on {wl}: no rows")
         n = reads["region" if "-r" in argv else wl]
@@ -1367,7 +1416,7 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
               "Mbases_per_s": round(n * READ_LEN / wall / 1e6, 3),
               "output_bytes": os.path.getsize(out), "output_rows": rows,
               "launches": card, "byte_equal": True})
-        launches[f"{label} {wl}"] = card["segment_contract"]
+        launches[f"{label} {wl}"] = card
         os.remove(out)
         os.remove(host_out)
 
@@ -1383,22 +1432,30 @@ def phase_pileup_family(workdir: str, bams: dict, reads: dict) -> dict:
             env["SAMTPU_DEVICE"] = "0"
         t0 = time.perf_counter()
         with open(bams["clean_front"], "rb") as fin:
-            p = subprocess.run([sys.executable, "-m", "samtools_tpu_torch",
-                                "bedcov", "-c", bed, "-"], stdin=fin,
-                               env=env, capture_output=True, timeout=600)
+            p = subprocess.run([sys.executable, "-c", LAUNCH_CHILD, "bedcov",
+                                "-c", bed, "-"], stdin=fin, env=env,
+                               cwd=ROOT, capture_output=True, timeout=600)
         walls[engine] = time.perf_counter() - t0
         require(p.returncode == 0, f"bedcov ({engine}): rc {p.returncode}: "
                 f"{p.stderr.decode()[-2000:]}")
         got[engine] = p.stdout
+        counts[engine] = json.loads(p.stderr.decode().splitlines()[-1])
+    counts = {}
     # the card's process and the host branch's at once
     with ThreadPoolExecutor(2) as ex:
         for f in [ex.submit(bedcov, e) for e in ("card", "host")]:
             f.result()
+    require(not counts["host"] and counts["card"].get("depth_scan", 0) > 0
+            and set(counts["card"]) == {"segment_contract", "depth_scan"},
+            f"bedcov: the card's process launched {counts['card']}, the "
+            f"host branch's {counts['host']}")
     require(got["card"] == got["host"], "bedcov: the card's output differs "
             "from the host branch's")
     require(got["card"].count(b"\n") == 1000, "bedcov: not 1,000 rows")
+    launches["bedcov -c (stdin) clean_front"] = counts["card"]
     emit({"phase": "pileup_family", "run": "bedcov -c (stdin)",
           "workload": "clean_front", "reads": int(reads["clean_front"]),
+          "launches": counts["card"],
           "card_wall_s": round(walls["card"], 3),
           "host_wall_s": round(walls["host"], 3),
           "Mbases_per_s": round(reads["clean_front"] * READ_LEN
@@ -1430,7 +1487,8 @@ def strip_extra_columns(path: str, want_path: str, n: int,
 
 def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
                   bams: dict, clean_text: str, dev) -> tuple:
-    """K8 and K13 against their plain versions at main-path shapes, then
+    """K8, its front and K13 against their plain versions at main-path
+    shapes, then
     mpileup's general path and coverage -m as a user runs them; also the
     messy reads that start in the region."""
     import filecmp
@@ -1495,10 +1553,15 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
     l_ref = LQ + bd.APPLY_PAD
     k4_ops = HMM_OPS_PER_CELL * 15 * LQ * C
     k8_bytes = C * (4 + 2 * LQ) + C * l_ref + C * (LQ + 1)
+    # K8's front alone, and K8 on the card as a CUDA graph of its three
+    # bare entries (the front, K4, K5)
+    front = ad().apply_rows(ref_dev, buf_dev)
+    rows["apply_expand"] = front["apply_expand"]
     rows["baq_apply"] = dict(
         max_abs_err=k8_err,
         ms=cuda_ms(lambda: bd.baq_apply(ref_dev, buf_dev)),
         b2b_ms=cuda_ms(lambda: bd.baq_apply(ref_dev, buf_dev), per=10),
+        device_ms=front["baq_apply_device_ms"],
         plain_ms=cuda_ms(lambda: bd.baq_apply_plain(ref_dev, buf_dev),
                          reps=3),
         library_ms=None, host_baq_batch_ms=host_ms,
@@ -1551,6 +1614,7 @@ def phase_general(ref: np.ndarray, ref_int: np.ndarray, workdir: str,
         require(card["stable_order"] > 0 and card["segment_census"] == 0
                 and card["segment_contract"] == 0
                 and (card["baq_apply"] > 0) == is_mpileup
+                and card["apply_expand"] == card["baq_apply"]
                 and (card["baq_hmm"] > 0) == is_mpileup
                 and (card["baq_finalize"] > 0) == is_mpileup,
                 f"{label}: the card run launched {card}")
@@ -2397,7 +2461,8 @@ QUERY_FIELDS = ("pos", "flag", "cigar", "cigar_off", "seq", "seq_off", "qual")
 CRAM_END = 100_000
 CRAM_RUNS = (
     ("mpileup", ["mpileup", "-f", "{fa}", "{bam}"], MAIN_PATH),
-    ("depth -a", ["depth", "-a", "{bam}"], ("segment_contract",)),
+    ("depth -a", ["depth", "-a", "{bam}"], ("segment_contract",
+                                            "depth_scan")),
     ("flagstat", ["flagstat", "{bam}"], ("flagstat",)),
     ("stats", ["stats", "{bam}"], ("stats_hists",)),
 )
@@ -2731,7 +2796,8 @@ _TVIEW = ["tview", "-w", "120", "-p"]
 TOOLS_RUNS = (
     ("phase -b", ["phase", "-b", "{pre}", "{bam}"], ("stable_order",)),
     ("targetcut -f", ["targetcut", "-f", "{fa}", "{bam}"],
-     ("baq_apply", "baq_hmm", "baq_finalize", "stable_order")),
+     ("baq_apply", "apply_expand", "baq_hmm", "baq_finalize",
+      "stable_order")),
     ("phase", ["phase", "{bam}"], ("stable_order",)),
     ("tview -d T island start", [*_TVIEW, "sim1:10001", "-d", "T", "{bam}",
                                  "{fa}"], ("stable_order",)),
@@ -2830,8 +2896,9 @@ def phase_pileup_tools(workdir: str) -> dict:
     HTML) in-process on the card, each against the same command as a
     process on the host branch (four at a time beside the card's runs):
     the same bytes (for -b, the same decoded BAMs), and the card runs
-    launch K8 with K4 and K5 (targetcut -f) and K13 (at least once a
-    contig; once a tview draw on a window with reads, none on the gap).
+    launch K8 with its front, K4 and K5 (targetcut -f, a front launch a
+    K8 chunk) and K13 (at least once a contig; once a tview draw on a
+    window with reads, none on the gap).
     Returns each card run's launches."""
     from samtools_tpu_torch import kernels
     t_phase = time.perf_counter()
@@ -2859,7 +2926,9 @@ def phase_pileup_tools(workdir: str) -> dict:
             wall = run_cli(argvs[label], out, "stdout", False)
             launched = dict(kernels.launches)
             used = {k for k, v in launched.items() if v}
-            require(used == set(want), f"{label}: launches {launched}")
+            require(used == set(want)
+                    and launched["apply_expand"] == launched["baq_apply"],
+                    f"{label}: launches {launched}")
             if label.startswith("tview"):
                 # one draw: one K13 launch on a window with reads
                 require(launched["stable_order"] == (1 if want else 0),
@@ -5144,6 +5213,7 @@ def main() -> int:
     rows.update(general_rows)
     rows.update(cons_rows)
     rows.update(stats_rows)
+    rows.update({k: pile_rows[k] for k in ("depth_scan", "cov_reduce")})
     table = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
@@ -5164,13 +5234,33 @@ def main() -> int:
         if r.get("device_ms") is not None:
             # the kernel alone: a CUDA graph of its calls
             row["device_ms"] = r["device_ms"]
+        if name in ("apply_expand", "depth_scan", "cov_reduce"):
+            row.update(library_note=r["library_note"], detail=r["detail"])
+        if name == "depth_scan":
+            # launches: depth on clean (one window); the bound's two
+            # parts, and the link's at the pinned rate measured
+            row.update(launches=family["depth clean"]["depth_scan"],
+                       run_launches={k: v.get(name, 0)
+                                     for k, v in family.items()},
+                       **{k: r[k] for k in (
+                           "bound_hbm_ms", "bound_link_ms",
+                           "bound_link_measured_ms", "link_bytes",
+                           "link_GBps", "device_ms_into_card", "edges")})
+        if name == "cov_reduce":
+            # launches: coverage on clean (a launch a streamed window)
+            row.update(launches=family["coverage clean"]["cov_reduce"],
+                       run_launches={k: v.get(name, 0)
+                                     for k, v in family.items()},
+                       edges=r["edges"])
         if name == "baq_apply":
             row.update(host_baq_batch_ms=r["host_baq_batch_ms"],
                        bound_sum_k4_ops_k5_bytes_ms=r[
                            "bound_sum_k4_ops_k5_bytes_ms"],
                        general_launches={k: v[name]
                                          for k, v in general.items()})
-        if name in ("baq_apply", "stable_order"):
+        if name == "apply_expand":
+            row["general_launches"] = {k: v[name] for k, v in general.items()}
+        if name in ("baq_apply", "apply_expand", "stable_order"):
             # the pileup_tools phase's card runs
             row["pileup_tools_launches"] = {k: v[name]
                                             for k, v in tools.items()}
@@ -5223,9 +5313,9 @@ def main() -> int:
                            "detail")}
                            for k, v in r["censuses"].items()})
         if name == "segment_contract":
-            row.update(launches=sum(family.values()),
-                       depth_launches=family["depth clean"],
-                       coverage_launches=family["coverage clean"],
+            row.update(launches=sum(v.get(name, 0) for v in family.values()),
+                       depth_launches=family["depth clean"][name],
+                       coverage_launches=family["coverage clean"][name],
                        at_pileup_shapes={k: pile_rows[k] for k in
                                          ("depth", "coverage")})
         if name == "pileup_scatter":

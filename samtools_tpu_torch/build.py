@@ -27,7 +27,8 @@ CU_SOURCES = [os.path.join(ROOT, "csrc", f) for f in
               ("segment_contract.cu", "baq_hmm.cu", "baq_finalize.cu",
                "consensus_segsum.cu", "flagstat.cu", "stats_hists.cu",
                "census_narrow.cu", "pileup_counts.cu", "census_checksum.cu",
-               "chunk_expand.cu", "qual_deltas.cu")]
+               "chunk_expand.cu", "qual_deltas.cu", "apply_expand.cu",
+               "depth_scan.cu", "cov_reduce.cu")]
 # headers the sources include: part of the build's hash
 CU_HEADERS = [os.path.join(ROOT, "csrc", "staging.cuh")]
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]

@@ -33,3 +33,15 @@ def h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     pinned.copy_(t)
     return pinned.to(device, non_blocking=True)
+
+
+def d2h(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array.  From the card: one copy into pinned host
+    memory on the current stream, then one sync of that stream (no
+    pageable staging copy); a CPU tensor's memory as it is."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()

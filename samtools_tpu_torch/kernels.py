@@ -7,10 +7,11 @@ come from ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream()``.  Each C entry point returns
 ``cudaGetLastError()``; a non-zero code raises here.  ``launches`` counts
 every launch of each kernel in this process (the wrappers add one where
-they launch, and nowhere else).  Two kernels of the table are
-compositions, counted by their own wrappers where they run on the card:
-K8 ``baq_apply`` (ops/baq_device.py: one K4 and one K5 launch per chunk)
-and K13 ``stable_order`` (ops/pileup.py: ``torch.sort``).
+they launch, and nowhere else).  Two rows of the kernel table are
+counted by their own wrappers where they run on the card: K8
+``baq_apply`` (ops/baq_device.py: a chunk's front ``apply_expand``,
+then one K4 and one K5 launch) and K13 ``stable_order``
+(ops/pileup.py: ``torch.sort``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ launches = {"segment_contract": 0, "segment_census": 0, "baq_hmm": 0,
             "baq_finalize": 0, "baq_apply": 0, "stable_order": 0,
             "consensus_segsum": 0, "flagstat": 0, "stats_hists": 0,
             "census_narrow": 0, "pileup_scatter": 0, "pileup_tiled": 0,
-            "census_checksum": 0, "chunk_expand": 0, "qual_deltas": 0}
+            "census_checksum": 0, "chunk_expand": 0, "qual_deltas": 0,
+            "apply_expand": 0, "depth_scan": 0, "cov_reduce": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -57,6 +59,12 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _P, _P, _P, _P],
     "samtpu_qual_deltas": [_P, _P, ctypes.c_int64, _INT, _INT, _P, _P, _P,
                            _P, _P],
+    "samtpu_apply_expand": [_P, _INT, _INT, _INT, _P, ctypes.c_int64, _P, _P,
+                            _P, _P],
+    "samtpu_depth_scan": [_P, _P, ctypes.c_int64, ctypes.c_int64, _INT, _P,
+                          _P, _P],
+    "samtpu_cov_reduce": [_P, ctypes.c_int64, ctypes.c_int64,
+                          ctypes.c_int64, _INT, _INT, _P, _P, _P, _P],
     # device queries: int64 values written, CUDA error returned
     "samtpu_census_narrow_limits": [ctypes.POINTER(ctypes.c_int64)],
 }

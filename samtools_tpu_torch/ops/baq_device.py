@@ -1,15 +1,16 @@
 """Device BAQ: the banded glocal pair-HMM (K4 ``baq_hmm``), the finalize
-step (K5 ``baq_finalize``) and BAQ apply (K8 ``baq_apply``, their
-composition), each with its wrapper and its plain PyTorch version.
+step (K5 ``baq_finalize``) and BAQ apply (K8 ``baq_apply``: its front
+``apply_expand``, then K4 and K5), each with its wrapper and its plain
+PyTorch version.
 
 Counterpart of samtools_tpu/ops/baq_device.py: ``_probaln_batch``
 (:111-299) with ``_decode_row`` (:60-99), ``_finalize`` (:302-328), and
 ``_get_fused_apply`` (:334-375) with ``baq_apply_device_nt16``
 (:378-410).
 The plain versions mirror those functions op by op on [W, B] band-major
-tensors (a loop over query rows); the kernels are csrc/baq_hmm.cu and
-csrc/baq_finalize.cu, whose source notes say what bounds each on the
-H100 and how its design answers it.
+tensors (a loop over query rows); the kernels are csrc/baq_hmm.cu,
+csrc/baq_finalize.cu and csrc/apply_expand.cu, whose source notes say
+what bounds each on the H100 and how its design answers it.
 
 Arithmetic is float32: where the f32 posterior lies within PHRED_MARGIN
 of a phred rounding boundary, or the best state nearly ties
@@ -20,12 +21,13 @@ host HMM, so the final qualities equal the host's byte for byte.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 from .. import kernels
-from ..device import h2d
+from ..device import d2h, h2d
 
 PD = 0.001
 PE = 0.1
@@ -316,15 +318,23 @@ APPLY_CHUNK = 1 << 16
 # K8's ref window: the read's L bases and bw // 2 more (sam_prob_realn's
 # extent for an all-M read)
 APPLY_PAD = 3
+# K8's front (csrc/apply_expand.cu): reads a block at most, and the bytes
+# of a block's rows staged in shared memory at most
+APPLY_READS = 32
+APPLY_STAGE = 32768
 
 
-def _apply(ref_dev, buf, hmm, fin):
-    """K8's body: unpack ``buf`` u8[B, 4 + 2L] (LE int32 pos | nt16 bases |
-    quals), map nt16 to 0-4 codes, gather ref windows of L + 3 from the
-    contig codes ``ref_dev``, then the HMM (every base expected on the
-    diagonal, one window length and boundary probability for all) and
-    the finalize (one M op per read)."""
-    B = buf.shape[0]
+def apply_plan(L: int) -> int:
+    """Reads a block of K8's front for reads of L bases: APPLY_READS,
+    fewer where their rows of 4 + 2L bytes would pass APPLY_STAGE."""
+    return max(1, min(APPLY_READS, APPLY_STAGE // (4 + 2 * L)))
+
+
+def apply_expand_plain(ref_dev, buf):
+    """K8's front: unpack ``buf`` u8[B, 4 + 2L] (LE int32 pos | nt16
+    bases | quals), map nt16 to 0-4 codes and gather ref windows of L + 3
+    from the contig codes ``ref_dev``.  Returns (ref_win u8[B, L + 3], sq
+    u8[B, L], qq u8[B, L])."""
     L = (buf.shape[1] - 4) // 2
     l_ref = L + APPLY_PAD
     dev = buf.device
@@ -336,31 +346,128 @@ def _apply(ref_dev, buf, hmm, fin):
     last = ref_dev.numel() - 1
     idx = pc.clamp(max=last)[:, None] + torch.arange(l_ref, device=dev)
     ref_win = ref_dev[idx.clamp(0, last).long()]
-    cdT = torch.zeros(L, B, dtype=torch.int32, device=dev)
-    lref = torch.full((B,), l_ref, dtype=torch.int32, device=dev)
-    bMv = torch.full((B,), (1 - PD) / l_ref, dtype=torch.float32, device=dev)
-    bIv = torch.full((B,), PD / l_ref, dtype=torch.float32, device=dev)
-    bq, good, risky = hmm(ref_win, sq, qq, cdT, lref, bMv, bIv, L, l_ref, 7)
-    seg = torch.zeros(B, L, dtype=torch.int32, device=dev)
+    return ref_win, sq, qq
+
+
+def _check_apply(ref_dev, buf) -> int:
+    """K8's argument checks (before any launch); returns L."""
+    kernels.check(ref_dev, "ref_dev", torch.uint8, (None,))
+    kernels.check(buf, "buf", torch.uint8, (None, None))
+    B, row = buf.shape
+    if row < 6 or row % 2:
+        raise ValueError(f"buf: rows of 4 + 2L bytes (L >= 1), got {row}")
+    if not 0 < B < (1 << 31) - APPLY_READS or ref_dev.numel() == 0:
+        raise ValueError(f"K8 takes 1 to 2^31 - 33 reads and a contig, got "
+                         f"{B} reads, {ref_dev.numel()} bases")
+    return (row - 4) // 2
+
+
+def apply_expand(ref_dev, buf):
+    """K8's front, ``apply_expand_plain``'s (ref_win, sq, qq).  CPU
+    tensors take the plain version; CUDA tensors launch
+    csrc/apply_expand.cu (a block of ``apply_plan(L)`` reads, their rows
+    staged in shared memory 16 bytes a thread, each output written 4
+    bytes a thread)."""
+    L = _check_apply(ref_dev, buf)
+    if not kernels.on_card(ref_dev, buf):
+        return apply_expand_plain(ref_dev, buf)
+    if 4 + 2 * L > APPLY_STAGE:
+        raise ValueError(f"the CUDA front stages rows of at most "
+                         f"{APPLY_STAGE} bytes, got reads of {L} bases")
+    B = buf.shape[0]
+    dev = buf.device
+    ref_win = torch.empty(B, L + APPLY_PAD, dtype=torch.uint8, device=dev)
+    sq = torch.empty(B, L, dtype=torch.uint8, device=dev)
+    qq = torch.empty(B, L, dtype=torch.uint8, device=dev)
+    kernels.launch("apply_expand", "samtpu_apply_expand", buf.data_ptr(), B,
+                   L, apply_plan(L), ref_dev.data_ptr(), ref_dev.numel(),
+                   ref_win.data_ptr(), sq.data_ptr(), qq.data_ptr(),
+                   kernels.stream_of(buf), device=dev)
+    return ref_win, sq, qq
+
+
+def _per_read(B: int, L: int, dev):
+    """K4's per-read inputs that do not vary by read: (lref i32[B], bMv,
+    bIv f32[B]), the window length and boundary probabilities."""
+    l_ref = L + APPLY_PAD
+    return (torch.full((B,), l_ref, dtype=torch.int32, device=dev),
+            torch.full((B,), (1 - PD) / l_ref, dtype=torch.float32,
+                       device=dev),
+            torch.full((B,), PD / l_ref, dtype=torch.float32, device=dev))
+
+
+def _fresh_constants(B: int, L: int, dev):
+    """K4's and K5's inputs that do not vary by read, made anew: (cdT
+    i32[L, B] zeros, lref, bMv, bIv, seg i32[B, L] zeros)."""
+    return (torch.zeros(L, B, dtype=torch.int32, device=dev),
+            *_per_read(B, L, dev),
+            torch.zeros(B, L, dtype=torch.int32, device=dev))
+
+
+_CONSTANTS: dict = {}
+_CONSTANTS_LOCK = threading.Lock()
+
+
+def _kept_constants(B: int, L: int, dev):
+    """``_fresh_constants``' tensors as views of ones made once a card and
+    read length, at max(B, APPLY_CHUNK) reads: K4 reads cdT and K5 seg,
+    neither writes them, so both view one zero buffer of the card (grown,
+    after a sync of the card, when a call needs more)."""
+    n = max(B, APPLY_CHUNK)
+    with _CONSTANTS_LOCK:
+        zeros = _CONSTANTS.get(dev.index)
+        per = _CONSTANTS.get((dev.index, L))
+        grow_zeros = zeros is None or zeros.numel() < n * L
+        grow_per = per is None or per[0].numel() < n
+        if (grow_zeros and zeros is not None) or (grow_per
+                                                  and per is not None):
+            # launches on any stream may still read the ones replaced
+            torch.cuda.synchronize(dev)
+        if grow_zeros:
+            zeros = _CONSTANTS[dev.index] = torch.zeros(
+                n * L, dtype=torch.int32, device=dev)
+        if grow_per:
+            per = _CONSTANTS[(dev.index, L)] = _per_read(n, L, dev)
+        if grow_zeros or grow_per:
+            # launches on other streams read them without waiting
+            torch.cuda.current_stream(dev).synchronize()
+    lref, bMv, bIv = (t[:B] for t in per)
+    return (zeros[:L * B].view(L, B), lref, bMv, bIv,
+            zeros[:B * L].view(B, L))
+
+
+def _apply(ref_dev, buf, expand, constants, hmm, fin):
+    """K8's body: the front (``expand``: ref windows, 0-4 codes and
+    quals), then the HMM (every base expected on the diagonal, one window
+    length and boundary probability for all) and the finalize (one M op
+    per read), their per-read constants from ``constants``."""
+    B = buf.shape[0]
+    L = (buf.shape[1] - 4) // 2
+    ref_win, sq, qq = expand(ref_dev, buf)
+    cdT, lref, bMv, bIv, seg = constants(B, L, buf.device)
+    bq, good, risky = hmm(ref_win, sq, qq, cdT, lref, bMv, bIv, L,
+                          L + APPLY_PAD, 7)
     return fin(bq, good, qq, seg), risky
 
 
 def baq_apply_plain(ref_dev, buf):
-    """K8's plain version: ``_apply`` over the plain K4 and K5."""
-    return _apply(ref_dev, buf, baq_hmm_plain, baq_finalize_plain)
+    """K8's plain version: ``_apply`` over the plain front, K4 and K5."""
+    return _apply(ref_dev, buf, apply_expand_plain, _fresh_constants,
+                  baq_hmm_plain, baq_finalize_plain)
 
 
 def baq_apply(ref_dev, buf):
     """K8, BAQ apply of a uniform group of all-M reads: ref_dev u8[n]
     contig codes (0-4), buf u8[B, 4 + 2L] -> (applied quals u8[B, L],
     risky bool[B]).  CPU tensors take the plain version; CUDA tensors
-    launch K4 and K5 (csrc/baq_hmm.cu, csrc/baq_finalize.cu) around torch
-    ops for the unpack and the gather."""
-    kernels.check(ref_dev, "ref_dev", torch.uint8, (None,))
-    kernels.check(buf, "buf", torch.uint8, (None, None))
+    launch three kernels: the front (csrc/apply_expand.cu), K4 and K5
+    (csrc/baq_hmm.cu, csrc/baq_finalize.cu), the constant per-read inputs
+    views of tensors kept on the card."""
+    _check_apply(ref_dev, buf)
     if not kernels.on_card(ref_dev, buf):
         return baq_apply_plain(ref_dev, buf)
-    out = _apply(ref_dev, buf, baq_hmm, baq_finalize)
+    out = _apply(ref_dev, buf, apply_expand, _kept_constants, baq_hmm,
+                 baq_finalize)
     kernels.launches["baq_apply"] += 1
     return out
 
@@ -383,8 +490,9 @@ def baq_apply_nt16(ref_dev, pos: np.ndarray, seq_nt16: np.ndarray,
     """K8 over a uniform group of all-M reads of L bases, on the device
     ``ref_dev`` lies on: pos int64[B] (pos + L + 3 inside the contig),
     seq_nt16 and qual u8[B, L].  One pinned host->device copy per chunk
-    of ``chunk`` reads and one device->host copy of the group's applied
-    quals and risky flags.  Returns (u8[B, L], bool[B]) as numpy."""
+    of ``chunk`` reads and one device->host copy, into pinned memory, of
+    the group's applied quals and risky flags.  Returns (u8[B, L],
+    bool[B]) as numpy."""
     B, L = qual.shape
     outs, risks = [], []
     for lo in range(0, B, chunk):
@@ -398,5 +506,5 @@ def baq_apply_nt16(ref_dev, pos: np.ndarray, seq_nt16: np.ndarray,
         risks.append(rk)
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
     risky = torch.cat(risks) if len(risks) > 1 else risks[0]
-    both = torch.cat([out.reshape(-1), risky.to(torch.uint8)]).cpu().numpy()
+    both = d2h(torch.cat([out.reshape(-1), risky.to(torch.uint8)]))
     return both[:B * L].reshape(B, L), both[B * L:].astype(bool)

@@ -11,11 +11,14 @@ form (ops/segment_kernel.py::segment_contract), which covers each slice
 whole, so the plan needs no item window, no passes and no padding of the
 items.
 
-Around K1, the JAX package's K9 (XLA there) is torch ops on the card:
-the depth scan ``depth_scan`` (cumsum + direct + max, then a narrowing
-to uint8/int16 before the one copy to the host) and the coverage
-reduction ``cov_reduce`` (the min-depth gate and the per-subwindow sums,
-in int64, so deep windows do not wrap).  ``coverage_items`` keeps each
+Around K1, the JAX package's K9 (XLA there) is two hand-written kernels
+on the card: the depth scan ``depth_scan`` (csrc/depth_scan.cu: cumsum
++ direct in a reduce-then-scan, the first L values written as int32
+straight into pinned host memory, wrapped as the plain's narrowing
+wraps them where it would) and the coverage reduction
+``cov_reduce`` (csrc/cov_reduce.cu: the min-depth gate and the
+per-subwindow sums, in int64, so deep windows do not wrap), each beside
+its plain torch version.  ``coverage_items`` keeps each
 base's quality whole: lane 1 holds q & 127 and lane 3 q >> 7, where the
 JAX package caps the quality at 127 in one int8 lane.
 
@@ -32,10 +35,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core import flags as F
 from ..core import metrics
 from ..core.batch import ragged_gather_indices
-from ..device import resolve
+from ..device import d2h, resolve
 from .cigar import expand_ops
 from .segment_kernel import segment_contract
 
@@ -232,13 +236,17 @@ def depth_items(batch, sel: np.ndarray, wbeg: int, wend: int,
     return diff, (planned(*direct) if direct is not None else None)
 
 
-def depth_scan(diff: torch.Tensor, direct: torch.Tensor, L: int
-               ) -> np.ndarray:
-    """K9's depth step on the card: depth = cumsum(diff) + direct as
-    int32 over the plan's rows, its max, and the first L rows narrowed to
-    the narrowest type that holds that max (uint8, int16, or int32 as it
-    is) before the one device-to-host copy.  Returns int32[L]."""
-    d = (torch.cumsum(diff[:, 0], 0) + direct[:, 0]).to(torch.int32)
+def depth_scan_plain(diff: torch.Tensor | None,
+                     direct: torch.Tensor | None, L: int) -> np.ndarray:
+    """K9's depth step in torch ops: depth = cumsum(diff) + direct as
+    int32 over the plan's rows (an absent column counts as zeros), its
+    max, and the first L rows narrowed to the narrowest type that holds
+    that max (uint8, int16, or int32 as it is) before the one
+    device-to-host copy.  Returns int32[L]."""
+    d = torch.cumsum(diff[:, 0], 0) if diff is not None else 0
+    if direct is not None:
+        d = d + direct[:, 0]
+    d = d.to(torch.int32)
     mx = int(d.max())
     d = d[:L]
     if mx < 256:
@@ -246,6 +254,57 @@ def depth_scan(diff: torch.Tensor, direct: torch.Tensor, L: int
     elif mx < 1 << 15:
         d = d.to(torch.int16)
     return d.cpu().numpy().astype(np.int32)
+
+
+# K9's depth scan (csrc/depth_scan.cu): rows a block of its grids
+DEPTH_TILE = 8192
+
+
+def depth_plan(rows: int) -> int:
+    """Blocks of each grid of the depth scan over ``rows`` rows: one a
+    tile of DEPTH_TILE."""
+    return -(-rows // DEPTH_TILE)
+
+
+def depth_scan(diff: torch.Tensor | None, direct: torch.Tensor | None,
+               L: int) -> np.ndarray:
+    """K9's depth step: ``depth_scan_plain``'s int32[L] from K1's
+    difference and direct columns (int32 [rows, 1] each, either may be
+    None, not both).  CPU tensors take the plain version; CUDA tensors
+    launch csrc/depth_scan.cu, a reduce-then-scan over tiles of
+    DEPTH_TILE rows that writes the first L values as int32 straight into
+    pinned host memory: one sync and the host reads them, with no
+    widening (the int32 transport measured faster on the card than narrow
+    bytes widened on the host).  The scan also keeps the max over all
+    rows and the min of the first L; where the plain's narrowing to the
+    width of that max would wrap a value (a negative depth, which K1's
+    columns never give), a last grid rewrites them as it would."""
+    cols = [c for c in (diff, direct) if c is not None]
+    if not cols:
+        raise ValueError("depth_scan needs a difference or a direct column")
+    rows = cols[0].shape[0]
+    for name, c in (("diff", diff), ("direct", direct)):
+        if c is not None:
+            kernels.check(c, name, torch.int32, (rows, 1))
+    if not 0 < L <= rows < (1 << 31):
+        raise ValueError(f"depth_scan takes 0 < L <= rows < 2^31, got L {L},"
+                         f" {rows} rows")
+    if not kernels.on_card(*cols):
+        return depth_scan_plain(diff, direct, L)
+    if any(c.data_ptr() % 16 for c in cols):
+        raise ValueError("depth_scan needs 16-byte aligned columns")
+    dev = cols[0].device
+    tiles = depth_plan(rows)
+    scratch = torch.empty(tiles + 2, dtype=torch.int32, device=dev)
+    out = torch.empty(L, dtype=torch.int32, pin_memory=True)
+    stream = torch.cuda.current_stream(dev)
+    kernels.launch("depth_scan", "samtpu_depth_scan",
+                   diff.data_ptr() if diff is not None else None,
+                   direct.data_ptr() if direct is not None else None,
+                   rows, L, tiles, scratch.data_ptr(), out.data_ptr(),
+                   stream.cuda_stream, device=dev)
+    stream.synchronize()
+    return out.numpy()
 
 
 def _cigar_counts(batch, sel: np.ndarray):
@@ -341,9 +400,9 @@ def _depth_window(batch, sel, wbeg, wend, min_qual, count_del, clips,
         return np.zeros(L, np.int32)
     diff, direct = depth_items(batch, sel, wbeg, wend, min_qual, count_del,
                                clips)
-    rows = max(1, (L + pick_tile(L) - 1) // pick_tile(L)) * pick_tile(L)
-    zero = torch.zeros(rows, 1, dtype=torch.int32, device=device)
-    cols = [segmm_fn(*it) if it is not None else zero
+    if diff is None and direct is None:
+        return np.zeros(L, np.int32)
+    cols = [segmm_fn(*it) if it is not None else None
             for it in (diff, direct)]
     return depth_scan(cols[0], cols[1], L)
 
@@ -387,9 +446,9 @@ def coverage_items(batch, sel: np.ndarray, wbeg: int, wend: int,
     return np.clip(pos, wbeg, wend - 1), W, plan
 
 
-def cov_reduce(census: torch.Tensor, sub: int, min_depth: int
-               ) -> torch.Tensor:
-    """K9's coverage step on the card: census int32 [rows, COV_K] ->
+def cov_reduce_plain(census: torch.Tensor, sub: int, min_depth: int
+                     ) -> torch.Tensor:
+    """K9's coverage step in torch ops: census int32 [rows, COV_K] ->
     int64 [ceil(rows/sub), 3] per-subwindow sums of (okq count, quality
     sum, 1) over the positions that pass the gate: some pileup entry,
     okq count > 0 and >= min_depth (coverage.c's covered / meandepth /
@@ -403,6 +462,57 @@ def cov_reduce(census: torch.Tensor, sub: int, min_depth: int
     if rows % sub:
         cols = torch.cat([cols, cols.new_zeros(sub - rows % sub, 3)])
     return cols.reshape(-1, sub, 3).sum(1)
+
+
+# K9's coverage reduction (csrc/cov_reduce.cu): blocks an SM in all, and
+# the fewest rows a block takes
+COV_BLOCKS_PER_SM = 4
+COV_MIN_ROWS = 1024
+
+
+def cov_plan(rows: int, sub: int, sms: int) -> tuple[int, int]:
+    """(G, chunk) of the coverage reduction over ``rows`` census rows in
+    subwindows of ``sub`` on a card of ``sms`` SMs: G blocks a subwindow,
+    each over ``chunk`` consecutive rows of it, about COV_BLOCKS_PER_SM
+    blocks an SM in all and COV_MIN_ROWS rows a block at least."""
+    nsub = -(-rows // sub)
+    span = min(sub, rows)
+    G = max(1, min(-(-COV_BLOCKS_PER_SM * sms // nsub),
+                   -(-span // COV_MIN_ROWS)))
+    return G, -(-span // G)
+
+
+def cov_reduce(census: torch.Tensor, sub: int, min_depth: int
+               ) -> torch.Tensor:
+    """K9's coverage step: ``cov_reduce_plain``'s int64 [ceil(rows/sub),
+    3].  CPU tensors take the plain version; CUDA tensors launch
+    csrc/cov_reduce.cu once (``cov_plan``'s G blocks a subwindow, 16-byte
+    row loads, int64 partials, the last block of a subwindow adding its
+    blocks' sums), which builds nothing of [rows, 3]."""
+    kernels.check(census, "census", torch.int32, (None, COV_K))
+    rows = census.shape[0]
+    if rows < 1 or sub < 1:
+        raise ValueError(f"cov_reduce takes rows >= 1 and sub >= 1, got "
+                         f"{rows}, {sub}")
+    if not -(1 << 31) <= min_depth < (1 << 31):
+        raise ValueError(f"min_depth {min_depth} outside int32")
+    if not kernels.on_card(census):
+        return cov_reduce_plain(census, sub, min_depth)
+    if census.data_ptr() % 16:
+        raise ValueError("cov_reduce needs a 16-byte aligned census")
+    dev = census.device
+    nsub = -(-rows // sub)
+    G, chunk = cov_plan(rows, sub, kernels.sm_count(dev))
+    out = torch.empty(nsub, 3, dtype=torch.int64, device=dev)
+    partial = torch.empty(nsub * G * 3 if G > 1 else 1, dtype=torch.int64,
+                          device=dev)
+    stream = kernels.stream_of(census)
+    kernels.launch("cov_reduce", "samtpu_cov_reduce", census.data_ptr(),
+                   rows, sub, chunk, G, min_depth, partial.data_ptr(),
+                   kernels.scratch("cov_reduce", dev, stream,
+                                   nsub).data_ptr(),
+                   out.data_ptr(), stream, device=dev)
+    return out
 
 
 def coverage_window_device(parts, wbeg: int, wend: int, min_baseq: int,
@@ -442,7 +552,7 @@ def _coverage_window(parts, wbeg, wend, min_baseq, min_depth, device, sub):
                                                 min_baseq), device, census)
     if census is None:
         return np.zeros(3, np.int64)
-    tot = cov_reduce(census, sub, min_depth).sum(0).cpu().numpy()
+    tot = d2h(cov_reduce(census, sub, min_depth)).sum(0)
     # [0] okq count over gated positions -> summed_cov, [1] quality sums
     # -> summed_baseq, [2] gated positions -> covbases
     return np.array([tot[2], tot[0], tot[1]], np.int64)

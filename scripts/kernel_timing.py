@@ -9,6 +9,8 @@ import statistics
 
 # the H100 SXM's published peaks (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
+# its host link, PCIe Gen5 x16: 128 GB/s both ways together, 64 each way
+LINK_BYTES_PER_S = 64e9
 F32_OPS_PER_S = 67e12
 
 

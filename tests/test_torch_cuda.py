@@ -421,7 +421,8 @@ def test_pileup_family_on_card_equals_cpu(cuda, tmp_path, monkeypatch, cmd,
     """depth, coverage and bedcov on the card print the CPU port's bytes
     (the 128 kbp messy BAM with one read stored without qualities, and
     overlapping pairs); depth and coverage in 16 Kbp windows launch K1's
-    generic form and no other kernel."""
+    generic form and K9 (``depth_scan`` for depth and bedcov, a
+    ``cov_reduce`` a window for coverage) and no other kernel."""
     import contextlib
     import io
 
@@ -446,8 +447,12 @@ def test_pileup_family_on_card_equals_cpu(cuda, tmp_path, monkeypatch, cmd,
         launched = dict(kernels.launches)
         if dev is None:
             assert launched["segment_contract"] >= 1
-            assert all(launched[k] == 0 for k in
-                       ("segment_census", "baq_hmm", "baq_finalize"))
+            k9 = "cov_reduce" if cmd == "coverage" else "depth_scan"
+            assert launched[k9] >= 1
+            assert {k for k, v in launched.items() if v} == {
+                "segment_contract", k9}, launched
+        else:
+            assert not any(launched.values())
     assert got[None].count("\n") > 1
     assert got[None] == got["cpu"]
 
@@ -563,6 +568,7 @@ def test_general_path_on_card_equals_cpu(cuda, tmp_path, monkeypatch, cmd,
         if dev is None:
             assert launched["stable_order"] >= 1
             assert (launched["baq_apply"] >= 1) == (cmd == "mpileup")
+            assert launched["apply_expand"] == launched["baq_apply"]
             assert launched["segment_census"] == 0
     assert got[None].count("\n") > 10
     assert got[None] == got["cpu"]
@@ -1101,15 +1107,17 @@ def test_mpileup_region_through_index_on_card(cuda, tmp_path):
 
 @pytest.mark.parametrize("cmd,argv,kernels_used", [
     ("targetcut", ["-f", "{dip_fa}", "{dip}"],
-     ("baq_apply", "baq_hmm", "baq_finalize", "stable_order")),
+     ("baq_apply", "apply_expand", "baq_hmm", "baq_finalize",
+      "stable_order")),
     ("phase", ["{dip}"], ("stable_order",)),
     ("tview", ["-d", "T", "-w", "150", "-p", "sim1:3001", "{dip}",
                "{dip_fa}"], ("stable_order",))])
 def test_pileup_tools_on_card_equal_host_branch(cuda, tmp_path, monkeypatch,
                                                 cmd, argv, kernels_used):
     """targetcut -f, phase and tview on the diploid fixture launch their
-    kernels on the card (K8, with its K4 and K5, and K13 for targetcut -f;
-    K13 for phase and tview) and print the host branch's bytes."""
+    kernels on the card (K8, with its front, K4 and K5, and K13 for
+    targetcut -f; K13 for phase and tview) and print the host branch's
+    bytes."""
     from torch_tool_fixtures import make_diploid_inputs, run_port_full
     inputs = make_diploid_inputs(str(tmp_path))
     args = [a.format(**inputs) for a in argv]
@@ -1128,6 +1136,7 @@ def test_pileup_tools_on_card_equal_host_branch(cuda, tmp_path, monkeypatch,
     assert {k for k, v in launched.items() if v} == set(kernels_used)
     if cmd == "tview":
         assert launched["stable_order"] == 1        # one draw
+    assert launched["apply_expand"] == launched["baq_apply"]
 
 
 def _k14_items(seed, n, window):
@@ -1457,3 +1466,140 @@ def test_chunk_kernels_on_card_never_take_the_plain_version(cuda,
     c = torch.ones(4096, 6, dtype=torch.int32, device=cuda)
     assert md.census_checksum_dev(c, 4000) == md.census_checksum(
         np.ones((4000, 5), np.int64), np.ones(4000, np.int64))
+
+
+# ------------------------------------------------ K8's front, K9's kernels
+@pytest.mark.parametrize("L", [37, 100, 151])
+def test_apply_expand_equals_plain(cuda, L):
+    """K8's front on the card equals its plain version byte for byte on
+    1,300 reads (rows of an odd L are not 4-byte aligned), with reads at
+    and past the contig's last base and before its first (the clamps),
+    and bytes that are no nt16 base."""
+    from samtools_tpu_torch.ops import baq_device as bd
+    ref_int, pos, seq, qual = _apply_group(L, 1300, L)
+    pos[:4] = [ref_int.size - 1, ref_int.size + 500, -7, 1 << 30]
+    seq[5, :7] = [0, 3, 5, 9, 15, 16, 255]
+    buf = torch.from_numpy(cc.apply_buf(pos, seq, qual))
+    ref = torch.from_numpy(ref_int)
+    before = kernels.launches["apply_expand"]
+    got = bd.apply_expand(ref.to(cuda), buf.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launches["apply_expand"] == before + 1
+    seq[5, :7] = [0, 3, 5, 9, 15, 15, 15]     # the plain's table has 16
+    want = bd.apply_expand_plain(
+        ref, torch.from_numpy(cc.apply_buf(pos, seq, qual)))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool((want[0][1] == ref_int[-1]).all())
+
+
+def test_baq_apply_two_chunks_equals_plain(cuda):
+    """K8 on APPLY_CHUNK + 1 reads: two chunks, the second of one read,
+    whose per-read constants are views of the first's at its shape; the
+    applied quals equal the plain version's (on the card) on every read
+    neither flags risky, at most 1% in the symmetric difference of the
+    risky sets, one front launch a chunk."""
+    from samtools_tpu_torch.device import h2d
+    from samtools_tpu_torch.ops import baq_device as bd
+    n = bd.APPLY_CHUNK + 1
+    ref_int, pos, seq, qual = _apply_group(100, n, 8)
+    ref = torch.from_numpy(ref_int).to(cuda)
+    before = dict(kernels.launches)
+    kq, kr = bd.baq_apply_nt16(ref, pos, seq, qual)
+    for k in ("apply_expand", "baq_apply", "baq_hmm", "baq_finalize"):
+        assert kernels.launches[k] == before[k] + 2, k
+    buf = cc.apply_buf(pos, seq, qual)
+    parts = [bd.baq_apply_plain(ref, h2d(buf[lo:lo + bd.APPLY_CHUNK], cuda))
+             for lo in (0, bd.APPLY_CHUNK)]
+    pq = torch.cat([p[0] for p in parts]).cpu().numpy()
+    pr = torch.cat([p[1] for p in parts]).cpu().numpy()
+    ok = ~(kr | pr)
+    assert (kr ^ pr).sum() <= n // 100
+    assert kq.shape == (n, 100) and np.array_equal(kq[ok], pq[ok])
+
+
+@pytest.mark.parametrize("edge", range(len(cc.apply_depth_script().EDGES)))
+def test_depth_scan_edges_equal_plain(cuda, edge):
+    """K9's depth scan on the card equals its plain version at the
+    narrowing edges (maxima 255, 256, 32,767, 32,768, inside rows [0, L)
+    or only past them, sums that wrap), with either column absent.  The
+    contract holds for negative depths too, which K1's columns never
+    give: under a max below 2^15 both return them wrapped to the width
+    the max picks (uint8 or int16), as the JAX fetch narrows them."""
+    from samtools_tpu_torch.ops import pileup_engine as pe
+    script = cc.apply_depth_script()
+    top, where, cols = script.EDGES[edge]
+    rows = 3 * pe.DEPTH_TILE + 4100
+    L = rows - 2000
+    args = [None if c is None else torch.from_numpy(c[:, None])
+            for c in script.edge_columns(rows, L, top, where, cols,
+                                         np.random.default_rng(edge))]
+    before = kernels.launches["depth_scan"]
+    got = pe.depth_scan(*[None if a is None else a.to(cuda) for a in args],
+                        L)
+    assert kernels.launches["depth_scan"] == before + 1
+    assert got.dtype == np.int32 and got.shape == (L,)
+    assert np.array_equal(got, pe.depth_scan_plain(*args, L))
+
+
+@pytest.mark.parametrize("rows,L", [(1, 1), (8192, 8192), (8193, 8193),
+                                    (3 * 8192 + 5, 1000), (1 << 20, 999_999)])
+def test_depth_scan_equals_plain(cuda, rows, L):
+    """K9's depth scan on the card equals its plain version on random
+    depths (0-59, none negative, as K1's columns give) at tile edges (one
+    row, a tile, a tile and one, L well short of the rows), split between
+    the two columns, or all in one."""
+    from samtools_tpu_torch.ops import pileup_engine as pe
+    rng = np.random.default_rng(rows)
+    dep = rng.integers(0, 60, rows)
+    part = np.minimum(rng.integers(0, 4, rows), dep)
+    for cols in ((np.diff(dep - part, prepend=0), part),
+                 (np.diff(dep, prepend=0), None), (None, dep)):
+        args = [None if c is None else
+                torch.from_numpy(c.astype(np.int32)[:, None]) for c in cols]
+        got = pe.depth_scan(*[None if a is None else a.to(cuda)
+                              for a in args], L)
+        assert np.array_equal(got, pe.depth_scan_plain(*args, L))
+        assert np.array_equal(got, dep[:L])
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_cov_reduce_edges_equal_plain(cuda, case):
+    """K9's coverage reduction on the card equals its plain version:
+    rows not a multiple of sub, the min_depth gate, a subwindow's quality
+    sum past 2^31, one row, sub past the rows."""
+    from samtools_tpu_torch.ops import pileup_engine as pe
+    script = cc.apply_depth_script()
+    rows, sub, md_ = script.COV_EDGES[case]
+    census = torch.from_numpy(script.cov_edge_census(
+        rows, np.random.default_rng(case)))
+    before = kernels.launches["cov_reduce"]
+    got = pe.cov_reduce(census.to(cuda), sub, md_)
+    assert kernels.launches["cov_reduce"] == before + 1
+    assert torch.equal(got.cpu(), pe.cov_reduce_plain(census, sub, md_))
+    # the tickets are left at zero: a second call gives the same
+    assert torch.equal(pe.cov_reduce(census.to(cuda), sub, md_).cpu(),
+                       got.cpu())
+
+
+def test_k9_on_card_never_takes_the_plain_version(cuda, monkeypatch):
+    """On CUDA tensors the K9 wrappers launch or raise: with the plain
+    versions made to fail they still give the plain's results."""
+    from samtools_tpu_torch.ops import baq_device as bd
+    from samtools_tpu_torch.ops import pileup_engine as pe
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called on the card")
+    col = torch.ones(100, 1, dtype=torch.int32, device=cuda)
+    census = torch.ones(100, 4, dtype=torch.int32, device=cuda)
+    ref = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    buf = torch.zeros(3, 24, dtype=torch.uint8, device=cuda)
+    monkeypatch.setattr(pe, "depth_scan_plain", boom)
+    monkeypatch.setattr(pe, "cov_reduce_plain", boom)
+    monkeypatch.setattr(bd, "apply_expand_plain", boom)
+    assert pe.depth_scan(col, None, 10).tolist() == list(range(1, 11))
+    assert pe.cov_reduce(census, 64, 1).tolist() == [[64, 64 * 129, 64],
+                                                     [36, 36 * 129, 36]]
+    assert bd.apply_expand(ref, buf)[1].shape == (3, 10)
+    with pytest.raises(ValueError):
+        pe.depth_scan(col[1:], None, 10)       # not 16-byte aligned

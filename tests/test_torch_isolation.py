@@ -17,6 +17,7 @@ from samtools_tpu_torch import kernels
 from samtools_tpu_torch.device import resolve
 from samtools_tpu_torch.ops import baq_device as bd
 from samtools_tpu_torch.ops import mpileup_device as md
+from samtools_tpu_torch.ops import pileup_engine as pe
 from samtools_tpu_torch.ops.consensus_vec import consensus_segsum
 from samtools_tpu_torch.ops.flagstat import flagstat_census
 from samtools_tpu_torch.ops.pileup import stable_order
@@ -44,6 +45,7 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_core_profile.py",
         ROOT / "scripts" / "torch_dryrun_dist.py",
+        ROOT / "scripts" / "torch_apply_depth_kernels.py",
         ROOT / "tests" / "test_torch_cuda.py"]
 
 
@@ -182,6 +184,14 @@ def test_cpu_tensors_never_count_a_launch():
     assert x["seg"].shape == (2, 8)
     q = torch.zeros(2, 16, dtype=torch.uint8)
     assert int(md.qual_deltas(q + 1, q, 2)[0]) == 32
+    win, sq, _ = bd.apply_expand(t(np.arange(64, dtype=np.uint8) % 5),
+                                 torch.zeros(B, 4 + 2 * LQ,
+                                             dtype=torch.uint8))
+    assert win.shape == (B, LQ + bd.APPLY_PAD) and sq.shape == (B, LQ)
+    col = torch.ones(20, 1, dtype=torch.int32)
+    assert pe.depth_scan(col, None, 10).tolist() == list(range(1, 11))
+    assert pe.cov_reduce(torch.ones(8, 4, dtype=torch.int32), 4,
+                         1).tolist() == [[4, 516, 4], [4, 516, 4]]
     assert kernels.launches == {"segment_contract": 0, "segment_census": 0,
                                 "baq_hmm": 0, "baq_finalize": 0,
                                 "baq_apply": 0, "stable_order": 0,
@@ -189,7 +199,8 @@ def test_cpu_tensors_never_count_a_launch():
                                 "stats_hists": 0, "census_narrow": 0,
                                 "pileup_scatter": 0, "pileup_tiled": 0,
                                 "census_checksum": 0, "chunk_expand": 0,
-                                "qual_deltas": 0}
+                                "qual_deltas": 0, "apply_expand": 0,
+                                "depth_scan": 0, "cov_reduce": 0}
 
 
 def test_mixed_devices_raise():

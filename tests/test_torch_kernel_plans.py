@@ -43,17 +43,23 @@ versions' lists and sums exactly.
 
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import torch_chunk_cases as cc
 import torch_k14_shapes as k14
+from samtools_tpu.ops import pileup_engine as jpe
 from samtools_tpu_torch.core import flags as F
+from samtools_tpu_torch.ops import baq_device as bd
 from samtools_tpu_torch.ops import consensus_vec as cv
 from samtools_tpu_torch.ops import flagstat as fs
 from samtools_tpu_torch.ops import mpileup_device as md
+from samtools_tpu_torch.ops import pileup_engine as pe
 from samtools_tpu_torch.ops import stats_kernels as sk
+
+SCRIPT = cc.apply_depth_script()
 
 
 @pytest.mark.parametrize("no,max_len,sms", [
@@ -862,3 +868,249 @@ def test_k7_plan():
     assert md.checksum_plan(1, 132) == 1
     assert md.checksum_plan(4096, 132) == 24
     assert md.checksum_plan(1 << 20, 1) == 4
+
+
+# ------------------------------------------- K8's front, K9's two kernels
+def _apply_walk(buf: np.ndarray, ref_int: np.ndarray, L: int):
+    """csrc/apply_expand.cu in numpy: blocks of ``apply_plan(L)`` reads,
+    the rows staged whole, each thread writing the GROUP output bytes
+    from GROUP (t + k TPB) of the block's span of sq and qq, then of
+    ref_win (U groups a step), each group's read and column from one
+    division and a carry.  Returns (ref_win, sq, qq, the thread that
+    wrote each byte of each output, the writes a byte)."""
+    cu = _cu_constants("apply_expand.cu")
+    tpb, group, pad = cu["TPB"], cu["GROUP"], cu["PAD"]
+    assert cu["MAX_READS"] == bd.APPLY_READS and pad == bd.APPLY_PAD
+    B = buf.shape[0]
+    W = L + pad
+    reads = bd.apply_plan(L)
+    assert reads * (4 + 2 * L) <= bd.APPLY_STAGE
+    out = {"sq": np.zeros((B, L), np.uint8), "qq": np.zeros((B, L), np.uint8),
+           "ref_win": np.zeros((B, W), np.uint8)}
+    who = {k: np.full(v.shape, -1, np.int64) for k, v in out.items()}
+    writes = {k: np.zeros(v.shape, np.int64) for k, v in out.items()}
+    table = np.array([4, 0, 1, 4, 2, 4, 4, 4, 3, 4, 4, 4, 4, 4, 4, 4] +
+                     [4] * 240, np.uint8)
+    last = ref_int.size - 1
+    for b0 in range(0, B, reads):
+        nr = min(reads, B - b0)
+        rows = buf[b0:b0 + nr].reshape(-1)          # the staged span
+        rs = 4 + 2 * L
+        start = np.minimum(rows.reshape(nr, rs)[:, :4].copy().view("<i4")
+                           [:, 0].astype(np.int64), last)
+        for name, width, n in (("sq", L, nr * L), ("qq", L, nr * L),
+                               ("ref_win", W, nr * W)):
+            for t in range(tpb):
+                for e in range(group * t, n, group * tpb):
+                    r, c = divmod(e, width)
+                    for k in range(group):
+                        if e + k >= n:
+                            break
+                        if name == "sq":
+                            v = table[rows[r * rs + 4 + c]]
+                        elif name == "qq":
+                            v = rows[r * rs + 4 + L + c]
+                        else:
+                            v = ref_int[min(max(start[r] + c, 0), last)]
+                        o = out[name].reshape(-1)
+                        at = b0 * width + e + k
+                        o[at] = v
+                        who[name].reshape(-1)[at] = (b0 // reads) * tpb + t
+                        writes[name].reshape(-1)[at] += 1
+                        c += 1
+                        if c == width:
+                            r, c = r + 1, 0
+    return out, who, writes
+
+
+@pytest.mark.parametrize("L,n", [(37, 70), (100, 33), (151, 40), (9, 5),
+                                 (2000, 20)])
+def test_k8_front_walk_equals_plain(L, n):
+    ref, ref_int = cc.reference(1 << 12, seed=L)
+    rng = np.random.default_rng(L)
+    pos = rng.integers(-10, ref_int.size + 10, n)
+    pos[0] = ref_int.size - 1
+    seq = rng.integers(0, 16, (n, L)).astype(np.uint8)
+    qual = rng.integers(2, 42, (n, L)).astype(np.uint8)
+    buf = cc.apply_buf(pos, seq, qual)
+    out, who, writes = _apply_walk(buf, ref_int, L)
+    want = bd.apply_expand_plain(torch.from_numpy(ref_int),
+                                 torch.from_numpy(buf))
+    for k, w in zip(("ref_win", "sq", "qq"), want):
+        assert (writes[k] == 1).all(), k          # every byte once
+        assert np.array_equal(out[k], w.numpy()), k
+        # neighbouring threads write neighbouring words of one span
+        flat = who[k].reshape(-1)
+        reads = bd.apply_plan(L)
+        width = out[k].shape[1]
+        span = reads * width
+        for b0 in range(0, flat.size, span):
+            ids = flat[b0:b0 + span] % 256
+            g = np.arange(ids.size) // 4
+            assert np.array_equal(ids, g % 256)
+
+
+def test_k8_front_plan():
+    # 32 reads a block up to 510 bases (the rows fit 32 KB), then fewer;
+    # past 16,382 bases not one row fits (K4 stops far below: apply_fits)
+    assert bd.apply_plan(100) == bd.apply_plan(151) == 32
+    assert bd.apply_plan(510) == 32 and bd.apply_plan(511) == 31
+    assert bd.apply_plan(2000) == 8
+    assert bd.apply_plan(16_382) == 1 and 4 + 2 * 16_382 <= bd.APPLY_STAGE
+    for L in (1, 37, 100, 151, 500, 5000, 16_382):
+        assert bd.apply_plan(L) * (4 + 2 * L) <= bd.APPLY_STAGE
+
+
+def _depth_walk(diff, direct, L: int) -> np.ndarray:
+    """csrc/depth_scan.cu in numpy: tiles of DEPTH_TILE rows, PER a
+    thread; grid 1 the tiles' uint32 sums of diff; grid 2 each tile's
+    carry (the sums of the tiles before it, mod 2^32), each thread's
+    exclusive prefix from the threads before it, its rows' running sums
+    plus direct mod 2^32, rows [0, L) written, and two words: the max of
+    the rows below ``rows`` and the complement of the min of those below
+    L, each over the values biased by 2^31, a thread's, a warp's, a
+    block's; grid 3 rows [0, L) rewritten wrapped to the width of the
+    max only where that width cannot hold the min.  Returns int32[L]."""
+    cu = _cu_constants("depth_scan.cu")
+    tpb, per = cu["TPB"], cu["PER"]
+    assert pe.DEPTH_TILE == tpb * per
+    rows = (diff if diff is not None else direct).size
+    tiles = pe.depth_plan(rows)
+    tile = pe.DEPTH_TILE
+
+    def col(c):
+        v = np.zeros(tiles * tile, np.uint64)
+        if c is not None:
+            v[:rows] = c.astype(np.int64).astype(np.uint32)
+        return v
+    v, w = col(diff), col(direct)
+    tsum = v.reshape(tiles, -1).sum(1) % (1 << 32)
+    out = np.zeros(tiles * tile, np.int32)
+    ext = [0, 0]
+    for b in range(tiles):
+        carry = int(tsum[:b].sum()) % (1 << 32) if diff is not None else 0
+        vt = v[b * tile:(b + 1) * tile].reshape(tpb, per)
+        wt = w[b * tile:(b + 1) * tile].reshape(tpb, per)
+        pre = np.concatenate([[0], np.cumsum(vt.sum(1))[:-1]])
+        run = (carry + pre[:, None] + np.cumsum(vt, 1)) % (1 << 32)
+        d = ((run + wt) % (1 << 32)).astype(np.uint32)
+        row = (b * tile + np.arange(tile)).reshape(tpb, per)
+        biased = d ^ np.uint32(1 << 31)
+        for k, keep, word in ((0, row < rows, biased),
+                              (1, row < L, ~biased)):
+            warp = np.where(keep, word, 0).max(1).reshape(-1, 32).max(1)
+            ext[k] = max(ext[k], int(warp.max()))
+        out[b * tile:(b + 1) * tile] = d.view(np.int32).reshape(-1)
+    out = out[:L]
+    m = int(np.uint32(ext[0] ^ (1 << 31)).view(np.int32))
+    lo = int(np.uint32(~np.uint32(ext[1]) ^ np.uint32(1 << 31)).view(
+        np.int32))
+    if m < 256 and lo < 0:
+        return out & 0xFF
+    if m < 1 << 15 and lo < -(1 << 15):
+        return out.astype(np.int16).astype(np.int32)
+    return out
+
+
+@pytest.mark.parametrize("edge", range(len(SCRIPT.EDGES)))
+@pytest.mark.parametrize("rows,L", [(3 * 8192 + 4100, 3 * 8192 + 2100),
+                                    (8192, 8191), (8192 * 2, 8192 * 2),
+                                    (50, 37)])
+def test_k9_depth_walk_equals_plain_and_jax(edge, rows, L):
+    top, where, cols = SCRIPT.EDGES[edge]
+    if where == "pad" and L + 10 >= rows:
+        where = "in"
+    diff, direct = SCRIPT.edge_columns(rows, L, top, where, cols,
+                                       np.random.default_rng(edge + rows))
+    out = _depth_walk(diff, direct, L)
+    args = [None if c is None else torch.from_numpy(c[:, None])
+            for c in (diff, direct)]
+    assert np.array_equal(out, pe.depth_scan_plain(*args, L))
+    zero = np.zeros(rows, np.int32)
+    jd, jmx = jpe._depth_cumsum_jit()(
+        jnp.asarray((diff if diff is not None else zero)[:, None]),
+        jnp.asarray((direct if direct is not None else zero)[:, None]))
+    assert int(jmx) == top
+    # the depths as they are, but for the negative ones a narrowing wraps
+    assert np.array_equal(out, np.asarray(jd)[:L]) == (
+        where != "neg" or top >= 1 << 15)
+    assert np.array_equal(out, jpe._fetch_narrow(jd, int(jmx), L))
+
+
+def test_k9_depth_plan():
+    # clean's 8 Mi-row window: 1,024 tiles; a tile for up to 8,192 rows
+    assert pe.depth_plan(8 << 20) == 1024
+    assert pe.depth_plan(1) == pe.depth_plan(pe.DEPTH_TILE) == 1
+    assert pe.depth_plan(pe.DEPTH_TILE + 1) == 2
+
+
+def _cov_walk(census: np.ndarray, sub: int, min_depth: int, sms: int):
+    """csrc/cov_reduce.cu in numpy: cov_plan's G blocks a subwindow,
+    block (s, g) over rows [s sub + g chunk, min(s sub + (g + 1) chunk,
+    (s + 1) sub, rows)), a thread's rows TPB apart, int64 partials of the
+    gated (c0, c1 + 128 c3, 1), the blocks' sums written and added in
+    order by the subwindow's last block.  Returns (out, the block of each
+    row)."""
+    cu = _cu_constants("cov_reduce.cu")
+    tpb = cu["TPB"]
+    rows = census.shape[0]
+    nsub = -(-rows // sub)
+    G, chunk = pe.cov_plan(rows, sub, sms)
+    assert G * chunk >= min(sub, rows)
+    c = census.astype(np.int64)
+    ok = (c[:, 2] > 0) & (c[:, 0] > 0) & (c[:, 0] >= min_depth)
+    lanes = np.stack([c[:, 0], c[:, 1] + 128 * c[:, 3], np.ones(rows,
+                                                               np.int64)],
+                     1) * ok[:, None]
+    block = np.full(rows, -1, np.int64)
+    partial = np.zeros((nsub * G, 3), np.int64)
+    for s in range(nsub):
+        for g in range(G):
+            lo = s * sub + g * chunk
+            hi = min(s * sub + min((g + 1) * chunk, sub), rows)
+            if lo >= hi:
+                continue
+            assert (block[lo:hi] == -1).all()
+            block[lo:hi] = s * G + g
+            r = np.arange(lo, hi)
+            per_thread = np.zeros((tpb, 3), np.int64)
+            np.add.at(per_thread, (r - lo) % tpb, lanes[lo:hi])
+            partial[s * G + g] = per_thread.sum(0)
+    out = partial.reshape(nsub, G, 3).sum(1)
+    return out, block
+
+
+@pytest.mark.parametrize("rows,sub,min_depth,sms", [
+    (SCRIPT.SUB * 3 + 17, SCRIPT.SUB, 1, 132), (20_000, 4096, 25, 132),
+    (1, 4096, 1, 132), (5000, 1 << 16, 0, 132), (70_000, 65_536, 1, 1),
+    (1 << 16, 1 << 16, 1, 132)])
+def test_k9_cov_walk_equals_plain_and_jax(rows, sub, min_depth, sms):
+    census = SCRIPT.cov_edge_census(rows, np.random.default_rng(rows))
+    out, block = _cov_walk(census, sub, min_depth, sms)
+    assert (block >= 0).all()                     # every row in a block
+    want = pe.cov_reduce_plain(torch.from_numpy(census), sub, min_depth)
+    assert np.array_equal(out, want.numpy())
+    j = census[:, :3].copy()
+    j[:, 1] += 128 * census[:, 3]
+    jgot = np.asarray(jpe._cov_reduce_jit()(
+        jnp.asarray(np.pad(j, ((0, (-rows) % sub), (0, 0)))), sub,
+        min_depth)).astype(np.int64)
+    # the JAX sums are int32: equal mod 2^32, and equal where below 2^31
+    assert np.array_equal(jgot % (1 << 32), out % (1 << 32))
+    if out.max() < 1 << 31:
+        assert np.array_equal(jgot, out)
+
+
+def test_k9_cov_plan():
+    # the streamed window: 16 subwindows of 65,536 rows, 33 blocks each,
+    # four blocks an SM; small inputs: a block per 1,024 rows at least
+    assert pe.cov_plan(1 << 20, 1 << 16, 132) == (33, 1986)
+    assert pe.cov_plan(1, 1 << 16, 132) == (1, 1)
+    assert pe.cov_plan(5000, 1 << 16, 132) == (5, 1000)
+    assert pe.cov_plan(8 << 20, 1 << 16, 132) == (5, 13108)
+    for rows, sub, sms in ((1 << 20, 1 << 16, 132), (999, 7, 2),
+                           (123_457, 4096, 132)):
+        G, chunk = pe.cov_plan(rows, sub, sms)
+        nsub = -(-rows // sub)
+        assert G * chunk >= min(sub, rows)
+        assert nsub * G <= max(nsub, pe.COV_BLOCKS_PER_SM * sms + nsub)

@@ -3,14 +3,19 @@
 samtools_tpu_torch/ops/mpileup_device.py): chunks of simulated reads
 packed as the census pipeline packs them, chunks of synthetic reads with
 every cigar op the device path takes, and a numpy walk of each read's
-cigar that gives ``chunk_expand``'s tensors without torch.  No JAX here:
-the card's tests use it too."""
+cigar that gives ``chunk_expand``'s tensors without torch.  K8's
+buffers (``apply_buf``) and scripts/torch_apply_depth_kernels.py, which
+holds K9's edge cases (``apply_depth_script``).  No JAX here: the card's
+tests use it too."""
 
 from __future__ import annotations
 
+import importlib.util
+import os
+
 import numpy as np
 
-from samtools_tpu_torch import sim
+from samtools_tpu_torch import build, sim
 from samtools_tpu_torch.core import flags as F
 from samtools_tpu_torch.ops import mpileup_device as md
 
@@ -164,3 +169,26 @@ def census_with_pad(wlen: int, rows: int, seed: int = 0,
         c[:, :5] %= 200
         c[:, 5] %= 6000
     return c.astype(np.int32)
+
+
+def apply_buf(pos: np.ndarray, seq: np.ndarray, qual: np.ndarray
+              ) -> np.ndarray:
+    """K8's buffer of a uniform group: uint8[B, 4 + 2L], a row a read (LE
+    int32 pos | L nt16 bases | L quals)."""
+    B, L = qual.shape
+    buf = np.empty((B, 4 + 2 * L), np.uint8)
+    buf[:, :4] = pos.astype("<i4").view(np.uint8).reshape(-1, 4)
+    buf[:, 4:4 + L] = seq
+    buf[:, 4 + L:] = qual
+    return buf
+
+
+def apply_depth_script():
+    """scripts/torch_apply_depth_kernels.py as a module."""
+    path = os.path.join(os.path.dirname(build.ROOT), "scripts",
+                        "torch_apply_depth_kernels.py")
+    spec = importlib.util.spec_from_file_location(
+        "torch_apply_depth_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
